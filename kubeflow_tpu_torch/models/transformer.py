@@ -8,6 +8,11 @@ layouts — ``wq|wk|wv`` (d_model, h, d), ``attn.wo`` (h, d, d_model),
 the compute dtype at use as flax's ``DenseGeneral(dtype=bf16,
 param_dtype=f32)`` does, so carrying weights across is a renaming
 (`models/convert.py`).
+
+Training runs through autograd: flash attention's backward is its own
+kernels (`ops/flash.py`), and the remat policies "none", "full" and
+"mlp" are `torch.utils.checkpoint` regions as the JAX model's
+`nn.remat` wraps are.
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ import dataclasses
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from kubeflow_tpu_torch._device import resolve_device
 from kubeflow_tpu_torch.models.convert import init_params
@@ -23,12 +29,20 @@ from kubeflow_tpu_torch.ops.attention import dense_attention
 from kubeflow_tpu_torch.ops.flash import flash_attention
 
 
+_REMAT_POLICIES = ("none", "full", "mlp", "dots", "attn", "flash")
+
+
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
     """The JAX config's fields and defaults, `dtype` a `torch.dtype`.
 
-    The remat fields are accepted for parity and unused: the port runs
-    inference only. ``num_experts > 0`` (switch MoE) is not ported."""
+    Remat (`remat`, `remat_policy`) applies when gradients are taken:
+    "none" (or ``remat=False``) saves every activation, "full"
+    recomputes each block in the backward, "mlp" only each block's MLP.
+    "dots", "attn" and "flash" name what the JAX checkpoint policies
+    save; they are not ported (ROADMAP Queue 1 item 4) and raise when a
+    model with them is differentiated. ``num_experts > 0`` (switch MoE)
+    is not ported."""
 
     vocab_size: int = 32_000
     d_model: int = 512
@@ -56,6 +70,11 @@ class TransformerConfig:
             raise NotImplementedError(
                 "switch MoE (num_experts > 0) is not ported yet (ROADMAP "
                 "Queue 1)"
+            )
+        if self.remat_policy not in _REMAT_POLICIES:
+            raise ValueError(
+                f"unknown remat_policy {self.remat_policy!r}; expected one "
+                f"of {_REMAT_POLICIES}"
             )
         if self.attention_impl not in ("auto", "flash", "dense"):
             raise ValueError(
@@ -114,6 +133,7 @@ def _attend(q, k, v, cfg: TransformerConfig):
     return flash_attention(
         q, k, v, causal=True,
         block_q=cfg.flash_block_q, block_k=cfg.flash_block_k,
+        bwd_block_q=cfg.flash_block_q_bwd, bwd_block_k=cfg.flash_block_k_bwd,
     )
 
 
@@ -163,6 +183,9 @@ class Block(nn.Module):
 
     def __init__(self, cfg: TransformerConfig, device=None):
         super().__init__()
+        # The "mlp" policy's only checkpoint: the MLP half recomputes in
+        # the backward, attention's residuals stay saved.
+        self.remat_mlp = cfg.remat and cfg.remat_policy == "mlp"
         self.ln_attn = RMSNorm(cfg.d_model, dtype=cfg.dtype, device=device)
         self.attn = Attention(cfg, device)
         self.ln_mlp = RMSNorm(cfg.d_model, dtype=cfg.dtype, device=device)
@@ -170,7 +193,10 @@ class Block(nn.Module):
 
     def forward(self, x, positions):
         x = x + self.attn(self.ln_attn(x), positions)
-        return x + self.mlp(self.ln_mlp(x))
+        mlp = lambda x: self.mlp(self.ln_mlp(x))
+        if self.remat_mlp and torch.is_grad_enabled():
+            return x + checkpoint(mlp, x, use_reentrant=False)
+        return x + mlp(x)
 
 
 class TransformerLM(nn.Module):
@@ -197,9 +223,29 @@ class TransformerLM(nn.Module):
         x = nn.functional.embedding(tokens, self.embedding).to(self.config.dtype)
         positions = torch.arange(tokens.shape[1], device=tokens.device)
         positions = positions.expand(tokens.shape)
+        remat = self._block_remat()
         for layer in self.layers:
-            x = layer(x, positions)
+            if remat:
+                x = checkpoint(layer, x, positions, use_reentrant=False)
+            else:
+                x = layer(x, positions)
         return self.ln_final(x)
+
+    def _block_remat(self) -> bool:
+        """Whether each block recomputes in the backward (`_block_cls`,
+        kubeflow_tpu/models/transformer.py:131-168): only under autograd,
+        and only for the "full" policy."""
+        cfg = self.config
+        if not (cfg.remat and torch.is_grad_enabled()):
+            return False
+        if cfg.remat_policy in ("dots", "attn", "flash"):
+            raise NotImplementedError(
+                f"remat_policy {cfg.remat_policy!r} needs selective "
+                "checkpointing of the flash Function's saved o and lse; it "
+                "is not ported yet (ROADMAP Queue 1 item 4). Use 'none', "
+                "'full' or 'mlp'."
+            )
+        return cfg.remat_policy == "full"
 
     def forward(self, tokens):
         return lm_head(self.features(tokens), self.embedding, dtype=self.config.dtype)

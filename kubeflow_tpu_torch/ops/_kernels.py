@@ -33,14 +33,26 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 
+
+def _entry(pointers: int):
+    """`pointers` device pointers, then (bh, s, d, dtype), then the
+    stream; returns a cudaError_t."""
+    return (
+        [ctypes.c_void_p] * pointers + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+        ctypes.c_int,
+    )
+
+
+_ERROR_STRING = {"kftpu_error_string": ([ctypes.c_int], ctypes.c_char_p)}
 # The C entry points of each library: name → (argtypes, restype).
 _SIGNATURES = {
-    "flash_fwd": {
-        "kftpu_flash_fwd": (
-            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
-            ctypes.c_int,
-        ),
-        "kftpu_error_string": ([ctypes.c_int], ctypes.c_char_p),
+    "flash_fwd": {"kftpu_flash_fwd": _entry(5), **_ERROR_STRING},
+    "flash_delta": {"kftpu_flash_delta": _entry(3), **_ERROR_STRING},
+    "flash_bwd_dq": {"kftpu_flash_bwd_dq": _entry(7), **_ERROR_STRING},
+    "flash_bwd_dkv": {
+        "kftpu_flash_bwd_dkv": _entry(8),
+        "kftpu_flash_bwd_fused": _entry(10),
+        **_ERROR_STRING,
     },
 }
 

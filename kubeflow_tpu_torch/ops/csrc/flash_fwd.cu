@@ -38,12 +38,15 @@
 // 0.035 ms tensor-core bound. Tensor cores (mma/wgmma on bf16 tiles), TMA
 // loads and warp specialisation are later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "flash_common.cuh"
 
 namespace {
+
+using kftpu::load4;
+using kftpu::load8;
+using kftpu::store8;
 
 constexpr int kBQ = 64;        // query rows per block
 constexpr int kBK = 64;        // keys per tile
@@ -52,76 +55,10 @@ constexpr int kPad = 8;        // row padding of the transposed q/k tiles
 constexpr int kPS = kBQ + 4;   // row stride of the transposed p tile
 static_assert(kBQ == kBK, "load_tile copies 64-row tiles of q, k and v alike");
 
-__device__ __forceinline__ void load4(const float* p, float (&f)[4]) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
-}
-
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&f)[4]) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  f[0] = a.x; f[1] = a.y; f[2] = b.x; f[3] = b.y;
-}
-
-__device__ __forceinline__ void load8(const float* p, float (&f)[8]) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
-  f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
-}
-
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&f)[8]) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const float2 t = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[e]));
-    f[2 * e] = t.x;
-    f[2 * e + 1] = t.y;
-  }
-}
-
-__device__ __forceinline__ void store8(float* p, const float (&f)[8]) {
-  *reinterpret_cast<float4*>(p) = make_float4(f[0], f[1], f[2], f[3]);
-  *reinterpret_cast<float4*>(p + 4) = make_float4(f[4], f[5], f[6], f[7]);
-}
-
-__device__ __forceinline__ void store8(__nv_bfloat16* p, const float (&f)[8]) {
-  uint4 u;
-  uint32_t* w = reinterpret_cast<uint32_t*>(&u);
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const __nv_bfloat162 t = __floats2bfloat162_rn(f[2 * e], f[2 * e + 1]);
-    w[e] = *reinterpret_cast<const uint32_t*>(&t);
-  }
-  *reinterpret_cast<uint4*>(p) = u;
-}
-
-// Copies rows [row0, row0 + 64) of a row-major [S, D] array into shared
-// memory, 16 bytes per thread per step, zero-filling rows at or past S.
-// kTranspose stores element (r, c) at sm[c * stride + r], else at
-// sm[r * stride + c].
 template <typename T, int D, bool kTranspose>
 __device__ __forceinline__ void load_tile(const T* __restrict__ g, int row0,
                                           int S, T* sm, int stride) {
-  constexpr int kElems = 16 / sizeof(T);  // elements per 16-byte chunk
-  constexpr int kChunksPerRow = D / kElems;
-  for (int c = threadIdx.x; c < kBQ * kChunksPerRow; c += kThreads) {
-    const int r = c / kChunksPerRow;
-    const int col = (c % kChunksPerRow) * kElems;
-    uint4 u = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < S) {
-      u = *reinterpret_cast<const uint4*>(g + (size_t)(row0 + r) * D + col);
-    }
-    if (kTranspose) {
-      const T* e = reinterpret_cast<const T*>(&u);
-#pragma unroll
-      for (int x = 0; x < kElems; ++x) sm[(col + x) * stride + r] = e[x];
-    } else {
-      *reinterpret_cast<uint4*>(sm + r * stride + col) = u;
-    }
-  }
+  kftpu::load_tile<T, D, kBQ, kThreads, kTranspose>(g, row0, S, sm, stride);
 }
 
 template <typename T, int D>
@@ -300,8 +237,4 @@ extern "C" int kftpu_flash_fwd(const void* q, const void* k, const void* v,
   if (dtype == 0 && d == 128) return launch<float, 128>(q, k, v, o, lse, bh, s, st);
   if (dtype == 0 && d == 64) return launch<float, 64>(q, k, v, o, lse, bh, s, st);
   return (int)cudaErrorInvalidValue;
-}
-
-extern "C" const char* kftpu_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

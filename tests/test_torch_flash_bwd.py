@@ -1,0 +1,174 @@
+"""The port's flash-attention backward against the JAX package's.
+
+On the CPU the port's backward runs its plain versions
+(`flash_delta_reference`, `flash_bwd_reference`,
+`flash_bwd_fused_reference`); the JAX side runs its Pallas kernels in
+interpret mode, as its own tests do, on the same numpy inputs. The
+kernels' lse/delta layouts (lane-replicated or lane-packed) are read
+back as plain [BH, S] rows. Tolerances are JAX's own gradient gates:
+f32 atol = rtol = 5e-5 (tests/test_flash_schedule.py), 5e-4 where a
+ragged tail is padded and masked. The CUDA kernels are held against
+these plain versions on the card (tests/test_torch_cuda_kernels.py and
+chip_smoke.py).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from kubeflow_tpu.ops import flash as jflash
+from kubeflow_tpu_torch.ops import flash as tflash
+
+TOL = dict(atol=5e-5, rtol=5e-5)
+RAGGED_TOL = dict(atol=5e-4, rtol=5e-4)
+CASES = [(128, 64, TOL), (201, 64, RAGGED_TOL)]
+IDS = ["s128-block64", "s201-ragged"]
+
+
+def _arrays(seed, n, shape):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(shape).astype(np.float32) for _ in range(n)]
+
+
+def _jax_backward_inputs(s, block, packed=False):
+    """q, k, v, dO at length s, and the JAX forward's o, lse and delta on
+    the padded length its wrapper would use (dO zero past s, as the
+    cotangent of the sliced output is)."""
+    q, k, v, do = _arrays(s, 4, (2, s, 32))
+    sp = jflash._pad_to_tileable(block, s)
+    kv_len = s if sp != s else None
+    pad = lambda x: jnp.pad(jnp.asarray(x), ((0, 0), (0, sp - s), (0, 0)))
+    jq, jk, jv, jdo = map(pad, (q, k, v, do))
+    o, lse = jflash._flash_fwd_impl(jq, jk, jv, True, block, block, True, kv_len, packed)
+    delta = jflash._flash_delta_impl(o, jdo, block, True, packed)
+    return (q, k, v, do), (jq, jk, jv, jdo, o, lse, delta, kv_len)
+
+
+def _rows(layout, sp):
+    """Either lse/delta layout → [BH, S] rows (numpy)."""
+    return np.asarray(jflash._lse_rows(layout, sp))[..., 0]
+
+
+def test_delta_matches_jax_delta_kernel():
+    for s, block, packed in ((128, 64, False), (256, 128, True)):
+        o, do = _arrays(s, 2, (2, s, 32))
+        want = jflash._flash_delta_impl(jnp.asarray(o), jnp.asarray(do), block, True, packed)
+        got = tflash.flash_delta_reference(torch.from_numpy(o), torch.from_numpy(do))
+        assert got.shape == (2, s) and got.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy(), _rows(want, s), atol=1e-5, rtol=1e-5)
+        assert torch.equal(tflash.flash_delta(torch.from_numpy(o), torch.from_numpy(do)), got)
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["two-pass", "fused"])
+@pytest.mark.parametrize("s,block,tol", CASES, ids=IDS)
+def test_plain_backward_matches_jax_kernels(s, block, tol, fused):
+    (q, k, v, do), (jq, jk, jv, jdo, o, lse, delta, kv_len) = _jax_backward_inputs(s, block)
+    want = jflash._flash_bwd_kernels(
+        jq, jk, jv, jdo, lse, delta, True, block, block, True, kv_len, False, fused,
+    )
+    sp = jq.shape[1]
+    plain = tflash.flash_bwd_fused_reference if fused else tflash.flash_bwd_reference
+    got = plain(
+        *(torch.from_numpy(x) for x in (q, k, v, do)),
+        torch.from_numpy(_rows(lse, sp)[:, :s].copy()),
+        torch.from_numpy(_rows(delta, sp)[:, :s].copy()),
+        causal=True, block_q=block, block_k=block,
+    )
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        assert g.shape == (2, s, 32)
+        np.testing.assert_allclose(g.numpy(), np.asarray(w)[:, :s], err_msg=name, **tol)
+
+
+@pytest.mark.parametrize("s,block", [(256, 64), (201, 64)])
+def test_fused_equals_two_pass_plain_versions(s, block):
+    """The fusion is a schedule change, not a numerics change: the
+    column walk's dq ring adds each row's contributions in the same order
+    as the row-major dq pass."""
+    q, k, v, do = (torch.from_numpy(x) for x in _arrays(s + 1, 4, (3, s, 16)))
+    o, lse = tflash.flash_attention_reference(q, k, v, block_q=block, block_k=block)
+    delta = tflash.flash_delta_reference(o, do)
+    kw = dict(causal=True, block_q=block, block_k=block)
+    fused = tflash.flash_bwd_fused_reference(q, k, v, do, lse, delta, **kw)
+    two = tflash.flash_bwd_reference(q, k, v, do, lse, delta, **kw)
+    for f, t in zip(fused, two):
+        assert torch.equal(f, t)
+
+
+@pytest.mark.parametrize("fused_env", ["1", "0"], ids=["fused", "two-pass"])
+@pytest.mark.parametrize("s,block,tol", CASES, ids=IDS)
+def test_autograd_matches_jax_grad(s, block, tol, fused_env, monkeypatch):
+    monkeypatch.setenv("KFTPU_FLASH_FUSED_BWD", fused_env)
+    q, k, v, do = _arrays(s + 7, 4, (2, s, 2, 32))
+
+    def jloss(q, k, v):
+        o = jflash.flash_attention(q, k, v, causal=True, block_q=block,
+                                   block_k=block, interpret=True)
+        return jnp.sum(o * jnp.asarray(do))
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    o, lse = tflash.flash_attention(tq, tk, tv, block_q=block, block_k=block,
+                                    return_lse=True)
+    assert o.requires_grad and not lse.requires_grad
+    (o * torch.from_numpy(do)).sum().backward()
+    for g, w, name in zip((tq.grad, tk.grad, tv.grad), want, "qkv"):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), err_msg=f"d{name}", **tol)
+
+
+def test_backward_dispatch_follows_the_jax_rule(monkeypatch):
+    calls = []
+    for name in ("flash_bwd_reference", "flash_bwd_fused_reference"):
+        original = getattr(tflash, name)
+
+        def spy(*a, _name=name, _original=original, **kw):
+            calls.append(_name)
+            return _original(*a, **kw)
+
+        monkeypatch.setattr(tflash, name, spy)
+    q, k, v, do = (torch.from_numpy(x) for x in _arrays(3, 4, (1, 128, 16)))
+    o, lse = tflash.flash_attention_reference(q, k, v, block_q=64, block_k=64)
+    delta = tflash.flash_delta(o, do)
+    run = lambda **kw: tflash.flash_bwd_kernels(q, k, v, do, lse, delta, **kw)
+
+    run(block_q=64, block_k=64)  # compact causal grid: fused
+    run(block_q=64, block_k=32)  # uneven blocks: two-pass
+    run(block_q=64, block_k=64, fused=False)
+    monkeypatch.setenv("KFTPU_FLASH_FUSED_BWD", "0")
+    run(block_q=64, block_k=64)
+    assert calls == ["flash_bwd_fused_reference"] + ["flash_bwd_reference"] * 3
+    with pytest.raises(ValueError, match="compact causal grid"):
+        run(block_q=64, block_k=32, fused=True)
+    with pytest.raises(ValueError, match="compact causal grid"):
+        run(block_q=64, block_k=64, causal=False, fused=True)
+
+
+def test_bf16_gradients_keep_the_input_dtype():
+    q, k, v = (torch.from_numpy(x).bfloat16().requires_grad_()
+               for x in _arrays(4, 3, (1, 64, 2, 16)))
+    tflash.flash_attention(q, k, v, block_q=32, block_k=32).float().sum().backward()
+    assert all(t.grad.dtype == torch.bfloat16 for t in (q, k, v))
+    want = [t.grad.float() for t in (q, k, v)]
+    q32, k32, v32 = (t.detach().float().requires_grad_() for t in (q, k, v))
+    tflash.flash_attention(q32, k32, v32, block_q=32, block_k=32).sum().backward()
+    # bf16 inputs, f32 math, one bf16 rounding of each gradient (the
+    # forward's o is rounded too, which moves delta by ~2^-8 relative).
+    for g, w in zip(want, (q32.grad, k32.grad, v32.grad)):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("case", ["lse-shape", "lse-dtype", "delta-noncontiguous"])
+def test_backward_row_checks_refuse(case):
+    q = torch.zeros(2, 64, 64)
+    lse = torch.zeros(2, 64)
+    delta = torch.zeros(2, 64)
+    if case == "lse-shape":
+        lse = torch.zeros(2, 32)
+    elif case == "lse-dtype":
+        lse = lse.bfloat16()
+    else:
+        delta = torch.zeros(64, 2).T
+    with pytest.raises(ValueError):
+        tflash._check_rows(q, lse, delta)
+    tflash._check_rows(q, torch.zeros(2, 64), torch.zeros(2, 64))

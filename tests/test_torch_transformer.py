@@ -188,3 +188,45 @@ def test_config_refuses_what_is_not_ported():
     # The remat fields are accepted (and unused at inference).
     cfg = ttf.TransformerConfig(remat=False, remat_policy="flash")
     assert dataclasses.replace(cfg, d_model=64).remat_policy == "flash"
+
+
+def _grads(model, tokens):
+    labels = torch.from_numpy(np.roll(tokens, -1, axis=1))
+    logits = model(torch.from_numpy(tokens))
+    torch.nn.functional.cross_entropy(
+        logits.reshape(-1, logits.shape[-1]), labels.reshape(-1)
+    ).backward()
+    return {n: p.grad.clone() for n, p in model.named_parameters()}
+
+
+def test_remat_policies_give_equal_grads(jax_params):
+    """"none", "full" and "mlp" recompute or save activations, never
+    change the function: gradients agree to f32 summation order."""
+    tokens = _tokens(9, 2, 64)
+    want = None
+    for remat, policy in ((False, "flash"), (True, "none"), (True, "full"),
+                          (True, "mlp")):
+        cfg = dataclasses.replace(_torch_cfg(torch.float32), remat=remat,
+                                  remat_policy=policy)
+        model = ttf.TransformerLM(cfg, device="cpu")
+        model.load_state_dict(convert.from_flax(_numpy_params(jax_params)))
+        grads = _grads(model, tokens)
+        if want is None:
+            want = grads
+            continue
+        for name, g in grads.items():
+            np.testing.assert_allclose(g.numpy(), want[name].numpy(),
+                                       atol=1e-6, rtol=1e-5, err_msg=(policy, name))
+
+
+@pytest.mark.parametrize("policy", ["dots", "attn", "flash"])
+def test_unported_remat_policies_raise_when_differentiated(jax_params, policy):
+    cfg = dataclasses.replace(_torch_cfg(torch.float32), remat_policy=policy)
+    model = ttf.TransformerLM(cfg, device="cpu")
+    tokens = torch.from_numpy(_tokens(1, 1, 16))
+    with torch.inference_mode():  # serving is unaffected
+        assert model(tokens).shape == (1, 16, TINY["vocab_size"])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        model(tokens)
+    with pytest.raises(ValueError):
+        ttf.TransformerConfig(remat_policy="everything")
