@@ -19,20 +19,27 @@ JSON line; any failure raises and the exit code is non-zero:
    flash_bwd_dq, flash_bwd_dkv) against their plain versions at small,
    ragged, training and long shapes in bf16 and f32; then every
    kernel's time at the training shape (B=8, S=2048, H=8, D=128, bf16).
-5. serve, main path 1: the full-width TransformerLM (vocab 32000,
+5. rect_kernel: the rectangular kernels (flash_fwd_rect,
+   flash_bwd_dq_rect, flash_bwd_dkv_rect) against their plain versions
+   in bf16 and f32 at (1, 128x128, 2, 64) non-causal, ragged
+   (2, 1001 q x 777 k, 4, 128) causal and not, and one full ring hop
+   (1, 4096x4096, 8, 128) non-causal; then rect_kernel_timing: their
+   times at the hop shape beside the plain versions', SDPA's
+   (is_causal=False) and the bound.
+6. serve, main path 1: the full-width TransformerLM (vocab 32000,
    d_model 1024, 16 layers, 8x128 heads, d_ff 4096, bf16; random
    weights from seed 0) behind Servable -> ModelRepository ->
    ModelServerApp -> HTTP, three :predict requests (JSON and binary
    frame, S=2048 and S=1001). The launch counters are zeroed just
    before the requests and read just after: 16 flash launches per
    forward.
-6. check: the served answers against the same module run directly with
+7. check: the served answers against the same module run directly with
    attention through the plain version (bf16, and the same weights in
    f32), with the tolerances stated in `check_phase`.
-7. forward: forward time per request shape, the 4 x 2048 bucket with
+8. forward: forward time per request shape, the 4 x 2048 bucket with
    the kernel and with the plain version, and a profile of its device
    time by kernel.
-8. train, main path 2: the same LM trained as `bench.py --workload lm`
+9. train, main path 2: the same LM trained as `bench.py --workload lm`
    trains it (remat "none", adamw lr 3e-4, loss-only metrics) on
    SyntheticTokens, batch 8 at S=2048: 2 warm-up steps, then timed
    steps with the launch counters zeroed just before and read just
@@ -40,12 +47,26 @@ JSON line; any failure raises and the exit code is non-zero:
    one more step with the two-pass backward pinned
    (KFTPU_FLASH_FUSED_BWD=0: 16 flash_bwd_dq + 16 flash_bwd_dkv), step
    time, tokens/s, MFU and a profile of one step.
-9. train_check: one step's loss and every parameter's gradient on the
+10. train_check: one step's loss and every parameter's gradient on the
    kernel path against the same step with attention through the plain
    versions, in bf16 and in f32, with the tolerances stated in
    `train_check_phase`.
-10. kernels: one line per ported kernel (launches, error, times, bound).
-11. the last line: {"ok": true, "device": {...}}.
+11. ring_train, main path 3: the same LM with sequence parallelism, its
+   attention on ring flash over an in-process sp ring of 4 on the card,
+   batch 1 at S=16384 (chunks of 4096), adamw lr 3e-4: one warm-up
+   step, then timed steps with the counters zeroed just before and read
+   just after (a step: 16 flash_fwd + 48 flash_fwd_rect + 16
+   flash_delta + 16 flash_bwd_fused + 48 flash_bwd_dq_rect + 48
+   flash_bwd_dkv_rect), step time, tokens/s, MFU, a profile of one
+   step, and the flat LM's step at the same S beside it.
+12. ring_check: one ring step's loss and gradients against the flat
+   LM's in f32, and against the same ring on the plain versions in
+   bf16, with the tolerances stated in `ring_check_phase`.
+13. ring_nccl: with two or more cards, the ring over an NCCL process
+   group against the in-process ring; with one card it prints
+   {"run": false} and counts as nothing.
+14. kernels: one line per ported kernel (launches, error, times, bound).
+15. the last line: {"ok": true, "device": {...}}.
 
 Without a GPU it exits non-zero before printing any result.
 """
@@ -53,7 +74,6 @@ Without a GPU it exits non-zero before printing any result.
 from __future__ import annotations
 
 import contextlib
-import functools
 import json
 import os
 import subprocess
@@ -105,13 +125,27 @@ BWD_ATOL_PER_RMS = 5e-5
 LM = dict(vocab_size=32000, d_model=1024, n_layers=16, n_heads=8,
           head_dim=128, d_ff=4096)
 TRAIN = dict(batch=8, seq=2048, lr=3e-4, warmup_steps=2, timed_steps=5)
+# Sequence parallelism: the same LM on an in-process sp ring of 4 at
+# S = 16384 (chunks of 4096), batch 1: the 16384 tokens a step of TRAIN.
+RING = dict(sp=4, batch=1, seq=16384, lr=3e-4, warmup_steps=1, timed_steps=3)
+RECT_SHAPES = [  # (B, S_q, S_k, H, D, causal)
+    (1, 128, 128, 2, 64, False),
+    (2, 1001, 777, 4, 128, False),  # ragged: the plain versions pad
+    (2, 1001, 777, 4, 128, True),  # top-left causal mask, s_q > s_k
+    (1, 4096, 4096, 8, 128, False),  # one full hop of RING
+]
+HOP_SHAPE = RECT_SHAPES[-1]
 KERNEL_ROWS = {  # name → (CUDA source, the TPU kernel it replaces)
     "flash_fwd": ("flash_fwd.cu", "kubeflow_tpu/ops/flash.py:533 (_fwd_kernel_compact)"),
+    "flash_fwd_rect": ("flash_fwd.cu", "kubeflow_tpu/ops/flash.py:515 (_fwd_kernel)"),
     "flash_delta": ("flash_delta.cu", "kubeflow_tpu/ops/flash.py:549 (_delta_kernel)"),
     "flash_bwd_fused": ("flash_bwd_dkv.cu", "kubeflow_tpu/ops/flash.py:714 (_dqkv_kernel_fused)"),
     "flash_bwd_dq": ("flash_bwd_dq.cu", "kubeflow_tpu/ops/flash.py:618 (_dq_kernel_compact)"),
     "flash_bwd_dkv": ("flash_bwd_dkv.cu", "kubeflow_tpu/ops/flash.py:696 (_dkv_kernel_compact)"),
+    "flash_bwd_dq_rect": ("flash_bwd_dq.cu", "kubeflow_tpu/ops/flash.py:602 (_dq_kernel)"),
+    "flash_bwd_dkv_rect": ("flash_bwd_dkv.cu", "kubeflow_tpu/ops/flash.py:679 (_dkv_kernel)"),
 }
+RECT_KERNELS = ("flash_fwd_rect", "flash_bwd_dq_rect", "flash_bwd_dkv_rect")
 REQUESTS = [  # (wire format, batch, sequence length)
     ("json", 1, 2048),
     ("json", 3, 2048),  # padded to bucket 4
@@ -387,6 +421,8 @@ def bwd_kernel_phase(torch, card: str) -> dict:
     }
     entries = {}
     for name, (src, replaces) in KERNEL_ROWS.items():
+        if name in RECT_KERNELS:
+            continue
         flops, nbytes = work[name]
         t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
         t_bytes = nbytes / PEAK_BYTES * 1e3
@@ -408,6 +444,139 @@ def bwd_kernel_phase(torch, card: str) -> dict:
     return entries
 
 
+def unmasked_pairs(causal: bool, sq: int, sk: int) -> int:
+    """(query, key) pairs the rectangular grid computes: all of them, or
+    those with q_pos >= k_pos (the top-left causal mask)."""
+    if not causal:
+        return sq * sk
+    full = max(0, sq - sk)  # rows that see every key
+    diag = min(sq, sk)  # rows 0..diag-1 see keys 0..row
+    return diag * (diag + 1) // 2 + full * sk
+
+
+def rect_kernel_phase(torch, card: str) -> dict:
+    """The rectangular kernels (flash_fwd_rect, flash_bwd_dq_rect,
+    flash_bwd_dkv_rect) against their plain versions at RECT_SHAPES in
+    bf16 and f32, each on the same inputs (the kernel forward's o and
+    lse, the kernel delta), with the forward's and the backward's
+    tolerances; then, at the hop shape, their times beside the plain
+    versions', SDPA's (is_causal=False) and the bound. Returns the
+    entries of the kernels line."""
+    from kubeflow_tpu_torch.ops import flash
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 2)
+    failures, max_err = [], dict.fromkeys(RECT_KERNELS, 0.0)
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[-1]
+        for b, sq, sk, h, d, causal in RECT_SHAPES:
+            draw = lambda s: torch.randn(b * h, s, d, generator=gen, device=DEVICE).to(dtype)
+            q, k, v, do = draw(sq), draw(sk), draw(sk), draw(sq)
+            o, lse = flash.flash_fwd(q, k, v, causal=causal)
+            delta = flash.flash_delta(o, do)
+            dq, dk, dv = flash.flash_bwd_kernels(q, k, v, do, lse, delta, causal=causal)
+            torch.cuda.synchronize()
+            ro, rlse = flash.flash_attention_reference(q, k, v, causal=causal)
+            plain = flash.flash_bwd_reference(q, k, v, do, lse, delta, causal=causal)
+            checks = {
+                "flash_fwd_rect": [
+                    (close(o.float(), ro.float(), *TOL[dname]["o"]),
+                     (o.float() - ro.float()).abs().max().item(), *TOL[dname]["o"]),
+                    (close(lse, rlse, *TOL[dname]["lse"]),
+                     (lse - rlse).abs().max().item(), *TOL[dname]["lse"]),
+                ],
+                "flash_bwd_dq_rect": [bwd_close(dq, plain[0], dname)],
+                "flash_bwd_dkv_rect": [bwd_close(g, w, dname) for g, w in zip((dk, dv), plain[1:])],
+            }
+            finite = all(bool(torch.isfinite(t).all()) for t in (o, dq, dk, dv))
+            for name, results in checks.items():
+                ok = finite and all(r[0] for r in results)
+                err = max(r[1] for r in results)
+                if dtype == torch.bfloat16:
+                    max_err[name] = max(max_err[name], err)
+                emit({
+                    "phase": "rect_kernel", "kernel": name, "dtype": dname,
+                    "shape_b_sq_sk_h_d": [b, sq, sk, h, d], "causal": causal,
+                    "max_abs_err": err,
+                    "tol_atol_rtol": [[r[2], r[3]] for r in results], "ok": ok,
+                })
+                if not ok:
+                    failures.append((name, dname, (b, sq, sk, h, d, causal)))
+            del plain, ro
+    if failures:
+        raise AssertionError(f"rectangular kernels disagree with their plain versions: {failures}")
+
+    # Times at the hop shape, bf16.
+    b, sq, sk, h, d, causal = HOP_SHAPE
+    bh = b * h
+    draw = lambda s: torch.randn(bh, s, d, generator=gen, device=DEVICE, dtype=torch.bfloat16)
+    q, k, v, do = draw(sq), draw(sk), draw(sk), draw(sq)
+    o, lse = flash.flash_fwd(q, k, v, causal=causal)
+    delta = flash.flash_delta(o, do)
+    kernel_ms = {
+        "flash_fwd_rect": cuda_ms(torch, lambda: flash.flash_fwd(q, k, v, causal=causal), iters=10),
+        "flash_bwd_dq_rect": cuda_ms(torch, lambda: flash._flash_bwd_dq_rect_cuda(
+            q, k, v, do, lse, delta, causal), iters=5),
+        "flash_bwd_dkv_rect": cuda_ms(torch, lambda: flash._flash_bwd_dkv_rect_cuda(
+            q, k, v, do, lse, delta, causal), iters=5),
+    }
+    two_pass_ref = cuda_ms(torch, lambda: flash.flash_bwd_reference(
+        q, k, v, do, lse, delta, causal=causal), iters=2, warmup=1)
+    plain_ms = {
+        "flash_fwd_rect": cuda_ms(torch, lambda: flash.flash_attention_reference(
+            q, k, v, causal=causal), iters=2, warmup=1),
+        "flash_bwd_dq_rect": two_pass_ref,
+        "flash_bwd_dkv_rect": two_pass_ref,
+    }
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q4, k4, v4 = (x.view(b, h, -1, d).detach().requires_grad_() for x in (q, k, v))
+    do4 = do.view(b, h, sq, d)
+    sdpa_fwd = cuda_ms(torch, lambda: sdpa(q4, k4, v4, is_causal=causal), iters=20)
+    sdpa_bwd = cuda_ms(
+        torch, lambda: sdpa(q4, k4, v4, is_causal=causal).backward(do4), iters=20
+    ) - sdpa_fwd
+    bwd_note = ("backward of scaled_dot_product_attention(is_causal=False), timed as "
+                "forward+backward minus forward; it covers delta plus dq, dk and dv together")
+    library = {
+        "flash_fwd_rect": (sdpa_fwd, "scaled_dot_product_attention(is_causal=False), forward"),
+        "flash_bwd_dq_rect": (sdpa_bwd, bwd_note),
+        "flash_bwd_dkv_rect": (sdpa_bwd, bwd_note),
+    }
+    # The work each function needs: FLOP per unmasked pair per head dim
+    # (forward 4, dq 6, dk/dv 8); each input read once, each output
+    # written once.
+    pairs = bh * d * unmasked_pairs(causal, sq, sk)
+    el = q.element_size()
+    nq, nk, rows = bh * sq * d * el, bh * sk * d * el, bh * sq * 4
+    work = {
+        "flash_fwd_rect": (4 * pairs, 2 * nq + 2 * nk + rows),
+        "flash_bwd_dq_rect": (6 * pairs, 3 * nq + 2 * nk + 2 * rows),
+        "flash_bwd_dkv_rect": (8 * pairs, 2 * nq + 4 * nk + 2 * rows),
+    }
+    entries = {}
+    for name in RECT_KERNELS:
+        src, replaces = KERNEL_ROWS[name]
+        flops, nbytes = work[name]
+        t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        lib_ms, lib_note = library[name]
+        entries[name] = {
+            "name": name, "route": "cuda",
+            "source": f"kubeflow_tpu_torch/ops/csrc/{src}",
+            "replaces": replaces, "launches": None,
+            "max_abs_err": max_err[name], "ms": kernel_ms[name],
+            "plain_ms": plain_ms[name],
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": lib_ms, "library": lib_note,
+            "shape_b_sq_sk_h_d": [b, sq, sk, h, d], "causal": causal,
+            "dtype": "bfloat16",
+            "achieved_tflops": flops / (kernel_ms[name] * 1e-3) / 1e12,
+            "card": card,
+        }
+        emit({"phase": "rect_kernel_timing", **entries[name]})
+    return entries
+
+
 def last_logits(model, tokens):
     """The servable's function: next-token logits [n, V] (f32) at the
     last position."""
@@ -417,52 +586,36 @@ def last_logits(model, tokens):
     return lm_head(h, model.embedding, dtype=model.config.dtype)[:, 0]
 
 
-@functools.cache
-def plain_flash_function():
-    """An autograd Function over the plain versions alone: the plain
-    forward, and delta plus the two-pass plain backward on CUDA tensors
-    (the port itself never takes them for a CUDA tensor)."""
-    import torch
-
-    from kubeflow_tpu_torch.ops import flash
-
-    class PlainFlash(torch.autograd.Function):
-        @staticmethod
-        def forward(ctx, q, k, v, block_q, block_k):
-            o, lse = flash.flash_attention_reference(
-                q, k, v, block_q=block_q, block_k=block_k
-            )
-            ctx.save_for_backward(q, k, v, o, lse)
-            ctx.blocks = (block_q, block_k)
-            return o
-
-        @staticmethod
-        def backward(ctx, do):
-            q, k, v, o, lse = ctx.saved_tensors
-            do = do.contiguous()
-            block_q, block_k = ctx.blocks
-            grads = flash.flash_bwd_reference(
-                q, k, v, do, lse, flash.flash_delta_reference(o, do),
-                block_q=block_q, block_k=block_k,
-            )
-            return (*grads, None, None)
-
-    return PlainFlash
-
-
-def plain_attend(q, k, v, *, causal=True, block_q=1024, block_k=1024, **_):
-    """`flash_attention` with the plain versions in place of the kernels."""
-    assert causal
-    b, s, h, d = q.shape
-    bhsd = lambda x: x.transpose(1, 2).contiguous().view(b * h, s, d)
-    o = plain_flash_function().apply(bhsd(q), bhsd(k), bhsd(v), block_q, block_k)
-    return o.view(b, h, s, d).transpose(1, 2)
-
-
 def dense_attend(q, k, v, *, causal=True, **_):
     from kubeflow_tpu_torch.ops.attention import dense_attention
 
     return dense_attention(q, k, v, causal=causal)
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """flash_fwd, flash_delta and flash_bwd_kernels through their plain
+    versions on CUDA tensors meanwhile (the port itself never takes them
+    for a CUDA tensor): the flat and the ring paths alike."""
+    from kubeflow_tpu_torch.ops import flash
+
+    def fwd(q, k, v, *, causal=True, block_q=1024, block_k=1024):
+        return flash.flash_attention_reference(q, k, v, causal=causal,
+                                               block_q=block_q, block_k=block_k)
+
+    def bwd(q, k, v, do, lse, delta, *, causal=True, block_q=1024, block_k=1024,
+            fused=None):
+        del fused  # the plain fused and two-pass versions are bit-identical
+        return flash.flash_bwd_reference(q, k, v, do, lse, delta, causal=causal,
+                                         block_q=block_q, block_k=block_k)
+
+    saved = (flash.flash_fwd, flash.flash_delta, flash.flash_bwd_kernels)
+    flash.flash_fwd, flash.flash_delta, flash.flash_bwd_kernels = (
+        fwd, flash.flash_delta_reference, bwd)
+    try:
+        yield
+    finally:
+        flash.flash_fwd, flash.flash_delta, flash.flash_bwd_kernels = saved
 
 
 @contextlib.contextmanager
@@ -580,7 +733,7 @@ def check_phase(torch, servable, batches, served) -> None:
     with torch.inference_mode():
         for (fmt, n, s), tokens, pred in zip(REQUESTS, batches, served):
             t = torch.tensor(tokens, device=DEVICE)
-            with attention_via(plain_attend):
+            with plain_kernels():
                 plain = last_logits(model, t).cpu().numpy()
             with attention_via(dense_attend):
                 dense = last_logits(model, t).cpu().numpy()
@@ -597,7 +750,7 @@ def check_phase(torch, servable, batches, served) -> None:
         for tokens in (batches[0], batches[2]):
             t = torch.tensor(tokens, device=DEVICE)
             kernel = last_logits(model32, t)
-            with attention_via(plain_attend):
+            with plain_kernels():
                 plain = last_logits(model32, t)
             err = float((kernel - plain).abs().max())
             ok &= close(kernel, plain, 1e-4, 1e-4)
@@ -676,7 +829,7 @@ def timing_phase(torch, servable, batches) -> None:
     ]
     full = batches[1][:1].repeat(4, axis=0)
     kernel_s = forward_s(full, 5)
-    with attention_via(plain_attend):
+    with plain_kernels():
         plain_s = forward_s(full, 2)
     emit({
         "phase": "forward", "per_request": per_request,
@@ -813,18 +966,18 @@ def rel(a, b) -> float:
     return float((a.float() - b.float()).norm() / b.float().norm())
 
 
-def step_grads(torch, trainer, batch):
-    """One forward and backward of the train step's loss: (loss,
-    {name: gradient}), with the parameters left as they were."""
-    from kubeflow_tpu_torch.train import softmax_cross_entropy
-
-    model = trainer.model
+def token_losses_and_grads(torch, model, batch):
+    """One forward and backward of the train step's loss, keeping the
+    per-token losses: ([B, S] float32 next-token losses, whose mean is
+    the step's loss, {name: gradient}), parameters left as they were."""
     model.zero_grad(set_to_none=True)
-    loss = softmax_cross_entropy(model(batch["tokens"]), batch["labels"])
-    loss.backward()
+    logits = model(batch["tokens"]).float()
+    nll = torch.logsumexp(logits, -1) - logits.gather(-1, batch["labels"][..., None])[..., 0]
+    del logits
+    nll.mean().backward()
     grads = {n: p.grad for n, p in model.named_parameters()}
     model.zero_grad(set_to_none=True)
-    return loss.detach(), grads
+    return nll.detach(), grads
 
 
 def train_check_phase(torch) -> None:
@@ -845,12 +998,17 @@ def train_check_phase(torch) -> None:
     batch = next(iter(SyntheticTokens(TRAIN["batch"], TRAIN["seq"], LM["vocab_size"],
                                       seed=SEED, device=DEVICE)))
     rows, ok = [], True
+
+    def run():
+        nll, grads = token_losses_and_grads(torch, trainer.model, batch)
+        return nll.mean(), grads
+
     trainer = train_model(torch, torch.bfloat16)
-    loss_k, g_k = step_grads(torch, trainer, batch)
-    with attention_via(plain_attend):
-        loss_p, g_p = step_grads(torch, trainer, batch)
+    loss_k, g_k = run()
+    with plain_kernels():
+        loss_p, g_p = run()
     with attention_via(dense_attend):
-        loss_d, g_d = step_grads(torch, trainer, batch)
+        loss_d, g_d = run()
     loss_err, loss_gap = abs(float(loss_k - loss_p)), abs(float(loss_p - loss_d))
     ok &= loss_err <= 2 * loss_gap
     worst = {"name": None, "ratio": 0.0}
@@ -874,9 +1032,9 @@ def train_check_phase(torch) -> None:
     torch.cuda.empty_cache()
 
     trainer = train_model(torch, torch.float32)
-    loss_k, g_k = step_grads(torch, trainer, batch)
-    with attention_via(plain_attend):
-        loss_p, g_p = step_grads(torch, trainer, batch)
+    loss_k, g_k = run()
+    with plain_kernels():
+        loss_p, g_p = run()
     loss_err = abs(float(loss_k - loss_p))
     ok &= loss_err <= 1e-4 * abs(float(loss_p))
     errs = {n: rel(g_k[n], g_p[n]) for n in g_k}
@@ -892,6 +1050,295 @@ def train_check_phase(torch) -> None:
     emit({"phase": "train_check", "rows": rows, "ok": ok})
     if not ok:
         raise AssertionError(f"train step off the plain path: {rows}")
+
+
+def ring_model(torch, dtype, *, mesh=True, remat="none"):
+    """The LM at full width on an in-process sp ring of RING["sp"] (or
+    flat, mesh=False), random weights from SEED: the same weights either
+    way."""
+    from kubeflow_tpu_torch.models import TransformerConfig, TransformerLM
+    from kubeflow_tpu_torch.parallel import MeshSpec, build_mesh
+
+    cfg = TransformerConfig(**LM, dtype=dtype, remat=remat != "none",
+                            remat_policy=remat)
+    ring = build_mesh(MeshSpec(sp=RING["sp"])) if mesh else None
+    return TransformerLM(cfg, mesh=ring, device=DEVICE, seed=SEED)
+
+
+def ring_tokens():
+    from kubeflow_tpu_torch.train import SyntheticTokens
+
+    return iter(SyntheticTokens(RING["batch"], RING["seq"], LM["vocab_size"],
+                                seed=SEED, device=DEVICE))
+
+
+def ring_launches_per_step() -> dict:
+    """What one ring train step launches, with the ring positions of one
+    hop kind folded into one launch: per layer, the diagonal hop (causal
+    kernels, fused backward) once and each of the sp - 1 later hops
+    (rectangular kernels) once, plus one delta."""
+    layers, full = LM["n_layers"], RING["sp"] - 1
+    return {"flash_fwd": layers, "flash_fwd_rect": layers * full,
+            "flash_delta": layers, "flash_bwd_fused": layers,
+            "flash_bwd_dq_rect": layers * full, "flash_bwd_dkv_rect": layers * full}
+
+
+def ring_train_phase(torch, card: str) -> dict:
+    """Main path 3: the LM trained with sequence parallelism, on an
+    in-process sp ring of 4 on one card (ring flash attention: every
+    hop's kernels), batch 1 at S = 16384, adamw lr 3e-4; one warm-up
+    step, then timed steps with the launch counters zeroed just before
+    and read just after. Then the flat LM at the same S, for the cost of
+    the ring on one card. Returns the launch counts of the timed steps."""
+    from kubeflow_tpu_torch.ops import _kernels
+    from kubeflow_tpu_torch.train import TrainConfig, Trainer
+
+    torch.cuda.reset_peak_memory_stats()
+    config = TrainConfig(
+        batch_size=RING["batch"], learning_rate=RING["lr"], total_steps=10_000,
+        optimizer="adamw", label_smoothing=0.0, fsdp_params=False,
+        train_metrics="loss",
+    )
+    tokens = RING["batch"] * RING["seq"]
+
+    def run(model, warmup: int, timed: int):
+        trainer = Trainer(model, config, input_key="tokens", label_key="labels",
+                          device=DEVICE)
+        state, step, data = trainer.init_state(), trainer.make_train_step(), ring_tokens()
+        losses = []
+        for _ in range(warmup):
+            state, metrics = step(state, next(data))
+            losses.append(metrics["loss"])
+        torch.cuda.synchronize()
+        _kernels.launches.clear()
+        t0 = time.perf_counter()
+        for _ in range(timed):
+            state, metrics = step(state, next(data))
+            losses.append(metrics["loss"])
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / timed
+        return trainer, state, step, data, losses, step_s, dict(_kernels.launches)
+
+    t0 = time.perf_counter()
+    model = ring_model(torch, torch.bfloat16)
+    init_s = time.perf_counter() - t0
+    n = RING["timed_steps"]
+    trainer, state, step, data, losses, step_s, launches = run(
+        model, RING["warmup_steps"], n)
+    want = {k: v * n for k, v in ring_launches_per_step().items()}
+    if launches != want:
+        raise AssertionError(f"ring train launches {launches} over {n} steps (want {want})")
+    losses = [float(x) for x in losses]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite ring loss: {losses}")
+    profile = profile_device(torch, lambda: step(state, next(data)))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del trainer, state, step, model
+    torch.cuda.empty_cache()
+
+    flat = run(ring_model(torch, torch.bfloat16, mesh=False), 1, 2)
+    flat_step_s = flat[5]
+    del flat
+    torch.cuda.empty_cache()
+    tokens_per_s = tokens / step_s
+    result = {
+        "phase": "ring_train",
+        "model": {**LM, "dtype": "bfloat16", "remat": "none"},
+        "mesh": {"sp": RING["sp"], "in_process": True}, "batch": RING["batch"],
+        "seq": RING["seq"], "chunk": RING["seq"] // RING["sp"], "optimizer": "adamw",
+        "learning_rate": RING["lr"], "init_s": init_s, "timed_steps": n,
+        "step_ms": step_s * 1e3, "tokens_per_s": tokens_per_s,
+        "flops_per_token": flops_per_token(RING["seq"]),
+        "mfu": tokens_per_s * flops_per_token(RING["seq"]) / PEAK_FLOPS["bfloat16"],
+        "losses": losses,
+        "launches_per_step": {k: v / n for k, v in launches.items()},
+        "profile_one_step": profile, "peak_memory_gib": peak,
+        "flat_same_seq_step_ms": flat_step_s * 1e3,
+        "flat_same_seq_tokens_per_s": tokens / flat_step_s,
+        "ring_over_flat_step": step_s / flat_step_s,
+        "card": card,
+    }
+    emit(result)
+    return launches
+
+
+def ring_check_phase(torch) -> None:
+    """One ring train step's loss and every parameter's gradient, on the
+    same weights and tokens (batch 1 x 16384), with remat "full" to keep
+    the f32 activations in memory.
+
+    f32: the ring (rectangular kernels on full hops, causal kernels on
+    the diagonal) against the flat LM (causal kernels over the whole
+    sequence): |loss difference| <= 1e-4·|loss| and every gradient within
+    relative norm 1e-4 — the kernels' 5e-5 gate carried through 16
+    layers, as train_check holds the flat path. bf16: the ring rounds
+    each hop's output to bf16 before the merge, as JAX's does, so it is
+    not held to the flat path. The ring on the kernels is held against
+    the same ring with the plain versions in place of the kernels: the
+    16384 per-token losses and every gradient, each by relative norm,
+    must lie within twice the distance between the flat kernel path and
+    the flat plain-version path (as train_check does). The loss is held
+    token by token, not as its mean: the ratio of two such mean-loss
+    differences, each a single draw of rounding noise, passes 2 by
+    chance about 30% of the time. The mean losses and the ring's
+    distance to the flat path are printed too."""
+    batch = next(ring_tokens())
+    rows, ok = [], True
+
+    def run(model, plain=False):
+        with plain_kernels() if plain else contextlib.nullcontext():
+            return token_losses_and_grads(torch, model, batch)
+
+    ring, flat = (ring_model(torch, torch.float32, mesh=m, remat="full") for m in (True, False))
+    nll_r, g_r = run(ring)
+    nll_f, g_f = run(flat)
+    loss_r, loss_f = float(nll_r.mean()), float(nll_f.mean())
+    errs = {n: rel(g_r[n], g_f[n]) for n in g_r}
+    ok &= abs(loss_r - loss_f) <= 1e-4 * abs(loss_f) and max(errs.values()) <= 1e-4
+    ok &= all(bool(torch.isfinite(g).all()) for g in g_r.values())
+    rows.append({
+        "dtype": "float32", "layers": LM["n_layers"], "loss_ring": loss_r,
+        "loss_flat": loss_f, "loss_err_vs_flat": abs(loss_r - loss_f),
+        "loss_tol_rel": 1e-4, "token_loss_rel_err_vs_flat": rel(nll_r, nll_f),
+        "max_rel_err_vs_flat": max(errs.values()), "worst_param": max(errs, key=errs.get),
+        "grad_tol_rel": 1e-4, "params": len(g_r),
+    })
+    del ring, flat, g_r, g_f
+    torch.cuda.empty_cache()
+
+    ring, flat = (ring_model(torch, torch.bfloat16, mesh=m, remat="full") for m in (True, False))
+    nll_rk, g_rk = run(ring)
+    nll_rp, g_rp = run(ring, plain=True)
+    nll_fk, g_fk = run(flat)
+    nll_fp, g_fp = run(flat, plain=True)
+    loss_err, loss_gap = rel(nll_rk, nll_rp), rel(nll_fk, nll_fp)
+    ok &= loss_err <= 2 * loss_gap
+    worst = {"name": None, "ratio": 0.0}
+    for name in g_rk:
+        err, gap = rel(g_rk[name], g_rp[name]), rel(g_fk[name], g_fp[name])
+        ok &= err <= 2 * gap and bool(torch.isfinite(g_rk[name]).all())
+        if err / max(gap, 1e-30) > worst["ratio"]:
+            worst = {"name": name, "ratio": err / max(gap, 1e-30),
+                     "rel_err_ring_kernel_vs_plain": err,
+                     "rel_gap_flat_kernel_vs_plain": gap}
+    mean = lambda x: float(x.mean())
+    rows.append({
+        "dtype": "bfloat16", "loss_ring_kernel": mean(nll_rk),
+        "loss_ring_plain": mean(nll_rp), "loss_flat_kernel": mean(nll_fk),
+        "loss_flat_plain": mean(nll_fp),
+        "token_loss_rel_err_ring_vs_plain": loss_err,
+        "token_loss_rel_gap_flat_vs_plain": loss_gap, "token_loss_tol": 2 * loss_gap,
+        "max_rel_err_ring_vs_plain": max(rel(g_rk[n], g_rp[n]) for n in g_rk),
+        "max_rel_gap_flat_vs_plain": max(rel(g_fk[n], g_fp[n]) for n in g_fk),
+        "worst_param_vs_its_tol": worst,
+        "token_loss_rel_dist_ring_vs_flat": rel(nll_rk, nll_fk),
+        "max_rel_dist_ring_vs_flat": max(rel(g_rk[n], g_fk[n]) for n in g_rk),
+        "loss_dist_ring_vs_flat": abs(mean(nll_rk) - mean(nll_fk)),
+    })
+    del ring, flat, g_rk, g_rp, g_fk, g_fp
+    torch.cuda.empty_cache()
+    emit({"phase": "ring_check", "rows": rows, "ok": ok})
+    if not ok:
+        raise AssertionError(f"ring step off its references: {rows}")
+
+
+def ring_inputs(torch, n: int):
+    """q, k, v, dO of the hop shape's width over a ring of n chunks:
+    [1, n·4096, 8, 128] float32, drawn on the CPU from SEED."""
+    b, c, _, h, d, _ = HOP_SHAPE
+    gen = torch.Generator().manual_seed(SEED + 3)
+    return [torch.randn(b, n * c, h, d, generator=gen) for _ in range(4)]
+
+
+def ring_nccl_worker(out_dir: str) -> int:
+    """One rank of the NCCL ring (chip_smoke.py --ring-nccl-worker DIR,
+    with the TPUJOB_* env contract): its chunk of ring_inputs through
+    ring_flash_attention, forward and backward, saved for the parent."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    from kubeflow_tpu_torch.ops.flash import ring_flash_attention
+    from kubeflow_tpu_torch.parallel import MeshSpec, build_mesh, initialize_from_env
+
+    pe = initialize_from_env()
+    try:
+        mesh = build_mesh(MeshSpec(sp=-1))
+        n, r = pe.num_processes, pe.process_id
+        c = HOP_SHAPE[1]
+        q, k, v, do = (x[:, r * c:(r + 1) * c].cuda() for x in ring_inputs(torch, n))
+        q, k, v = (x.requires_grad_() for x in (q, k, v))
+        o = ring_flash_attention(q, k, v, mesh, causal=True)
+        o.backward(do)
+        torch.cuda.synchronize()
+        torch.save({"o": o.detach().cpu(), "dq": q.grad.cpu(), "dk": k.grad.cpu(),
+                    "dv": v.grad.cpu()}, os.path.join(out_dir, f"rank{r}.pt"))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def ring_nccl_phase(torch) -> None:
+    """With two or more cards: min(4, count) processes on an NCCL sp
+    group (one card each) run ring flash attention at the hop shape's
+    chunk, forward and backward, and each rank's output and gradients
+    must match the in-process ring's on the same inputs, with the
+    backward kernels' f32 tolerance. In f32, because the fused kernel's
+    atomics add in an order that changes from run to run: in bf16 each
+    hop's dq is rounded before the hops are summed, so that order can
+    flip one bf16 ulp of a hop's dq, more than a relative bound on the
+    smaller total allows. On one card it prints that it did not run."""
+    import socket
+    import tempfile
+
+    from kubeflow_tpu_torch.ops.flash import ring_flash_attention
+    from kubeflow_tpu_torch.parallel import MeshSpec, build_mesh
+
+    count = torch.cuda.device_count()
+    if count < 2:
+        emit({"phase": "ring_nccl", "run": False, "gpus": count})
+        return
+    n = min(4, count)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    with tempfile.TemporaryDirectory() as out_dir:
+        env = dict(os.environ, TPUJOB_COORDINATOR=f"localhost:{port}",
+                   TPUJOB_NUM_PROCESSES=str(n))
+        procs = [
+            subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                              "--ring-nccl-worker", out_dir],
+                             env=dict(env, TPUJOB_PROCESS_ID=str(r)),
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(n)
+        ]
+        t0 = time.perf_counter()
+        try:
+            logs = [p.communicate(timeout=300)[0] for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+                p.wait()
+        seconds = time.perf_counter() - t0
+        if any(p.returncode for p in procs):
+            raise AssertionError("ring_nccl workers failed:\n" + "\n".join(logs))
+        parts = [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=True)
+                 for r in range(n)]
+    q, k, v, do = (x.cuda() for x in ring_inputs(torch, n))
+    q, k, v = (x.requires_grad_() for x in (q, k, v))
+    o = ring_flash_attention(q, k, v, build_mesh(MeshSpec(sp=n)), causal=True)
+    o.backward(do)
+    want = {"o": o.detach(), "dq": q.grad, "dk": k.grad, "dv": v.grad}
+    rows, ok = {}, True
+    for key, w in want.items():
+        got = torch.cat([p[key] for p in parts], dim=1).cuda()
+        good, err, atol, rtol = bwd_close(got, w, "float32")
+        ok &= good
+        rows[key] = {"max_abs_err": err, "tol_atol_rtol": [atol, rtol]}
+    emit({"phase": "ring_nccl", "run": True, "gpus": count, "ranks": n,
+          "shape_b_s_h_d": list(q.shape), "seconds": seconds, "rows": rows, "ok": ok})
+    if not ok:
+        raise AssertionError(f"NCCL ring off the in-process ring: {rows}")
 
 
 def main() -> int:
@@ -910,6 +1357,7 @@ def main() -> int:
     build_phase()
     serving_fwd = kernel_phase(torch)
     entries = bwd_kernel_phase(torch, card)
+    rect_entries = rect_kernel_phase(torch, card)
     servable, batches, served, result = serve_phase(torch)
     check_phase(torch, servable, batches, served)
     timing_phase(torch, servable, batches)
@@ -917,6 +1365,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     by_path = {"serve": result["launches"], **train_phase(torch, card)}
     train_check_phase(torch)
+    entries.update(rect_entries)
+    by_path["ring_train"] = ring_train_phase(torch, card)
+    ring_check_phase(torch)
+    ring_nccl_phase(torch)
     for name, entry in entries.items():
         counts = {path: launches.get(name, 0) for path, launches in by_path.items()}
         entry["launches"] = sum(counts.values())
@@ -931,7 +1383,7 @@ def main() -> int:
     }
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(card, flush=True)  # nvidia-smi's name and power limit
-    emit({"kernels": list(entries.values())})
+    emit({"kernels": [entries[name] for name in KERNEL_ROWS]})
     emit({
         "ok": True,
         "device": {
@@ -944,4 +1396,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--ring-nccl-worker"]:
+        sys.exit(ring_nccl_worker(sys.argv[2]))
     sys.exit(main())

@@ -1,7 +1,12 @@
-"""Decoder-only Transformer LM: the flat model, for one device.
+"""Decoder-only Transformer LM: the flat model, and its sequence-parallel
+(sp ring) form.
 
-Counterpart of `kubeflow_tpu/models/transformer.py` without the mesh,
-ring, pipeline and mixture-of-experts paths. Parameters keep the flax
+Counterpart of `kubeflow_tpu/models/transformer.py` without the tensor-
+parallel, pipeline and mixture-of-experts paths. Given a mesh with an sp
+ring (`parallel/mesh.build_mesh`), attention runs around the ring
+(`ring_flash_attention`, or `ring_attention` for "dense"); every other
+layer works per token and is unchanged, and so are the parameters.
+Parameters keep the flax
 layouts — ``wq|wk|wv`` (d_model, h, d), ``attn.wo`` (h, d, d_model),
 ``wi_gate|wi_up`` (d_model, d_ff), ``mlp.wo`` (d_ff, d_model),
 ``embedding`` (V, d_model), norm scales (d,) — and are float32, cast to
@@ -25,8 +30,12 @@ from torch.utils.checkpoint import checkpoint
 
 from kubeflow_tpu_torch._device import resolve_device
 from kubeflow_tpu_torch.models.convert import init_params
-from kubeflow_tpu_torch.ops.attention import dense_attention
-from kubeflow_tpu_torch.ops.flash import flash_attention
+from kubeflow_tpu_torch.ops.attention import dense_attention, ring_attention
+from kubeflow_tpu_torch.ops.flash import (
+    flash_attention,
+    flash_kernel_tileable,
+    ring_flash_attention,
+)
 
 
 _REMAT_POLICIES = ("none", "full", "mlp", "dots", "attn", "flash")
@@ -126,13 +135,27 @@ def rope(x, positions, theta: float):
     return out.to(x.dtype)
 
 
-def _attend(q, k, v, cfg: TransformerConfig):
-    """Causal attention by `cfg.attention_impl`."""
+def _attend(q, k, v, mesh, cfg: TransformerConfig):
+    """Causal attention by `cfg.attention_impl`: around the ring when the
+    mesh's sp axis is real (JAX `_attend`, kubeflow_tpu/models/
+    transformer.py:256-273) — ring flash for "auto"/"flash" where the
+    chunks tile, else the dense-hop ring — and flash or dense otherwise."""
+    bq, bk = cfg.flash_block_q, cfg.flash_block_k
+    if mesh is not None and mesh.shape.get("sp", 1) > 1:
+        chunk = q.shape[1] // len(mesh.ring("sp").ranks)
+        if (
+            cfg.attention_impl in ("auto", "flash")
+            and flash_kernel_tileable(chunk, bq)
+            and flash_kernel_tileable(chunk, bk)
+        ):
+            return ring_flash_attention(
+                q, k, v, mesh, causal=True, block_q=bq, block_k=bk
+            )
+        return ring_attention(q, k, v, mesh, causal=True)
     if cfg.attention_impl == "dense":
         return dense_attention(q, k, v, causal=True)
     return flash_attention(
-        q, k, v, causal=True,
-        block_q=cfg.flash_block_q, block_k=cfg.flash_block_k,
+        q, k, v, causal=True, block_q=bq, block_k=bk,
         bwd_block_q=cfg.flash_block_q_bwd, bwd_block_k=cfg.flash_block_k_bwd,
     )
 
@@ -144,9 +167,9 @@ def _param(*shape, device):
 
 
 class Attention(nn.Module):
-    def __init__(self, cfg: TransformerConfig, device=None):
+    def __init__(self, cfg: TransformerConfig, mesh=None, device=None):
         super().__init__()
-        self.cfg = cfg
+        self.cfg, self.mesh = cfg, mesh
         h, d, dm = cfg.n_heads, cfg.head_dim, cfg.d_model
         self.wq = _param(dm, h, d, device=device)
         self.wk = _param(dm, h, d, device=device)
@@ -158,7 +181,7 @@ class Attention(nn.Module):
         proj = lambda w: torch.einsum("bsm,mhd->bshd", x.to(dt), w.to(dt))
         q = rope(proj(self.wq), positions, self.cfg.rope_theta)
         k = rope(proj(self.wk), positions, self.cfg.rope_theta)
-        out = _attend(q, k, proj(self.wv), self.cfg)
+        out = _attend(q, k, proj(self.wv), self.mesh, self.cfg)
         return torch.einsum("bshd,hdm->bsm", out.to(dt), self.wo.to(dt))
 
 
@@ -181,13 +204,13 @@ class SwiGLU(nn.Module):
 class Block(nn.Module):
     """Pre-norm block: x + attn(norm(x)), then x + mlp(norm(x))."""
 
-    def __init__(self, cfg: TransformerConfig, device=None):
+    def __init__(self, cfg: TransformerConfig, mesh=None, device=None):
         super().__init__()
         # The "mlp" policy's only checkpoint: the MLP half recomputes in
         # the backward, attention's residuals stay saved.
         self.remat_mlp = cfg.remat and cfg.remat_policy == "mlp"
         self.ln_attn = RMSNorm(cfg.d_model, dtype=cfg.dtype, device=device)
-        self.attn = Attention(cfg, device)
+        self.attn = Attention(cfg, mesh, device)
         self.ln_mlp = RMSNorm(cfg.d_model, dtype=cfg.dtype, device=device)
         self.mlp = SwiGLU(cfg, device)
 
@@ -202,15 +225,21 @@ class Block(nn.Module):
 class TransformerLM(nn.Module):
     """Embed → N blocks → norm → tied logits. forward(tokens) → [B, S, V]
     float32 logits. Weights come from `init_params(config, seed)`; load
-    others (e.g. `convert.from_flax`) with `load_state_dict`."""
+    others (e.g. `convert.from_flax`) with `load_state_dict`.
 
-    def __init__(self, config: TransformerConfig, *, device=None, seed: int = 0):
+    With a `mesh` whose sp axis is more than 1, attention runs around its
+    sp ring. On an in-process ring the tokens are the whole sequence; on
+    a `torch.distributed` ring each rank passes its own chunk of it (rank
+    r: positions r·C .. r·C + C - 1) and gets that chunk's logits."""
+
+    def __init__(self, config: TransformerConfig, *, mesh=None, device=None,
+                 seed: int = 0):
         super().__init__()
         device = resolve_device(device)
-        self.config = config
+        self.config, self.mesh = config, mesh
         self.embedding = _param(config.vocab_size, config.d_model, device=device)
         self.layers = nn.ModuleList(
-            Block(config, device) for _ in range(config.n_layers)
+            Block(config, mesh, device) for _ in range(config.n_layers)
         )
         self.ln_final = RMSNorm(config.d_model, dtype=config.dtype, device=device)
         self.load_state_dict(init_params(config, seed, device=device))
@@ -221,7 +250,13 @@ class TransformerLM(nn.Module):
         # Gather, then cast: the same values as flax's cast-then-gather,
         # without casting the whole table.
         x = nn.functional.embedding(tokens, self.embedding).to(self.config.dtype)
-        positions = torch.arange(tokens.shape[1], device=tokens.device)
+        # Rope needs the global positions: a rank of a process ring holds
+        # a chunk that starts past 0.
+        start = 0
+        if self.mesh is not None:
+            start = self.mesh.ring("sp").sequence_offset(tokens.shape[1])
+        positions = torch.arange(start, start + tokens.shape[1],
+                                 device=tokens.device)
         positions = positions.expand(tokens.shape)
         remat = self._block_remat()
         for layer in self.layers:

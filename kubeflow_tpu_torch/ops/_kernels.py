@@ -34,11 +34,12 @@ NVCC_FLAGS = (
 )
 
 
-def _entry(pointers: int):
-    """`pointers` device pointers, then (bh, s, d, dtype), then the
-    stream; returns a cudaError_t."""
+def _entry(pointers: int, ints: int = 4):
+    """`pointers` device pointers, then `ints` ints — (bh, s, d, dtype),
+    or (bh, s_q, s_k, d, causal, dtype) for a rectangular kernel — then
+    the stream; returns a cudaError_t."""
     return (
-        [ctypes.c_void_p] * pointers + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+        [ctypes.c_void_p] * pointers + [ctypes.c_int] * ints + [ctypes.c_void_p],
         ctypes.c_int,
     )
 
@@ -46,11 +47,20 @@ def _entry(pointers: int):
 _ERROR_STRING = {"kftpu_error_string": ([ctypes.c_int], ctypes.c_char_p)}
 # The C entry points of each library: name → (argtypes, restype).
 _SIGNATURES = {
-    "flash_fwd": {"kftpu_flash_fwd": _entry(5), **_ERROR_STRING},
+    "flash_fwd": {
+        "kftpu_flash_fwd": _entry(5),
+        "kftpu_flash_fwd_rect": _entry(5, 6),
+        **_ERROR_STRING,
+    },
     "flash_delta": {"kftpu_flash_delta": _entry(3), **_ERROR_STRING},
-    "flash_bwd_dq": {"kftpu_flash_bwd_dq": _entry(7), **_ERROR_STRING},
+    "flash_bwd_dq": {
+        "kftpu_flash_bwd_dq": _entry(7),
+        "kftpu_flash_bwd_dq_rect": _entry(7, 6),
+        **_ERROR_STRING,
+    },
     "flash_bwd_dkv": {
         "kftpu_flash_bwd_dkv": _entry(8),
+        "kftpu_flash_bwd_dkv_rect": _entry(8, 6),
         "kftpu_flash_bwd_fused": _entry(10),
         **_ERROR_STRING,
     },

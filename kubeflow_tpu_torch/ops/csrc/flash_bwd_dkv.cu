@@ -1,38 +1,49 @@
-// Causal flash-attention backward for Hopper (sm_90a), CUDA C++: dk and
-// dv of the two-pass schedule, and the fused one-pass dq/dk/dv.
+// Flash-attention backward for Hopper (sm_90a), CUDA C++: dk and dv of
+// the two-pass schedule (causal and rectangular), and the fused one-pass
+// dq/dk/dv.
 //
-// Replaces two TPU kernels of kubeflow_tpu/ops/flash.py:
-//  - _dkv_kernel_compact (body _dkv_body): for each key, dv = sum over
-//    query rows q_pos >= k_pos of p * dO and dk = scale * sum of ds * q,
-//    with p = exp(s - lse) (0 where masked), dp = dO . v^T and
+// Replaces three TPU kernels of kubeflow_tpu/ops/flash.py:
+//  - _dkv_kernel_compact (body _dkv_body; entry kftpu_flash_bwd_dkv):
+//    causal self-attention; for each key, dv = sum over query rows
+//    q_pos >= k_pos of p * dO and dk = scale * sum of ds * q, with
+//    p = exp(s - lse) (0 where masked), dp = dO . v^T and
 //    ds = p * (dp - delta);
-//  - _dqkv_kernel_fused: the same column walk, which also hands each
-//    step's dq contribution ds . k to dq, so s, p and ds are computed once
-//    for all three gradients (5 tile products a step instead of the
-//    two-pass schedule's 7).
-// q, k, v, dO and the gradients are [BH, S, D] in the input dtype; lse
-// and delta are [BH, S] float32 (delta from flash_delta.cu).
+//  - _dkv_kernel (body _dkv_body; entry kftpu_flash_bwd_dkv_rect): the
+//    rectangular grid, q and dO [BH, S_q, D] against k, v, dk and dv
+//    [BH, S_k, D], every query row when non-causal, the rows with
+//    q_pos >= k_pos (top-left, no offset) when causal. It runs in the
+//    backward of every full hop of ring flash attention;
+//  - _dqkv_kernel_fused (entry kftpu_flash_bwd_fused): the causal column
+//    walk, which also hands each step's dq contribution ds . k to dq, so
+//    s, p and ds are computed once for all three gradients (5 tile
+//    products a step instead of the two-pass schedule's 7).
+// The gradients are in the input dtype; lse and delta are [BH, S_q]
+// float32, the q side's (delta from flash_delta.cu).
 //
-// The TPU runs the triangle column-major on a sequential grid, so its
-// fused kernel keeps dq in a VMEM ring and seeds it with a store at
-// column 0. Here one thread block owns one (bh, 32-key tile), holds that
-// tile's k^T and v^T in shared memory and its dk and dv in registers, and
-// loops over the 64-row q tiles from the diagonal down. Blocks of one
-// head run at once, so in the fused kernel every block adds its dq
-// contribution into a zeroed [BH, S, D] float32 buffer with float32
-// atomicAdd; a last pass scales that buffer and casts it to dq. The sum's
+// The TPU runs its grid column-major and in order, so its fused kernel
+// keeps dq in a VMEM ring and seeds it with a store at column 0, and its
+// rectangular kernel predicates off the blocks above the diagonal and
+// clamps their DMAs. Here one thread block owns one (bh, 32-key tile),
+// holds that tile's k^T and v^T in shared memory and its dk and dv in
+// registers, and loops over the 64-row q tiles: from the diagonal down
+// when causal (that start replaces the predicate and the clamps), all of
+// them when not. Blocks of one head run at once, so in the fused kernel
+// every block adds its dq contribution into a zeroed [BH, S, D] float32
+// buffer with float32 atomicAdd; a last pass scales that buffer and
+// casts it to dq. The sum's
 // order, and so its last bits, changes from run to run; the two-pass
 // kernels (this one with kFused = false, and flash_bwd_dq.cu) are
-// deterministic and are its oracle. Keys and rows past S are masked in
-// the kernel, so no sequence length needs padding.
+// deterministic and are its oracle. Keys past S_k and rows past S_q are
+// masked in the kernel, so no sequence length needs padding.
 //
-// What bounds it: 8 FLOP per causal pair per head dim for dk/dv (s, dp,
+// What bounds it: 8 FLOP per unmasked pair per head dim for dk/dv (s, dp,
 // dv, dk products), 10 for the fused kernel (plus dq): 1.4e11 and 1.7e11
-// FLOP at the training shape (B=8, S=2048, H=8, D=128) against ~100 MB of
-// traffic, so compute-bound, spent on float32 FMAs on the CUDA cores as in
-// flash_fwd.cu. A 32-key tile keeps dk and dv (2 x 2 x D/8 floats a
-// thread) in registers beside the 2 x 8 tiles of s and dp; a 64-key tile
-// would need twice that. The fused kernel's atomics add 64 x D float32
+// FLOP at the training shape (B=8, S=2048, H=8, D=128), 1.4e11 for dk/dv
+// at a full ring hop (B=1, S_q = S_k = 4096, H=8, D=128), against 201,
+// 235 and 50 MB of bf16 traffic, so compute-bound, spent on float32 FMAs
+// on the CUDA cores as in flash_fwd.cu. A 32-key tile keeps dk and dv
+// (2 x 2 x D/8 floats a thread) in registers beside the 2 x 8 tiles of s
+// and dp; a 64-key tile would need twice that. The fused kernel's atomics add 64 x D float32
 // values per step into L2, as 16-byte vector reductions (1.4e8 at the
 // training shape); scalar atomics made it 18% slower (13.72 against
 // 11.67 ms in two runs of chip_smoke.py on an H100 80GB HBM3 at 700 W,
@@ -68,14 +79,22 @@ constexpr size_t smem_bytes() {
          + (kFused ? (size_t)kBK * D * sizeof(T) : 0);  // k
 }
 
-template <typename T, int D, bool kFused>
+// kRect = false: causal self-attention with S_k = S_q, fixed at compile
+// time (the compact case; kCausal must be true). kRect = true: q and dO
+// [BH, S_q, D] against k, v, dk, dv [BH, S_k, D], with the top-left causal
+// mask (q_pos >= k_pos, no offset) when kCausal. kFused needs the compact
+// case.
+template <typename T, int D, bool kRect, bool kCausal, bool kFused>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ dout,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, T* __restrict__ dk,
-                     T* __restrict__ dv, float* __restrict__ dq_acc, int S,
-                     float scale) {
+                     T* __restrict__ dv, float* __restrict__ dq_acc, int Sq,
+                     int Sk_arg, float scale) {
+  static_assert(!(kRect && kFused), "the fused kernel walks the causal triangle");
+  static_assert(kRect || kCausal, "the compact case is causal");
+  const int Sk = kRect ? Sk_arg : Sq;
   constexpr int kChunks = D / 64;  // 8-column output chunks per thread
   extern __shared__ __align__(16) unsigned char smem[];
   T* sKT = reinterpret_cast<T*>(smem);
@@ -91,15 +110,16 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   T* sK = reinterpret_cast<T*>(sDelta + kBQ);  // kFused only
 
   const int k0 = blockIdx.x * kBK;  // heaviest (longest column) first
-  const size_t head = (size_t)blockIdx.y * S * D;
-  q += head;
-  k += head;
-  v += head;
-  dout += head;
-  dk += head;
-  dv += head;
-  lse += (size_t)blockIdx.y * S;
-  delta += (size_t)blockIdx.y * S;
+  const size_t q_head = (size_t)blockIdx.y * Sq * D;
+  const size_t k_head = kRect ? (size_t)blockIdx.y * Sk * D : q_head;
+  q += q_head;
+  k += k_head;
+  v += k_head;
+  dout += q_head;
+  dk += k_head;
+  dv += k_head;
+  lse += (size_t)blockIdx.y * Sq;
+  delta += (size_t)blockIdx.y * Sq;
 
   // Score tiles are held transposed, s^T[key][row]: thread (kp, tc) owns
   // keys kr..kr+1 and rows tc*8..+7 of each q tile, and, per 64-column
@@ -107,9 +127,9 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tc = threadIdx.x & 7;
   const int kr = (threadIdx.x >> 3) * 2;
 
-  kftpu::load_tile<T, D, kBK, kThreads, true>(k, k0, S, sKT, kKS);
-  kftpu::load_tile<T, D, kBK, kThreads, true>(v, k0, S, sVT, kKS);
-  if (kFused) kftpu::load_tile<T, D, kBK, kThreads, false>(k, k0, S, sK, D);
+  kftpu::load_tile<T, D, kBK, kThreads, true>(k, k0, Sk, sKT, kKS);
+  kftpu::load_tile<T, D, kBK, kThreads, true>(v, k0, Sk, sVT, kKS);
+  if (kFused) kftpu::load_tile<T, D, kBK, kThreads, false>(k, k0, Sk, sK, D);
 
   float dk_acc[2][kChunks * 8], dv_acc[2][kChunks * 8];
 #pragma unroll
@@ -117,18 +137,18 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < kChunks * 8; ++c) dk_acc[x][c] = dv_acc[x][c] = 0.f;
 
-  // Rows above this tile's first key see none of its keys.
-  for (int q0 = (k0 / kBQ) * kBQ; q0 < S; q0 += kBQ) {
+  // Causal: rows above this tile's first key see none of its keys.
+  for (int q0 = kCausal ? (k0 / kBQ) * kBQ : 0; q0 < Sq; q0 += kBQ) {
     __syncthreads();  // the previous step's reads are done
-    kftpu::load_tile<T, D, kBQ, kThreads, true>(q, q0, S, sQT, kQS);
-    kftpu::load_tile<T, D, kBQ, kThreads, true>(dout, q0, S, sDoT, kQS);
-    kftpu::load_tile<T, D, kBQ, kThreads, false>(q, q0, S, sQ, D);
-    kftpu::load_tile<T, D, kBQ, kThreads, false>(dout, q0, S, sDo, D);
+    kftpu::load_tile<T, D, kBQ, kThreads, true>(q, q0, Sq, sQT, kQS);
+    kftpu::load_tile<T, D, kBQ, kThreads, true>(dout, q0, Sq, sDoT, kQS);
+    kftpu::load_tile<T, D, kBQ, kThreads, false>(q, q0, Sq, sQ, D);
+    kftpu::load_tile<T, D, kBQ, kThreads, false>(dout, q0, Sq, sDo, D);
     for (int r = threadIdx.x; r < kBQ; r += kThreads) {
       const int q_pos = q0 + r;
-      // Rows past S have no lse; +inf makes their p exactly 0.
-      sLse[r] = q_pos < S ? lse[q_pos] : INFINITY;
-      sDelta[r] = q_pos < S ? delta[q_pos] : 0.f;
+      // Rows past S_q have no lse; +inf makes their p exactly 0.
+      sLse[r] = q_pos < Sq ? lse[q_pos] : INFINITY;
+      sDelta[r] = q_pos < Sq ? delta[q_pos] : 0.f;
     }
     __syncthreads();
 
@@ -159,8 +179,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int r = tc * 8 + j;
-        const float p = (q0 + r >= k_pos && k_pos < S)
-                            ? expf(st[x][j] * scale - sLse[r]) : 0.f;
+        const bool seen = (!kCausal || q0 + r >= k_pos) && k_pos < Sk;
+        const float p = seen ? expf(st[x][j] * scale - sLse[r]) : 0.f;
         sPT[(kr + x) * kPS + r] = p;
         sDsT[(kr + x) * kPS + r] = p * (dpt[x][j] - sDelta[r]);
       }
@@ -197,7 +217,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       // dq[row] += ds[row][key] . k[key]: thread (rg, tc) adds rows
       // r0..r0+3, columns h*64 + tc*8..+7, over this tile's 32 keys.
       const int r0 = (threadIdx.x >> 3) * 4;
-      float* dq_rows = dq_acc + head + (size_t)q0 * D;
+      float* dq_rows = dq_acc + q_head + (size_t)q0 * D;
 #pragma unroll
       for (int h = 0; h < kChunks; ++h) {
         float part[4][8];
@@ -217,7 +237,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         }
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          if (q0 + r0 + i >= S) continue;
+          if (q0 + r0 + i >= Sq) continue;
           float* dst = dq_rows + (size_t)(r0 + i) * D + h * 64 + tc * 8;
           // One 16-byte reduction per 4 columns (sm_90's vector
           // atomicAdd on global memory): a quarter of the atomic ops.
@@ -233,7 +253,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int x = 0; x < 2; ++x) {
     const int k_pos = k0 + kr + x;
-    if (k_pos >= S) continue;
+    if (k_pos >= Sk) continue;
 #pragma unroll
     for (int h = 0; h < kChunks; ++h) {
       float outk[8], outv[8];
@@ -262,18 +282,33 @@ flash_dq_scale_kernel(const float* __restrict__ dq_acc, T* __restrict__ dq,
   store8(dq + i * 8, f);
 }
 
-template <typename T, int D, bool kFused>
+template <typename T, int D, bool kRect, bool kCausal, bool kFused>
 int launch(const void* q, const void* k, const void* v, const void* dout,
            const void* lse, const void* delta, void* dk, void* dv,
-           float* dq_acc, int bh, int s, cudaStream_t stream) {
-  const dim3 grid((s + kBK - 1) / kBK, bh);
+           float* dq_acc, int bh, int sq, int sk, cudaStream_t stream) {
+  const dim3 grid((sk + kBK - 1) / kBK, bh);
   return kftpu::launch_kernel(
-      flash_bwd_dkv_kernel<T, D, kFused>, grid, kThreads,
+      flash_bwd_dkv_kernel<T, D, kRect, kCausal, kFused>, grid, kThreads,
       smem_bytes<T, D, kFused>(), stream, static_cast<const T*>(q),
       static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<T*>(dk),
-      static_cast<T*>(dv), dq_acc, s, 1.0f / sqrtf((float)D));
+      static_cast<T*>(dv), dq_acc, sq, sk, 1.0f / sqrtf((float)D));
+}
+
+template <bool kRect, bool kCausal>
+int dispatch(const void* q, const void* k, const void* v, const void* dout,
+             const void* lse, const void* delta, void* dk, void* dv, int bh,
+             int sq, int sk, int d, int dtype, cudaStream_t st) {
+  if (dtype == 1 && d == 128)
+    return launch<__nv_bfloat16, 128, kRect, kCausal, false>(q, k, v, dout, lse, delta, dk, dv, nullptr, bh, sq, sk, st);
+  if (dtype == 1 && d == 64)
+    return launch<__nv_bfloat16, 64, kRect, kCausal, false>(q, k, v, dout, lse, delta, dk, dv, nullptr, bh, sq, sk, st);
+  if (dtype == 0 && d == 128)
+    return launch<float, 128, kRect, kCausal, false>(q, k, v, dout, lse, delta, dk, dv, nullptr, bh, sq, sk, st);
+  if (dtype == 0 && d == 64)
+    return launch<float, 64, kRect, kCausal, false>(q, k, v, dout, lse, delta, dk, dv, nullptr, bh, sq, sk, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 template <typename T, int D>
@@ -284,7 +319,8 @@ int launch_fused(const void* q, const void* k, const void* v, const void* dout,
   float* acc = static_cast<float*>(dq_acc);
   cudaError_t err = cudaMemsetAsync(acc, 0, (size_t)n * sizeof(float), stream);
   if (err != cudaSuccess) return (int)err;
-  const int rc = launch<T, D, true>(q, k, v, dout, lse, delta, dk, dv, acc, bh, s, stream);
+  const int rc = launch<T, D, false, true, true>(q, k, v, dout, lse, delta, dk,
+                                                 dv, acc, bh, s, s, stream);
   if (rc) return rc;
   const long long n8 = n / 8;
   return kftpu::launch_kernel(flash_dq_scale_kernel<T>,
@@ -305,16 +341,25 @@ extern "C" int kftpu_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                    void* stream) {
   if (bh <= 0 || s <= 0) return (int)cudaSuccess;
   if (bh > 65535) return (int)cudaErrorInvalidValue;
+  return dispatch<false, true>(q, k, v, dout, lse, delta, dk, dv, bh, s, s, d,
+                               dtype, static_cast<cudaStream_t>(stream));
+}
+
+// The rectangular dk/dv: q and dout [bh, sq, d], k, v, dk and dv
+// [bh, sk, d], lse and delta [bh, sq] float32; causal != 0 masks
+// k_pos > q_pos (top-left, no offset). Otherwise as kftpu_flash_bwd_dkv.
+extern "C" int kftpu_flash_bwd_dkv_rect(const void* q, const void* k,
+                                        const void* v, const void* dout,
+                                        const void* lse, const void* delta,
+                                        void* dk, void* dv, int bh, int sq,
+                                        int sk, int d, int causal, int dtype,
+                                        void* stream) {
+  if (bh <= 0 || sk <= 0) return (int)cudaSuccess;
+  if (bh > 65535 || sq < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1 && d == 128)
-    return launch<__nv_bfloat16, 128, false>(q, k, v, dout, lse, delta, dk, dv, nullptr, bh, s, st);
-  if (dtype == 1 && d == 64)
-    return launch<__nv_bfloat16, 64, false>(q, k, v, dout, lse, delta, dk, dv, nullptr, bh, s, st);
-  if (dtype == 0 && d == 128)
-    return launch<float, 128, false>(q, k, v, dout, lse, delta, dk, dv, nullptr, bh, s, st);
-  if (dtype == 0 && d == 64)
-    return launch<float, 64, false>(q, k, v, dout, lse, delta, dk, dv, nullptr, bh, s, st);
-  return (int)cudaErrorInvalidValue;
+  if (causal)
+    return dispatch<true, true>(q, k, v, dout, lse, delta, dk, dv, bh, sq, sk, d, dtype, st);
+  return dispatch<true, false>(q, k, v, dout, lse, delta, dk, dv, bh, sq, sk, d, dtype, st);
 }
 
 // As kftpu_flash_bwd_dkv, and also dq ([bh, s, d], input dtype), through

@@ -1,18 +1,29 @@
-// Causal flash-attention forward for Hopper (sm_90a), CUDA C++.
+// Flash-attention forward for Hopper (sm_90a), CUDA C++: the causal
+// kernel and the rectangular one (causal or not), instantiations of one
+// template.
 //
-// Replaces the TPU kernel kubeflow_tpu/ops/flash.py:_fwd_kernel_compact
-// (body _fwd_body): causal self-attention over q, k, v laid out
-// [BH, S, D], writing O in the input dtype and lse = m + log l as a
-// plain [BH, S] float32 array (-inf where a row saw no key).
+// Replaces two TPU kernels of kubeflow_tpu/ops/flash.py, both with the
+// body _fwd_body:
+//  - _fwd_kernel_compact (entry kftpu_flash_fwd): causal self-attention
+//    over q, k, v laid out [BH, S, D];
+//  - _fwd_kernel (entry kftpu_flash_fwd_rect): the rectangular grid, q
+//    [BH, S_q, D] against k, v [BH, S_k, D], non-causal or causal with
+//    the TPU kernels' top-left mask q_pos >= k_pos (no s_k - s_q offset).
+//    It runs every full hop of ring flash attention.
+// Both write O in the input dtype and lse = m + log l as a plain
+// [BH, S_q] float32 array (-inf where a row saw no key).
 //
 // What it computes is _fwd_body's function, not its block schedule. The
-// TPU walks a sequential grid over lower-triangular (i, j) block pairs
-// read from two lookup tables, carrying m, l and acc in VMEM scratch
-// from step to step. Here one thread block owns one (bh, 64-row q tile)
-// and loops over the 64-key tiles up to the diagonal: the causal loop
-// bound replaces the tables, so there is no step cap, and the running
-// m, l and acc stay in registers for the whole loop. Keys past S are
-// masked in the kernel (k_pos < S), so no sequence length needs padding.
+// TPU walks a sequential grid over (i, j) block pairs — lower-triangular
+// pairs from two lookup tables, or the whole rectangle with the blocks
+// above the diagonal predicated off and their DMAs clamped
+// (_clamp_j/_clamp_i) — carrying m, l and acc in VMEM scratch from step
+// to step. Here one thread block owns one (bh, 64-row q tile) and loops
+// over the 64-key tiles: all of them when non-causal, up to the diagonal
+// when causal. That loop bound replaces the tables, the predicate and
+// the clamps, so there is no step cap, and the running m, l and acc stay
+// in registers for the whole loop. Keys past S_k and rows past S_q are
+// masked in the kernel, so no sequence length needs padding.
 //
 // Numerics follow _fwd_body: s = (q.k) * (1/sqrt(d)) and p.v in float32
 // on float32 copies of the bf16/f32 inputs; the online softmax with its
@@ -22,21 +33,23 @@
 // What bounds it. At the serving shape (B=4, S=2048, H=8, D=128, bf16)
 // causal attention is 4*BH*D*S(S+1)/2 = 3.4e10 FLOP against 67 MB of
 // q/k/v/o traffic: ~500 FLOP per byte, above the H100's ~295 FLOP/byte
-// ridge, so it is compute-bound. This first version spends that compute
-// on float32 FMAs in the CUDA cores (67 TFLOP/s peak), the closest match
-// to the TPU kernel's float32 products, and not on the bf16 tensor cores
-// (989 TFLOP/s): its floor is ~15x the tensor-core bound. The design
-// keeps the FMA units fed rather than the memory: each thread holds a
-// 4x8 tile of scores and a 4x(D/8) tile of the output in registers, so
-// one 8-byte q load and one 16-byte k load feed 32 FMAs, and every q/k/v
-// element is read from device memory once per tile that needs it. The
-// tiles sit in shared memory transposed (q^T, k^T, p^T) so that the
-// inner loops read contiguous 8- and 16-byte vectors without bank
-// conflicts. Heaviest q tiles (most key tiles) launch first to even out
-// the causal triangle. Measured on an H100 80GB HBM3 at 700 W
-// (chip_smoke.py): 1.87 ms at the serving shape, 18.4 TFLOP/s, against a
-// 0.035 ms tensor-core bound. Tensor cores (mma/wgmma on bf16 tiles), TMA
-// loads and warp specialisation are later work.
+// ridge, so it is compute-bound; a full ring hop (S_q = S_k = 4096,
+// non-causal) is 4*BH*D*S_q*S_k, ~2000 FLOP per byte, more so. This first
+// version spends that compute on float32 FMAs in the CUDA cores (67
+// TFLOP/s peak), the closest match to the TPU kernel's float32 products,
+// and not on the bf16 tensor cores (989 TFLOP/s): its floor is ~15x the
+// tensor-core bound. The design keeps the FMA units fed rather than the
+// memory: each thread holds a 4x8 tile of scores and a 4x(D/8) tile of
+// the output in registers, so one 8-byte q load and one 16-byte k load
+// feed 32 FMAs, and every q/k/v element is read from device memory once
+// per tile that needs it. The tiles sit in shared memory transposed
+// (q^T, k^T, p^T) so that the inner loops read contiguous 8- and 16-byte
+// vectors without bank conflicts. Under the causal bound the heaviest q
+// tiles (most key tiles) launch first to even out the triangle. Measured
+// on an H100 80GB HBM3 at 700 W (chip_smoke.py): 1.87 ms at the serving
+// shape, 18.4 TFLOP/s, against a 0.035 ms tensor-core bound. Tensor cores
+// (mma/wgmma on bf16 tiles), TMA loads and warp specialisation are later
+// work.
 
 #include <math.h>
 
@@ -69,11 +82,18 @@ constexpr size_t smem_bytes() {
          + (size_t)kBK * kPS * sizeof(float);    // p^T
 }
 
-template <typename T, int D>
+// kRect = false: causal self-attention with S_k = S_q, fixed at compile
+// time (the compact case; kCausal must be true). kRect = true: q [BH, S_q,
+// D] against k, v [BH, S_k, D], with the top-left causal mask (q_pos >=
+// k_pos, no offset) when kCausal.
+template <typename T, int D, bool kRect, bool kCausal>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, int S, float scale) {
+                 float* __restrict__ lse, int Sq, int Sk_arg,
+                 float scale) {
+  static_assert(kRect || kCausal, "the compact case is causal");
+  const int Sk = kRect ? Sk_arg : Sq;
   constexpr int kQS = kBQ + kPad;
   constexpr int kKS = kBK + kPad;
   constexpr int kChunks = D / 64;  // 8-column output chunks per thread
@@ -85,21 +105,22 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   T* sV = sKT + D * kKS;
   float* sPT = reinterpret_cast<float*>(sV + kBK * D);
 
-  const int n_tiles = (S + kBQ - 1) / kBQ;
+  const int n_tiles = (Sq + kBQ - 1) / kBQ;
   const int q0 = (n_tiles - 1 - (int)blockIdx.x) * kBQ;  // heaviest first
-  const size_t head = (size_t)blockIdx.y * S * D;
-  q += head;
-  k += head;
-  v += head;
-  o += head;
-  lse += (size_t)blockIdx.y * S;
+  const size_t q_head = (size_t)blockIdx.y * Sq * D;
+  const size_t k_head = kRect ? (size_t)blockIdx.y * Sk * D : q_head;
+  q += q_head;
+  k += k_head;
+  v += k_head;
+  o += q_head;
+  lse += (size_t)blockIdx.y * Sq;
 
   // Thread (rg, tc) owns score rows r0..r0+3 and, per 64-column chunk h,
   // columns h*64 + tc*8 .. +7: a row's 8 lanes are adjacent in one warp.
   const int tc = threadIdx.x & 7;
   const int r0 = (threadIdx.x >> 3) * 4;
 
-  load_tile<T, D, true>(q, q0, S, sQT, kQS);
+  load_tile<T, D, true>(q, q0, Sq, sQT, kQS);
 
   float m[4], l[4], acc[4][kChunks * 8];
 #pragma unroll
@@ -111,11 +132,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   // Causal loop bound: no row of this tile sees a key past its last row.
-  const int k_end = min(S, q0 + kBQ);
+  const int k_end = kCausal ? min(Sk, q0 + kBQ) : Sk;
   for (int k0 = 0; k0 < k_end; k0 += kBK) {
     __syncthreads();  // the previous tile's k^T/v reads are done
-    load_tile<T, D, true>(k, k0, S, sKT, kKS);
-    load_tile<T, D, false>(v, k0, S, sV, D);
+    load_tile<T, D, true>(k, k0, Sk, sKT, kKS);
+    load_tile<T, D, false>(v, k0, Sk, sV, D);
     __syncthreads();
 
     float s[4][8];
@@ -141,7 +162,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int k_pos = k0 + tc * 8 + j;
-        const float x = (k_pos <= q_pos && k_pos < S) ? s[i][j] * scale : kNegInf;
+        const bool seen = (!kCausal || k_pos <= q_pos) && k_pos < Sk;
+        const float x = seen ? s[i][j] * scale : kNegInf;
         s[i][j] = x;
         mx = fmaxf(mx, x);
       }
@@ -192,7 +214,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int q_pos = q0 + r0 + i;
-    if (q_pos >= S) continue;
+    if (q_pos >= Sq) continue;
     const float safe_l = l[i] == 0.f ? 1.f : l[i];
 #pragma unroll
     for (int h = 0; h < kChunks; ++h) {
@@ -205,20 +227,29 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kRect, bool kCausal>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse,
-           int bh, int s, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<T, D>();
-  auto kernel = flash_fwd_kernel<T, D>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((s + kBQ - 1) / kBQ, bh);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
-      s, 1.0f / sqrtf((float)D));
-  return (int)cudaGetLastError();
+           int bh, int sq, int sk, cudaStream_t stream) {
+  const dim3 grid((sq + kBQ - 1) / kBQ, bh);
+  return kftpu::launch_kernel(
+      flash_fwd_kernel<T, D, kRect, kCausal>, grid, kThreads,
+      smem_bytes<T, D>(), stream, static_cast<const T*>(q),
+      static_cast<const T*>(k), static_cast<const T*>(v), static_cast<T*>(o),
+      static_cast<float*>(lse), sq, sk, 1.0f / sqrtf((float)D));
+}
+
+template <bool kRect, bool kCausal>
+int dispatch(const void* q, const void* k, const void* v, void* o, void* lse,
+             int bh, int sq, int sk, int d, int dtype, cudaStream_t st) {
+  if (dtype == 1 && d == 128)
+    return launch<__nv_bfloat16, 128, kRect, kCausal>(q, k, v, o, lse, bh, sq, sk, st);
+  if (dtype == 1 && d == 64)
+    return launch<__nv_bfloat16, 64, kRect, kCausal>(q, k, v, o, lse, bh, sq, sk, st);
+  if (dtype == 0 && d == 128)
+    return launch<float, 128, kRect, kCausal>(q, k, v, o, lse, bh, sq, sk, st);
+  if (dtype == 0 && d == 64)
+    return launch<float, 64, kRect, kCausal>(q, k, v, o, lse, bh, sq, sk, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -231,10 +262,20 @@ extern "C" int kftpu_flash_fwd(const void* q, const void* k, const void* v,
                                int dtype, void* stream) {
   if (bh <= 0 || s <= 0) return (int)cudaSuccess;
   if (bh > 65535) return (int)cudaErrorInvalidValue;
+  return dispatch<false, true>(q, k, v, o, lse, bh, s, s, d, dtype,
+                               static_cast<cudaStream_t>(stream));
+}
+
+// The rectangular forward: q and o [bh, sq, d], k and v [bh, sk, d], lse
+// [bh, sq] float32; causal != 0 masks k_pos > q_pos (top-left, no
+// offset). Otherwise as kftpu_flash_fwd.
+extern "C" int kftpu_flash_fwd_rect(const void* q, const void* k,
+                                    const void* v, void* o, void* lse, int bh,
+                                    int sq, int sk, int d, int causal,
+                                    int dtype, void* stream) {
+  if (bh <= 0 || sq <= 0) return (int)cudaSuccess;
+  if (bh > 65535 || sk < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1 && d == 128) return launch<__nv_bfloat16, 128>(q, k, v, o, lse, bh, s, st);
-  if (dtype == 1 && d == 64) return launch<__nv_bfloat16, 64>(q, k, v, o, lse, bh, s, st);
-  if (dtype == 0 && d == 128) return launch<float, 128>(q, k, v, o, lse, bh, s, st);
-  if (dtype == 0 && d == 64) return launch<float, 64>(q, k, v, o, lse, bh, s, st);
-  return (int)cudaErrorInvalidValue;
+  if (causal) return dispatch<true, true>(q, k, v, o, lse, bh, sq, sk, d, dtype, st);
+  return dispatch<true, false>(q, k, v, o, lse, bh, sq, sk, d, dtype, st);
 }

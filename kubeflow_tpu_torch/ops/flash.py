@@ -8,23 +8,30 @@ the JAX schedule — `_pick_block`, pad-to-128 plus the ``kv_len`` tail
 mask, the lower-triangular (or predicated rectangular) block walk — with
 the same masks, guards and float32 math:
 
-| TPU kernel | CUDA kernel | plain version |
+| TPU kernel | CUDA kernel (launch counter) | plain version |
 |---|---|---|
-| `_fwd_kernel_compact` | ``csrc/flash_fwd.cu`` | `flash_attention_reference` |
-| `_delta_kernel` | ``csrc/flash_delta.cu`` | `flash_delta_reference` |
-| `_dq_kernel_compact` | ``csrc/flash_bwd_dq.cu`` | `flash_bwd_reference` |
-| `_dkv_kernel_compact` | ``csrc/flash_bwd_dkv.cu`` | `flash_bwd_reference` |
-| `_dqkv_kernel_fused` | ``csrc/flash_bwd_dkv.cu`` | `flash_bwd_fused_reference` |
+| `_fwd_kernel_compact` | ``csrc/flash_fwd.cu`` (flash_fwd) | `flash_attention_reference` |
+| `_fwd_kernel` | ``csrc/flash_fwd.cu`` (flash_fwd_rect) | `flash_attention_reference` |
+| `_delta_kernel` | ``csrc/flash_delta.cu`` (flash_delta) | `flash_delta_reference` |
+| `_dq_kernel_compact` | ``csrc/flash_bwd_dq.cu`` (flash_bwd_dq) | `flash_bwd_reference` |
+| `_dq_kernel` | ``csrc/flash_bwd_dq.cu`` (flash_bwd_dq_rect) | `flash_bwd_reference` |
+| `_dkv_kernel_compact` | ``csrc/flash_bwd_dkv.cu`` (flash_bwd_dkv) | `flash_bwd_reference` |
+| `_dkv_kernel` | ``csrc/flash_bwd_dkv.cu`` (flash_bwd_dkv_rect) | `flash_bwd_reference` |
+| `_dqkv_kernel_fused` | ``csrc/flash_bwd_dkv.cu`` (flash_bwd_fused) | `flash_bwd_fused_reference` |
 
 The wrappers `flash_fwd`, `flash_delta` and `flash_bwd_kernels` are the
 dispatch points: CPU tensors go to the plain versions, CUDA tensors to
-the kernels (or an error). `FlashAttentionFunction` ties them into
-autograd, and `flash_attention` runs through it on every device. The
-kernels cover what `TransformerLM` runs: causal self-attention, any S
-(they mask their own ragged edge, so nothing is padded on CUDA), D of 64
-or 128, bf16 or f32. Not ported yet (ROADMAP Queue 2): the rectangular
-`_fwd_kernel`, `_dq_kernel` and `_dkv_kernel` (non-causal, s_q != s_k)
-and ring flash.
+the kernels (or an error). Causal self-attention takes the causal
+kernels; non-causal attention and s_q != s_k (with the TPU kernels'
+top-left causal mask, q_pos >= k_pos and no offset) take the
+rectangular ones. The kernels take any lengths (they mask their own
+ragged edges, so nothing is padded on CUDA), D of 64 or 128, bf16 or
+f32. `FlashAttentionFunction` ties them into autograd, and
+`flash_attention` runs through it on every device.
+
+Ring flash attention (`ring_flash_attention`, sequence parallelism over
+a mesh's sp ring) composes these kernels: each hop runs the causal ones
+on its own chunk and the rectangular ones on an earlier rank's chunk.
 """
 
 from __future__ import annotations
@@ -35,6 +42,8 @@ import os
 import torch
 
 from kubeflow_tpu_torch.ops import _kernels
+from kubeflow_tpu_torch.ops.attention import _check_ring_batch, _rotate
+from kubeflow_tpu_torch.parallel.collectives import axis_size
 
 _NEG_INF = float("-inf")
 _LANES = 128
@@ -227,7 +236,8 @@ def flash_bwd_reference(
     block_k: int = 1024,
 ):
     """The two-pass backward in plain PyTorch: (dq, dk, dv) in the input
-    dtypes from q, k, v, dO [BH, S, D] and lse, delta [BH, S] float32.
+    dtypes from q, dO [BH, S_q, D], k, v [BH, S_k, D] and lse, delta
+    [BH, S_q] float32.
 
     dq runs row-major over the key blocks j <= i (`_dq_body`), dk and dv
     column-major over the query blocks i >= j (`_dkv_body`), each on the
@@ -318,12 +328,20 @@ def _on_cpu(x) -> bool:
 
 
 def _check_kernel_inputs(*tensors, names="qkv", kernel: str = "flash_fwd") -> None:
-    """What the CUDA kernels take: [BH, S, D] tensors of one shape, dtype
-    and device, contiguous and 16-byte aligned, bf16 or f32, D 64 or 128."""
+    """What the CUDA kernels take: q, dO (and o) of one [BH, S_q, D]
+    shape, k and v of one [BH, S_k, D] shape, all of one dtype and
+    device, contiguous and 16-byte aligned, bf16 or f32, D 64 or 128."""
     first = tensors[0]
-    if first.dim() != 3 or any(t.shape != first.shape for t in tensors):
+    kv = [t.shape for n, t in zip(names, tensors) if n in ("k", "v")]
+    rows = [t.shape for n, t in zip(names, tensors) if n not in ("k", "v")]
+    if (any(t.dim() != 3 for t in tensors)
+            or any(shape != rows[0] for shape in rows)
+            or any(shape != kv[0] for shape in kv)
+            or any(t.shape[0] != first.shape[0] or t.shape[2] != first.shape[2]
+                   for t in tensors)):
         raise ValueError(
-            f"{kernel} kernel: {', '.join(names)} must share one [BH, S, D] "
+            f"{kernel} kernel: {', '.join(n for n in names if n not in ('k', 'v'))} "
+            "must share one [BH, S_q, D] shape and k, v one [BH, S_k, D] "
             f"shape; got {', '.join(str(tuple(t.shape)) for t in tensors)}"
         )
     if first.dtype not in _KERNEL_DTYPES or any(
@@ -368,15 +386,6 @@ def _check_rows(q, lse, delta) -> None:
             )
 
 
-def _check_kernel_shape(causal: bool, sq: int, sk: int) -> None:
-    if not causal or sq != sk:
-        raise NotImplementedError(
-            "the CUDA flash kernels cover causal self-attention only; "
-            "non-causal and s_q != s_k (the TPU's rectangular _fwd_kernel, "
-            "_dq_kernel and _dkv_kernel) are ROADMAP Queue 2, items 5 and 6"
-        )
-
-
 def _launch(library: str, entry: str, counter: str, device, *args) -> None:
     """Calls one C entry point on `device`'s current stream; raises
     `KernelLaunchError` if the runtime refused the launch, else counts
@@ -394,6 +403,12 @@ def _launch(library: str, entry: str, counter: str, device, *args) -> None:
     _kernels.count_launch(counter)
 
 
+def _self_attention(causal: bool, q, k) -> bool:
+    """Causal self-attention: the case the causal kernels (and the TPU's
+    compact grid) cover; everything else is rectangular."""
+    return causal and q.shape[1] == k.shape[1]
+
+
 def _flash_fwd_cuda(q, k, v):
     _check_kernel_inputs(q, k, v)
     bh, s, d = q.shape
@@ -407,21 +422,36 @@ def _flash_fwd_cuda(q, k, v):
     return o, lse
 
 
+def _flash_fwd_rect_cuda(q, k, v, causal: bool):
+    _check_kernel_inputs(q, k, v)
+    o = torch.empty_like(q)
+    lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
+    _launch(
+        "flash_fwd", "kftpu_flash_fwd_rect", "flash_fwd_rect", q.device,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), *_rect_shape(q, k, causal),
+    )
+    return o, lse
+
+
 def flash_fwd(
     q, k, v, *, causal: bool = True, block_q: int = 1024, block_k: int = 1024
 ):
-    """The wrapper: (o, lse) of flash attention over [BH, S, D] inputs.
+    """The wrapper: (o, lse) of flash attention, q [BH, S_q, D] against
+    k, v [BH, S_k, D].
 
-    CPU tensors run `flash_attention_reference`; CUDA tensors launch the
-    Hopper kernel, which takes causal self-attention only — there is no
-    path from a CUDA tensor to the plain version. The blocks shape the
-    plain version's schedule only; the kernel tiles by its own sizes."""
+    CPU tensors run `flash_attention_reference`; CUDA tensors launch a
+    Hopper kernel — the causal one for causal self-attention, the
+    rectangular one otherwise — and there is no path from a CUDA tensor
+    to the plain version. The blocks shape the plain version's schedule
+    only; the kernels tile by their own sizes."""
     if _on_cpu(q):
         return flash_attention_reference(
             q, k, v, causal=causal, block_q=block_q, block_k=block_k
         )
-    _check_kernel_shape(causal, q.shape[1], k.shape[1])
-    return _flash_fwd_cuda(q, k, v)
+    if _self_attention(causal, q, k):
+        return _flash_fwd_cuda(q, k, v)
+    return _flash_fwd_rect_cuda(q, k, v, causal)
 
 
 # -- the backward dispatch ------------------------------------------------------
@@ -462,8 +492,11 @@ def flash_bwd_kernels(
     ``fused=None`` takes the fused one-pass backward wherever it exists —
     the compact causal grid (on CUDA: causal self-attention) — unless
     ``KFTPU_FLASH_FUSED_BWD=0``; the TPU's VMEM budget has no counterpart.
-    True or False pins a path. CPU tensors run the plain versions, CUDA
-    tensors the kernels (csrc/flash_bwd_dq.cu, csrc/flash_bwd_dkv.cu)."""
+    True or False pins a path; True off the compact grid raises
+    ValueError, as JAX's does. CPU tensors run the plain versions, CUDA
+    tensors the kernels (csrc/flash_bwd_dq.cu, csrc/flash_bwd_dkv.cu): the
+    causal two-pass kernels for causal self-attention, the rectangular
+    ones otherwise."""
     if _on_cpu(q):
         sp_q = _pad_to_tileable(block_q, q.shape[1])
         sp_k = _pad_to_tileable(block_k, k.shape[1])
@@ -478,16 +511,25 @@ def flash_bwd_kernels(
             q, k, v, do, lse, delta, causal=causal, block_q=block_q,
             block_k=block_k,
         )
-    _check_kernel_shape(causal, q.shape[1], k.shape[1])
     _check_kernel_inputs(q, k, v, do, names=("q", "k", "v", "dO"),
                          kernel="flash backward")
     _check_rows(q, lse, delta)
+    compact = _self_attention(causal, q, k)
     if fused is None:
-        fused = _fused_enabled()
+        fused = compact and _fused_enabled()
+    if fused and not compact:
+        raise ValueError(
+            "fused flash backward requires the compact causal grid (causal "
+            f"self-attention); got causal={causal} sq={q.shape[1]} "
+            f"sk={k.shape[1]}"
+        )
     if fused:
         return _flash_bwd_fused_cuda(q, k, v, do, lse, delta)
-    return (_flash_bwd_dq_cuda(q, k, v, do, lse, delta),
-            *_flash_bwd_dkv_cuda(q, k, v, do, lse, delta))
+    if compact:
+        return (_flash_bwd_dq_cuda(q, k, v, do, lse, delta),
+                *_flash_bwd_dkv_cuda(q, k, v, do, lse, delta))
+    return (_flash_bwd_dq_rect_cuda(q, k, v, do, lse, delta, causal),
+            *_flash_bwd_dkv_rect_cuda(q, k, v, do, lse, delta, causal))
 
 
 def _bwd_args(q, k, v, do, lse, delta):
@@ -497,6 +539,12 @@ def _bwd_args(q, k, v, do, lse, delta):
 
 def _bwd_shape(q):
     return (*q.shape, _KERNEL_DTYPES[q.dtype])
+
+
+def _rect_shape(q, k, causal: bool):
+    """(bh, s_q, s_k, d, causal, dtype), the rectangular kernels' ints."""
+    bh, sq, d = q.shape
+    return bh, sq, k.shape[1], d, int(causal), _KERNEL_DTYPES[q.dtype]
 
 
 def _flash_bwd_dq_cuda(q, k, v, do, lse, delta):
@@ -511,6 +559,22 @@ def _flash_bwd_dkv_cuda(q, k, v, do, lse, delta):
     _launch("flash_bwd_dkv", "kftpu_flash_bwd_dkv", "flash_bwd_dkv", q.device,
             *_bwd_args(q, k, v, do, lse, delta), dk.data_ptr(), dv.data_ptr(),
             *_bwd_shape(q))
+    return dk, dv
+
+
+def _flash_bwd_dq_rect_cuda(q, k, v, do, lse, delta, causal: bool):
+    dq = torch.empty_like(q)
+    _launch("flash_bwd_dq", "kftpu_flash_bwd_dq_rect", "flash_bwd_dq_rect",
+            q.device, *_bwd_args(q, k, v, do, lse, delta), dq.data_ptr(),
+            *_rect_shape(q, k, causal))
+    return dq
+
+
+def _flash_bwd_dkv_rect_cuda(q, k, v, do, lse, delta, causal: bool):
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch("flash_bwd_dkv", "kftpu_flash_bwd_dkv_rect", "flash_bwd_dkv_rect",
+            q.device, *_bwd_args(q, k, v, do, lse, delta), dk.data_ptr(),
+            dv.data_ptr(), *_rect_shape(q, k, causal))
     return dk, dv
 
 
@@ -597,3 +661,192 @@ def flash_attention(
     if not return_lse:
         return o
     return o, lse.reshape(b, h, sq)
+
+
+# -- ring flash: sequence-parallel flash attention ----------------------------
+#
+# Counterpart of kubeflow_tpu/ops/flash.py:1294-1560. Each ring position
+# holds one sequence chunk; k/v chunks rotate around the ring
+# (`ops/attention._rotate`) and every hop runs the flash kernels on the
+# local [C, C] tile. Hop kinds: a chunk from an earlier position is a
+# "full" hop (rectangular kernels, causal=False), the position's own
+# chunk the diagonal (causal kernels), a later chunk is skipped under
+# causality. Per-hop (o_i, lse_i) pairs merge in log-sum-exp space in
+# float32; the backward re-walks the ring with the GLOBAL lse and one
+# shared delta = rowsum(dO∘O) of the global output, accumulating dk/dv
+# in the rotating frame and taking them home with one final rotation.
+#
+# The body runs over a leading dimension of the R ring positions this
+# process holds (all n on an in-process ring, one on a process group).
+# The positions of one hop kind are one contiguous run of that dimension
+# and are folded into the kernels' BH dimension: one launch per hop kind.
+
+
+def _hop_index(src: int, my: int) -> int:
+    # 0 = full (earlier chunk), 1 = diagonal (own chunk), 2 = skip
+    # (later chunk — fully masked under causality).
+    return 1 if src == my else (0 if src < my else 2)
+
+
+def _hop_groups(ring, i: int, causal: bool):
+    """[(kernel causal flag, slice of local positions)] of hop i: the
+    full hops, then the diagonal ones; skipped positions are left out."""
+    n = axis_size(ring)
+    kinds = [
+        _hop_index((my - i) % n, my) if causal else 0 for my in ring.ranks
+    ]
+    groups = []
+    for kind, kernel_causal in ((0, False), (1, True)):
+        run = [j for j, x in enumerate(kinds) if x == kind]
+        if not run:
+            continue
+        if run != list(range(run[0], run[-1] + 1)):
+            raise ValueError(f"ring positions {run} of one hop kind are not contiguous")
+        groups.append((kernel_causal, slice(run[0], run[-1] + 1)))
+    return groups
+
+
+def _ring_flash_fwd_pass(q, k, v, ring, causal, bq, bk):
+    """q, k, v [R, BH, C, D] → (o [R, BH, C, D] in q's dtype, the global
+    lse [R, BH, C] float32)."""
+    r, bh, c, d = q.shape
+    acc = torch.zeros(r, bh, c, d, device=q.device)
+    m = torch.full((r, bh, c, 1), _NEG_INF, device=q.device)
+    l = torch.zeros(r, bh, c, 1, device=q.device)
+    k_cur, v_cur = k, v
+    for i in range(axis_size(ring)):
+        for hop_causal, sel in _hop_groups(ring, i, causal):
+            o_i, lse_i = flash_fwd(
+                q[sel].flatten(0, 1), k_cur[sel].flatten(0, 1),
+                v_cur[sel].flatten(0, 1), causal=hop_causal, block_q=bq,
+                block_k=bk,
+            )
+            # Log-sum-exp merge of the hop's normalized output (in q's
+            # dtype) into the running global softmax, in float32.
+            lse_i = lse_i.view(-1, bh, c, 1)
+            m_sel = m[sel]
+            m_new = torch.maximum(m_sel, lse_i)
+            corr = torch.where(m_sel == _NEG_INF, 0.0, torch.exp(m_sel - m_new))
+            w = torch.where(lse_i == _NEG_INF, 0.0, torch.exp(lse_i - m_new))
+            acc[sel] = acc[sel] * corr + w * o_i.view(-1, bh, c, d).float()
+            l[sel] = l[sel] * corr + w
+            m[sel] = m_new
+        if i + 1 < axis_size(ring):
+            k_cur = _rotate(k_cur, ring)
+            v_cur = _rotate(v_cur, ring)
+    safe_l = torch.where(l == 0.0, 1.0, l)
+    o = (acc / safe_l).to(q.dtype)
+    return o, (m + torch.log(safe_l))[..., 0]
+
+
+class RingFlashFunction(torch.autograd.Function):
+    """Counterpart of the custom VJP `_ring_flash_body` (kubeflow_tpu/ops/
+    flash.py:1408-1493): [R, BH, C, D] q, k, v → o; saves (q, k, v, o,
+    lse). The backward runs delta once on the global (o, dO), then per
+    hop `flash_bwd_kernels` with the global lse — the fused kernel on
+    the diagonal (unless ``KFTPU_FLASH_FUSED_BWD=0``), the rectangular dq
+    and dk/dv kernels on full hops — summing each hop's gradients, which
+    come out in the input dtype, in float32."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, ring, causal, block_q, block_k):
+        o, lse = _ring_flash_fwd_pass(q, k, v, ring, causal, block_q, block_k)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.schedule = (ring, causal, block_q, block_k)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        ring, causal, bq, bk = ctx.schedule
+        n = axis_size(ring)
+        r, bh, c, d = q.shape
+        do = do.contiguous()
+        # One delta for the whole ring: it depends only on the global
+        # output and its cotangent, which every hop shares.
+        delta = flash_delta(o.flatten(0, 1), do.flatten(0, 1)).view(r, bh, c)
+        dq = torch.zeros(r, bh, c, d, device=q.device)
+        # dk/dv accumulate in the rotating frame and travel with their
+        # chunk.
+        dk_cur = torch.zeros(r, bh, c, d, device=q.device)
+        dv_cur = torch.zeros(r, bh, c, d, device=q.device)
+        k_cur, v_cur = k, v
+        for i in range(n):
+            for hop_causal, sel in _hop_groups(ring, i, causal):
+                dq_i, dk_i, dv_i = flash_bwd_kernels(
+                    q[sel].flatten(0, 1), k_cur[sel].flatten(0, 1),
+                    v_cur[sel].flatten(0, 1), do[sel].flatten(0, 1),
+                    lse[sel].flatten(0, 1), delta[sel].flatten(0, 1),
+                    causal=hop_causal, block_q=bq, block_k=bk,
+                )
+                dq[sel] += dq_i.view(-1, bh, c, d).float()
+                dk_cur[sel] += dk_i.view(-1, bh, c, d).float()
+                dv_cur[sel] += dv_i.view(-1, bh, c, d).float()
+            if i + 1 < n:
+                k_cur = _rotate(k_cur, ring)
+                v_cur = _rotate(v_cur, ring)
+                dk_cur = _rotate(dk_cur, ring)
+                dv_cur = _rotate(dv_cur, ring)
+        # After n-1 rotations each chunk's gradient sits one hop short of
+        # home: one final rotation delivers dk/dv to their owners.
+        dk, dv = _rotate(dk_cur, ring), _rotate(dv_cur, ring)
+        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype),
+                None, None, None, None)
+
+
+def ring_flash_attention(
+    q,
+    k,
+    v,
+    mesh,
+    *,
+    causal: bool = True,
+    sp_axis: str = "sp",
+    heads_axis: str | None = "tp",
+    block_q: int = 1024,
+    block_k: int = 1024,
+):
+    """Sequence-parallel flash attention over `mesh`'s sp ring.
+
+    q, k, v: [B, S, H, D] — the whole sequence on an in-process ring,
+    this rank's chunk on a `torch.distributed` ring (then C = S). Each
+    hop runs the flash kernels on the local [C, C] tile (C = S / ring
+    size), so per-position attention memory is O(C·D), not O(C²).
+    Differentiable (`RingFlashFunction` re-walks the ring with global
+    statistics). ``heads_axis`` names the tp axis, which the port's mesh
+    keeps at 1. Falls back to `flash_attention` when the ring is
+    trivial. Chunks must tile into 8-aligned blocks without padding
+    (`flash_kernel_tileable`), as in JAX: padded chunks would
+    de-synchronize the hop algebra."""
+    del heads_axis
+    if mesh.shape.get(sp_axis, 1) == 1:
+        return flash_attention(
+            q, k, v, causal=causal, block_q=block_q, block_k=block_k
+        )
+    ring = mesh.ring(sp_axis)
+    local = len(ring.ranks)
+    b, s, h, d = q.shape
+    if s % local:
+        raise ValueError(
+            f"ring flash attention: sequence length {s} does not divide "
+            f"the {sp_axis!r} ring size {ring.size}"
+        )
+    chunk = s // local
+    if not flash_kernel_tileable(chunk, block_q) or not (
+        flash_kernel_tileable(chunk, block_k)
+    ):
+        raise ValueError(
+            f"ring flash attention: per-device chunk {chunk} does not "
+            "divide into 8-aligned flash blocks (the ring cannot pad); "
+            "use ring_attention or resize the sp axis"
+        )
+    _check_ring_batch(mesh, b)
+    # Contiguous: the kernels take each hop kind's run of positions as one
+    # [R'·BH, C, D] block (a reshape alone can leave a strided view).
+    to_ring = lambda x: x.unflatten(1, (local, chunk)).permute(1, 0, 3, 2, 4).reshape(
+        local, b * h, chunk, d
+    ).contiguous()
+    o = RingFlashFunction.apply(
+        to_ring(q), to_ring(k), to_ring(v), ring, causal, block_q, block_k
+    )
+    return o.view(local, b, h, chunk, d).permute(1, 0, 3, 2, 4).reshape(b, s, h, d)

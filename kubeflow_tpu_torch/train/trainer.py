@@ -9,7 +9,12 @@ bf16 the way `optax.scale_by_adam(mu_dtype=bf16)` does, which stock
 metrics. A step makes no host sync: the step count, the learning rate
 and the metrics stay tensors on the device.
 
-Not ported yet: the mesh and its shardings, `resize`/`reshard_state`
+A model on an in-process sp ring (`parallel/mesh.build_mesh` in one
+process) trains here unchanged: its ring positions share one set of
+parameters, so their gradients sum by themselves.
+
+Not ported yet: a model on a multi-process mesh, which needs a gradient
+all-reduce over dp and sp, the shardings, `resize`/`reshard_state`
 (ROADMAP Queue 1 item 12), ``loss_in_model`` (the pipelined model, the
 same item) and the anomaly ``guard`` (item 8); each raises
 `NotImplementedError` where it would be asked for.
@@ -273,6 +278,13 @@ class Trainer:
         if guard is not None:
             raise NotImplementedError(
                 "the anomaly guard is not ported yet (ROADMAP Queue 1 item 8)"
+            )
+        mesh = getattr(model, "mesh", None)
+        if mesh is not None and mesh.multiprocess:
+            raise NotImplementedError(
+                "training on a multi-process mesh needs a gradient "
+                "all-reduce over dp and sp, which is not ported yet (ROADMAP "
+                "Queue 1 item 12); an in-process sp ring trains as is"
             )
         self.device = resolve_device(device)
         self.model = model.to(self.device)

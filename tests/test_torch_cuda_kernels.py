@@ -60,19 +60,47 @@ def test_cuda_tensors_never_take_the_plain_version(cuda, monkeypatch):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["noncausal", "cross", "head-dim-96"])
+@pytest.mark.parametrize("case", ["head-dim-96"])
 def test_kernel_refuses_what_it_does_not_cover(cuda, case):
-    q, k, v = _qkv(cuda, 2, 64, 64, torch.bfloat16, seed=1)
-    if case == "noncausal":
-        with pytest.raises(NotImplementedError):
-            flash.flash_fwd(q, k, v, causal=False)
-    elif case == "cross":
-        with pytest.raises(NotImplementedError):
-            flash.flash_fwd(q, k[:, :32].contiguous(), v[:, :32].contiguous())
-    else:
-        q, k, v = _qkv(cuda, 2, 64, 96, torch.bfloat16, seed=1)
-        with pytest.raises(ValueError):
-            flash.flash_fwd(q, k, v)
+    q, k, v = _qkv(cuda, 2, 64, 96, torch.bfloat16, seed=1)
+    with pytest.raises(ValueError):
+        flash.flash_fwd(q, k, v)
+
+
+def _rect(cuda, bh, sq, sk, d, dtype, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    draw = lambda s: torch.randn(bh, s, d, generator=gen, device=cuda).to(dtype)
+    return draw(sq), draw(sk), draw(sk), draw(sq)
+
+
+RECT_CASES = [  # causal, s_q, s_k, d
+    (False, 128, 128, 64),
+    (False, 1001, 777, 128),
+    (True, 1001, 777, 128),
+    (True, 300, 1500, 64),
+    (False, 64, 2048, 128),
+]
+RECT_IDS = ["noncausal", "ragged", "ragged-causal", "causal-sq<sk", "cross"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("causal,sq,sk,d", RECT_CASES, ids=RECT_IDS)
+def test_flash_fwd_rect_matches_plain_version(cuda, dtype, causal, sq, sk, d):
+    """Non-causal and s_q != s_k launch the rectangular kernel (and only
+    it) and agree with the plain version on the predicated rectangular
+    grid, top-left causal mask included."""
+    q, k, v, _ = _rect(cuda, 4, sq, sk, d, getattr(torch, dtype), seed=sq + sk)
+    before = dict(_kernels.launches)
+    o, lse = flash.flash_fwd(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    grew = {n: c - before.get(n, 0) for n, c in _kernels.launches.items()
+            if c != before.get(n, 0)}
+    assert grew == {"flash_fwd_rect": 1}
+    ro, rlse = flash.flash_attention_reference(q, k, v, causal=causal)
+    atol, rtol = (5e-5, 5e-5) if dtype == "float32" else (1e-5, 2.0 ** -7)
+    torch.testing.assert_close(o.float(), ro.float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(lse, rlse, atol=5e-5, rtol=5e-5)
 
 
 def _close_bwd(got, want, dtype):
@@ -153,3 +181,61 @@ def test_fused_env_zero_pins_the_two_pass_kernels(cuda, monkeypatch):
     torch.cuda.synchronize()
     grew = {n for n in _kernels.launches if _kernels.launches[n] != before.get(n, 0)}
     assert grew == {"flash_fwd", "flash_delta", "flash_bwd_dq", "flash_bwd_dkv"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("causal,sq,sk,d", RECT_CASES, ids=RECT_IDS)
+def test_flash_bwd_rect_kernels_match_plain_version(cuda, dtype, causal, sq, sk, d):
+    """The rectangular dq and dk/dv kernels, on the rectangular
+    forward's lse and the delta kernel's delta, against the plain
+    two-pass backward; fused=None never takes the fused kernel here."""
+    dt = getattr(torch, dtype)
+    q, k, v, do = _rect(cuda, 4, sq, sk, d, dt, seed=sq * 3 + sk)
+    o, lse = flash.flash_fwd(q, k, v, causal=causal)
+    delta = flash.flash_delta(o, do)
+    before = dict(_kernels.launches)
+    got = flash.flash_bwd_kernels(q, k, v, do, lse, delta, causal=causal)
+    torch.cuda.synchronize()
+    grew = {n: c - before.get(n, 0) for n, c in _kernels.launches.items()
+            if c != before.get(n, 0)}
+    assert grew == {"flash_bwd_dq_rect": 1, "flash_bwd_dkv_rect": 1}
+    want = flash.flash_bwd_reference(q, k, v, do, lse, delta, causal=causal)
+    for g, w, shape in zip(got, want, (q.shape, k.shape, k.shape)):
+        assert g.dtype == dt and g.shape == shape and torch.isfinite(g).all()
+        _close_bwd(g, w, dtype)
+    with pytest.raises(ValueError, match="compact causal grid"):
+        flash.flash_bwd_kernels(q, k, v, do, lse, delta, causal=causal, fused=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_ring_flash_on_the_card_matches_the_plain_ring(cuda, causal):
+    """An in-process sp=4 ring on the card (one launch per hop kind: the
+    diagonal on the causal kernels, full hops on the rectangular ones)
+    against the same ring on the CPU, which runs the plain versions, in
+    f32: forward and the q/k/v gradients."""
+    from kubeflow_tpu_torch.ops.flash import ring_flash_attention
+    from kubeflow_tpu_torch.parallel import MeshSpec, build_mesh
+
+    mesh = build_mesh(MeshSpec(sp=4))
+    gen = torch.Generator().manual_seed(11)
+    q, k, v, w = (torch.randn(2, 512, 4, 64, generator=gen) for _ in range(4))
+    results = []
+    for device in ("cpu", cuda):
+        ts = [t.detach().to(device).requires_grad_() for t in (q, k, v)]
+        before = dict(_kernels.launches)
+        o = ring_flash_attention(*ts, mesh, causal=causal)
+        (o * w.to(device)).sum().backward()
+        results.append([x.detach().cpu() for x in (o, *(t.grad for t in ts))])
+    grew = {n: c - before.get(n, 0) for n, c in _kernels.launches.items()
+            if c != before.get(n, 0)}
+    if causal:
+        assert grew == {"flash_fwd": 1, "flash_fwd_rect": 3, "flash_delta": 1,
+                        "flash_bwd_fused": 1, "flash_bwd_dq_rect": 3,
+                        "flash_bwd_dkv_rect": 3}
+    else:
+        assert grew == {"flash_fwd_rect": 4, "flash_delta": 1,
+                        "flash_bwd_dq_rect": 4, "flash_bwd_dkv_rect": 4}
+    for got, want in zip(results[1], results[0]):
+        _close_bwd(got, want, "float32")
