@@ -33,8 +33,8 @@ from kubeflow_tpu_torch.models.convert import init_params
 from kubeflow_tpu_torch.ops.attention import dense_attention, ring_attention
 from kubeflow_tpu_torch.ops.flash import (
     flash_attention,
-    flash_kernel_tileable,
     ring_flash_attention,
+    ring_flash_usable,
 )
 
 
@@ -138,15 +138,14 @@ def rope(x, positions, theta: float):
 def _attend(q, k, v, mesh, cfg: TransformerConfig):
     """Causal attention by `cfg.attention_impl`: around the ring when the
     mesh's sp axis is real (JAX `_attend`, kubeflow_tpu/models/
-    transformer.py:256-273) — ring flash for "auto"/"flash" where the
-    chunks tile, else the dense-hop ring — and flash or dense otherwise."""
+    transformer.py:256-273) — ring flash for "auto"/"flash" where it takes
+    the chunks (always on CUDA; on the CPU where they tile, as in JAX),
+    else the dense-hop ring — and flash or dense otherwise."""
     bq, bk = cfg.flash_block_q, cfg.flash_block_k
-    if mesh is not None and mesh.shape.get("sp", 1) > 1:
-        chunk = q.shape[1] // len(mesh.ring("sp").ranks)
-        if (
-            cfg.attention_impl in ("auto", "flash")
-            and flash_kernel_tileable(chunk, bq)
-            and flash_kernel_tileable(chunk, bk)
+    if mesh is not None and mesh.shape["sp"] > 1:
+        chunk = q.shape[1] // len(mesh.ring().ranks)
+        if cfg.attention_impl in ("auto", "flash") and ring_flash_usable(
+            q, chunk, bq, bk
         ):
             return ring_flash_attention(
                 q, k, v, mesh, causal=True, block_q=bq, block_k=bk
@@ -254,7 +253,7 @@ class TransformerLM(nn.Module):
         # a chunk that starts past 0.
         start = 0
         if self.mesh is not None:
-            start = self.mesh.ring("sp").sequence_offset(tokens.shape[1])
+            start = self.mesh.ring().sequence_offset(tokens.shape[1])
         positions = torch.arange(start, start + tokens.shape[1],
                                  device=tokens.device)
         positions = positions.expand(tokens.shape)

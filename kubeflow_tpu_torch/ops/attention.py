@@ -112,34 +112,23 @@ def _ring_body(q, k, v, *, ring, causal: bool):
     return out.to(q.dtype)
 
 
-def ring_attention(
-    q,
-    k,
-    v,
-    mesh,
-    *,
-    causal: bool = True,
-    sp_axis: str = "sp",
-    heads_axis: str | None = "tp",
-):
+def ring_attention(q, k, v, mesh, *, causal: bool = True):
     """Sequence-parallel attention over `mesh`'s sp ring.
 
     q, k, v: [B, S, H, D] — the whole sequence on an in-process ring
     (`build_mesh` in one process), this rank's chunk of it on a
     `torch.distributed` ring; S must divide by the ring positions held
     here. Differentiable through autograd (the rotations are
-    `ppermute_ring`'s). ``heads_axis`` names the tp axis, which the
-    port's mesh keeps at 1. Falls back to dense attention when the ring
-    is trivial."""
-    del heads_axis
-    if mesh.shape.get(sp_axis, 1) == 1:
+    `ppermute_ring`'s). Falls back to dense attention when the ring is
+    trivial."""
+    if mesh.shape["sp"] == 1:
         return dense_attention(q, k, v, causal=causal)
-    ring = mesh.ring(sp_axis)
+    ring = mesh.ring()
     local = len(ring.ranks)
     if q.shape[1] % local:
         raise ValueError(
             f"ring attention requires the sequence length ({q.shape[1]}) to "
-            f"be divisible by the {sp_axis!r} ring size ({ring.size})"
+            f"be divisible by the sp ring size ({ring.size})"
         )
     _check_ring_batch(mesh, q.shape[0])
     split = lambda x: x.unflatten(1, (local, x.shape[1] // local)).movedim(1, 0)

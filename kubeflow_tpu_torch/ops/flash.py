@@ -690,7 +690,10 @@ def _hop_index(src: int, my: int) -> int:
 
 def _hop_groups(ring, i: int, causal: bool):
     """[(kernel causal flag, slice of local positions)] of hop i: the
-    full hops, then the diagonal ones; skipped positions are left out."""
+    full hops, then the diagonal ones; skipped positions are left out.
+    Each kind is one contiguous run: on an in-process ring hop 0 is all
+    diagonal and hop i > 0 full on positions [i, n) (causal) or all of
+    them, and a process ring holds one position."""
     n = axis_size(ring)
     kinds = [
         _hop_index((my - i) % n, my) if causal else 0 for my in ring.ranks
@@ -698,11 +701,8 @@ def _hop_groups(ring, i: int, causal: bool):
     groups = []
     for kind, kernel_causal in ((0, False), (1, True)):
         run = [j for j, x in enumerate(kinds) if x == kind]
-        if not run:
-            continue
-        if run != list(range(run[0], run[-1] + 1)):
-            raise ValueError(f"ring positions {run} of one hop kind are not contiguous")
-        groups.append((kernel_causal, slice(run[0], run[-1] + 1)))
+        if run:
+            groups.append((kernel_causal, slice(run[0], run[-1] + 1)))
     return groups
 
 
@@ -794,6 +794,21 @@ class RingFlashFunction(torch.autograd.Function):
                 None, None, None, None)
 
 
+def ring_flash_usable(x, chunk: int, block_q: int = 1024,
+                      block_k: int = 1024) -> bool:
+    """True when `ring_flash_attention` takes chunks of `chunk` tokens on
+    `x`'s device. On CUDA always: the kernels mask their own ragged
+    edges, so every hop sees exactly its [C, C] tile. On the CPU only
+    where the chunk divides into 8-aligned blocks without padding
+    (`flash_kernel_tileable`), as in JAX, so the CPU ring answers and
+    refuses as JAX's does."""
+    if not _on_cpu(x):
+        return True
+    return flash_kernel_tileable(chunk, block_q) and flash_kernel_tileable(
+        chunk, block_k
+    )
+
+
 def ring_flash_attention(
     q,
     k,
@@ -801,8 +816,6 @@ def ring_flash_attention(
     mesh,
     *,
     causal: bool = True,
-    sp_axis: str = "sp",
-    heads_axis: str | None = "tp",
     block_q: int = 1024,
     block_k: int = 1024,
 ):
@@ -813,28 +826,23 @@ def ring_flash_attention(
     hop runs the flash kernels on the local [C, C] tile (C = S / ring
     size), so per-position attention memory is O(C·D), not O(C²).
     Differentiable (`RingFlashFunction` re-walks the ring with global
-    statistics). ``heads_axis`` names the tp axis, which the port's mesh
-    keeps at 1. Falls back to `flash_attention` when the ring is
-    trivial. Chunks must tile into 8-aligned blocks without padding
-    (`flash_kernel_tileable`), as in JAX: padded chunks would
-    de-synchronize the hop algebra."""
-    del heads_axis
-    if mesh.shape.get(sp_axis, 1) == 1:
+    statistics). Falls back to `flash_attention` when the ring is
+    trivial. On the CPU the chunks must tile without padding
+    (`ring_flash_usable`)."""
+    if mesh.shape["sp"] == 1:
         return flash_attention(
             q, k, v, causal=causal, block_q=block_q, block_k=block_k
         )
-    ring = mesh.ring(sp_axis)
+    ring = mesh.ring()
     local = len(ring.ranks)
     b, s, h, d = q.shape
     if s % local:
         raise ValueError(
             f"ring flash attention: sequence length {s} does not divide "
-            f"the {sp_axis!r} ring size {ring.size}"
+            f"the sp ring size {ring.size}"
         )
     chunk = s // local
-    if not flash_kernel_tileable(chunk, block_q) or not (
-        flash_kernel_tileable(chunk, block_k)
-    ):
+    if not ring_flash_usable(q, chunk, block_q, block_k):
         raise ValueError(
             f"ring flash attention: per-device chunk {chunk} does not "
             "divide into 8-aligned flash blocks (the ring cannot pad); "

@@ -84,7 +84,7 @@ class Mesh:
     """A resolved dp × sp layout and its sp ring.
 
     ``shape`` maps every axis name to its size, as a `jax.sharding.Mesh`'s
-    does; ``ring("sp")`` is the sp ring the sequence-parallel attention
+    does; ``ring()`` is the sp ring the sequence-parallel attention
     rotates over; ``multiprocess`` says whether the positions are
     processes of a `torch.distributed` job or all live in this one."""
 
@@ -98,12 +98,7 @@ class Mesh:
     def multiprocess(self) -> bool:
         return isinstance(self._sp_ring, GroupRing)
 
-    def ring(self, axis: str = "sp"):
-        if axis != "sp":
-            raise NotImplementedError(
-                f"only the sp axis has a ring in the port; {axis!r} "
-                "collectives are ROADMAP Queue 1 item 12"
-            )
+    def ring(self):
         return self._sp_ring
 
     def __repr__(self) -> str:

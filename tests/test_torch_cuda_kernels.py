@@ -239,3 +239,47 @@ def test_ring_flash_on_the_card_matches_the_plain_ring(cuda, causal):
                         "flash_bwd_dq_rect": 4, "flash_bwd_dkv_rect": 4}
     for got, want in zip(results[1], results[0]):
         _close_bwd(got, want, "float32")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_ring_flash_on_the_card_takes_a_chunk_that_does_not_tile(cuda, causal):
+    """On the card the ring takes chunks that the CPU ring refuses as
+    JAX's does (201 tokens: no 8-aligned block divides it), because the
+    kernels mask their own ragged edges. Forward and the q/k/v gradients
+    of an sp=4 ring against dense attention over the whole sequence on
+    the CPU, in f32. The LM's sp branch takes ring flash for such chunks
+    on the card, not the dense-hop ring."""
+    from kubeflow_tpu_torch.models.transformer import TransformerConfig, _attend
+    from kubeflow_tpu_torch.ops.attention import dense_attention
+    from kubeflow_tpu_torch.ops.flash import ring_flash_attention
+    from kubeflow_tpu_torch.parallel import MeshSpec, build_mesh
+
+    mesh = build_mesh(MeshSpec(sp=4))
+    assert not flash.flash_kernel_tileable(201)
+    gen = torch.Generator().manual_seed(12)
+    q, k, v, w = (torch.randn(1, 4 * 201, 2, 64, generator=gen) for _ in range(4))
+    results = []
+    for device, attend in (
+        ("cpu", lambda *ts: dense_attention(*ts, causal=causal)),
+        (cuda, lambda *ts: ring_flash_attention(*ts, mesh, causal=causal)),
+    ):
+        ts = [t.detach().to(device).requires_grad_() for t in (q, k, v)]
+        before = dict(_kernels.launches)
+        o = attend(*ts)
+        (o * w.to(device)).sum().backward()
+        results.append([x.detach().cpu() for x in (o, *(t.grad for t in ts))])
+    grew = {n: c - before.get(n, 0) for n, c in _kernels.launches.items()
+            if c != before.get(n, 0)}
+    assert grew["flash_fwd_rect"] == 3 + (not causal)
+    assert grew["flash_bwd_dq_rect"] == grew["flash_bwd_dkv_rect"] == 3 + (not causal)
+    for got, want in zip(results[1], results[0]):
+        _close_bwd(got, want, "float32")
+
+    cfg = TransformerConfig(n_heads=2, head_dim=64, dtype=torch.float32,
+                            attention_impl="auto")
+    before = _kernels.launches.get("flash_fwd_rect", 0)
+    with torch.no_grad():
+        o = _attend(*(t.to(cuda) for t in (q, k, v)), mesh, cfg)
+    assert _kernels.launches.get("flash_fwd_rect", 0) == before + 3
+    _close_bwd(o.cpu(), dense_attention(q, k, v), "float32")
