@@ -68,7 +68,9 @@ JSON line; any failure raises and the exit code is non-zero:
 14. kernels: one line per ported kernel (launches, error, times, bound).
 15. the last line: {"ok": true, "device": {...}}.
 
-Without a GPU it exits non-zero before printing any result.
+Without a GPU, or outside a checkout (copied alone, where
+`kubeflow_tpu_torch` does not import), it says why on stderr and exits
+non-zero before printing any result.
 
     python3 chip_smoke.py --loss-seeds N
 
@@ -206,9 +208,11 @@ def device_phase(torch) -> dict:
     return info
 
 
-def ptxas_report(log: str) -> list[str]:
-    """One line per compiled kernel: its (mangled) name, registers and
-    spills, from nvcc -Xptxas -v."""
+def ptxas_report(log: str, smem=None) -> list[str]:
+    """One line per compiled kernel: its (mangled) name, registers, static
+    shared memory and spills, from nvcc -Xptxas -v, and any ptxas warning
+    (a serialised wgmma pipeline shows there). `smem(name)` adds the
+    kernel's dynamic shared memory where it gives one."""
     out, name, spill = [], None, ""
     for line in log.splitlines():
         if "Compiling entry function" in line:
@@ -216,9 +220,28 @@ def ptxas_report(log: str) -> list[str]:
         elif "spill" in line:
             spill = line.strip()
         elif "registers" in line and name:
-            out.append(f"{name}: {line.split(':', 1)[1].strip()}; {spill}")
+            dynamic = smem(name) if smem else None
+            extra = f"; {dynamic} bytes dynamic smem" if dynamic else ""
+            out.append(f"{name}: {line.split(':', 1)[1].strip()}; {spill}{extra}")
             name = None
+        elif "warning" in line.lower():
+            out.append(line.strip())
     return out
+
+
+def fwd_smem(name: str):
+    """The dynamic shared memory of a flash_fwd instantiation (tensor-core
+    bf16 body or CUDA-core float32 body, by its head dim), from the
+    library itself."""
+    import re
+
+    from kubeflow_tpu_torch.ops import _kernels
+
+    body = re.search(r"flash_fwd_(tc|simt)ILi(\d+)E", name)
+    if body is None:
+        return None
+    dtype = 1 if body.group(1) == "tc" else 0
+    return _kernels.library("flash_fwd").kftpu_flash_fwd_smem_bytes(int(body.group(2)), dtype)
 
 
 def build_phase() -> None:
@@ -231,7 +254,7 @@ def build_phase() -> None:
             name: {
                 "cached": b["cached"],
                 "seconds": round(b["seconds"], 3),
-                "ptxas": ptxas_report(b["ptxas"]),
+                "ptxas": ptxas_report(b["ptxas"], fwd_smem if name == "flash_fwd" else None),
             }
             for name, b in built.items()
         },
@@ -312,6 +335,7 @@ def kernel_phase(torch) -> dict:
         "shape_bshd": list(MAIN_SHAPE),
         "dtype": "bfloat16",
         "achieved_tflops": flops / (kernel_ms * 1e-3) / 1e12,
+        "bound_share": max(t_ops, t_bytes) / kernel_ms,
     }
     emit({"phase": "kernel_timing", **entry})
     return entry
@@ -450,6 +474,7 @@ def bwd_kernel_phase(torch, card: str) -> dict:
             "library_ms": lib_ms, "library": lib_note,
             "shape_bshd": list(TRAIN_SHAPE), "dtype": "bfloat16",
             "achieved_tflops": flops / (kernel_ms[name] * 1e-3) / 1e12,
+            "bound_share": max(t_ops, t_bytes) / kernel_ms[name],
             "card": card,
         }
         emit({"phase": "bwd_kernel_timing", **entries[name]})
@@ -583,6 +608,7 @@ def rect_kernel_phase(torch, card: str) -> dict:
             "shape_b_sq_sk_h_d": [b, sq, sk, h, d], "causal": causal,
             "dtype": "bfloat16",
             "achieved_tflops": flops / (kernel_ms[name] * 1e-3) / 1e12,
+            "bound_share": max(t_ops, t_bytes) / kernel_ms[name],
             "card": card,
         }
         emit({"phase": "rect_kernel_timing", **entries[name]})
@@ -1422,7 +1448,12 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    import kubeflow_tpu_torch  # noqa: F401  (fails here, outside a checkout)
+    try:
+        import kubeflow_tpu_torch  # noqa: F401
+    except ImportError as err:  # the script alone, outside a checkout
+        print(f"chip_smoke: {err}; run it from the root of a checkout",
+              file=sys.stderr)
+        return 1
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1456,7 +1487,7 @@ def main() -> int:
     entries["flash_fwd"]["serving_shape"] = {
         key: serving_fwd[key] for key in (
             "shape_bshd", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "max_abs_err")
+            "max_abs_err", "achieved_tflops", "bound_share")
     }
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(card, flush=True)  # nvidia-smi's name and power limit

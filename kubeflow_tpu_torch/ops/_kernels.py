@@ -50,6 +50,8 @@ _SIGNATURES = {
     "flash_fwd": {
         "kftpu_flash_fwd": _entry(5),
         "kftpu_flash_fwd_rect": _entry(5, 6),
+        # (d, dtype) → the dynamic shared memory of one block, in bytes.
+        "kftpu_flash_fwd_smem_bytes": ([ctypes.c_int] * 2, ctypes.c_int),
         **_ERROR_STRING,
     },
     "flash_delta": {"kftpu_flash_delta": _entry(3), **_ERROR_STRING},

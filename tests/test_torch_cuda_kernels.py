@@ -29,17 +29,25 @@ def _qkv(cuda, bh, s, d, dtype, seed):
     )
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
-@pytest.mark.parametrize("s,d", [(1, 64), (128, 64), (1001, 128), (2048, 128)])
-def test_flash_fwd_matches_plain_version(cuda, dtype, s, d):
-    q, k, v = _qkv(cuda, 8, s, d, getattr(torch, dtype), seed=s)
-    o, lse = flash.flash_fwd(q, k, v)
-    ro, rlse = flash.flash_attention_reference(q, k, v)
+def _assert_fwd_close(o, lse, ro, rlse, dtype):
     # f32: the reference gate; bf16: one bf16 rounding step (2^-7 relative).
     atol, rtol = (5e-5, 5e-5) if dtype == "float32" else (1e-5, 2.0 ** -7)
     torch.testing.assert_close(o.float(), ro.float(), atol=atol, rtol=rtol)
     torch.testing.assert_close(lse, rlse, atol=5e-5, rtol=5e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("s,d", [
+    (1, 64), (128, 64), (1001, 128), (2048, 128),
+    # below one 64-key tile, and just past one 128-row block
+    (17, 64), (63, 128), (129, 128), (1001, 64),
+])
+def test_flash_fwd_matches_plain_version(cuda, dtype, s, d):
+    q, k, v = _qkv(cuda, 8, s, d, getattr(torch, dtype), seed=s)
+    o, lse = flash.flash_fwd(q, k, v)
+    ro, rlse = flash.flash_attention_reference(q, k, v)
+    _assert_fwd_close(o, lse, ro, rlse, dtype)
 
 
 @pytest.mark.cuda
@@ -81,11 +89,21 @@ RECT_CASES = [  # causal, s_q, s_k, d
     (False, 64, 2048, 128),
 ]
 RECT_IDS = ["noncausal", "ragged", "ragged-causal", "causal-sq<sk", "cross"]
+# Forward-only edges: causal with s_q > s_k past several key tiles, q and k
+# below one tile, one row and one key.
+FWD_RECT_EDGES = [
+    (True, 2048, 300, 128),
+    (True, 17, 63, 64),
+    (False, 63, 17, 128),
+    (False, 1, 1, 64),
+]
+FWD_RECT_EDGE_IDS = ["causal-sq>sk", "causal-sub-tile", "sub-tile", "one-key"]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
-@pytest.mark.parametrize("causal,sq,sk,d", RECT_CASES, ids=RECT_IDS)
+@pytest.mark.parametrize("causal,sq,sk,d", RECT_CASES + FWD_RECT_EDGES,
+                         ids=RECT_IDS + FWD_RECT_EDGE_IDS)
 def test_flash_fwd_rect_matches_plain_version(cuda, dtype, causal, sq, sk, d):
     """Non-causal and s_q != s_k launch the rectangular kernel (and only
     it) and agree with the plain version on the predicated rectangular
@@ -98,9 +116,42 @@ def test_flash_fwd_rect_matches_plain_version(cuda, dtype, causal, sq, sk, d):
             if c != before.get(n, 0)}
     assert grew == {"flash_fwd_rect": 1}
     ro, rlse = flash.flash_attention_reference(q, k, v, causal=causal)
-    atol, rtol = (5e-5, 5e-5) if dtype == "float32" else (1e-5, 2.0 ** -7)
-    torch.testing.assert_close(o.float(), ro.float(), atol=atol, rtol=rtol)
-    torch.testing.assert_close(lse, rlse, atol=5e-5, rtol=5e-5)
+    _assert_fwd_close(o, lse, ro, rlse, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("causal,sq,sk,d", [
+    (True, 1001, 1001, 128), (False, 1001, 777, 128), (True, 513, 1500, 64),
+    (True, 1500, 513, 64),
+], ids=["causal", "noncausal-ragged", "causal-sq<sk", "causal-sq>sk"])
+def test_flash_fwd_matches_plain_version_on_sharp_logits(cuda, dtype, causal, sq, sk, d):
+    """q scaled x8, so the logits are 8x (a standard deviation of 8 after
+    the 1/sqrt(d) scale): the running max moves often and far, which
+    drives the online softmax's rescaling, and rows near the diagonal see
+    few keys. Both kernels, at the unchanged tolerances. (Scaling q and k
+    both by 8, logits x64 and s near 500, puts ~3e-5 of float32 rounding
+    into s itself, and then even the float32 kernel leaves the 5e-5 gate
+    against the plain version, which rounds s in another order.)"""
+    q, k, v, _ = _rect(cuda, 4, sq, sk, d, getattr(torch, dtype), seed=sq * 7 + sk)
+    q = (q.float() * 8).to(q.dtype)
+    o, lse = flash.flash_fwd(q, k, v, causal=causal)
+    ro, rlse = flash.flash_attention_reference(q, k, v, causal=causal)
+    _assert_fwd_close(o, lse, ro, rlse, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal,sq,sk", [(True, 2048, 2048), (False, 1001, 777)],
+                         ids=["causal", "rect"])
+def test_bf16_flash_fwd_is_bitwise_deterministic(cuda, causal, sq, sk):
+    """The bf16 forward gives the same bits on every run (no atomics, a
+    fixed order of sums): the ring over NCCL relies on it to reproduce
+    the in-process ring's o exactly."""
+    q, k, v, _ = _rect(cuda, 16, sq, sk, 128, torch.bfloat16, seed=3)
+    first = flash.flash_fwd(q, k, v, causal=causal)
+    for _ in range(3):
+        again = flash.flash_fwd(q, k, v, causal=causal)
+        assert torch.equal(again[0], first[0]) and torch.equal(again[1], first[1])
 
 
 def _close_bwd(got, want, dtype):

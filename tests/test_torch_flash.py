@@ -9,6 +9,8 @@ The CUDA kernel itself is checked against the plain version on the card
 (tests/test_torch_cuda_kernels.py and chip_smoke.py).
 """
 
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -91,6 +93,68 @@ def test_bf16_flash_keeps_input_dtype_and_f32_lse():
     ref = tdense(q.float(), k.float(), v.float())
     # Flash keeps p in f32 and rounds once at the end: one bf16 step.
     np.testing.assert_allclose(o.float().numpy(), ref.numpy(), atol=1e-2, rtol=1e-2)
+
+
+def _emulate_tensor_core_fwd(q, k, v, causal, split_p, bk=128):
+    """The bf16 CUDA forward's arithmetic (csrc/flash_fwd.cu, flash_fwd_tc)
+    in plain torch: s = q.k^T from bf16 inputs (exact products, float32
+    sums); the online softmax over 128-key tiles in base 2, m kept in
+    log2 units; p.v with p as bf16 — p_hi + p_lo, two products into one
+    float32 accumulator, or (split_p=False) p rounded once — and v bf16;
+    O rounded once to bf16, lse = m ln2 + log l."""
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    scale_log2 = math.log2(math.e) / math.sqrt(d)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    neg_inf = float("-inf")
+    m = torch.full((bh, sq, 1), neg_inf)
+    l = torch.zeros(bh, sq, 1)
+    acc = torch.zeros(bh, sq, d)
+    rows = torch.arange(sq)[:, None]
+    for k0 in range(0, sk, bk):
+        s = qf @ kf[:, k0:k0 + bk].transpose(1, 2)
+        if causal:
+            s = s.masked_fill(k0 + torch.arange(s.shape[-1])[None, :] > rows, neg_inf)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True) * scale_log2)
+        safe_m = torch.where(m_new == neg_inf, 0.0, m_new)
+        corr = torch.where(m == neg_inf, 0.0, torch.exp2(m - safe_m))
+        p = torch.exp2(s * scale_log2 - safe_m)
+        l = l * corr + p.sum(-1, keepdim=True)
+        hi = p.bfloat16().float()
+        vb = vf[:, k0:k0 + bk]
+        acc = acc * corr + hi @ vb
+        if split_p:
+            acc = acc + (p - hi).bfloat16().float() @ vb
+        m = m_new
+    safe_l = torch.where(l == 0.0, 1.0, l)
+    lse = torch.where(m == neg_inf, neg_inf, m * math.log(2) + torch.log(safe_l))
+    return (acc / safe_l).bfloat16(), lse[..., 0]
+
+
+@pytest.mark.parametrize(
+    "causal,sq,sk,d",
+    [(True, 256, 256, 64), (False, 200, 333, 128), (True, 300, 130, 64)],
+    ids=["causal", "rect", "causal-sq>sk"],
+)
+def test_bf16_kernel_needs_p_split_to_hold_its_gate(causal, sq, sk, d):
+    """Why the bf16 tensor-core forward splits p into bf16 hi + lo: with
+    the split its arithmetic stays inside the bf16 forward gate the card
+    holds the kernel to (o: atol 1e-5, rtol 2^-7 against the plain
+    version; lse: 5e-5), and with p rounded once to bf16 it does not —
+    each term then carries 2^-9 of relative error, more than the gate
+    allows where a row's output nearly cancels."""
+    rng = np.random.default_rng(sq + sk + d)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, s, d)).astype(np.float32)).bfloat16()
+               for s in (sq, sk, sk))
+    ro, rlse = tflash.flash_attention_reference(q, k, v, causal=causal)
+    gate = dict(atol=1e-5, rtol=2.0 ** -7)
+
+    o, lse = _emulate_tensor_core_fwd(q, k, v, causal, split_p=True)
+    torch.testing.assert_close(o.float(), ro.float(), **gate)
+    torch.testing.assert_close(lse, rlse, atol=5e-5, rtol=5e-5)
+
+    o_once, _ = _emulate_tensor_core_fwd(q, k, v, causal, split_p=False)
+    assert not torch.allclose(o_once.float(), ro.float(), **gate)
 
 
 @pytest.mark.parametrize("block", [1024, 512, 128, 64, 40])
