@@ -10,7 +10,8 @@ JSON line; any failure raises and the exit code is non-zero:
 1. device: the card (nvidia-smi's name and power limit), torch and CUDA.
 2. build: every kernel under kubeflow_tpu_torch/ops/csrc, built with
    nvcc for sm_90a (one nvcc per source, all at once, or found built),
-   with ptxas's resource report.
+   with ptxas's resource report (registers, spills, and the dynamic
+   shared memory of every flash_fwd and flash_bwd_dkv instantiation).
 3. kernel: flash_fwd against its plain PyTorch version on the card, in
    bf16 and f32, at small, ragged and serving shapes, with the stated
    tolerance; then its time beside the plain version's, one PyTorch
@@ -229,19 +230,26 @@ def ptxas_report(log: str, smem=None) -> list[str]:
     return out
 
 
-def fwd_smem(name: str):
-    """The dynamic shared memory of a flash_fwd instantiation (tensor-core
-    bf16 body or CUDA-core float32 body, by its head dim), from the
-    library itself."""
+def kernel_smem(name: str):
+    """The dynamic shared memory of a flash_fwd or flash_bwd_dkv
+    instantiation (tensor-core bf16 body or CUDA-core body, read from its
+    mangled template arguments), from the library itself."""
     import re
 
     from kubeflow_tpu_torch.ops import _kernels
 
-    body = re.search(r"flash_fwd_(tc|simt)ILi(\d+)E", name)
-    if body is None:
-        return None
-    dtype = 1 if body.group(1) == "tc" else 0
-    return _kernels.library("flash_fwd").kftpu_flash_fwd_smem_bytes(int(body.group(2)), dtype)
+    fwd = re.search(r"flash_fwd_(tc|simt)ILi(\d+)E", name)
+    if fwd is not None:
+        dtype = 1 if fwd.group(1) == "tc" else 0
+        return _kernels.library("flash_fwd").kftpu_flash_fwd_smem_bytes(int(fwd.group(2)), dtype)
+    bwd = _kernels.library("flash_bwd_dkv").kftpu_flash_bwd_dkv_smem_bytes
+    tc = re.search(r"flash_bwd_tcILi(\d+)ELi\d+ELb[01]ELb[01]ELb([01])E", name)
+    if tc is not None:
+        return bwd(int(tc.group(1)), 1, 1, int(tc.group(2)))
+    simt = re.search(r"flash_bwd_dkv_kernelI(13__nv_bfloat16|f)Li(\d+)ELb[01]ELb[01]ELb([01])E", name)
+    if simt is not None:
+        return bwd(int(simt.group(2)), 0 if simt.group(1) == "f" else 1, 0, int(simt.group(3)))
+    return None
 
 
 def build_phase() -> None:
@@ -254,7 +262,7 @@ def build_phase() -> None:
             name: {
                 "cached": b["cached"],
                 "seconds": round(b["seconds"], 3),
-                "ptxas": ptxas_report(b["ptxas"], fwd_smem if name == "flash_fwd" else None),
+                "ptxas": ptxas_report(b["ptxas"], kernel_smem),
             }
             for name, b in built.items()
         },

@@ -64,6 +64,9 @@ _SIGNATURES = {
         "kftpu_flash_bwd_dkv": _entry(8),
         "kftpu_flash_bwd_dkv_rect": _entry(8, 6),
         "kftpu_flash_bwd_fused": _entry(10),
+        # (d, dtype, tensor_cores, fused) → the dynamic shared memory of
+        # one block of that body, in bytes.
+        "kftpu_flash_bwd_dkv_smem_bytes": ([ctypes.c_int] * 4, ctypes.c_int),
         **_ERROR_STRING,
     },
 }

@@ -1,9 +1,10 @@
 // Hopper (sm_90a) primitives for the port's tensor-core kernels: shared-
-// memory addresses, mbarriers, TMA tile loads through 3-D tensor maps with
-// the 128-byte swizzle, wgmma shared-memory descriptors, and the wgmma
-// instructions the flash forward uses. All of it is PTX; the host side
-// encodes tensor maps through the driver entry point that the CUDA
-// runtime hands out, so the libraries link nothing beyond the runtime.
+// memory addresses and stores, mbarriers, named barriers, TMA tile loads
+// through 3-D tensor maps with the 128-byte swizzle, wgmma shared-memory
+// descriptors, and the wgmma instructions the flash forward and backward
+// use. All of it is PTX; the host side encodes tensor maps through
+// cuTensorMapEncodeTiled as the CUDA runtime hands it out, so the
+// libraries link nothing beyond the runtime.
 //
 // Layout convention (the one TMA's 128-byte swizzle writes and wgmma's
 // SWIZZLE_128B descriptors read): a bf16 tile of R rows and 64 columns is
@@ -25,6 +26,22 @@ namespace hopper {
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void st_shared_u32(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+
+// Makes this thread's shared-memory stores visible to the async proxy
+// (wgmma reading them from shared memory); a barrier follows it.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Named barrier `id` (1-15; 0 is __syncthreads) over `count` threads,
+// whole warps.
+__device__ __forceinline__ void named_bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
@@ -143,6 +160,25 @@ __device__ __forceinline__ void wgmma_ss_m64n128k16(float (&d)[64], uint64_t des
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// D[64 x 64] (+)= A[64 x 16] * B[16 x 64], both from shared memory;
+// kTransA / kTransB = 0 reads the operand K-major, 1 MN-major.
+template <int kTransA, int kTransB>
+__device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32], uint64_t desc_a,
+                                                   uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, %35, %36;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTransA), "n"(kTransB));
 }
 
 // D[64 x 64] += A[64 x 16] * B[16 x 64], A from registers (four bf16x2

@@ -154,14 +154,29 @@ def test_bf16_flash_fwd_is_bitwise_deterministic(cuda, causal, sq, sk):
         assert torch.equal(again[0], first[0]) and torch.equal(again[1], first[1])
 
 
-def _close_bwd(got, want, dtype):
+def _close_bwd(got, want, dtype, scale=None):
     """|kernel − plain| <= atol + rtol·|plain|. Gradients grow with S, so
-    atol is JAX's 5e-5 gate relative to the plain result's RMS; bf16
-    outputs add one rounding step of the same float32 value (2^-7)."""
+    atol is JAX's 5e-5 gate relative to the gradient's scale, the plain
+    result's RMS; bf16 outputs add one rounding step of the same float32
+    value (2^-7). Where a gradient is zero in exact arithmetic (dq and dk
+    when every row sees one key: p = 1 and dp = delta) both results are
+    float32 rounding noise, so the caller passes the scale of the same
+    backward's dv instead (`_scales`)."""
     want = want.float()
-    atol = 5e-5 * want.pow(2).mean().sqrt().item()
+    if scale is None:
+        scale = want.pow(2).mean().sqrt().item()
+    atol = 5e-5 * scale
     rtol = 5e-5 if dtype == "float32" else 2.0 ** -7
     torch.testing.assert_close(got.float(), want, atol=atol, rtol=rtol)
+
+
+def _scales(want, sq, sk, causal):
+    """The atol scale of each of (dq, dk, dv) for `_close_bwd`: dv's RMS
+    for dq and dk where every row sees one key, else their own RMS."""
+    if sk == 1 or (causal and sq == 1):
+        rms = want[-1].float().pow(2).mean().sqrt().item()
+        return [rms] * (len(want) - 1) + [None]
+    return [None] * len(want)
 
 
 @pytest.mark.cuda
@@ -179,7 +194,11 @@ def test_flash_delta_matches_plain_version(cuda, dtype, s, d):
 @pytest.mark.cuda
 @pytest.mark.parametrize("fused", [True, False], ids=["fused", "two-pass"])
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
-@pytest.mark.parametrize("s,d", [(1, 64), (128, 64), (1001, 128), (2048, 128)])
+@pytest.mark.parametrize("s,d", [
+    (1, 64), (128, 64), (1001, 128), (2048, 128),
+    # below one 64-row tile, just past one 128-key block, ragged
+    (1, 128), (17, 64), (17, 128), (63, 128), (129, 64), (129, 128), (1001, 64),
+])
 def test_flash_bwd_kernels_match_plain_version(cuda, dtype, s, d, fused):
     dt = getattr(torch, dtype)
     q, k, v = _qkv(cuda, 8, s, d, dt, seed=s + 2)
@@ -193,9 +212,9 @@ def test_flash_bwd_kernels_match_plain_version(cuda, dtype, s, d, fused):
     assert all(_kernels.launches[n] == before[n] + 1 for n in names)
     plain = flash.flash_bwd_fused_reference if fused else flash.flash_bwd_reference
     want = plain(q, k, v, do, lse, delta)
-    for g, w in zip(got, want):
+    for g, w, scale in zip(got, want, _scales(want, s, s, True)):
         assert g.dtype == dt and torch.isfinite(g).all()
-        _close_bwd(g, w, dtype)
+        _close_bwd(g, w, dtype, scale)
 
 
 @pytest.mark.cuda
@@ -334,3 +353,82 @@ def test_ring_flash_on_the_card_takes_a_chunk_that_does_not_tile(cuda, causal):
         o = _attend(*(t.to(cuda) for t in (q, k, v)), mesh, cfg)
     assert _kernels.launches.get("flash_fwd_rect", 0) == before + 3
     _close_bwd(o.cpu(), dense_attention(q, k, v), "float32")
+
+
+# The bf16 rectangular dk/dv and fused backward run on the tensor cores
+# (csrc/flash_bwd_dkv.cu, flash_bwd_tc): 128-key blocks, 64-row q tiles,
+# ragged edges masked in the kernel.
+TC_EDGES = [(1, 1), (17, 63), (63, 17), (129, 129), (129, 1001), (1001, 129)]
+
+
+def _bwd_inputs(cuda, bh, sq, sk, d, dtype, seed, causal, sharp=False):
+    q, k, v, do = _rect(cuda, bh, sq, sk, d, dtype, seed)
+    if sharp:  # logits x8, as in the forward's sharp-logits test
+        q = (q.float() * 8).to(dtype)
+    o, lse = flash.flash_fwd(q, k, v, causal=causal)
+    return q, k, v, do, lse, flash.flash_delta(o, do)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [False, True], ids=["noncausal", "causal"])
+@pytest.mark.parametrize("sq,sk", TC_EDGES, ids=[f"{a}x{b}" for a, b in TC_EDGES])
+def test_bf16_dkv_rect_at_sub_tile_and_ragged_lengths(cuda, sq, sk, causal, d):
+    """The rectangular dk/dv kernel below one 64-row tile and one 128-key
+    block, just past them, and ragged, causal with s_q > s_k and
+    s_q < s_k, against the plain two-pass backward."""
+    args = _bwd_inputs(cuda, 3, sq, sk, d, torch.bfloat16, sq * 5 + sk, causal)
+    before = _kernels.launches["flash_bwd_dkv_rect"]
+    dk, dv = flash._flash_bwd_dkv_rect_cuda(*args, causal)
+    torch.cuda.synchronize()
+    assert _kernels.launches["flash_bwd_dkv_rect"] == before + 1
+    want = flash.flash_bwd_reference(*args, causal=causal)[1:]
+    for g, w, scale in zip((dk, dv), want, _scales(want, sq, sk, causal)):
+        assert torch.isfinite(g).all()
+        _close_bwd(g, w, "bfloat16", scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,sq,sk,d", [
+    ("rect", 1001, 777, 128), ("rect-causal", 513, 1500, 64),
+    ("rect-causal", 1500, 513, 128), ("fused", 1001, 1001, 128), ("fused", 2048, 2048, 64),
+], ids=["rect", "rect-causal-sq<sk", "rect-causal-sq>sk", "fused", "fused-d64"])
+def test_bf16_tensor_core_bwd_on_sharp_logits(cuda, kind, sq, sk, d):
+    """q x 8: p is near 0 or 1 over most of a row and ds is spiky, which
+    tests the hi + lo split where a few large terms dominate a sum."""
+    causal = kind != "rect"
+    args = _bwd_inputs(cuda, 4, sq, sk, d, torch.bfloat16, sq + 3 * sk, causal, sharp=True)
+    if kind == "fused":
+        got = flash.flash_bwd_kernels(*args, fused=True)
+        want = flash.flash_bwd_fused_reference(*args)
+    else:
+        got = flash._flash_bwd_dkv_rect_cuda(*args, causal)
+        want = flash.flash_bwd_reference(*args, causal=causal)[1:]
+    for g, w in zip(got, want):
+        _close_bwd(g, w, "bfloat16")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True], ids=["noncausal", "causal"])
+def test_bf16_dkv_rect_is_bitwise_deterministic(cuda, causal):
+    """dk and dv add in a fixed order (no atomics), so every run gives the
+    same bits; the ring over NCCL reproduces the in-process ring's dk and
+    dv exactly on that."""
+    args = _bwd_inputs(cuda, 8, 1001, 2048, 128, torch.bfloat16, 21, causal)
+    first = flash._flash_bwd_dkv_rect_cuda(*args, causal)
+    for _ in range(3):
+        again = flash._flash_bwd_dkv_rect_cuda(*args, causal)
+        assert all(torch.equal(a, b) for a, b in zip(again, first))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,d", [(1001, 128), (2048, 64)])
+def test_bf16_fused_matches_the_two_pass_kernels(cuda, s, d):
+    """The tensor-core fused kernel against the unchanged two-pass
+    kernels (the compact dq and dk/dv on the CUDA cores, deterministic)
+    on the same inputs: within one bf16 rounding of each other."""
+    args = _bwd_inputs(cuda, 8, s, s, d, torch.bfloat16, s + 5, True)
+    fused = flash.flash_bwd_kernels(*args, fused=True)
+    two = flash.flash_bwd_kernels(*args, fused=False)
+    for f, t in zip(fused, two):
+        _close_bwd(f, t, "bfloat16")

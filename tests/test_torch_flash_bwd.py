@@ -9,8 +9,11 @@ back as plain [BH, S] rows. Tolerances are JAX's own gradient gates:
 f32 atol = rtol = 5e-5 (tests/test_flash_schedule.py), 5e-4 where a
 ragged tail is padded and masked. The CUDA kernels are held against
 these plain versions on the card (tests/test_torch_cuda_kernels.py and
-chip_smoke.py).
+chip_smoke.py); an emulation of the bf16 tensor-core backward's rounding
+shows which form of p and ds those kernels need.
 """
+
+import math
 
 import jax
 import jax.numpy as jnp
@@ -172,3 +175,82 @@ def test_backward_row_checks_refuse(case):
     with pytest.raises(ValueError):
         tflash._check_rows(q, lse, delta)
     tflash._check_rows(q, torch.zeros(2, 64), torch.zeros(2, 64))
+
+
+def _emulate_tensor_core_bwd(q, k, v, do, lse, delta, causal, terms, bq=64):
+    """The bf16 tensor-core backward's arithmetic (csrc/flash_bwd_dkv.cu,
+    flash_bwd_tc) in plain torch, over 64-row q tiles: s^T = k.q^T and
+    dp^T = v.dO^T from bf16 inputs (exact products, float32 sums); p =
+    exp2(s·scale·log2(e) − lse·log2(e)), 0 where masked; ds = p(dp −
+    delta); each tile's dv = p^T.dO, dk = ds^T.q and dq = ds.k with p and
+    ds as `terms` bf16 terms (hi + mid + lo for 3, each rounding what the
+    ones before left over; 1 is a single rounding), added to float32 sums;
+    dk and dq scaled at the end, each gradient rounded once to bf16."""
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    log2e = math.log2(math.e)
+    scale = 1.0 / math.sqrt(d)
+    qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
+    dq, dk, dv = torch.zeros(bh, sq, d), torch.zeros(bh, sk, d), torch.zeros(bh, sk, d)
+    keys = torch.arange(sk)[:, None]
+
+    def parts(x):
+        out = []
+        for _ in range(terms):
+            out.append(x.bfloat16().float())
+            x = x - out[-1]
+        return out
+
+    for q0 in range(0, sq, bq):
+        rows = slice(q0, q0 + bq)
+        st = kf @ qf[:, rows].transpose(1, 2)  # [BH, S_k, rows]
+        dpt = vf @ dof[:, rows].transpose(1, 2)
+        p = torch.exp2(st * (scale * log2e) - (lse[:, rows] * log2e)[:, None])
+        if causal:
+            p = p.masked_fill(q0 + torch.arange(st.shape[-1])[None, :] < keys, 0.0)
+        ds = p * (dpt - delta[:, None, rows])
+        dv += sum(part @ dof[:, rows] for part in parts(p))
+        ds_parts = parts(ds)
+        dk += sum(part @ qf[:, rows] for part in ds_parts)
+        dq[:, rows] += sum(part.transpose(1, 2) @ kf for part in ds_parts)
+    return (dq * scale).bfloat16(), (dk * scale).bfloat16(), dv.bfloat16()
+
+
+def _within_bwd_gate(got, want):
+    """chip_smoke's bf16 backward gate: |got − want| <= atol + rtol·|want|
+    with atol = 5e-5·RMS(want) and rtol = 2^-7 (one bf16 rounding)."""
+    want = want.float()
+    atol = 5e-5 * want.pow(2).mean().sqrt().item()
+    return bool(((got.float() - want).abs() <= atol + 2.0 ** -7 * want.abs()).all())
+
+
+@pytest.mark.parametrize(
+    "causal,sq,sk,d",
+    [(True, 256, 256, 64), (False, 200, 333, 128), (True, 300, 130, 64),
+     (True, 130, 300, 128)],
+    ids=["causal", "rect", "causal-sq>sk", "causal-sq<sk"],
+)
+def test_bf16_backward_kernel_needs_p_and_ds_split_to_hold_its_gate(causal, sq, sk, d):
+    """Why the bf16 tensor-core backward splits p and ds into bf16 terms:
+    with hi + mid + lo its arithmetic keeps dq, dk and dv inside the bf16
+    gradient gate the card holds the kernels to, and with p and ds
+    rounded once to bf16 neither dv (p) nor dk (ds) does — each term then
+    carries 2^-9 of relative error, more than the gate allows where a
+    gradient's sum nearly cancels. (hi + lo, 2^-18 a term, holds it at
+    these lengths but not at S = 16384, as PERF.md records.)"""
+    rng = np.random.default_rng(sq * 7 + sk + d)
+    q, do = (torch.from_numpy(rng.standard_normal((2, sq, d)).astype(np.float32)).bfloat16()
+             for _ in range(2))
+    k, v = (torch.from_numpy(rng.standard_normal((2, sk, d)).astype(np.float32)).bfloat16()
+            for _ in range(2))
+    o, lse = tflash.flash_attention_reference(q, k, v, causal=causal)
+    delta = tflash.flash_delta_reference(o, do)
+    want = tflash.flash_bwd_reference(q, k, v, do, lse, delta, causal=causal)
+
+    split = _emulate_tensor_core_bwd(q, k, v, do, lse, delta, causal, terms=3)
+    for got, w, name in zip(split, want, ("dq", "dk", "dv")):
+        assert _within_bwd_gate(got, w), name
+
+    once = _emulate_tensor_core_bwd(q, k, v, do, lse, delta, causal, terms=1)
+    assert not _within_bwd_gate(once[1], want[1])  # dk: ds rounded once
+    assert not _within_bwd_gate(once[2], want[2])  # dv: p rounded once
