@@ -243,7 +243,7 @@ def kernel_smem(name: str):
         dtype = 1 if fwd.group(1) == "tc" else 0
         return _kernels.library("flash_fwd").kftpu_flash_fwd_smem_bytes(int(fwd.group(2)), dtype)
     bwd = _kernels.library("flash_bwd_dkv").kftpu_flash_bwd_dkv_smem_bytes
-    tc = re.search(r"flash_bwd_tcILi(\d+)ELi\d+ELb[01]ELb[01]ELb([01])E", name)
+    tc = re.search(r"flash_bwd_tcILi(\d+)ELb[01]ELb[01]ELb([01])E", name)
     if tc is not None:
         return bwd(int(tc.group(1)), 1, 1, int(tc.group(2)))
     simt = re.search(r"flash_bwd_dkv_kernelI(13__nv_bfloat16|f)Li(\d+)ELb[01]ELb[01]ELb([01])E", name)

@@ -122,9 +122,9 @@
 // CUDA-core body took 7.76 ms; the fused kernel at the training shape
 // 1.264-1.268 ms with its memset and scale pass, 7.3x its 0.174 ms bound
 // and 2.2x SDPA's backward, where it took 11.67 ms. A 64-key block (one
-// warpgroup, 512 blocks at the hop shape) was slower than the 128-key
-// one (tools/flash_bwd_bringup.py); the 128-key block reads each q/dO
-// tile once for twice the keys. At D = 128 the body sits at the 255
+// warpgroup, 512 blocks at the hop shape) took 0.97 ms there, so the
+// block stays at 128 keys: it reads each q/dO tile once for twice the
+// keys (PERF.md has the measurement). At D = 128 the body sits at the 255
 // register cap and spills 100-132 bytes a thread. What holds it is the
 // serial chain in each warpgroup: s^T and dp^T, wait, p and ds, then
 // four tile products, each waited on before its float32 adds, with two
@@ -158,14 +158,13 @@ constexpr int kBQ = 64;          // query rows per ring tile (s^T is m64n64)
 constexpr int kStages = 2;       // q/dO tiles in the ring
 constexpr int kRowBytes = 128;   // one swizzled row: 64 bf16 columns
 constexpr int kWGKeys = 64;      // keys per consumer warpgroup (wgmma's M)
-constexpr int kRectWG = 2;       // warpgroups per block of the rectangular dk/dv
+constexpr int kBK = 2 * kWGKeys; // keys per block: two consumer warpgroups
+constexpr int kThreads = 256;
 
 constexpr int kTerms = 3;        // p and ds as hi + mid + lo, each bf16
 
-template <int D, int kWG>
+template <int D>
 struct Layout {
-  static constexpr int kBK = kWGKeys * kWG;  // keys per block
-  static constexpr int kThreads = 128 * kWG;
   static constexpr int kColBlocks = D / 64;
   static constexpr int kKVBytes = kBK * D * 2;    // the block's k (or v)
   static constexpr int kQBytes = kBQ * D * 2;     // one stage of q (or dO)
@@ -210,8 +209,8 @@ __device__ __forceinline__ void split3(float a, float b, uint32_t (&t)[kTerms]) 
 // [BH, S_q, D] against k, v, dk, dv [BH, S_k, D], with the top-left
 // causal mask (q_pos >= k_pos, no offset) when kCausal. kFused also adds
 // dq / scale into dq_acc. scale_log2 = log2(e) * scale: p runs in base 2.
-template <int D, int kWG, bool kRect, bool kCausal, bool kFused>
-__global__ void __launch_bounds__(128 * kWG, 1)
+template <int D, bool kRect, bool kCausal, bool kFused>
+__global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_tc(const __grid_constant__ CUtensorMap q_map,
              const __grid_constant__ CUtensorMap k_map,
              const __grid_constant__ CUtensorMap v_map,
@@ -221,10 +220,8 @@ flash_bwd_tc(const __grid_constant__ CUtensorMap q_map,
              int Sk_arg, float scale, float scale_log2) {
   static_assert(!(kRect && kFused), "the fused kernel walks the causal triangle");
   static_assert(kRect || kCausal, "the compact case is causal");
-  static_assert(!kFused || kWG == 2, "the fused dq product spans two warpgroups' keys");
   static_assert(D == 64 || D == 128, "head dim 64 or 128");
-  using L = Layout<D, kWG>;
-  constexpr int kBK = L::kBK;
+  using L = Layout<D>;
   constexpr int kAcc = D / 2;  // accumulator registers of dk (or dv) per thread
   constexpr int kS = kBQ / 2;  // of s^T (or dp^T)
   constexpr float kLog2e = 1.4426950408889634f;
@@ -258,7 +255,7 @@ flash_bwd_tc(const __grid_constant__ CUtensorMap q_map,
     for (int st = 0; st < kStages; ++st) {
       mbar_init(full_q + 8 * st, 1);
       mbar_init(full_do + 8 * st, 1);
-      mbar_init(empty + 8 * st, L::kThreads / 32);
+      mbar_init(empty + 8 * st, kThreads / 32);
     }
     fence_barrier_init();
   }
@@ -310,7 +307,7 @@ flash_bwd_tc(const __grid_constant__ CUtensorMap q_map,
     const uint32_t sdo = s_do + st * L::kQBytes;
     // Fused: both warpgroups' dq products of the previous tile are done
     // reading ds^T.
-    if (kFused && t > 0) named_bar_sync(1, L::kThreads);
+    if (kFused && t > 0) named_bar_sync(1, kThreads);
     // Every warp waits for both loads of every tile, working or not.
     mbar_wait(full_q + 8 * st, parity);
     mbar_wait(full_do + 8 * st, parity);
@@ -486,7 +483,7 @@ flash_bwd_tc(const __grid_constant__ CUtensorMap q_map,
       // += ds.k over the live warpgroups' keys (warpgroup 0 is always
       // live: the walk starts at the tile holding its first key);
       // warpgroup w takes head dims 64w..64w+63 (D = 64: warpgroup 0 all).
-      named_bar_sync(2, L::kThreads);
+      named_bar_sync(2, kThreads);
       if (D == 128 || wg == 0) {
         const bool both = live(1, q0);
         const uint64_t a = smem_desc(s_ds, kBK * kRowBytes, 1024);  // MN-major
@@ -537,23 +534,22 @@ flash_bwd_tc(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
-template <int D, int kWG, bool kRect, bool kCausal, bool kFused>
+template <int D, bool kRect, bool kCausal, bool kFused>
 int launch(const void* q, const void* k, const void* v, const void* dout,
            const void* lse, const void* delta, void* dk, void* dv, float* dq_acc,
            int bh, int sq, int sk, cudaStream_t stream) {
-  using L = Layout<D, kWG>;
   // q and dO may have no rows (S_q = 0): no tile is loaded then, and k
   // stands in for them so that the maps are well formed.
   const bool rows = sq > 0;
   CUtensorMap q_map, k_map, v_map, do_map;
-  int err = encode_bf16_rows(&k_map, k, bh, sk, D, L::kBK);
-  if (!err) err = encode_bf16_rows(&v_map, v, bh, sk, D, L::kBK);
+  int err = encode_bf16_rows(&k_map, k, bh, sk, D, kBK);
+  if (!err) err = encode_bf16_rows(&v_map, v, bh, sk, D, kBK);
   if (!err) err = encode_bf16_rows(&q_map, rows ? q : k, bh, rows ? sq : sk, D, kBQ);
   if (!err) err = encode_bf16_rows(&do_map, rows ? dout : k, bh, rows ? sq : sk, D, kBQ);
   if (err) return err;
-  const dim3 grid((sk + L::kBK - 1) / L::kBK, bh);
+  const dim3 grid((sk + kBK - 1) / kBK, bh);
   return kftpu::launch_kernel(
-      flash_bwd_tc<D, kWG, kRect, kCausal, kFused>, grid, L::kThreads, (size_t)L::kBytes,
+      flash_bwd_tc<D, kRect, kCausal, kFused>, grid, kThreads, (size_t)Layout<D>::kBytes,
       stream, q_map, k_map, v_map, do_map, static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dk),
       static_cast<__nv_bfloat16*>(dv), dq_acc, sq, sk, 1.0f / sqrtf((float)D),
@@ -813,8 +809,8 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, void* dk, void* dv, int bh, int sq,
                int sk, cudaStream_t st) {
   if constexpr (kRect && std::is_same<T, bf16>::value)
-    return tc::launch<D, tc::kRectWG, true, kCausal, false>(q, k, v, dout, lse, delta, dk,
-                                                           dv, nullptr, bh, sq, sk, st);
+    return tc::launch<D, true, kCausal, false>(q, k, v, dout, lse, delta, dk, dv, nullptr,
+                                               bh, sq, sk, st);
   else
     return simt::launch<T, D, kRect, kCausal, false>(q, k, v, dout, lse, delta, dk, dv,
                                                      nullptr, bh, sq, sk, st);
@@ -847,8 +843,8 @@ int launch_fused(const void* q, const void* k, const void* v, const void* dout,
   if (err != cudaSuccess) return (int)err;
   int rc;
   if constexpr (std::is_same<T, bf16>::value)
-    rc = tc::launch<D, 2, false, true, true>(q, k, v, dout, lse, delta, dk, dv, acc, bh, s,
-                                             s, stream);
+    rc = tc::launch<D, false, true, true>(q, k, v, dout, lse, delta, dk, dv, acc, bh, s, s,
+                                          stream);
   else
     rc = simt::launch<T, D, false, true, true>(q, k, v, dout, lse, delta, dk, dv, acc, bh,
                                                s, s, stream);
@@ -914,15 +910,15 @@ extern "C" int kftpu_flash_bwd_fused(const void* q, const void* k, const void* v
   return (int)cudaErrorInvalidValue;
 }
 
-// Dynamic shared memory of one block, in bytes: of the tensor-core body
-// (tensor_cores != 0; bf16) or of the CUDA-core body in this dtype, for
-// head dim d, of the fused kernel (fused != 0) or a dk/dv one; 0 if
-// there is none.
+// Dynamic shared memory of one block, in bytes, for head dim d: of the
+// tensor-core body (tensor_cores != 0; bf16; the same for all three of
+// its kernels) or of the CUDA-core body in this dtype, of the fused
+// kernel (fused != 0) or a dk/dv one; 0 if there is none.
 extern "C" int kftpu_flash_bwd_dkv_smem_bytes(int d, int dtype, int tensor_cores, int fused) {
   if (tensor_cores) {
     if (dtype != 1) return 0;
-    if (d == 128) return fused ? tc::Layout<128, 2>::kBytes : tc::Layout<128, tc::kRectWG>::kBytes;
-    if (d == 64) return fused ? tc::Layout<64, 2>::kBytes : tc::Layout<64, tc::kRectWG>::kBytes;
+    if (d == 128) return tc::Layout<128>::kBytes;
+    if (d == 64) return tc::Layout<64>::kBytes;
     return 0;
   }
   if (dtype == 1 && d == 128) return (int)(fused ? simt::smem_bytes<bf16, 128, true>() : simt::smem_bytes<bf16, 128, false>());
