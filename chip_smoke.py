@@ -11,7 +11,8 @@ JSON line; any failure raises and the exit code is non-zero:
 2. build: every kernel under kubeflow_tpu_torch/ops/csrc, built with
    nvcc for sm_90a (one nvcc per source, all at once, or found built),
    with ptxas's resource report (registers, spills, and the dynamic
-   shared memory of every flash_fwd and flash_bwd_dkv instantiation).
+   shared memory of every flash_fwd, flash_bwd_dq and flash_bwd_dkv
+   instantiation).
 3. kernel: flash_fwd against its plain PyTorch version on the card, in
    bf16 and f32, at small, ragged and serving shapes, with the stated
    tolerance; then its time beside the plain version's, one PyTorch
@@ -23,7 +24,8 @@ JSON line; any failure raises and the exit code is non-zero:
 5. rect_kernel: the rectangular kernels (flash_fwd_rect,
    flash_bwd_dq_rect, flash_bwd_dkv_rect) against their plain versions
    in bf16 and f32 at (1, 128x128, 2, 64) non-causal, ragged
-   (2, 1001 q x 777 k, 4, 128) causal and not, and one full ring hop
+   (2, 1001 q x 777 k, 4, 128) causal and not, a long key side
+   (1, 1024 q x 16384 k, 8, 128) non-causal, and one full ring hop
    (1, 4096x4096, 8, 128) non-causal; then rect_kernel_timing: their
    times at the hop shape beside the plain versions', SDPA's
    (is_causal=False) and the bound.
@@ -47,7 +49,8 @@ JSON line; any failure raises and the exit code is non-zero:
    after (16 flash_fwd + 16 flash_delta + 16 flash_bwd_fused a step),
    one more step with the two-pass backward pinned
    (KFTPU_FLASH_FUSED_BWD=0: 16 flash_bwd_dq + 16 flash_bwd_dkv), step
-   time, tokens/s, MFU and a profile of one step.
+   time, tokens/s, MFU and profiles of one step and of one two-pass
+   step.
 10. train_check: one step's loss and every parameter's gradient on the
    kernel path against the same step with attention through the plain
    versions, in bf16 and in f32, with the tolerances stated in
@@ -147,6 +150,7 @@ RECT_SHAPES = [  # (B, S_q, S_k, H, D, causal)
     (1, 128, 128, 2, 64, False),
     (2, 1001, 777, 4, 128, False),  # ragged: the plain versions pad
     (2, 1001, 777, 4, 128, True),  # top-left causal mask, s_q > s_k
+    (1, 1024, 16384, 8, 128, False),  # dq sums over 16384 keys
     (1, 4096, 4096, 8, 128, False),  # one full hop of RING
 ]
 HOP_SHAPE = RECT_SHAPES[-1]
@@ -231,9 +235,9 @@ def ptxas_report(log: str, smem=None) -> list[str]:
 
 
 def kernel_smem(name: str):
-    """The dynamic shared memory of a flash_fwd or flash_bwd_dkv
-    instantiation (tensor-core bf16 body or CUDA-core body, read from its
-    mangled template arguments), from the library itself."""
+    """The dynamic shared memory of a flash_fwd, flash_bwd_dq or
+    flash_bwd_dkv instantiation (tensor-core bf16 body or CUDA-core body,
+    read from its mangled template arguments), from the library itself."""
     import re
 
     from kubeflow_tpu_torch.ops import _kernels
@@ -242,13 +246,19 @@ def kernel_smem(name: str):
     if fwd is not None:
         dtype = 1 if fwd.group(1) == "tc" else 0
         return _kernels.library("flash_fwd").kftpu_flash_fwd_smem_bytes(int(fwd.group(2)), dtype)
+    dq = re.search(r"flash_bwd_dq_(tc|simt)I(?:(13__nv_bfloat16|f))?Li(\d+)E", name)
+    if dq is not None:
+        tensor_cores = dq.group(1) == "tc"
+        dtype = 1 if tensor_cores or dq.group(2) != "f" else 0
+        return _kernels.library("flash_bwd_dq").kftpu_flash_bwd_dq_smem_bytes(
+            int(dq.group(3)), dtype, int(tensor_cores))
     bwd = _kernels.library("flash_bwd_dkv").kftpu_flash_bwd_dkv_smem_bytes
     tc = re.search(r"flash_bwd_tcILi(\d+)ELb[01]ELb[01]ELb([01])E", name)
     if tc is not None:
         return bwd(int(tc.group(1)), 1, 1, int(tc.group(2)))
-    simt = re.search(r"flash_bwd_dkv_kernelI(13__nv_bfloat16|f)Li(\d+)ELb[01]ELb[01]ELb([01])E", name)
+    simt = re.search(r"flash_bwd_dkv_kernelIfLi(\d+)ELb[01]ELb[01]ELb([01])E", name)
     if simt is not None:
-        return bwd(int(simt.group(2)), 0 if simt.group(1) == "f" else 1, 0, int(simt.group(3)))
+        return bwd(int(simt.group(1)), 0, 0, int(simt.group(2)))
     return None
 
 
@@ -483,6 +493,7 @@ def bwd_kernel_phase(torch, card: str) -> dict:
             "shape_bshd": list(TRAIN_SHAPE), "dtype": "bfloat16",
             "achieved_tflops": flops / (kernel_ms[name] * 1e-3) / 1e12,
             "bound_share": max(t_ops, t_bytes) / kernel_ms[name],
+            "over_library": kernel_ms[name] / lib_ms if lib_ms else None,
             "card": card,
         }
         emit({"phase": "bwd_kernel_timing", **entries[name]})
@@ -617,6 +628,7 @@ def rect_kernel_phase(torch, card: str) -> dict:
             "dtype": "bfloat16",
             "achieved_tflops": flops / (kernel_ms[name] * 1e-3) / 1e12,
             "bound_share": max(t_ops, t_bytes) / kernel_ms[name],
+            "over_library": kernel_ms[name] / lib_ms if lib_ms else None,
             "card": card,
         }
         emit({"phase": "rect_kernel_timing", **entries[name]})
@@ -969,7 +981,8 @@ def train_phase(torch, card: str) -> dict:
         state, metrics = step(state, next(data))
         losses.append(metrics["loss"])
         torch.cuda.synchronize()
-    two_pass = dict(_kernels.launches)
+        two_pass = dict(_kernels.launches)
+        two_pass_profile = profile_device(torch, lambda: step(state, next(data)))
 
     losses = [float(x) for x in losses]
     layers = LM["n_layers"]
@@ -998,6 +1011,7 @@ def train_phase(torch, card: str) -> dict:
         "launches_per_step": {k: v / n for k, v in launches.items()},
         "launches_two_pass_step": two_pass,
         "profile_one_step": profile,
+        "profile_one_two_pass_step": two_pass_profile,
         "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
         "card": card,
     }

@@ -33,6 +33,7 @@ from kubeflow_tpu_torch.models.convert import init_params
 from kubeflow_tpu_torch.ops.attention import dense_attention, ring_attention
 from kubeflow_tpu_torch.ops.flash import (
     flash_attention,
+    flash_kernels_take,
     ring_flash_attention,
     ring_flash_usable,
 )
@@ -63,8 +64,10 @@ class TransformerConfig:
     dtype: torch.dtype = torch.bfloat16
     remat: bool = True
     remat_policy: str = "full"
-    # "auto" and "flash" run `flash_attention` (the kernel on CUDA, its
-    # plain version on CPU); "dense" runs `dense_attention`.
+    # "flash" runs `flash_attention` (the kernels on CUDA, their plain
+    # versions on CPU); "auto" does too, except on CUDA at a head dim or
+    # dtype the kernels do not take, where it runs `dense_attention`
+    # (`use_flash`); "dense" runs `dense_attention`.
     attention_impl: str = "auto"
     flash_block_q: int = 1024
     flash_block_k: int = 1024
@@ -135,12 +138,25 @@ def rope(x, positions, theta: float):
     return out.to(x.dtype)
 
 
+def use_flash(impl: str, *, cuda: bool, head_dim: int, dtype) -> bool:
+    """Whether `_attend` runs flash attention (else dense) off the ring,
+    decided by shape before any call, as JAX's "auto" decides by its
+    `flash_usable` predicate. "flash" always: flash is asked for, flash
+    runs, and a shape the kernels do not take raises there. "auto": on
+    the CPU always (the plain versions take any shape), on CUDA where the
+    kernels take the head dim and dtype (`flash_kernels_take`)."""
+    if impl == "flash":
+        return True
+    return impl == "auto" and (not cuda or flash_kernels_take(head_dim, dtype))
+
+
 def _attend(q, k, v, mesh, cfg: TransformerConfig):
     """Causal attention by `cfg.attention_impl`: around the ring when the
     mesh's sp axis is real (JAX `_attend`, kubeflow_tpu/models/
     transformer.py:256-273) — ring flash for "auto"/"flash" where it takes
-    the chunks (always on CUDA; on the CPU where they tile, as in JAX),
-    else the dense-hop ring — and flash or dense otherwise."""
+    the chunks (on CUDA where the kernels take the head dim and dtype; on
+    the CPU where the chunks tile, as in JAX), else the dense-hop ring —
+    and otherwise flash or dense by `use_flash`."""
     bq, bk = cfg.flash_block_q, cfg.flash_block_k
     if mesh is not None and mesh.shape["sp"] > 1:
         chunk = q.shape[1] // len(mesh.ring().ranks)
@@ -151,7 +167,8 @@ def _attend(q, k, v, mesh, cfg: TransformerConfig):
                 q, k, v, mesh, causal=True, block_q=bq, block_k=bk
             )
         return ring_attention(q, k, v, mesh, causal=True)
-    if cfg.attention_impl == "dense":
+    if not use_flash(cfg.attention_impl, cuda=q.is_cuda, head_dim=q.shape[-1],
+                     dtype=q.dtype):
         return dense_attention(q, k, v, causal=True)
     return flash_attention(
         q, k, v, causal=True, block_q=bq, block_k=bk,

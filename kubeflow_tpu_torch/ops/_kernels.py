@@ -58,6 +58,9 @@ _SIGNATURES = {
     "flash_bwd_dq": {
         "kftpu_flash_bwd_dq": _entry(7),
         "kftpu_flash_bwd_dq_rect": _entry(7, 6),
+        # (d, dtype, tensor_cores) → the dynamic shared memory of one
+        # block of that body, in bytes.
+        "kftpu_flash_bwd_dq_smem_bytes": ([ctypes.c_int] * 3, ctypes.c_int),
         **_ERROR_STRING,
     },
     "flash_bwd_dkv": {

@@ -33,10 +33,11 @@
 // of one head run at once, so the fused kernel adds its dq contributions
 // into a zeroed [BH, S, D] float32 buffer with vector atomics, and a
 // last pass scales that buffer and casts it to dq. The sum's order, and
-// so dq's last bits, changes from run to run; the two-pass kernels
-// (flash_bwd_dq.cu and the compact dk/dv here) are deterministic and
-// are its oracle. dk and dv add in a fixed order, so they repeat
-// bitwise. Keys past S_k and rows past S_q are masked in the kernel, so
+// so dq's last bits, changes from run to run; its oracle is the plain
+// version (flash_bwd_fused_reference in ops/flash.py), and the two-pass
+// kernels (flash_bwd_dq.cu and the dk/dv here) add in a fixed order and
+// repeat bitwise, so KFTPU_FLASH_FUSED_BWD=0 pins a deterministic
+// backward. Keys past S_k and rows past S_q are masked in the kernel, so
 // no sequence length needs padding.
 //
 // What bounds it: 8 FLOP per unmasked pair per head dim for dk/dv (the
@@ -51,7 +52,7 @@
 //
 // Two bodies, chosen at compile time by the element type and the entry:
 //
-// bf16 rectangular dk/dv and bf16 fused (flash_bwd_tc, the main paths):
+// bf16 dk/dv, rectangular and compact, and bf16 fused (flash_bwd_tc):
 // every product on the tensor cores with wgmma. A block of 256 threads
 // is two consumer warpgroups, each owning 64 of the block's 128 keys
 // (wgmma's M). k and v are loaded once by TMA through 3-D tensor maps
@@ -109,23 +110,23 @@
 // for the tile's loads and releases it, so no arrival races the next
 // phase and no copy is in flight when the block exits.
 //
-// float32 (simt::flash_bwd_dkv_kernel; also the bf16 compact dk/dv,
-// kept as the fixed, deterministic oracle of the fused kernel): float32
-// FMAs on the CUDA cores; TF32 would not hold the f32 checks' 5e-5
-// gate. One block owns a 32-key tile, holds k^T and v^T in shared
-// memory and loops over the 64-row q tiles, copying q and dO in twice
-// (transposed for s and dp, row-major for dk and dv).
+// float32 (simt::flash_bwd_dkv_kernel): float32 FMAs on the CUDA cores;
+// TF32 would not hold the f32 checks' 5e-5 gate. One block owns a 32-key
+// tile, holds k^T and v^T in shared memory and loops over the 64-row q
+// tiles, copying q and dO in twice (transposed for s and dp, row-major
+// for dk and dv).
 //
 // Measured on an H100 80GB HBM3 at 700 W (chip_smoke.py; PERF.md has the
-// table): the rectangular dk/dv at the hop shape takes 0.651-0.655 ms,
-// 4.7x its 0.139 ms bound and 1.8x SDPA's whole backward, where the
-// CUDA-core body took 7.76 ms; the fused kernel at the training shape
-// 1.264-1.268 ms with its memset and scale pass, 7.3x its 0.174 ms bound
-// and 2.2x SDPA's backward, where it took 11.67 ms. A 64-key block (one
-// warpgroup, 512 blocks at the hop shape) took 0.97 ms there, so the
-// block stays at 128 keys: it reads each q/dO tile once for twice the
-// keys (PERF.md has the measurement). At D = 128 the body sits at the 255
-// register cap and spills 100-132 bytes a thread. What holds it is the
+// table): the rectangular dk/dv at the hop shape takes 0.59-0.61 ms, 4.3x
+// its 0.139 ms bound and 1.7x SDPA's whole backward, where the CUDA-core
+// body took 7.76 ms; the compact dk/dv at the training shape 0.75 ms, 5.4x
+// its 0.139 ms bound and 1.3x SDPA's backward, where it took 8.5 ms; the
+// fused kernel there 1.23 ms with its memset and scale pass, 7.1x its
+// 0.174 ms bound and 2.2x SDPA's backward, where it took 11.67 ms. A
+// 64-key block (one warpgroup, 512 blocks at the hop shape) took 0.97 ms
+// there, so the block stays at 128 keys: it reads each q/dO tile once for
+// twice the keys (PERF.md has the measurement). At D = 128 the body sits
+// at the 255 register cap and spills 72-132 bytes a thread. What holds it is the
 // serial chain in each warpgroup: s^T and dp^T, wait, p and ds, then
 // four tile products, each waited on before its float32 adds, with two
 // warpgroups an SM. Later work: warp specialisation (a producer warp
@@ -143,11 +144,6 @@
 
 namespace {
 
-__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
-  const __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&t);
-}
-
 // -- bf16: wgmma, TMA and an mbarrier q/dO ring -------------------------------
 
 namespace tc {
@@ -160,8 +156,6 @@ constexpr int kRowBytes = 128;   // one swizzled row: 64 bf16 columns
 constexpr int kWGKeys = 64;      // keys per consumer warpgroup (wgmma's M)
 constexpr int kBK = 2 * kWGKeys; // keys per block: two consumer warpgroups
 constexpr int kThreads = 256;
-
-constexpr int kTerms = 3;        // p and ds as hi + mid + lo, each bf16
 
 template <int D>
 struct Layout {
@@ -188,20 +182,6 @@ __device__ __forceinline__ void load_rows(const CUtensorMap* q_map, const CUtens
 #pragma unroll
   for (int c = 0; c < D / 64; ++c)
     tma_load_3d(sdo + c * kBQ * kRowBytes, do_map, full_do, c * 64, q0, bh);
-}
-
-// The pair (a, b) as three packed bf16x2 terms, hi + mid + lo: each term
-// rounds what the ones before left over, so the sum keeps ~2^-27 of
-// the pair's precision (hi + lo alone keeps ~2^-18).
-__device__ __forceinline__ void split3(float a, float b, uint32_t (&t)[kTerms]) {
-#pragma unroll
-  for (int i = 0; i < kTerms; ++i) {
-    const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-    const float2 f = __bfloat1622float2(h);
-    t[i] = *reinterpret_cast<const uint32_t*>(&h);
-    a -= f.x;
-    b -= f.y;
-  }
 }
 
 // kRect = false: causal self-attention with S_k = S_q, fixed at compile
@@ -242,8 +222,9 @@ flash_bwd_tc(const __grid_constant__ CUtensorMap q_map,
   const int wg = tid / 128;
   const int warp = tid / 32;
   const int lane = tid % 32;
-  const int k0 = blockIdx.x * kBK;  // heaviest (longest causal walk) first
-  const int bh = blockIdx.y;
+  const kftpu::TileHead at = kftpu::tile_head((Sk + kBK - 1) / kBK);
+  const int k0 = at.tile * kBK;  // heaviest (longest causal walk) first
+  const int bh = at.bh;
   // Causal: rows above the block's first key see none of its keys.
   const int q_first = kCausal ? (k0 / kBQ) * kBQ : 0;
   const int n_tiles = Sq > q_first ? (Sq - q_first + kBQ - 1) / kBQ : 0;
@@ -547,7 +528,7 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
   if (!err) err = encode_bf16_rows(&q_map, rows ? q : k, bh, rows ? sq : sk, D, kBQ);
   if (!err) err = encode_bf16_rows(&do_map, rows ? dout : k, bh, rows ? sq : sk, D, kBQ);
   if (err) return err;
-  const dim3 grid((sk + kBK - 1) / kBK, bh);
+  const dim3 grid = kftpu::fold_grid((sk + kBK - 1) / kBK, bh);
   return kftpu::launch_kernel(
       flash_bwd_tc<D, kRect, kCausal, kFused>, grid, kThreads, (size_t)Layout<D>::kBytes,
       stream, q_map, k_map, v_map, do_map, static_cast<const float*>(lse),
@@ -558,7 +539,7 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
 
 }  // namespace tc
 
-// -- float32 (and the bf16 compact dk/dv): FMAs on the CUDA cores ------------
+// -- float32: FMAs on the CUDA cores ------------------------------------------
 
 namespace simt {
 
@@ -611,17 +592,18 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* sDelta = sLse + kBQ;
   T* sK = reinterpret_cast<T*>(sDelta + kBQ);  // kFused only
 
-  const int k0 = blockIdx.x * kBK;  // heaviest (longest column) first
-  const size_t q_head = (size_t)blockIdx.y * Sq * D;
-  const size_t k_head = kRect ? (size_t)blockIdx.y * Sk * D : q_head;
+  const kftpu::TileHead at = kftpu::tile_head((Sk + kBK - 1) / kBK);
+  const int k0 = at.tile * kBK;  // heaviest (longest column) first
+  const size_t q_head = (size_t)at.bh * Sq * D;
+  const size_t k_head = kRect ? (size_t)at.bh * Sk * D : q_head;
   q += q_head;
   k += k_head;
   v += k_head;
   dout += q_head;
   dk += k_head;
   dv += k_head;
-  lse += (size_t)blockIdx.y * Sq;
-  delta += (size_t)blockIdx.y * Sq;
+  lse += (size_t)at.bh * Sq;
+  delta += (size_t)at.bh * Sq;
 
   // Score tiles are held transposed, s^T[key][row]: thread (kp, tc) owns
   // keys kr..kr+1 and rows tc*8..+7 of each q tile, and, per 64-column
@@ -774,7 +756,7 @@ template <typename T, int D, bool kRect, bool kCausal, bool kFused>
 int launch(const void* q, const void* k, const void* v, const void* dout,
            const void* lse, const void* delta, void* dk, void* dv,
            float* dq_acc, int bh, int sq, int sk, cudaStream_t stream) {
-  const dim3 grid((sk + kBK - 1) / kBK, bh);
+  const dim3 grid = kftpu::fold_grid((sk + kBK - 1) / kBK, bh);
   return kftpu::launch_kernel(
       flash_bwd_dkv_kernel<T, D, kRect, kCausal, kFused>, grid, kThreads,
       smem_bytes<T, D, kFused>(), stream, static_cast<const T*>(q),
@@ -802,15 +784,15 @@ flash_dq_scale_kernel(const float* __restrict__ dq_acc, T* __restrict__ dq,
 
 using bf16 = __nv_bfloat16;
 
-// The two-pass dk/dv: bf16 rectangular on the tensor cores, the rest
-// (f32, and the bf16 compact kernel) on the CUDA cores.
+// The two-pass dk/dv, rectangular and compact: bf16 on the tensor cores,
+// f32 on the CUDA cores.
 template <typename T, int D, bool kRect, bool kCausal>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, void* dk, void* dv, int bh, int sq,
                int sk, cudaStream_t st) {
-  if constexpr (kRect && std::is_same<T, bf16>::value)
-    return tc::launch<D, true, kCausal, false>(q, k, v, dout, lse, delta, dk, dv, nullptr,
-                                               bh, sq, sk, st);
+  if constexpr (std::is_same<T, bf16>::value)
+    return tc::launch<D, kRect, kCausal, false>(q, k, v, dout, lse, delta, dk, dv, nullptr,
+                                                bh, sq, sk, st);
   else
     return simt::launch<T, D, kRect, kCausal, false>(q, k, v, dout, lse, delta, dk, dv,
                                                      nullptr, bh, sq, sk, st);
@@ -867,7 +849,6 @@ extern "C" int kftpu_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                    int bh, int s, int d, int dtype,
                                    void* stream) {
   if (bh <= 0 || s <= 0) return (int)cudaSuccess;
-  if (bh > 65535) return (int)cudaErrorInvalidValue;
   return dispatch<false, true>(q, k, v, dout, lse, delta, dk, dv, bh, s, s, d,
                                dtype, static_cast<cudaStream_t>(stream));
 }
@@ -882,7 +863,7 @@ extern "C" int kftpu_flash_bwd_dkv_rect(const void* q, const void* k,
                                         int sk, int d, int causal, int dtype,
                                         void* stream) {
   if (bh <= 0 || sk <= 0) return (int)cudaSuccess;
-  if (bh > 65535 || sq < 0) return (int)cudaErrorInvalidValue;
+  if (sq < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (causal)
     return dispatch<true, true>(q, k, v, dout, lse, delta, dk, dv, bh, sq, sk, d, dtype, st);
@@ -897,7 +878,6 @@ extern "C" int kftpu_flash_bwd_fused(const void* q, const void* k, const void* v
                                      void* dv, void* dq_acc, int bh, int s,
                                      int d, int dtype, void* stream) {
   if (bh <= 0 || s <= 0) return (int)cudaSuccess;
-  if (bh > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1 && d == 128)
     return launch_fused<bf16, 128>(q, k, v, dout, lse, delta, dq, dk, dv, dq_acc, bh, s, st);
@@ -911,9 +891,9 @@ extern "C" int kftpu_flash_bwd_fused(const void* q, const void* k, const void* v
 }
 
 // Dynamic shared memory of one block, in bytes, for head dim d: of the
-// tensor-core body (tensor_cores != 0; bf16; the same for all three of
-// its kernels) or of the CUDA-core body in this dtype, of the fused
-// kernel (fused != 0) or a dk/dv one; 0 if there is none.
+// tensor-core body (tensor_cores != 0; bf16; the same for all four of
+// its kernels) or of the CUDA-core body (float32), of the fused kernel
+// (fused != 0) or a dk/dv one; 0 if there is none.
 extern "C" int kftpu_flash_bwd_dkv_smem_bytes(int d, int dtype, int tensor_cores, int fused) {
   if (tensor_cores) {
     if (dtype != 1) return 0;
@@ -921,8 +901,6 @@ extern "C" int kftpu_flash_bwd_dkv_smem_bytes(int d, int dtype, int tensor_cores
     if (d == 64) return tc::Layout<64>::kBytes;
     return 0;
   }
-  if (dtype == 1 && d == 128) return (int)(fused ? simt::smem_bytes<bf16, 128, true>() : simt::smem_bytes<bf16, 128, false>());
-  if (dtype == 1 && d == 64) return (int)(fused ? simt::smem_bytes<bf16, 64, true>() : simt::smem_bytes<bf16, 64, false>());
   if (dtype == 0 && d == 128) return (int)(fused ? simt::smem_bytes<float, 128, true>() : simt::smem_bytes<float, 128, false>());
   if (dtype == 0 && d == 64) return (int)(fused ? simt::smem_bytes<float, 64, true>() : simt::smem_bytes<float, 64, false>());
   return 0;

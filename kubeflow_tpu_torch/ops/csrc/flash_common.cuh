@@ -93,6 +93,29 @@ __device__ __forceinline__ void load_tile(const T* __restrict__ g, int row0,
   }
 }
 
+// Every flash grid is n_tiles tiles for each of bh (batch*head) rows,
+// folded into gridDim.x with bh fastest: gridDim.y would cap bh at 65535,
+// and ring flash folds its ring positions into bh. Blocks start in
+// blockIdx order, so the tile index is the slow part of the launch order:
+// every head's tile 0 (the longest causal walk) starts before any head's
+// tile 1. A grid of more than 2^31 - 1 blocks comes back as 0 blocks, which
+// the launch refuses.
+inline dim3 fold_grid(int n_tiles, int bh) {
+  const long long n = (long long)n_tiles * bh;
+  return dim3(n > 0x7fffffffLL ? 0u : (unsigned)n);
+}
+
+// This block's (tile, bh) in a `fold_grid` of n_tiles tiles per row.
+struct TileHead {
+  int tile;
+  int bh;
+};
+
+__device__ __forceinline__ TileHead tile_head(int n_tiles) {
+  const int n_bh = (int)gridDim.x / n_tiles;
+  return {(int)blockIdx.x / n_bh, (int)blockIdx.x % n_bh};
+}
+
 // Sets the kernel's dynamic shared-memory limit, then launches it.
 template <typename Kernel, typename... Args>
 int launch_kernel(Kernel kernel, dim3 grid, int threads, size_t smem,

@@ -70,10 +70,10 @@
 // transposed (q^T, k^T, p^T) so the inner loops read contiguous vectors.
 //
 // Measured on an H100 80GB HBM3 at 700 W (chip_smoke.py; PERF.md has the
-// table): at B=8, S=2048, H=8, D=128 causal the bf16 body takes 0.24 ms,
-// 3.5x the 0.0695 ms bound, where the float32-FMA body took 3.24 ms on
+// table): at B=8, S=2048, H=8, D=128 causal the bf16 body takes 0.23 ms,
+// 3.3x the 0.0695 ms bound, where the float32-FMA body took 3.24 ms on
 // the same bf16 inputs; a ring hop (S_q = S_k = 4096, H=8, non-causal)
-// takes 0.18 ms. What holds it is the serial chain inside a warpgroup
+// takes 0.175 ms. What holds it is the serial chain inside a warpgroup
 // (q.k^T, wait, softmax, p.v, wait) with two warpgroups an SM. Later
 // work for the bf16 body: warp specialisation (a producer warp issuing
 // the TMA loads, setmaxnreg moving registers to the consumers),
@@ -126,21 +126,6 @@ __device__ __forceinline__ void load_kv(const CUtensorMap* k_map, const CUtensor
     tma_load_3d(sv + c * kBK * kRowBytes, v_map, full_v, c * 64, k0, bh);
 }
 
-template <int D>
-__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2], const uint32_t (&a)[4],
-                                         uint64_t desc_v) {
-  if constexpr (D == 128) {
-    wgmma_rs_m64n128k16_mn(o, a, desc_v);
-  } else {
-    wgmma_rs_m64n64k16_mn(o, a, desc_v);
-  }
-}
-
-__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
-  const __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&t);
-}
-
 // kRect = false: causal self-attention with S_k = S_q, fixed at compile
 // time (the compact case; kCausal must be true). kRect = true: q [BH, S_q,
 // D] against k, v [BH, S_k, D], with the top-left causal mask when
@@ -171,8 +156,9 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap q_map,
   const int wg = tid / 128;
   const int lane = tid % 32;
   const int n_qtiles = (Sq + kBQ - 1) / kBQ;
-  const int q0 = (kCausal ? n_qtiles - 1 - (int)blockIdx.x : (int)blockIdx.x) * kBQ;
-  const int bh = blockIdx.y;
+  const kftpu::TileHead at = kftpu::tile_head(n_qtiles);
+  const int q0 = (kCausal ? n_qtiles - 1 - at.tile : at.tile) * kBQ;
+  const int bh = at.bh;
   // Causal loop bound: no row of this tile sees a key past its last row
   // (rows past S_q need none).
   const int k_end = kCausal ? min(Sk, min(Sq, q0 + kBQ)) : Sk;
@@ -308,8 +294,8 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
       for (int kt = 0; kt < kBK / 16; ++kt) {
         const uint64_t dv = desc_v + ((kt * 16 * kRowBytes) >> 4);
-        wgmma_pv<D>(acc, hi[kt], dv);
-        wgmma_pv<D>(acc, lo[kt], dv);
+        wgmma_rs_mn<D>(acc, hi[kt], dv);
+        wgmma_rs_mn<D>(acc, lo[kt], dv);
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -365,7 +351,7 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse, int 
   if (!err) err = encode_bf16_rows(&k_map, keys ? k : q, bh, keys ? sk : sq, D, kBK);
   if (!err) err = encode_bf16_rows(&v_map, keys ? v : q, bh, keys ? sk : sq, D, kBK);
   if (err) return err;
-  const dim3 grid((sq + kBQ - 1) / kBQ, bh);
+  const dim3 grid = kftpu::fold_grid((sq + kBQ - 1) / kBQ, bh);
   return kftpu::launch_kernel(flash_fwd_tc<D, kRect, kCausal>, grid, kThreads,
                               (size_t)Layout<D>::kBytes, stream, q_map, k_map, v_map,
                               static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), sq,
@@ -423,14 +409,15 @@ flash_fwd_simt(const float* __restrict__ q, const float* __restrict__ k,
   float* sPT = sV + kBK * D;
 
   const int n_tiles = (Sq + kBQ - 1) / kBQ;
-  const int q0 = (n_tiles - 1 - (int)blockIdx.x) * kBQ;  // heaviest first
-  const size_t q_head = (size_t)blockIdx.y * Sq * D;
-  const size_t k_head = kRect ? (size_t)blockIdx.y * Sk * D : q_head;
+  const kftpu::TileHead at = kftpu::tile_head(n_tiles);
+  const int q0 = (n_tiles - 1 - at.tile) * kBQ;  // heaviest first
+  const size_t q_head = (size_t)at.bh * Sq * D;
+  const size_t k_head = kRect ? (size_t)at.bh * Sk * D : q_head;
   q += q_head;
   k += k_head;
   v += k_head;
   o += q_head;
-  lse += (size_t)blockIdx.y * Sq;
+  lse += (size_t)at.bh * Sq;
 
   // Thread (rg, tc) owns score rows r0..r0+3 and, per 64-column chunk h,
   // columns h*64 + tc*8 .. +7: a row's 8 lanes are adjacent in one warp.
@@ -547,7 +534,7 @@ flash_fwd_simt(const float* __restrict__ q, const float* __restrict__ k,
 template <int D, bool kRect, bool kCausal>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse, int bh, int sq,
            int sk, cudaStream_t stream) {
-  const dim3 grid((sq + kBQ - 1) / kBQ, bh);
+  const dim3 grid = kftpu::fold_grid((sq + kBQ - 1) / kBQ, bh);
   return kftpu::launch_kernel(
       flash_fwd_simt<D, kRect, kCausal>, grid, kThreads, smem_bytes<D>(), stream,
       static_cast<const float*>(q), static_cast<const float*>(k),
@@ -580,7 +567,6 @@ extern "C" int kftpu_flash_fwd(const void* q, const void* k, const void* v,
                                void* o, void* lse, int bh, int s, int d,
                                int dtype, void* stream) {
   if (bh <= 0 || s <= 0) return (int)cudaSuccess;
-  if (bh > 65535) return (int)cudaErrorInvalidValue;
   return dispatch<false, true>(q, k, v, o, lse, bh, s, s, d, dtype,
                                static_cast<cudaStream_t>(stream));
 }
@@ -593,7 +579,7 @@ extern "C" int kftpu_flash_fwd_rect(const void* q, const void* k,
                                     int sq, int sk, int d, int causal,
                                     int dtype, void* stream) {
   if (bh <= 0 || sq <= 0) return (int)cudaSuccess;
-  if (bh > 65535 || sk < 0) return (int)cudaErrorInvalidValue;
+  if (sk < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (causal) return dispatch<true, true>(q, k, v, o, lse, bh, sq, sk, d, dtype, st);
   return dispatch<true, false>(q, k, v, o, lse, bh, sq, sk, d, dtype, st);

@@ -16,6 +16,7 @@
 #pragma once
 
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -23,6 +24,30 @@ namespace kftpu {
 namespace hopper {
 
 // -- device side ---------------------------------------------------------
+
+// (lo, hi) rounded to bf16 and packed, lo in the low half.
+__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
+  const __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&t);
+}
+
+// The backward kernels' p and ds go through their wgmmas as three bf16
+// terms (flash_bwd_dkv.cu and flash_bwd_dq.cu say why).
+constexpr int kTerms = 3;
+
+// The pair (a, b) as three packed bf16x2 terms, hi + mid + lo: each term
+// rounds what the ones before left over, so the sum keeps ~2^-27 of
+// the pair's precision (hi + lo alone keeps ~2^-18).
+__device__ __forceinline__ void split3(float a, float b, uint32_t (&t)[kTerms]) {
+#pragma unroll
+  for (int i = 0; i < kTerms; ++i) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+    const float2 f = __bfloat1622float2(h);
+    t[i] = *reinterpret_cast<const uint32_t*>(&h);
+    a -= f.x;
+    b -= f.y;
+  }
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -223,6 +248,19 @@ __device__ __forceinline__ void wgmma_rs_m64n128k16_mn(float (&d)[64], const uin
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// D[64 x N] += A[64 x 16] (registers) * B[16 x N] (shared memory,
+// MN-major), N = 64 or 128.
+template <int N>
+__device__ __forceinline__ void wgmma_rs_mn(float (&d)[N / 2], const uint32_t (&a)[4],
+                                            uint64_t desc_b) {
+  static_assert(N == 64 || N == 128, "N is 64 or 128");
+  if constexpr (N == 128) {
+    wgmma_rs_m64n128k16_mn(d, a, desc_b);
+  } else {
+    wgmma_rs_m64n64k16_mn(d, a, desc_b);
+  }
 }
 
 // -- host side -------------------------------------------------------------

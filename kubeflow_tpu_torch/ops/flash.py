@@ -25,9 +25,10 @@ the kernels (or an error). Causal self-attention takes the causal
 kernels; non-causal attention and s_q != s_k (with the TPU kernels'
 top-left causal mask, q_pos >= k_pos and no offset) take the
 rectangular ones. The kernels take any lengths (they mask their own
-ragged edges, so nothing is padded on CUDA), D of 64 or 128, bf16 or
-f32. `FlashAttentionFunction` ties them into autograd, and
-`flash_attention` runs through it on every device.
+ragged edges, so nothing is padded on CUDA) and any number of
+(batch*head) rows, D of 64 or 128, bf16 or f32 (`flash_kernels_take`).
+`FlashAttentionFunction` ties them into autograd, and `flash_attention`
+runs through it on every device.
 
 Ring flash attention (`ring_flash_attention`, sequence parallelism over
 a mesh's sp ring) composes these kernels: each hop runs the causal ones
@@ -116,6 +117,15 @@ def flash_usable(seq_q: int, seq_k: int, block_q: int = 1024,
     pair, since ragged lengths are handled inside."""
     del block_q, block_k
     return seq_q >= 1 and seq_k >= 1
+
+
+def flash_kernels_take(head_dim: int, dtype) -> bool:
+    """True when the CUDA kernels take q, k and v of this head dim and
+    dtype: D of 64 or 128, bf16 or f32. It decides, by shape and before
+    any call, whether a model's "auto" attention on CUDA runs the flash
+    kernels or dense attention; a direct kernel call on anything else
+    raises."""
+    return head_dim in _KERNEL_HEAD_DIMS and dtype in _KERNEL_DTYPES
 
 
 def flash_kernel_tileable(seq: int, block: int = 1024) -> bool:
@@ -330,7 +340,8 @@ def _on_cpu(x) -> bool:
 def _check_kernel_inputs(*tensors, names="qkv", kernel: str = "flash_fwd") -> None:
     """What the CUDA kernels take: q, dO (and o) of one [BH, S_q, D]
     shape, k and v of one [BH, S_k, D] shape, all of one dtype and
-    device, contiguous and 16-byte aligned, bf16 or f32, D 64 or 128."""
+    device, contiguous and 16-byte aligned, bf16 or f32, D 64 or 128
+    (`flash_kernels_take`), any BH."""
     first = tensors[0]
     kv = [t.shape for n, t in zip(names, tensors) if n in ("k", "v")]
     rows = [t.shape for n, t in zip(names, tensors) if n not in ("k", "v")]
@@ -355,11 +366,6 @@ def _check_kernel_inputs(*tensors, names="qkv", kernel: str = "flash_fwd") -> No
         raise ValueError(
             f"{kernel} kernel: head dim must be one of {_KERNEL_HEAD_DIMS}; "
             f"got {first.shape[2]}"
-        )
-    if first.shape[0] > 65535:
-        raise ValueError(
-            f"{kernel} kernel: at most 65535 (batch*heads) rows; got "
-            f"{first.shape[0]}"
         )
     for name, t in zip(names, tensors):
         if not t.is_contiguous():
@@ -797,13 +803,14 @@ class RingFlashFunction(torch.autograd.Function):
 def ring_flash_usable(x, chunk: int, block_q: int = 1024,
                       block_k: int = 1024) -> bool:
     """True when `ring_flash_attention` takes chunks of `chunk` tokens on
-    `x`'s device. On CUDA always: the kernels mask their own ragged
-    edges, so every hop sees exactly its [C, C] tile. On the CPU only
-    where the chunk divides into 8-aligned blocks without padding
-    (`flash_kernel_tileable`), as in JAX, so the CPU ring answers and
-    refuses as JAX's does."""
+    `x`'s device. On CUDA wherever the kernels take x's head dim and
+    dtype (`flash_kernels_take`), for any chunk: the kernels mask their
+    own ragged edges, so every hop sees exactly its [C, C] tile. On the
+    CPU only where the chunk divides into 8-aligned blocks without
+    padding (`flash_kernel_tileable`), as in JAX, so the CPU ring answers
+    and refuses as JAX's does."""
     if not _on_cpu(x):
-        return True
+        return flash_kernels_take(x.shape[-1], x.dtype)
     return flash_kernel_tileable(chunk, block_q) and flash_kernel_tileable(
         chunk, block_k
     )
@@ -827,8 +834,8 @@ def ring_flash_attention(
     size), so per-position attention memory is O(C·D), not O(C²).
     Differentiable (`RingFlashFunction` re-walks the ring with global
     statistics). Falls back to `flash_attention` when the ring is
-    trivial. On the CPU the chunks must tile without padding
-    (`ring_flash_usable`)."""
+    trivial. On the CPU the chunks must tile without padding, on CUDA
+    the kernels must take the head dim and dtype (`ring_flash_usable`)."""
     if mesh.shape["sp"] == 1:
         return flash_attention(
             q, k, v, causal=causal, block_q=block_q, block_k=block_k
@@ -843,10 +850,16 @@ def ring_flash_attention(
         )
     chunk = s // local
     if not ring_flash_usable(q, chunk, block_q, block_k):
+        if _on_cpu(q):
+            raise ValueError(
+                f"ring flash attention: per-device chunk {chunk} does not "
+                "divide into 8-aligned flash blocks (the ring cannot pad); "
+                "use ring_attention or resize the sp axis"
+            )
         raise ValueError(
-            f"ring flash attention: per-device chunk {chunk} does not "
-            "divide into 8-aligned flash blocks (the ring cannot pad); "
-            "use ring_attention or resize the sp axis"
+            f"ring flash attention: the kernels take head dim "
+            f"{_KERNEL_HEAD_DIMS} in bf16 or f32, not {d} in {q.dtype}; "
+            "use ring_attention"
         )
     _check_ring_batch(mesh, b)
     # Contiguous: the kernels take each hop kind's run of positions as one

@@ -219,6 +219,10 @@ def test_flash_bwd_kernels_match_plain_version(cuda, dtype, s, d, fused):
         assert g.dtype == dt and torch.isfinite(g).all()
     if fused and dtype == "bfloat16" and s == 1:
         _close_bwd_one_key(got, want)
+    elif dtype == "bfloat16" and s == 1:
+        # The compact dq runs on the CUDA cores, dk/dv on the tensor cores.
+        _close_bwd(got[0], want[0], dtype)
+        _close_bwd_one_key(got[1:], want[1:])
     else:
         for g, w in zip(got, want):
             _close_bwd(g, w, dtype)
@@ -362,10 +366,14 @@ def test_ring_flash_on_the_card_takes_a_chunk_that_does_not_tile(cuda, causal):
     _close_bwd(o.cpu(), dense_attention(q, k, v), "float32")
 
 
-# The bf16 rectangular dk/dv and fused backward run on the tensor cores
-# (csrc/flash_bwd_dkv.cu, flash_bwd_tc): 128-key blocks, 64-row q tiles,
-# ragged edges masked in the kernel.
+# The bf16 dk/dv (rectangular and compact) and fused backward run on the
+# tensor cores (csrc/flash_bwd_dkv.cu, flash_bwd_tc: 128-key blocks, 64-row
+# q tiles), and so does the bf16 rectangular dq (csrc/flash_bwd_dq.cu,
+# flash_bwd_dq_tc: 128-row blocks, 64-key tiles); ragged edges are masked
+# in the kernels.
 TC_EDGES = [(1, 1), (17, 63), (63, 17), (129, 129), (129, 1001), (1001, 129)]
+# The compact kernels' lengths: every length of TC_EDGES, as S_q = S_k.
+TC_LENGTHS = sorted({n for edge in TC_EDGES for n in edge})
 
 
 def _bwd_inputs(cuda, bh, sq, sk, d, dtype, seed, causal, sharp=False):
@@ -402,15 +410,26 @@ def test_bf16_dkv_rect_at_sub_tile_and_ragged_lengths(cuda, sq, sk, causal, d):
 @pytest.mark.parametrize("kind,sq,sk,d", [
     ("rect", 1001, 777, 128), ("rect-causal", 513, 1500, 64),
     ("rect-causal", 1500, 513, 128), ("fused", 1001, 1001, 128), ("fused", 2048, 2048, 64),
-], ids=["rect", "rect-causal-sq<sk", "rect-causal-sq>sk", "fused", "fused-d64"])
+    ("dq-rect", 1001, 777, 128), ("dq-rect-causal", 513, 1500, 64),
+    ("dq-rect-causal", 1500, 513, 128), ("dkv", 1001, 1001, 128), ("dkv", 2048, 2048, 64),
+], ids=["rect", "rect-causal-sq<sk", "rect-causal-sq>sk", "fused", "fused-d64",
+        "dq-rect", "dq-rect-causal-sq<sk", "dq-rect-causal-sq>sk", "dkv", "dkv-d64"])
 def test_bf16_tensor_core_bwd_on_sharp_logits(cuda, kind, sq, sk, d):
     """q x 8: p is near 0 or 1 over most of a row and ds is spiky, which
-    tests the hi + lo split where a few large terms dominate a sum."""
-    causal = kind != "rect"
+    tests the split of p and ds into bf16 terms where a few large terms
+    dominate a sum. "rect" kinds are the rectangular dk/dv, "dq-rect" the
+    rectangular dq, "dkv" the compact dk/dv."""
+    causal = kind not in ("rect", "dq-rect")
     args = _bwd_inputs(cuda, 4, sq, sk, d, torch.bfloat16, sq + 3 * sk, causal, sharp=True)
     if kind == "fused":
         got = flash.flash_bwd_kernels(*args, fused=True)
         want = flash.flash_bwd_fused_reference(*args)
+    elif kind.startswith("dq-rect"):
+        got = (flash._flash_bwd_dq_rect_cuda(*args, causal),)
+        want = flash.flash_bwd_reference(*args, causal=causal)[:1]
+    elif kind == "dkv":
+        got = flash._flash_bwd_dkv_cuda(*args)
+        want = flash.flash_bwd_reference(*args)[1:]
     else:
         got = flash._flash_bwd_dkv_rect_cuda(*args, causal)
         want = flash.flash_bwd_reference(*args, causal=causal)[1:]
@@ -434,11 +453,201 @@ def test_bf16_dkv_rect_is_bitwise_deterministic(cuda, causal):
 @pytest.mark.cuda
 @pytest.mark.parametrize("s,d", [(1001, 128), (2048, 64)])
 def test_bf16_fused_matches_the_two_pass_kernels(cuda, s, d):
-    """The tensor-core fused kernel against the unchanged two-pass
-    kernels (the compact dq and dk/dv on the CUDA cores, deterministic)
-    on the same inputs: within one bf16 rounding of each other."""
+    """The tensor-core fused kernel against the two-pass kernels (the
+    compact dq on the CUDA cores, the compact dk/dv on the tensor cores,
+    both deterministic) on the same inputs: within one bf16 rounding of
+    each other."""
     args = _bwd_inputs(cuda, 8, s, s, d, torch.bfloat16, s + 5, True)
     fused = flash.flash_bwd_kernels(*args, fused=True)
     two = flash.flash_bwd_kernels(*args, fused=False)
     for f, t in zip(fused, two):
         _close_bwd(f, t, "bfloat16")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [False, True], ids=["noncausal", "causal"])
+@pytest.mark.parametrize("sq,sk", TC_EDGES, ids=[f"{a}x{b}" for a, b in TC_EDGES])
+def test_bf16_dq_rect_at_sub_tile_and_ragged_lengths(cuda, sq, sk, causal, d):
+    """The tensor-core rectangular dq below one 64-key tile and one
+    128-row block, just past them, and ragged, causal with s_q > s_k and
+    s_q < s_k, against the plain two-pass backward. Where every row sees
+    one key, dq is held to dv's scale (`_close_bwd_one_key`)."""
+    args = _bwd_inputs(cuda, 3, sq, sk, d, torch.bfloat16, sq * 7 + sk, causal)
+    before = _kernels.launches["flash_bwd_dq_rect"]
+    dq = flash._flash_bwd_dq_rect_cuda(*args, causal)
+    torch.cuda.synchronize()
+    assert _kernels.launches["flash_bwd_dq_rect"] == before + 1
+    want = flash.flash_bwd_reference(*args, causal=causal)
+    assert dq.shape == args[0].shape and torch.isfinite(dq).all()
+    if sk == 1 or (causal and sq == 1):
+        _close_bwd_one_key((dq, want[2]), (want[0], want[2]))
+    else:
+        _close_bwd(dq, want[0], "bfloat16")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_bf16_dq_rect_sums_16384_keys(cuda, d):
+    """The tensor-core rectangular dq where each row's sum runs over 16384
+    keys (256 key tiles, each added to dq with float32 adds), against the
+    plain version at the unchanged gate."""
+    args = _bwd_inputs(cuda, 4, 256, 16384, d, torch.bfloat16, 16384 + d, False)
+    dq = flash._flash_bwd_dq_rect_cuda(*args, False)
+    _close_bwd(dq, flash.flash_bwd_reference(*args, causal=False)[0], "bfloat16")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("s", TC_LENGTHS)
+def test_bf16_dkv_compact_at_sub_tile_and_ragged_lengths(cuda, s, d):
+    """The compact (causal self-attention) dk/dv, now on the tensor cores,
+    at every length of TC_EDGES, against the plain two-pass backward."""
+    args = _bwd_inputs(cuda, 3, s, s, d, torch.bfloat16, s * 11 + d, True)
+    before = _kernels.launches["flash_bwd_dkv"]
+    dk, dv = flash._flash_bwd_dkv_cuda(*args)
+    torch.cuda.synchronize()
+    assert _kernels.launches["flash_bwd_dkv"] == before + 1
+    want = flash.flash_bwd_reference(*args)[1:]
+    assert torch.isfinite(dk).all() and torch.isfinite(dv).all()
+    if s == 1:
+        _close_bwd_one_key((dk, dv), want)
+    else:
+        for g, w in zip((dk, dv), want):
+            _close_bwd(g, w, "bfloat16")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["dq-rect", "dq-rect-causal", "dkv"])
+def test_bf16_dq_rect_and_dkv_compact_are_bitwise_deterministic(cuda, kernel):
+    """The tensor-core rectangular dq and compact dk/dv add in a fixed
+    order (no atomics), so every run gives the same bits: the two-pass
+    backward stays the deterministic path."""
+    if kernel == "dkv":
+        args = _bwd_inputs(cuda, 8, 2048, 2048, 128, torch.bfloat16, 22, True)
+        run = lambda: flash._flash_bwd_dkv_cuda(*args)
+    else:
+        causal = kernel == "dq-rect-causal"
+        args = _bwd_inputs(cuda, 8, 1001, 2048, 128, torch.bfloat16, 23, causal)
+        run = lambda: (flash._flash_bwd_dq_rect_cuda(*args, causal),)
+    first = run()
+    for _ in range(3):
+        assert all(torch.equal(a, b) for a, b in zip(run(), first))
+
+
+# One row past gridDim.y's 65535: every kernel folds (tile, BH) into
+# gridDim.x, and ring flash folds its ring positions into BH.
+BIG_BH = 65537
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("entry", [
+    "flash_fwd", "flash_fwd_rect", "flash_delta", "flash_bwd_fused", "flash_bwd_dq",
+    "flash_bwd_dkv", "flash_bwd_dq_rect", "flash_bwd_dkv_rect",
+])
+def test_every_kernel_takes_more_than_65535_rows(cuda, entry, dtype):
+    """Each of the eight entry points at BH = 65537 (S = 64, D = 64)
+    against its plain version on the same inputs, the rows past 65535
+    included."""
+    dt = getattr(torch, dtype)
+    causal = entry in ("flash_fwd", "flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkv")
+    q, k, v, do = _rect(cuda, BIG_BH, 64, 64, 64, dt, seed=BIG_BH)
+    o, lse = flash.flash_attention_reference(q, k, v, causal=causal)
+    delta = flash.flash_delta_reference(o, do)
+    args = (q, k, v, do, lse, delta)
+    before = _kernels.launches[entry]
+    if entry == "flash_fwd":
+        _assert_fwd_close(*flash._flash_fwd_cuda(q, k, v), o, lse, dtype)
+    elif entry == "flash_fwd_rect":
+        _assert_fwd_close(*flash._flash_fwd_rect_cuda(q, k, v, False), o, lse, dtype)
+    elif entry == "flash_delta":
+        _close_bwd(flash._flash_delta_cuda(o, do), delta, "float32")
+    else:
+        got = {
+            "flash_bwd_fused": lambda: flash._flash_bwd_fused_cuda(*args),
+            "flash_bwd_dq": lambda: (flash._flash_bwd_dq_cuda(*args),),
+            "flash_bwd_dkv": lambda: flash._flash_bwd_dkv_cuda(*args),
+            "flash_bwd_dq_rect": lambda: (flash._flash_bwd_dq_rect_cuda(*args, False),),
+            "flash_bwd_dkv_rect": lambda: flash._flash_bwd_dkv_rect_cuda(*args, False),
+        }[entry]()
+        plain = (flash.flash_bwd_fused_reference if entry == "flash_bwd_fused"
+                 else flash.flash_bwd_reference)
+        want = plain(*args, causal=causal)
+        want = want[:1] if "_dq" in entry else want[1:] if "_dkv" in entry else want
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            _close_bwd(g, w, dtype)
+    torch.cuda.synchronize()
+    assert _kernels.launches[entry] == before + 1
+
+
+def _lm_step(cuda, impl, head_dim):
+    """A 2-layer f32 LM's logits, loss and parameter gradients under
+    `impl`, and the names of the flash kernels it launched."""
+    from kubeflow_tpu_torch.models import TransformerConfig, TransformerLM
+    from kubeflow_tpu_torch.train import softmax_cross_entropy
+
+    cfg = TransformerConfig(vocab_size=256, d_model=128, n_layers=2, n_heads=2,
+                            head_dim=head_dim, d_ff=256, dtype=torch.float32,
+                            remat=False, attention_impl=impl)
+    model = TransformerLM(cfg, device=cuda, seed=0)
+    tokens = torch.randint(0, 256, (2, 200), generator=torch.Generator().manual_seed(1))
+    tokens = tokens.to(cuda)
+    before = dict(_kernels.launches)
+    logits = model(tokens)
+    loss = softmax_cross_entropy(logits, tokens.roll(-1, dims=1))
+    loss.backward()
+    torch.cuda.synchronize()
+    grew = {n for n, c in _kernels.launches.items() if c != before.get(n, 0)}
+    return logits.detach(), loss.detach(), {n: p.grad for n, p in model.named_parameters()}, grew
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head_dim", [32, 256])
+def test_lm_at_a_head_dim_the_kernels_lack_trains_on_dense_under_auto(cuda, head_dim):
+    """On the card "auto" takes dense attention where the kernels do not
+    take the head dim (`use_flash`), so the LM runs and trains there:
+    forward, loss and every gradient equal to attention_impl="dense"
+    (summation order aside), and no flash kernel launched. "flash" asks
+    for the kernels and raises."""
+    logits, loss, grads, grew = _lm_step(cuda, "auto", head_dim)
+    d_logits, d_loss, d_grads, _ = _lm_step(cuda, "dense", head_dim)
+    assert grew == set()
+    torch.testing.assert_close(logits, d_logits, atol=1e-6, rtol=1e-5)
+    torch.testing.assert_close(loss, d_loss, atol=1e-6, rtol=1e-5)
+    assert grads.keys() == d_grads.keys()
+    for name, g in grads.items():
+        torch.testing.assert_close(g, d_grads[name], atol=1e-6, rtol=1e-5, msg=name)
+    with pytest.raises(ValueError, match="head dim"):
+        _lm_step(cuda, "flash", head_dim)
+
+
+@pytest.mark.cuda
+def test_lm_at_head_dim_128_takes_the_kernels_under_auto(cuda):
+    """At a head dim the kernels take, "auto" launches them, forward and
+    backward."""
+    *_, grew = _lm_step(cuda, "auto", 128)
+    assert grew == {"flash_fwd", "flash_delta", "flash_bwd_fused"}
+
+
+@pytest.mark.cuda
+def test_ring_at_a_head_dim_the_kernels_lack_takes_the_dense_ring(cuda):
+    """On an sp ring on the card, "auto" takes the dense-hop ring where
+    the kernels lack the head dim (`ring_flash_usable`), as it does on the
+    CPU for chunks that do not tile."""
+    from kubeflow_tpu_torch.models.transformer import TransformerConfig, _attend
+    from kubeflow_tpu_torch.ops.attention import ring_attention
+    from kubeflow_tpu_torch.parallel import MeshSpec, build_mesh
+
+    mesh = build_mesh(MeshSpec(sp=2))
+    gen = torch.Generator().manual_seed(13)
+    q, k, v = (torch.randn(1, 256, 2, 32, generator=gen).to(cuda) for _ in range(3))
+    cfg = TransformerConfig(n_heads=2, head_dim=32, dtype=torch.float32,
+                            attention_impl="auto")
+    assert not flash.ring_flash_usable(q, 128)
+    before = dict(_kernels.launches)
+    with torch.no_grad():
+        o = _attend(q, k, v, mesh, cfg)
+    assert _kernels.launches == before
+    torch.testing.assert_close(o, ring_attention(q, k, v, mesh, causal=True))

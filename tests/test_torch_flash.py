@@ -227,3 +227,24 @@ def test_flash_fwd_dispatches_cpu_tensors_to_plain_version():
     o, lse = tflash.flash_fwd(q, k, v, block_q=32, block_k=32)
     ro, rlse = tflash.flash_attention_reference(q, k, v, block_q=32, block_k=32)
     assert torch.equal(o, ro) and torch.equal(lse, rlse)
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 96, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.float16])
+def test_flash_kernels_take_is_what_the_input_checks_accept(d, dtype):
+    """The dispatch predicate says yes exactly where a kernel call's own
+    checks pass: D of 64 or 128, bf16 or f32."""
+    q, k, v = _kernel_inputs((2, 8, d), dtype)
+    takes = tflash.flash_kernels_take(d, dtype)
+    assert takes == (d in (64, 128) and dtype in (torch.bfloat16, torch.float32))
+    if takes:
+        tflash._check_kernel_inputs(q, k, v)
+    else:
+        with pytest.raises(ValueError):
+            tflash._check_kernel_inputs(q, k, v)
+
+
+def test_kernel_input_checks_take_more_than_65535_rows():
+    """The kernels fold (tile, batch*head) into one grid dimension, so the
+    checks no longer cap BH at gridDim.y's 65535."""
+    tflash._check_kernel_inputs(*_kernel_inputs((65537, 1, 64)))

@@ -254,3 +254,86 @@ def test_bf16_backward_kernel_needs_p_and_ds_split_to_hold_its_gate(causal, sq, 
     once = _emulate_tensor_core_bwd(q, k, v, do, lse, delta, causal, terms=1)
     assert not _within_bwd_gate(once[1], want[1])  # dk: ds rounded once
     assert not _within_bwd_gate(once[2], want[2])  # dv: p rounded once
+
+
+def _round_toward_zero(x):
+    """float64 → float32, rounded toward zero."""
+    y = x.float()
+    return torch.where(y.double().abs() > x.abs(), torch.nextafter(y, torch.zeros_like(y)), y)
+
+
+def _emulate_tensor_core_dq(q, k, v, do, lse, delta, terms, per_tile, bk=64):
+    """The bf16 tensor-core rectangular dq's arithmetic (csrc/flash_bwd_dq.cu,
+    flash_bwd_dq_tc), non-causal, in plain torch: s = q.k^T and dp = dO.v^T
+    from bf16 inputs; p = exp2(s·scale·log2(e) − lse·log2(e)); ds = p(dp −
+    delta) as `terms` bf16 terms; then, key tile by key tile (bk keys, 16
+    keys a wgmma step, terms smallest first), dq += ds.k.
+
+    The tensor cores' float32 accumulation is modelled as adding each
+    step's exact product sum to the accumulator and rounding toward zero:
+    a bias that grows with the number of steps one accumulator takes,
+    which is what the card showed where one accumulator summed a long
+    walk (PERF.md). ``per_tile`` sums each key tile's steps in a zeroed
+    accumulator and adds the tile to dq with a float32 add (round to
+    nearest), as the kernel does; otherwise the whole walk stays in one
+    accumulator. dq is scaled and rounded once to bf16."""
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    log2e = math.log2(math.e)
+    scale = 1.0 / math.sqrt(d)
+    qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
+    p = torch.exp2((qf @ kf.transpose(1, 2)) * (scale * log2e) - (lse * log2e)[..., None])
+    ds = p * (dof @ vf.transpose(1, 2) - delta[..., None])
+    parts = []
+    for _ in range(terms):
+        parts.append(ds.bfloat16().float())
+        ds = ds - parts[-1]
+    steps = sk // 16
+    k16 = kf.double().view(steps, 16, d)
+    # step n's exact product sum, [steps, BH, S_q, D] per term
+    sums = [torch.einsum("bqnk,nkd->nbqd", part.double().view(bh, sq, steps, 16), k16)
+            for part in parts]
+    dq = torch.zeros(bh, sq, d)
+    per = bk // 16
+    for t in range(sk // bk):
+        acc = torch.zeros(bh, sq, d) if per_tile else dq
+        for i in reversed(range(terms)):
+            for kt in range(per):
+                acc = _round_toward_zero(acc.double() + sums[i][t * per + kt])
+        dq = dq + acc if per_tile else acc
+    return (dq * scale).bfloat16()
+
+
+def _bwd_gate_ratio(got, want):
+    """The worst |got − want| over the bf16 gate's allowance (above 1: out
+    of the gate)."""
+    want = want.float()
+    atol = 5e-5 * want.pow(2).mean().sqrt().item()
+    return ((got.float() - want).abs() / (atol + 2.0 ** -7 * want.abs())).max().item()
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_bf16_dq_kernel_needs_the_split_and_a_per_tile_sum_over_16384_keys(d):
+    """Why the bf16 tensor-core rectangular dq splits ds into bf16 terms
+    and sums each key tile in a zeroed accumulator, at S_k = 16384 (the
+    long rect shape chip_smoke checks): with both, three terms hold the
+    gate; ds rounded once leaves it many times over; and the three terms
+    summed over all 16384 keys in one accumulator (3072 rounded steps)
+    leave it under the tensor cores' rounding model. On these inputs hi +
+    lo holds it too (the kernel keeps the dk/dv kernels' three terms;
+    PERF.md leaves two as an open question)."""
+    rng = np.random.default_rng(16384 + d)
+    draw = lambda n: torch.from_numpy(
+        rng.standard_normal((1, n, d)).astype(np.float32)).bfloat16()
+    q, do, k, v = draw(64), draw(64), draw(16384), draw(16384)
+    o, lse = tflash.flash_attention_reference(q, k, v, causal=False)
+    delta = tflash.flash_delta_reference(o, do)
+    want = tflash.flash_bwd_reference(q, k, v, do, lse, delta, causal=False)[0]
+    args = (q, k, v, do, lse, delta)
+    ratio = {
+        (terms, per_tile): _bwd_gate_ratio(_emulate_tensor_core_dq(*args, terms, per_tile), want)
+        for terms, per_tile in ((1, True), (2, True), (3, True), (3, False))
+    }
+    assert ratio[3, True] <= 1.0 and ratio[2, True] <= 1.0
+    assert ratio[1, True] > 1.0
+    assert ratio[3, False] > 1.0

@@ -230,3 +230,38 @@ def test_unported_remat_policies_raise_when_differentiated(jax_params, policy):
         model(tokens)
     with pytest.raises(ValueError):
         ttf.TransformerConfig(remat_policy="everything")
+
+
+@pytest.mark.parametrize("head_dim", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("impl", ["auto", "flash", "dense"])
+def test_use_flash_decides_by_head_dim_on_cuda(impl, head_dim):
+    """`_attend`'s choice off the ring. On CUDA, "auto" takes the flash
+    kernels only at the head dims they take (64, 128) and dense attention
+    elsewhere; "flash" always takes flash (the kernels then refuse a head
+    dim they lack); "dense" never. On the CPU the plain versions take
+    every head dim, so "auto" stays on flash."""
+    for dtype in (torch.bfloat16, torch.float32):
+        on_cuda = ttf.use_flash(impl, cuda=True, head_dim=head_dim, dtype=dtype)
+        on_cpu = ttf.use_flash(impl, cuda=False, head_dim=head_dim, dtype=dtype)
+        if impl == "auto":
+            assert on_cuda == (head_dim in (64, 128))
+        else:
+            assert on_cuda == (impl == "flash")
+        assert on_cpu == (impl != "dense")
+    assert not ttf.use_flash("auto", cuda=True, head_dim=128, dtype=torch.float16)
+
+
+@pytest.mark.parametrize("impl,want", [("auto", "flash"), ("flash", "flash"),
+                                       ("dense", "dense")])
+def test_attend_runs_the_path_use_flash_picks(monkeypatch, impl, want):
+    """`_attend` off the ring calls flash_attention or dense_attention as
+    `use_flash` says (here on the CPU, at a head dim the kernels lack)."""
+    calls = []
+    monkeypatch.setattr(ttf, "flash_attention",
+                        lambda *a, **k: calls.append("flash") or a[0])
+    monkeypatch.setattr(ttf, "dense_attention",
+                        lambda *a, **k: calls.append("dense") or a[0])
+    q = torch.zeros(1, 8, 2, 32)
+    cfg = ttf.TransformerConfig(**{**TINY, "head_dim": 32}, attention_impl=impl)
+    ttf._attend(q, q, q, None, cfg)
+    assert calls == [want]
