@@ -20,7 +20,9 @@ JSON line; any failure raises and the exit code is non-zero:
 4. bwd_kernel: the backward kernels (flash_delta, flash_bwd_fused,
    flash_bwd_dq, flash_bwd_dkv) against their plain versions at small,
    ragged, training and long shapes in bf16 and f32; then every
-   kernel's time at the training shape (B=8, S=2048, H=8, D=128, bf16).
+   kernel's time at the training shape (B=8, S=2048, H=8, D=128, bf16),
+   the compact dq's with its tensor-core instantiation's registers,
+   spills and shared memory (ptxas).
 5. rect_kernel: the rectangular kernels (flash_fwd_rect,
    flash_bwd_dq_rect, flash_bwd_dkv_rect) against their plain versions
    in bf16 and f32 at (1, 128x128, 2, 64) non-causal, ragged
@@ -55,7 +57,19 @@ JSON line; any failure raises and the exit code is non-zero:
    kernel path against the same step with attention through the plain
    versions, in bf16 and in f32, with the tolerances stated in
    `train_check_phase`.
-11. ring_train, main path 3: the same LM with sequence parallelism, its
+11. fit, main path 4: the same LM and stream through the training job's
+   entry point, `fit()`, with an AnomalyGuard and the two-pass backward
+   pinned: an uninterrupted 6-step run; a run that saves every 2 steps
+   into a temporary Checkpointer directory and gets a SIGTERM at step 3
+   (`Preempted` at step 4 after its save); a resumed run to step 6,
+   under the profiler for one step, bitwise equal to the uninterrupted
+   one over the same batch positions; then a step poisoned with NaN
+   (skipped, nothing moves), a byte flipped in the newest checkpoint
+   (quarantined, step 4 restored bitwise), save and restore times, the
+   checkpoint's size, and fit()'s step time beside the bare steps'. The
+   counters are zeroed before the three fit() runs and read after them
+   (16 flash_fwd, flash_delta, flash_bwd_dq and flash_bwd_dkv a step).
+12. ring_train, main path 3: the same LM with sequence parallelism, its
    attention on ring flash over an in-process sp ring of 4 on the card,
    batch 1 at S=16384 (chunks of 4096), adamw lr 3e-4: one warm-up
    step, then timed steps with the counters zeroed just before and read
@@ -63,14 +77,14 @@ JSON line; any failure raises and the exit code is non-zero:
    flash_delta + 16 flash_bwd_fused + 48 flash_bwd_dq_rect + 48
    flash_bwd_dkv_rect), step time, tokens/s, MFU, a profile of one
    step, and the flat LM's step at the same S beside it.
-12. ring_check: one ring step's loss and gradients against the flat
+13. ring_check: one ring step's loss and gradients against the flat
    LM's in f32, and against the same ring on the plain versions in
    bf16, with the tolerances stated in `ring_check_phase`.
-13. ring_nccl: with two or more cards, the ring over an NCCL process
+14. ring_nccl: with two or more cards, the ring over an NCCL process
    group against the in-process ring; with one card it prints
    {"run": false} and counts as nothing.
-14. kernels: one line per ported kernel (launches, error, times, bound).
-15. the last line: {"ok": true, "device": {...}}.
+15. kernels: one line per ported kernel (launches, error, times, bound).
+16. the last line: {"ok": true, "device": {...}}.
 
 Without a GPU, or outside a checkout (copied alone, where
 `kubeflow_tpu_torch` does not import), it says why on stderr and exits
@@ -146,6 +160,9 @@ RING = dict(sp=4, batch=1, seq=16384, lr=3e-4, warmup_steps=1, timed_steps=3)
 # `chip_smoke.py --loss-seeds 8` over 8 seeds of weights and tokens
 # (PERF.md, section 6).
 LOSS_Z = 5.0
+# fit(): 6 steps of TRAIN's LM and stream, saving every 2 steps, with a
+# SIGTERM raised at step 3 in the preempted run.
+FIT = dict(steps=6, save_every=2, sigterm_at=3)
 RECT_SHAPES = [  # (B, S_q, S_k, H, D, causal)
     (1, 128, 128, 2, 64, False),
     (2, 1001, 777, 4, 128, False),  # ragged: the plain versions pad
@@ -262,21 +279,36 @@ def kernel_smem(name: str):
     return None
 
 
-def build_phase() -> None:
+def build_phase() -> list[str]:
+    """Builds the kernels; returns ptxas's lines of every source."""
     from kubeflow_tpu_torch.ops import _kernels
 
     built = _kernels.build()
-    emit({
-        "phase": "build",
-        "kernels": {
-            name: {
-                "cached": b["cached"],
-                "seconds": round(b["seconds"], 3),
-                "ptxas": ptxas_report(b["ptxas"], kernel_smem),
-            }
-            for name, b in built.items()
-        },
-    })
+    kernels = {
+        name: {
+            "cached": b["cached"],
+            "seconds": round(b["seconds"], 3),
+            "ptxas": ptxas_report(b["ptxas"], kernel_smem),
+        }
+        for name, b in built.items()
+    }
+    emit({"phase": "build", "kernels": kernels})
+    return [line for k in kernels.values() for line in k["ptxas"]]
+
+
+def instantiation(ptxas: list[str], mangled: str) -> dict:
+    """Registers, spill bytes and dynamic shared memory of the kernel
+    instantiation whose mangled name holds `mangled`, from ptxas's line."""
+    import re
+
+    line = next((x for x in ptxas if mangled in x.split(":", 1)[0]), None)
+    if line is None:
+        raise AssertionError(f"no ptxas line for {mangled}")
+    num = lambda pattern: int(re.search(pattern, line).group(1))
+    return {"kernel": line.split(":", 1)[0], "registers": num(r"Used (\d+) registers"),
+            "spill_store_bytes": num(r"(\d+) bytes spill stores"),
+            "spill_load_bytes": num(r"(\d+) bytes spill loads"),
+            "dynamic_smem_bytes": num(r"(\d+) bytes dynamic smem")}
 
 
 def kernel_phase(torch) -> dict:
@@ -368,11 +400,13 @@ def bwd_close(got, want, dtype: str):
     return close(got.float(), want, atol, rtol), err, atol, rtol
 
 
-def bwd_kernel_phase(torch, card: str) -> dict:
+def bwd_kernel_phase(torch, card: str, ptxas: list[str]) -> dict:
     """The backward kernels against their plain versions on the card at
     BWD_SHAPES in bf16 and f32 (each on the same inputs: the kernel
     forward's o and lse, the kernel delta), then all five kernels' times
-    at the training shape. Returns the entries of the kernels line."""
+    at the training shape, the compact dq's with its tensor-core
+    instantiation (registers, spills, shared memory from ptxas). Returns
+    the entries of the kernels line."""
     from kubeflow_tpu_torch.ops import flash
 
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
@@ -496,6 +530,9 @@ def bwd_kernel_phase(torch, card: str) -> dict:
             "over_library": kernel_ms[name] / lib_ms if lib_ms else None,
             "card": card,
         }
+        if name == "flash_bwd_dq":  # the bf16 D = 128 compact instantiation
+            entries[name]["instantiation"] = instantiation(
+                ptxas, "flash_bwd_dq_tcILi128ELb0ELb1E")
         emit({"phase": "bwd_kernel_timing", **entries[name]})
     return entries
 
@@ -866,6 +903,10 @@ def profile_device(torch, fn) -> dict:
         "device_idle_share": max(0.0, 1 - busy / wall_ms),
         "device_ms_by_group": groups,
         "top_kernels_ms": [[name[:90], ms] for name, ms in top],
+        # Which instantiation of each flash kernel ran (e.g. the bf16
+        # compact dq: tc::flash_bwd_dq_tc<128, false, true>).
+        "flash_kernels_ms": [[name[:90], ms] for name, ms in kernels.items()
+                             if "flash_" in name],
     }
 
 
@@ -911,9 +952,10 @@ def flops_per_token(seq: int) -> float:
     return 6 * (layer_params + head_params) + 6 * LM["n_layers"] * seq * d_attn
 
 
-def train_model(torch, dtype, seed: int = SEED):
+def train_model(torch, dtype, seed: int = SEED, guard=None):
     """The bench's LM (remat "none", bf16 or f32 compute over f32
-    params), random weights from `seed`, and its adamw trainer."""
+    params), random weights from `seed`, and its adamw trainer (with the
+    anomaly `guard`, if one is given)."""
     from kubeflow_tpu_torch.models import TransformerConfig, TransformerLM
     from kubeflow_tpu_torch.train import TrainConfig, Trainer
 
@@ -925,7 +967,7 @@ def train_model(torch, dtype, seed: int = SEED):
     )
     model = TransformerLM(cfg, device=DEVICE, seed=seed)
     return Trainer(model, config, input_key="tokens", label_key="labels",
-                   device=DEVICE)
+                   device=DEVICE, guard=guard)
 
 
 @contextlib.contextmanager
@@ -1019,6 +1061,236 @@ def train_phase(torch, card: str) -> dict:
     del trainer, state, step
     torch.cuda.empty_cache()
     return {"train": launches, "train_two_pass": two_pass}
+
+
+class Tape:
+    """A resumable stream that records the position of every batch it
+    yields (its batches are a function of seed, salt and position)."""
+
+    def __init__(self, stream):
+        self.stream, self.positions = stream, []
+
+    def state_dict(self):
+        return self.stream.state_dict()
+
+    def load_state_dict(self, state):
+        self.stream.load_state_dict(state)
+
+    def perturb(self, salt):
+        self.stream.perturb(salt)
+
+    def __iter__(self):
+        for batch in self.stream:
+            self.positions.append(self.stream.state_dict()["position"] - 1)
+            yield batch
+
+
+def timed_checkpointer(directory, **kwargs):
+    """A `Checkpointer` that records how long each save held the step loop
+    (the copy off the card), how long its background write took (files,
+    fsync, commit, manifest), and how long each restore took."""
+    from kubeflow_tpu_torch.train import Checkpointer
+
+    class Timed(Checkpointer):
+        def __init__(self):
+            super().__init__(directory, **kwargs)
+            self.seconds = {"save_block": [], "save_write": [], "restore": []}
+
+        def save(self, *args, **kw):
+            t0 = time.perf_counter()
+            saved = super().save(*args, **kw)
+            if saved:
+                self.seconds["save_block"].append(time.perf_counter() - t0)
+            return saved
+
+        def _write(self, *args):
+            t0 = time.perf_counter()
+            super()._write(*args)
+            self.seconds["save_write"].append(time.perf_counter() - t0)
+
+        def restore_latest(self, template):
+            t0 = time.perf_counter()
+            restored = super().restore_latest(template)
+            self.seconds["restore"].append(time.perf_counter() - t0)
+            return restored
+
+    return Timed()
+
+
+def max_abs_diff(torch, a: dict, b: dict) -> float:
+    return max(float((a[n].float() - b[n].float()).abs().max()) for n in a)
+
+
+def fit_phase(torch, card: str) -> dict:
+    """Main path 4: the training job's entry point, `fit()`, on the same
+    LM and stream as the train phase, with an AnomalyGuard and the
+    two-pass backward pinned (a step that repeats bitwise). (a) An
+    uninterrupted 6-step run; a run that saves every 2 steps and gets a
+    SIGTERM at step 3 (from on_metrics), which must return `Preempted` at
+    step 4 after its save; a third `fit()` that resumes from step 4 to
+    6, under the profiler for one step, and must reach the uninterrupted
+    run's parameters bitwise over the same batch positions. (b) One step
+    whose embedding output is multiplied by NaN (a forward pre-hook on the
+    first block): skipped, parameters and optimizer state unchanged.
+    (c) A byte flipped in the newest step's parameters file: restore
+    quarantines it and falls back to step 4, bitwise. (d) Save and
+    restore times, the checkpoint's size, and fit()'s step time beside
+    the bare guarded and unguarded steps' (and a profile of each).
+    Returns the launch counts of the three fit() runs."""
+    import shutil
+    import signal
+    import tempfile
+
+    from kubeflow_tpu_torch.ops import _kernels
+    from kubeflow_tpu_torch.train import (
+        AnomalyGuard, Preempted, ProfileSchedule, Profiler, SyntheticTokens,
+        Trainer, fit)
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = train_model(torch, torch.bfloat16, guard=AnomalyGuard())
+    params = lambda: {n: p.detach().clone() for n, p in trainer.model.named_parameters()}
+    stream = lambda: Tape(SyntheticTokens(
+        TRAIN["batch"], TRAIN["seq"], LM["vocab_size"], seed=SEED,
+        vary_per_step=True, device=DEVICE))
+    root = tempfile.mkdtemp(prefix="kftpu_fit_")
+    ckpt_dir = os.path.join(root, "ckpt")
+    checks, out = {}, {"phase": "fit", "steps": FIT["steps"],
+                       "save_every": FIT["save_every"], "sigterm_at": FIT["sigterm_at"]}
+
+    def sigterm_at(step, rec):
+        if step == FIT["sigterm_at"]:
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    try:
+        with two_pass_backward():
+            _kernels.launches.clear()
+            tape = stream()
+            straight = fit(trainer, tape, FIT["steps"], rng=SEED, log_every=1)
+            torch.cuda.synchronize()
+            want = params()
+            checks["straight_positions"] = tape.positions == list(range(FIT["steps"]))
+            step_ms = [TRAIN["batch"] / rec["examples_per_sec"] * 1e3
+                       for rec in straight.history[1:]]
+            out["straight_losses"] = [rec["loss"] for rec in straight.history]
+            del straight
+
+            ckpt = timed_checkpointer(ckpt_dir, save_interval_steps=FIT["save_every"],
+                                      max_to_keep=2)
+            tape = stream()
+            first = fit(trainer, tape, FIT["steps"], rng=SEED, checkpointer=ckpt,
+                        log_every=1, on_metrics=sigterm_at)
+            at_preempt = params()
+            checks["preempted"] = (isinstance(first, Preempted)
+                                   and first.signum == signal.SIGTERM
+                                   and int(first.state.step) == FIT["sigterm_at"] + 1
+                                   and ckpt.all_steps() == [2, 4])
+            del first
+
+            ckpt2 = timed_checkpointer(ckpt_dir, save_interval_steps=FIT["save_every"],
+                                       max_to_keep=2)
+            tape = stream()
+            trace_dir = os.path.join(root, "trace")
+            profiler = Profiler(trace_dir, ProfileSchedule(start_step=1, num_steps=1))
+            resumed = fit(trainer, tape, FIT["steps"], rng=SEED + 1, checkpointer=ckpt2,
+                          log_every=1, profiler=profiler)
+            torch.cuda.synchronize()
+            launches = dict(_kernels.launches)
+            resume_diff = max_abs_diff(torch, params(), want)
+            checks["resumed"] = (resumed.resumed_from == FIT["sigterm_at"] + 1
+                                 and int(resumed.state.step) == FIT["steps"]
+                                 and tape.positions == list(range(FIT["sigterm_at"] + 1,
+                                                                  FIT["steps"])))
+            del resumed
+            checks["resume_bitwise"] = resume_diff == 0.0
+            checks["trace_written"] = profiler.trace_written and any(
+                name.endswith(".json") for name in os.listdir(trace_dir))
+            ckpt_bytes = sum(
+                os.path.getsize(os.path.join(ckpt_dir, str(FIT["steps"]), name))
+                for name in os.listdir(os.path.join(ckpt_dir, str(FIT["steps"]))))
+
+            # (b) A NaN at the embedding output for one step.
+            before = params()
+            hook = trainer.model.layers[0].register_forward_pre_hook(
+                lambda module, args: (args[0] * float("nan"), *args[1:]))
+            try:
+                poisoned = fit(trainer, stream(), 1, log_every=1, handle_signals=False)
+            finally:
+                hook.remove()
+            rec = poisoned.history[-1]
+            opt_zero = all(int((t != 0).sum()) == 0 for group in ("mu", "nu")
+                           for t in poisoned.state.opt_state[group].values())
+            checks["poison_skipped"] = (
+                rec["guard_skipped_total"] == 1 and not np.isfinite(rec["loss"])
+                and max_abs_diff(torch, params(), before) == 0.0 and opt_zero
+                and int(poisoned.state.opt_state["count"]) == 0
+                and int(poisoned.state.step) == 1)
+            del before, poisoned
+
+            # (c) One byte flipped in the newest step's parameters.
+            newest = os.path.join(ckpt_dir, str(FIT["steps"]), "params.pt")
+            with open(newest, "r+b") as f:
+                f.seek(os.path.getsize(newest) // 2)
+                byte = f.read(1)
+                f.seek(-1, os.SEEK_CUR)
+                f.write(bytes([byte[0] ^ 0xFF]))
+            ckpt3 = timed_checkpointer(ckpt_dir, save_interval_steps=FIT["save_every"])
+            restored = ckpt3.restore_latest(trainer.abstract_state())
+            trainer.load_state_dict(restored.state)
+            torch.cuda.synchronize()
+            checks["corrupt_fell_back"] = (
+                restored.step == FIT["sigterm_at"] + 1
+                and ckpt3.all_steps() == [FIT["sigterm_at"] + 1]
+                and os.path.isdir(os.path.join(ckpt_dir, f"corrupt-{FIT['steps']}"))
+                and max_abs_diff(torch, params(), at_preempt) == 0.0)
+            del restored, at_preempt, want
+
+            # (d) The bare steps, guarded and not, on the same trainer.
+            bare = {}
+            for name, tr in (("guarded", trainer),
+                             ("unguarded", Trainer(trainer.model, trainer.config,
+                                                   input_key="tokens",
+                                                   label_key="labels", device=DEVICE))):
+                state, step, data = tr.init_state(), tr.make_train_step(), iter(stream())
+                state, _ = step(state, next(data))
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(3):
+                    state, metrics = step(state, next(data))
+                torch.cuda.synchronize()
+                bare[name] = (time.perf_counter() - t0) / 3 * 1e3
+                out[f"profile_{name}_step"] = profile_device(
+                    torch, lambda: step(state, next(data)))
+                del state, step, data
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    seconds = {key: ckpt.seconds[key] + ckpt2.seconds[key] + ckpt3.seconds[key]
+               for key in ckpt.seconds}
+    # The preempted run and the resumed one take FIT["steps"] steps
+    # between them, as the uninterrupted run does.
+    want_launches = {name: LM["n_layers"] * 2 * FIT["steps"] for name in
+                     ("flash_fwd", "flash_delta", "flash_bwd_dq", "flash_bwd_dkv")}
+    checks["launches"] = launches == want_launches
+    out.update({
+        "model": {**LM, "dtype": "bfloat16", "remat": "none"}, "batch": TRAIN["batch"],
+        "seq": TRAIN["seq"], "optimizer": "adamw", "guard": True, "two_pass_backward": True,
+        "checks": checks, "resume_max_abs_diff": resume_diff,
+        "fit_step_ms": step_ms, "bare_guarded_step_ms": bare["guarded"],
+        "bare_unguarded_step_ms": bare["unguarded"],
+        "checkpoint_gb": ckpt_bytes / 1e9,
+        "save_block_s": seconds["save_block"], "save_write_s": seconds["save_write"],
+        "restore_s": seconds["restore"],
+        "launches": launches, "want_launches": want_launches,
+        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "seconds": time.perf_counter() - t_phase, "card": card,
+    })
+    emit(out)
+    del trainer
+    torch.cuda.empty_cache()
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"fit phase checks failed: {failed}")
+    return launches
 
 
 def rel(a, b) -> float:
@@ -1481,12 +1753,12 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     card = device_phase(torch)["nvidia_smi"]
-    build_phase()
+    ptxas = build_phase()
     if sys.argv[1:2] == ["--loss-seeds"]:
         loss_seeds(torch, int(sys.argv[2]))
         return 0
     serving_fwd = kernel_phase(torch)
-    entries = bwd_kernel_phase(torch, card)
+    entries = bwd_kernel_phase(torch, card, ptxas)
     rect_entries = rect_kernel_phase(torch, card)
     servable, batches, served, result = serve_phase(torch)
     check_phase(torch, servable, batches, served)
@@ -1495,6 +1767,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     by_path = {"serve": result["launches"], **train_phase(torch, card)}
     train_check_phase(torch)
+    by_path["fit"] = fit_phase(torch, card)
     entries.update(rect_entries)
     by_path["ring_train"] = ring_train_phase(torch, card)
     ring_check_phase(torch)

@@ -83,15 +83,20 @@ def _fan_in(key: str, shape: tuple[int, ...]) -> int:
     return shape[0]
 
 
-def init_params(cfg, seed: int = 0, *, device=None) -> dict[str, torch.Tensor]:
-    """Fresh float32 weights for `cfg`, drawn on `device` from `seed`."""
+def init_params(cfg, seed: int | torch.Generator = 0, *, device=None) -> dict[str, torch.Tensor]:
+    """Fresh float32 weights for `cfg` on `device`, drawn from `seed`: an
+    int seeds a generator on `device`; a `torch.Generator` is drawn from
+    on its own device."""
     device = resolve_device(device)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    if isinstance(seed, torch.Generator):
+        gen = seed
+    else:
+        gen = torch.Generator(device=device).manual_seed(seed)
     out = {}
     for key, shape in param_shapes(cfg).items():
         if key.endswith(".scale"):
             out[key] = torch.ones(shape, device=device)
             continue
         std = 0.02 if key == "embedding" else math.sqrt(1.0 / _fan_in(key, shape))
-        out[key] = torch.randn(shape, generator=gen, device=device) * std
+        out[key] = (torch.randn(shape, generator=gen, device=gen.device) * std).to(device)
     return out

@@ -260,6 +260,12 @@ class TransformerLM(nn.Module):
         self.ln_final = RMSNorm(config.d_model, dtype=config.dtype, device=device)
         self.load_state_dict(init_params(config, seed, device=device))
 
+    def reset_parameters(self, seed: int | torch.Generator) -> None:
+        """Draw every weight anew from `seed` (an int or a generator), as
+        `init_params` does; the parameters stay the same tensors."""
+        device = self.embedding.device
+        self.load_state_dict(init_params(self.config, seed, device=device))
+
     def features(self, tokens):
         """The final-normed hidden states [B, S, d_model] (compute dtype):
         everything before the output head."""

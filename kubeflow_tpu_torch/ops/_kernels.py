@@ -113,7 +113,8 @@ def build(names=None) -> dict[str, dict]:
     """Build the named kernels (default: every ``csrc/*.cu``), one ``nvcc``
     process per source, all started together. Returns, per kernel, the
     library path, whether it was already built (``cached``), the
-    seconds the build took, and ptxas's resource report."""
+    seconds the build took, and ptxas's resource report (kept beside the
+    library, so a cached build reports it too)."""
     sources = sorted(CSRC.glob("*.cu"))
     if names is not None:
         sources = [s for s in sources if s.stem in set(names)]
@@ -128,8 +129,9 @@ def build(names=None) -> dict[str, dict]:
         for src in sources:
             out = _target(src)
             if out.exists():
-                info[src.stem] = {"path": str(out), "cached": True,
-                                  "seconds": 0.0, "ptxas": ""}
+                log = out.with_suffix(".ptxas")
+                info[src.stem] = {"path": str(out), "cached": True, "seconds": 0.0,
+                                  "ptxas": log.read_text() if log.exists() else ""}
                 continue
             tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
             cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
@@ -145,6 +147,7 @@ def build(names=None) -> dict[str, dict]:
                 tmp.unlink(missing_ok=True)
                 failed.append(f"nvcc failed on {src.name} (exit {proc.returncode}):\n{log}")
                 continue
+            out.with_suffix(".ptxas").write_text(log)
             os.replace(tmp, out)
             info[src.stem] = {
                 "path": str(out), "cached": False,

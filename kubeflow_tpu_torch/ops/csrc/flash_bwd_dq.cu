@@ -34,9 +34,10 @@
 // through the tensor cores (989 TFLOP/s bf16, against 67 TFLOP/s of
 // float32 FMAs).
 //
-// Two bodies, chosen at compile time by the element type and the entry:
+// Two bodies, chosen at compile time by the element type:
 //
-// bf16 rectangular dq (flash_bwd_dq_tc, the ring's full hops): every
+// bf16, both entries (flash_bwd_dq_tc: kRect = false for the causal
+// two-pass dq, true for the ring's full hops): every
 // product on the tensor cores with wgmma, in the forward's shape
 // (flash_fwd.cu, namespace tc). A block of 256 threads is two consumer
 // warpgroups, each owning 64 of the block's 128 query rows (wgmma's M).
@@ -76,24 +77,29 @@
 // no copy is in flight when the block exits. No atomics: dq·scale is
 // rounded to bf16 and stored once.
 //
-// float32, and the bf16 compact dq (flash_bwd_dq_simt): float32 FMAs on
-// the CUDA cores; TF32 would not hold the f32 checks' 5e-5 gate. One
-// block of 128 threads owns a 64-row q tile; each thread holds a 4 x 8
-// tile of s and dp and a 4 x D/8 tile of dq, fed from transposed copies
-// of q, dO, k and v in shared memory. The tensor-core body takes kRect as
-// a template parameter, so moving the compact bf16 dq onto it is a
-// dispatch switch.
+// The compact case (kRect = false) is the rectangular causal walk with
+// S_k = S_q fixed at compile time: the k/v maps span the S rows of the
+// one sequence, each block walks keys 0 .. min(S, q0 + 128), the tiles
+// that cross a warpgroup's 64-row diagonal mask element by element, and
+// the folded grid launches every head's last (longest) q tile first.
+//
+// float32 (flash_bwd_dq_simt): float32 FMAs on the CUDA cores; TF32
+// would not hold the f32 checks' 5e-5 gate. One block of 128 threads
+// owns a 64-row q tile; each thread holds a 4 x 8 tile of s and dp and a
+// 4 x D/8 tile of dq, fed from transposed copies of q, dO, k and v in
+// shared memory.
 //
 // Measured on an H100 80GB HBM3 at 700 W (chip_smoke.py; PERF.md has the
 // table): at the ring hop shape the bf16 tensor-core body takes 0.26 ms,
 // 394 TFLOP/s of the function's work, 2.5x its 0.104 ms bound and 0.73x
 // SDPA's whole backward, where the CUDA-core body took 4.60 ms; ptxas
 // gives it 208 registers at D = 128 (causal 240) and no spills. The
-// compact bf16 dq, still on the CUDA cores, takes 4.45 ms at the training
-// shape. What holds the tensor-core body is the serial chain in each
-// warpgroup (s and dp, wait, p and ds, the dq product, wait, the float32
-// adds) with two warpgroups an SM; warp specialisation and overlapping one
-// tile's ds math with the next tile's products are later work.
+// compact bf16 dq took 4.4 ms at the training shape on the CUDA-core
+// body; PERF.md has its time on this one. What holds the tensor-core
+// body is the serial chain in each warpgroup (s and dp, wait, p and ds,
+// the dq product, wait, the float32 adds) with two warpgroups an SM;
+// warp specialisation and overlapping one tile's ds math with the next
+// tile's products are later work.
 
 #include <math.h>
 
@@ -104,7 +110,7 @@
 
 namespace {
 
-// -- bf16 rectangular: wgmma, TMA and an mbarrier k/v ring --------------------
+// -- bf16: wgmma, TMA and an mbarrier k/v ring ---------------------------------
 
 namespace tc {
 
@@ -385,7 +391,7 @@ int launch(const void* q, const void* k, const void* v, const void* dout, const 
 
 }  // namespace tc
 
-// -- float32 and the bf16 compact dq: FMAs on the CUDA cores ------------------
+// -- float32: FMAs on the CUDA cores --------------------------------------------
 
 namespace simt {
 
@@ -552,13 +558,12 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
 
 using bf16 = __nv_bfloat16;
 
-// The bf16 rectangular dq on the tensor cores; f32, and the bf16 compact
-// dq, on the CUDA cores.
+// bf16 on the tensor cores, f32 on the CUDA cores.
 template <typename T, int D, bool kRect, bool kCausal>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, void* dq, int bh, int sq, int sk,
               cudaStream_t st) {
-  if constexpr (kRect && std::is_same<T, bf16>::value)
+  if constexpr (std::is_same<T, bf16>::value)
     return tc::launch<D, kRect, kCausal>(q, k, v, dout, lse, delta, dq, bh, sq, sk, st);
   else
     return simt::launch<T, D, kRect, kCausal>(q, k, v, dout, lse, delta, dq, bh, sq, sk, st);
@@ -610,8 +615,8 @@ extern "C" int kftpu_flash_bwd_dq_rect(const void* q, const void* k,
 }
 
 // Dynamic shared memory of one block, in bytes, for head dim d: of the
-// tensor-core body (tensor_cores != 0; bf16) or of the CUDA-core body in
-// this dtype; 0 if there is none.
+// tensor-core body (tensor_cores != 0; bf16) or of the CUDA-core body
+// (float32); 0 if there is none.
 extern "C" int kftpu_flash_bwd_dq_smem_bytes(int d, int dtype, int tensor_cores) {
   if (tensor_cores) {
     if (dtype != 1) return 0;
@@ -619,8 +624,6 @@ extern "C" int kftpu_flash_bwd_dq_smem_bytes(int d, int dtype, int tensor_cores)
     if (d == 64) return tc::Layout<64>::kBytes;
     return 0;
   }
-  if (dtype == 1 && d == 128) return (int)simt::smem_bytes<bf16, 128>();
-  if (dtype == 1 && d == 64) return (int)simt::smem_bytes<bf16, 64>();
   if (dtype == 0 && d == 128) return (int)simt::smem_bytes<float, 128>();
   if (dtype == 0 && d == 64) return (int)simt::smem_bytes<float, 64>();
   return 0;

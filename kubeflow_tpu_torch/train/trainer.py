@@ -13,18 +13,25 @@ A model on an in-process sp ring (`parallel/mesh.build_mesh` in one
 process) trains here unchanged: its ring positions share one set of
 parameters, so their gradients sum by themselves.
 
+With an anomaly ``guard`` (`train/guard.py`) every step is screened on
+the device: the update is computed, then the applied and the skipped
+parameters and optimizer state are selected with `torch.where` on the
+guard's verdict, still without a host sync. The step count advances on
+a skip. `TrainState.state_dict`, `Trainer.abstract_state` and
+`Trainer.load_state_dict` are what the checkpointer saves and restores.
+
 Not ported yet: a model on a multi-process mesh, which needs a gradient
 all-reduce over dp and sp, the shardings, `resize`/`reshard_state`
-(ROADMAP Queue 1 item 12), ``loss_in_model`` (the pipelined model, the
-same item) and the anomaly ``guard`` (item 8); each raises
-`NotImplementedError` where it would be asked for.
+(ROADMAP Queue 1 item 12) and ``loss_in_model`` (the pipelined model,
+the same item); each raises `NotImplementedError` where it would be
+asked for.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable
+from typing import Callable, NamedTuple
 
 import torch
 from torch import nn
@@ -179,8 +186,10 @@ class AdamW:
         torch._foreach_mul_(nu, self.b2)
         torch._foreach_addcmul_(nu, g, g, value=1 - self.b2)
         count32 = count.float()
-        bc1 = 1 - torch.pow(torch.tensor(self.b1, device=count.device), count32)
-        bc2 = 1 - torch.pow(torch.tensor(self.b2, device=count.device), count32)
+        # A Python base is rounded to float32 in the kernel, as a float32
+        # tensor base would be, and needs no copy to the device.
+        bc1 = 1 - torch.pow(self.b1, count32)
+        bc2 = 1 - torch.pow(self.b2, count32)
         denom = torch._foreach_sqrt(torch._foreach_div(nu, bc2))
         torch._foreach_add_(denom, self.eps)
         update = torch._foreach_div(torch._foreach_div(mu32, bc1), denom)
@@ -250,16 +259,63 @@ def softmax_cross_entropy(logits, labels, label_smoothing: float = 0.0):
     return nll.mean()
 
 
+def global_norm(tensors) -> torch.Tensor:
+    """`optax.global_norm`: the 2-norm of all the tensors together, a
+    float32 device scalar (per-tensor norms, then their norm)."""
+    norms = torch._foreach_norm([t.float() for t in tensors])
+    return torch.linalg.vector_norm(torch.stack(norms))
+
+
+def map_tensors(fn, tree):
+    """`fn` applied to every tensor of a tree of dicts (None stays): the
+    layout of `TrainState.state_dict()`."""
+    if isinstance(tree, dict):
+        return {key: map_tensors(fn, value) for key, value in tree.items()}
+    if tree is None:
+        return None
+    return fn(tree)
+
+
+def _leaves(tree) -> list:
+    """The tensors of a tree of dicts, in order."""
+    if isinstance(tree, dict):
+        return [t for value in tree.values() for t in _leaves(value)]
+    return [] if tree is None else [tree]
+
+
+class TensorSpec(NamedTuple):
+    """A tensor's shape, dtype and device, without storage: the leaves of
+    `Trainer.abstract_state()` (JAX's `ShapeDtypeStruct` with a
+    sharding)."""
+
+    shape: tuple
+    dtype: torch.dtype
+    device: torch.device
+
+
 @dataclasses.dataclass
 class TrainState:
     """The step count (a device tensor), the model that holds the
-    parameters, and the optimizer's state. The train step updates the
-    parameters and the optimizer's moments in place (JAX's step donates
-    its state the same way): keep the returned state, not the old one."""
+    parameters, the optimizer's state, and the anomaly guard's state
+    (None without a guard). The train step updates the parameters and
+    the optimizer's moments in place (JAX's step donates its state the
+    same way): keep the returned state, not the old one."""
 
     step: torch.Tensor
     model: nn.Module
     opt_state: dict
+    guard: dict | None = None
+
+    def state_dict(self) -> dict:
+        """Every tensor of the state, by name, as a tree of dicts: the
+        step, the parameters (detached, not copies), the optimizer's
+        state and the guard's. `Trainer.load_state_dict` takes it back."""
+        return {
+            "step": self.step,
+            "params": {n: p.detach() for n, p in self.model.named_parameters()},
+            "opt_state": self.opt_state,
+            "guard": self.guard,
+        }
 
 
 class Trainer:
@@ -275,9 +331,10 @@ class Trainer:
         device=None,
         guard=None,
     ):
-        if guard is not None:
-            raise NotImplementedError(
-                "the anomaly guard is not ported yet (ROADMAP Queue 1 item 8)"
+        if guard is not None and not callable(getattr(guard, "apply", None)):
+            raise TypeError(
+                f"guard must be an AnomalyGuard (train/guard.py), got "
+                f"{type(guard).__name__}"
             )
         mesh = getattr(model, "mesh", None)
         if mesh is not None and mesh.multiprocess:
@@ -292,13 +349,68 @@ class Trainer:
         self.tx = make_optimizer(config)
         self.input_key = input_key
         self.label_key = label_key
+        # Optional AnomalyGuard: every train step screens its loss,
+        # gradient norm and update on the device and skips a bad update.
+        self.guard = guard
+        # The guarded step's copies of the kept state (made at its first
+        # call, reused by every later one).
+        self._kept = None
 
-    def init_state(self) -> TrainState:
+    def init_state(self, rng: int | torch.Generator | None = None) -> TrainState:
+        """Step 0: fresh optimizer and guard state. With `rng` (a seed or
+        an explicit `torch.Generator`, never the global RNG) the model's
+        parameters are drawn anew from it first (the model's
+        ``reset_parameters``); without, they stay as they are."""
+        if rng is not None:
+            reset = getattr(self.model, "reset_parameters", None)
+            if not callable(reset):
+                raise TypeError(
+                    f"{type(self.model).__name__} has no reset_parameters(rng); "
+                    "call init_state() to keep its parameters"
+                )
+            reset(rng)
         params = dict(self.model.named_parameters())
         return TrainState(
             step=torch.zeros((), dtype=torch.int32, device=self.device),
             model=self.model,
             opt_state=self.tx.init(params),
+            guard=self.guard.init_state(self.device) if self.guard else None,
+        )
+
+    def abstract_state(self) -> dict:
+        """The layout of `TrainState.state_dict()` with a `TensorSpec` for
+        every tensor (on the trainer's device): the template a checkpoint
+        is restored against. Allocates nothing."""
+        meta = {n: torch.empty_like(p, device="meta")
+                for n, p in self.model.named_parameters()}
+        tree = {
+            "step": torch.empty((), dtype=torch.int32, device="meta"),
+            "params": meta,
+            "opt_state": self.tx.init(meta),
+            "guard": self.guard.init_state("meta") if self.guard else None,
+        }
+        return map_tensors(
+            lambda t: TensorSpec(tuple(t.shape), t.dtype, self.device), tree)
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> TrainState:
+        """A `TrainState` from `TrainState.state_dict()`'s layout: the
+        parameters are copied into the trainer's model in place, every
+        other tensor is put on the trainer's device."""
+        params = dict(self.model.named_parameters())
+        if set(state["params"]) != set(params):
+            raise KeyError(
+                f"state's parameters {sorted(set(state['params']) ^ set(params))} "
+                "do not match the model's"
+            )
+        for name, p in params.items():
+            p.copy_(state["params"][name])
+        to = lambda t: t.to(self.device)
+        return TrainState(
+            step=to(state["step"]),
+            model=self.model,
+            opt_state=map_tensors(to, state["opt_state"]),
+            guard=map_tensors(to, state.get("guard")) if self.guard else None,
         )
 
     def make_train_step(self):
@@ -310,6 +422,7 @@ class Trainer:
         cfg = self.config
         has_acc = cfg.train_metrics == "full"
         input_key, label_key = self.input_key, self.label_key
+        guard = self.guard
 
         def forward_loss(model, mb):
             tokens = mb[input_key]
@@ -350,14 +463,46 @@ class Trainer:
                 n: p.grad if p.grad is not None else torch.zeros_like(p)
                 for n, p in params.items()
             }
-            opt_state = self.tx.step(params, grads, state.opt_state)
             for p in params.values():
                 p.grad = None
             metrics = {"loss": loss_sum / accum}
             if has_acc:
                 metrics["accuracy"] = acc_sum / accum
+            if guard is None:
+                opt_state = self.tx.step(params, grads, state.opt_state)
+                return TrainState(step=state.step + 1, model=model,
+                                  opt_state=opt_state), metrics
+            gstate, opt_state = guarded_update(params, grads, state, metrics)
             return TrainState(step=state.step + 1, model=model,
-                              opt_state=opt_state), metrics
+                              opt_state=opt_state, guard=gstate), metrics
+
+        @torch.no_grad()
+        def guarded_update(params, grads, state, metrics):
+            """The update, then the guard's verdict on the loss, the
+            gradient norm and the updated parameters' finiteness, then
+            the applied or the kept parameters and optimizer state,
+            selected on the device in place. The optimizer updates the
+            parameters (and adamw its second moment) in place, so the
+            kept values are copies taken before it, into buffers made
+            once."""
+            grad_norm = global_norm(grads.values())
+            plist = list(params.values())
+            if self._kept is None:
+                self._kept = ([torch.empty_like(p) for p in plist],
+                              map_tensors(torch.empty_like, state.opt_state))
+            kept_params, kept_opt = self._kept
+            torch._foreach_copy_(kept_params, plist)
+            torch._foreach_copy_(_leaves(kept_opt), _leaves(state.opt_state))
+            opt_state = self.tx.step(params, grads, state.opt_state)
+            update_finite = torch.stack([torch.isfinite(p).all() for p in plist]).all()
+            gstate, ok = guard.apply(state.guard, metrics["loss"], grad_norm,
+                                     update_finite=update_finite)
+            for p, kept in zip(plist, kept_params):
+                torch.where(ok, p, kept, out=p)
+            for new, kept in zip(_leaves(opt_state), _leaves(kept_opt)):
+                torch.where(ok, new, kept, out=new)
+            metrics.update(guard.metrics(gstate, ok, grad_norm))
+            return gstate, opt_state
 
         return train_step
 

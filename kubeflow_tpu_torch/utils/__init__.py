@@ -1,1 +1,2 @@
-"""Utilities: Prometheus-style metrics (`utils/metrics.py`)."""
+"""Utilities: Prometheus-style metrics (`utils/metrics.py`) and bounded
+joins (`utils/threads.py`)."""

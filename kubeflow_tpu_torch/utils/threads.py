@@ -1,0 +1,64 @@
+"""Bounded joins with loud stuck-thread diagnostics.
+
+The port's own copy of the parts of `kubeflow_tpu/utils/threads.py` that
+the checkpointer uses: a drain-wait on a `queue.Queue` with a deadline
+(`queue.Queue.join` has none) that raises `StuckThreadError` with a
+stack dump of every live thread instead of hanging its caller forever.
+The deadline defaults to ``KFTPU_STUCK_TIMEOUT_S`` (300 s).
+"""
+
+from __future__ import annotations
+
+import os
+import queue as queue_mod
+import sys
+import threading
+import time
+import traceback
+
+DEFAULT_TIMEOUT_S = 300.0
+
+
+class StuckThreadError(RuntimeError):
+    """A bounded join expired: some thread or queue never finished."""
+
+
+def stuck_timeout_s() -> float:
+    """The default deadline, overridable with KFTPU_STUCK_TIMEOUT_S."""
+    raw = os.environ.get("KFTPU_STUCK_TIMEOUT_S", "")
+    try:
+        return float(raw) if raw else DEFAULT_TIMEOUT_S
+    except ValueError:
+        return DEFAULT_TIMEOUT_S
+
+
+def dump_thread_stacks() -> str:
+    """One formatted stack per live thread."""
+    names = {t.ident: t.name for t in threading.enumerate()}
+    out = []
+    for ident, frame in sorted(sys._current_frames().items()):
+        stack = "".join(traceback.format_stack(frame))
+        out.append(f"--- thread {names.get(ident, '?')} (ident={ident}) ---\n{stack}")
+    return "\n".join(out)
+
+
+def join_queue(
+    q: "queue_mod.Queue",
+    timeout: float | None = None,
+    *,
+    what: str = "",
+) -> None:
+    """`queue.Queue.join` with a deadline; raises `StuckThreadError`
+    (with every thread's stack) when it expires."""
+    deadline_s = timeout if timeout is not None else stuck_timeout_s()
+    deadline = time.monotonic() + deadline_s
+    with q.all_tasks_done:
+        while q.unfinished_tasks:
+            remaining = deadline - time.monotonic()
+            if remaining <= 0:
+                raise StuckThreadError(
+                    f"{what or 'queue'} still has {q.unfinished_tasks} "
+                    f"unfinished task(s) after {deadline_s:.0f}s — "
+                    f"thread stacks:\n{dump_thread_stacks()}"
+                )
+            q.all_tasks_done.wait(remaining)

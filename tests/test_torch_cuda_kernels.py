@@ -217,12 +217,9 @@ def test_flash_bwd_kernels_match_plain_version(cuda, dtype, s, d, fused):
     want = plain(q, k, v, do, lse, delta)
     for g in got:
         assert g.dtype == dt and torch.isfinite(g).all()
-    if fused and dtype == "bfloat16" and s == 1:
+    if dtype == "bfloat16" and s == 1:
+        # Both backward paths run on the tensor cores in bf16.
         _close_bwd_one_key(got, want)
-    elif dtype == "bfloat16" and s == 1:
-        # The compact dq runs on the CUDA cores, dk/dv on the tensor cores.
-        _close_bwd(got[0], want[0], dtype)
-        _close_bwd_one_key(got[1:], want[1:])
     else:
         for g, w in zip(got, want):
             _close_bwd(g, w, dtype)
@@ -368,9 +365,9 @@ def test_ring_flash_on_the_card_takes_a_chunk_that_does_not_tile(cuda, causal):
 
 # The bf16 dk/dv (rectangular and compact) and fused backward run on the
 # tensor cores (csrc/flash_bwd_dkv.cu, flash_bwd_tc: 128-key blocks, 64-row
-# q tiles), and so does the bf16 rectangular dq (csrc/flash_bwd_dq.cu,
-# flash_bwd_dq_tc: 128-row blocks, 64-key tiles); ragged edges are masked
-# in the kernels.
+# q tiles), and so does the bf16 dq, rectangular and compact
+# (csrc/flash_bwd_dq.cu, flash_bwd_dq_tc: 128-row blocks, 64-key tiles);
+# ragged edges are masked in the kernels.
 TC_EDGES = [(1, 1), (17, 63), (63, 17), (129, 129), (129, 1001), (1001, 129)]
 # The compact kernels' lengths: every length of TC_EDGES, as S_q = S_k.
 TC_LENGTHS = sorted({n for edge in TC_EDGES for n in edge})
@@ -412,16 +409,21 @@ def test_bf16_dkv_rect_at_sub_tile_and_ragged_lengths(cuda, sq, sk, causal, d):
     ("rect-causal", 1500, 513, 128), ("fused", 1001, 1001, 128), ("fused", 2048, 2048, 64),
     ("dq-rect", 1001, 777, 128), ("dq-rect-causal", 513, 1500, 64),
     ("dq-rect-causal", 1500, 513, 128), ("dkv", 1001, 1001, 128), ("dkv", 2048, 2048, 64),
+    ("dq", 1001, 1001, 128), ("dq", 2048, 2048, 64),
 ], ids=["rect", "rect-causal-sq<sk", "rect-causal-sq>sk", "fused", "fused-d64",
-        "dq-rect", "dq-rect-causal-sq<sk", "dq-rect-causal-sq>sk", "dkv", "dkv-d64"])
+        "dq-rect", "dq-rect-causal-sq<sk", "dq-rect-causal-sq>sk", "dkv", "dkv-d64",
+        "dq", "dq-d64"])
 def test_bf16_tensor_core_bwd_on_sharp_logits(cuda, kind, sq, sk, d):
     """q x 8: p is near 0 or 1 over most of a row and ds is spiky, which
     tests the split of p and ds into bf16 terms where a few large terms
     dominate a sum. "rect" kinds are the rectangular dk/dv, "dq-rect" the
-    rectangular dq, "dkv" the compact dk/dv."""
+    rectangular dq, "dkv" the compact dk/dv, "dq" the compact dq."""
     causal = kind not in ("rect", "dq-rect")
     args = _bwd_inputs(cuda, 4, sq, sk, d, torch.bfloat16, sq + 3 * sk, causal, sharp=True)
-    if kind == "fused":
+    if kind == "dq":
+        got = (flash._flash_bwd_dq_cuda(*args),)
+        want = flash.flash_bwd_reference(*args)[:1]
+    elif kind == "fused":
         got = flash.flash_bwd_kernels(*args, fused=True)
         want = flash.flash_bwd_fused_reference(*args)
     elif kind.startswith("dq-rect"):
@@ -454,9 +456,8 @@ def test_bf16_dkv_rect_is_bitwise_deterministic(cuda, causal):
 @pytest.mark.parametrize("s,d", [(1001, 128), (2048, 64)])
 def test_bf16_fused_matches_the_two_pass_kernels(cuda, s, d):
     """The tensor-core fused kernel against the two-pass kernels (the
-    compact dq on the CUDA cores, the compact dk/dv on the tensor cores,
-    both deterministic) on the same inputs: within one bf16 rounding of
-    each other."""
+    compact dq and dk/dv, on the tensor cores too, both deterministic) on
+    the same inputs: within one bf16 rounding of each other."""
     args = _bwd_inputs(cuda, 8, s, s, d, torch.bfloat16, s + 5, True)
     fused = flash.flash_bwd_kernels(*args, fused=True)
     two = flash.flash_bwd_kernels(*args, fused=False)
@@ -533,6 +534,51 @@ def test_bf16_dq_rect_and_dkv_compact_are_bitwise_deterministic(cuda, kernel):
     first = run()
     for _ in range(3):
         assert all(torch.equal(a, b) for a, b in zip(run(), first))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("s", TC_LENGTHS)
+def test_bf16_dq_compact_at_sub_tile_and_ragged_lengths(cuda, s, d):
+    """The compact (causal self-attention) dq, on the tensor-core body
+    with kRect = false, at every length of TC_EDGES, against the plain
+    two-pass backward. At S = 1 every row sees one key and dq is held to
+    dv's scale (`_close_bwd_one_key`)."""
+    args = _bwd_inputs(cuda, 3, s, s, d, torch.bfloat16, s * 13 + d, True)
+    before = _kernels.launches["flash_bwd_dq"]
+    dq = flash._flash_bwd_dq_cuda(*args)
+    torch.cuda.synchronize()
+    assert _kernels.launches["flash_bwd_dq"] == before + 1
+    want = flash.flash_bwd_reference(*args)
+    assert dq.shape == args[0].shape and torch.isfinite(dq).all()
+    if s == 1:
+        _close_bwd_one_key((dq, want[2]), (want[0], want[2]))
+    else:
+        _close_bwd(dq, want[0], "bfloat16")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_bf16_dq_compact_sums_16384_keys(cuda, d):
+    """The compact dq at S = 16384: the last rows sum over 16384 keys (256
+    key tiles, each added to dq with float32 adds), against the plain
+    version at the unchanged gate."""
+    args = _bwd_inputs(cuda, 2, 16384, 16384, d, torch.bfloat16, 16384 + d + 1, True)
+    dq = flash._flash_bwd_dq_cuda(*args)
+    _close_bwd(dq, flash.flash_bwd_reference(*args)[0], "bfloat16")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_bf16_two_pass_backward_is_bitwise_deterministic(cuda, d):
+    """The compact dq and dk/dv, both on the tensor cores, add in a fixed
+    order (no atomics): the whole two-pass backward gives the same bits on
+    every run, so it stays the deterministic path."""
+    args = _bwd_inputs(cuda, 8, 2048, 2048, d, torch.bfloat16, 24 + d, True)
+    first = flash.flash_bwd_kernels(*args, fused=False)
+    for _ in range(3):
+        again = flash.flash_bwd_kernels(*args, fused=False)
+        assert all(torch.equal(a, b) for a, b in zip(again, first))
 
 
 # One row past gridDim.y's 65535: every kernel folds (tile, BH) into
@@ -651,3 +697,49 @@ def test_ring_at_a_head_dim_the_kernels_lack_takes_the_dense_ring(cuda):
         o = _attend(q, k, v, mesh, cfg)
     assert _kernels.launches == before
     torch.testing.assert_close(o, ring_attention(q, k, v, mesh, causal=True))
+
+
+@pytest.mark.cuda
+def test_guarded_full_width_lm_step_makes_no_host_sync(cuda):
+    """The LM at full width (vocab 32000, d_model 1024, 8 heads x 128,
+    d_ff 4096; 2 layers), bf16 over f32 params, adamw with an
+    AnomalyGuard: after a warm-up step, a clean step and a step whose
+    embedding output is multiplied by NaN run under
+    `torch.cuda.set_sync_debug_mode("error")`, which raises at any
+    synchronizing CUDA call. The guard's verdict and the selection of the
+    kept state stay on the card; afterwards the poisoned step shows as
+    skipped, with the parameters as the clean step left them."""
+    from kubeflow_tpu_torch.models import TransformerConfig, TransformerLM
+    from kubeflow_tpu_torch.train import AnomalyGuard, SyntheticTokens, TrainConfig, Trainer
+
+    cfg = TransformerConfig(vocab_size=32000, d_model=1024, n_layers=2, n_heads=8,
+                            head_dim=128, d_ff=4096, dtype=torch.bfloat16,
+                            remat_policy="none")
+    config = TrainConfig(batch_size=2, learning_rate=3e-4, total_steps=100,
+                         optimizer="adamw", label_smoothing=0.0, fsdp_params=False,
+                         train_metrics="loss")
+    trainer = Trainer(TransformerLM(cfg, device=cuda, seed=0), config,
+                      input_key="tokens", label_key="labels", device=cuda,
+                      guard=AnomalyGuard())
+    state, step = trainer.init_state(), trainer.make_train_step()
+    data = iter(SyntheticTokens(2, 1024, 32000, vary_per_step=True, device=cuda))
+    batches = [next(data) for _ in range(3)]
+    state, _ = step(state, batches[0])
+    torch.cuda.synchronize()
+    hook = None
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, clean = step(state, batches[1])
+        kept = [p.detach().clone() for p in trainer.model.parameters()]
+        hook = trainer.model.layers[0].register_forward_pre_hook(
+            lambda module, args: (args[0] * float("nan"), *args[1:]))
+        state, poisoned = step(state, batches[2])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        if hook is not None:
+            hook.remove()
+    assert int(clean["guard_ok"]) == 1 and int(poisoned["guard_ok"]) == 0
+    assert int(poisoned["guard_skipped_total"]) == 1 and int(state.step) == 3
+    assert int(state.opt_state["count"]) == 2
+    for p, k in zip(trainer.model.parameters(), kept):
+        assert torch.equal(p, k)

@@ -262,5 +262,5 @@ def test_eval_step_and_refusals(jax_run):
     metrics = trainer.make_eval_step()(state, batch)
     assert set(metrics) == {"loss", "accuracy"}
     assert np.isfinite(metrics["loss"].item())
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="AnomalyGuard"):
         ttrainer.Trainer(state.model, trainer.config, device="cpu", guard=object())
