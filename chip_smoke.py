@@ -83,8 +83,32 @@ JSON line; any failure raises and the exit code is non-zero:
 14. ring_nccl: with two or more cards, the ring over an NCCL process
    group against the in-process ring; with one card it prints
    {"run": false} and counts as nothing.
-15. kernels: one line per ported kernel (launches, error, times, bound).
-16. the last line: {"ok": true, "device": {...}}.
+15. resnet_check: ResNet-50 at full width in f32 (batch 8 at 224, weights
+   from seed 0 with every BatchNorm moved off its init), one training
+   forward and backward on the card (TF32 off) and on the CPU in this
+   process: logits, loss, every gradient and the updated running
+   statistics within the limits stated in `resnet_check_phase`; also the
+   bf16 forward's distance from the f32 one.
+16. resnet_train, main path 5: ResNet-50 as `bench.py`'s default run
+   trains it (batch 256 of bf16 SyntheticImages at 224, SGD-Nesterov lr
+   0.4): 3 warm-up steps, 10 timed steps, step time, images/s, MFU,
+   peak memory and a profile of one step by group (convs, batch norm,
+   elementwise, optimizer). It launches none of the flash kernels.
+17. resnet_fit, main path 6: the same model through `fit()` at batch 256
+   with an AnomalyGuard and a temporary Checkpointer (cuDNN
+   deterministic): SIGTERM at step 1 → `Preempted` at 2, resume to 4
+   bitwise equal to an uninterrupted run in parameters, momentum and
+   running statistics; then a step whose input is NaN, skipped with all
+   three bitwise unchanged; save and restore seconds, checkpoint size.
+18. resnet_serve, main path 7: the model-server binary's app on that
+   checkpoint with batching (max_batch 64, 5 ms) over HTTP: the version
+   is the checkpoint's step, every answer matches the restored model's
+   eval forward (limit in `resnet_serve_phase`); single-instance
+   p50/p99, batch-64 predictions/s on the device and host paths, and
+   p50/p99 and predictions/s under 64 concurrent one-instance clients
+   with batching on and off.
+19. kernels: one line per ported kernel (launches, error, times, bound).
+20. the last line: {"ok": true, "device": {...}}.
 
 Without a GPU, or outside a checkout (copied alone, where
 `kubeflow_tpu_torch` does not import), it says why on stderr and exits
@@ -103,8 +127,10 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import urllib.request
 
@@ -182,6 +208,21 @@ KERNEL_ROWS = {  # name → (CUDA source, the TPU kernel it replaces)
     "flash_bwd_dkv_rect": ("flash_bwd_dkv.cu", "kubeflow_tpu/ops/flash.py:679 (_dkv_kernel)"),
 }
 RECT_KERNELS = ("flash_fwd_rect", "flash_bwd_dq_rect", "flash_bwd_dkv_rect")
+# ResNet-50 as bench.py trains it (bench.py:335-388): batch 256 per chip
+# at 224x224, bf16 images, SGD lr 0.4.
+RESNET = dict(batch=256, image=224, classes=1000, lr=0.4, warmup_steps=3,
+              timed_steps=10)
+# resnet_check: one f32 step at batch 8, on the card and on the CPU.
+RESNET_CHECK = dict(batch=8)
+# resnet_fit: fit() at batch 256, 4 steps, saving every 2, SIGTERM at 1.
+RESNET_FIT = dict(batch=256, steps=4, save_every=2, sigterm_at=1)
+# resnet_serve: bench.py --workload serving's max_batch and repetitions
+# (bench.py:419-450), the binary's batching at 5 ms, 64 concurrent
+# one-instance clients over 64 distinct instances, each posting in a loop
+# through a warm-up, a measured window and a profiled window (seconds).
+RESNET_SERVE = dict(max_batch=64, timeout_ms=5.0, single=60, device_reps=30,
+                    host_reps=5, clients=64, distinct=64, warmup_s=2.0, window_s=8.0,
+                    profile_s=3.0)
 REQUESTS = [  # (wire format, batch, sequence length)
     ("json", 1, 2048),
     ("json", 3, 2048),  # padded to bucket 4
@@ -860,9 +901,32 @@ def check_phase(torch, servable, batches, served) -> None:
         raise AssertionError(f"served logits off the plain path: {rows}")
 
 
-def profile_device(torch, fn) -> dict:
-    """Device time by kernel group over one call of fn (torch.profiler),
-    after one call to warm up."""
+LM_GROUPS = ("flash_fwd", "flash_bwd", "matmul", "matmul_f32", "optimizer", "other")
+RESNET_GROUPS = ("conv", "batch_norm", "elementwise", "optimizer", "other")
+
+
+def lm_groups(name: str) -> str:
+    """An LM step's kernel → its group. matmul_f32: float32 products on
+    the CUDA cores — the tied head's f32 logits (`lm_head`) and their
+    gradients."""
+    low = name.lower()
+    if "flash_fwd" in low:
+        return "flash_fwd"
+    if any(t in low for t in ("flash_delta", "flash_bwd", "flash_dq")):
+        return "flash_bwd"
+    if "sgemm" in low or "f32f32" in low:
+        return "matmul_f32"
+    if any(t in low for t in ("gemm", "nvjet", "xmma", "cutlass", "cublas")):
+        return "matmul"
+    if "multi_tensor" in low or "foreach" in low:
+        return "optimizer"
+    return "other"
+
+
+def profile_device(torch, fn, classify=lm_groups, names=LM_GROUPS) -> dict:
+    """Device time by kernel group (`classify`: kernel name → one of
+    `names`) over one call of fn (torch.profiler), after one call to warm
+    up."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -878,24 +942,9 @@ def profile_device(torch, fn) -> dict:
             kernels[evt.key] = kernels.get(evt.key, 0.0) + evt.self_device_time_total / 1e3
     if not kernels:
         return {"wall_ms": wall_ms, "device_ms": "not measured"}
-    # matmul_f32: float32 products on the CUDA cores — the tied head's
-    # f32 logits (`lm_head`) and their gradients.
-    groups = {"flash_fwd": 0.0, "flash_bwd": 0.0, "matmul": 0.0,
-              "matmul_f32": 0.0, "optimizer": 0.0, "other": 0.0}
+    groups = dict.fromkeys(names, 0.0)
     for name, ms in kernels.items():
-        low = name.lower()
-        if "flash_fwd" in low:
-            groups["flash_fwd"] += ms
-        elif any(t in low for t in ("flash_delta", "flash_bwd", "flash_dq")):
-            groups["flash_bwd"] += ms
-        elif "sgemm" in low or "f32f32" in low:
-            groups["matmul_f32"] += ms
-        elif any(t in low for t in ("gemm", "nvjet", "xmma", "cutlass", "cublas")):
-            groups["matmul"] += ms
-        elif "multi_tensor" in low or "foreach" in low:
-            groups["optimizer"] += ms
-        else:
-            groups["other"] += ms
+        groups[classify(name)] += ms
     busy = sum(kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
     return {
@@ -1735,6 +1784,684 @@ def loss_seeds(torch, n: int) -> None:
                                          row["ring_token_rel_ratio"]) for row in seeds)})
 
 
+# -- ResNet-50: trained through fit(), served from its checkpoint -----------
+
+
+def resnet_groups(name: str) -> str:
+    """A ResNet step's kernel → its group: convolutions (cuDNN's implicit
+    GEMMs and their layout transforms, and the Dense's GEMM), batch norm,
+    the optimizer's multi-tensor kernels, elementwise kernels (ReLU,
+    residual adds, casts, the guard's selects) and the rest (pooling,
+    reductions, the loss)."""
+    low = name.lower()
+    if "batch_norm" in low or "bn_" in low:
+        return "batch_norm"
+    if any(t in low for t in ("conv", "xmma", "implicit", "cudnn", "gemm", "nvjet",
+                              "cutlass", "nhwc", "nchw", "winograd", "fft")):
+        return "conv"
+    if "multi_tensor" in low or "foreach" in low:
+        return "optimizer"
+    if "elementwise" in low:
+        return "elementwise"
+    return "other"
+
+
+def resnet_train_flops(torch, model) -> float:
+    """Training FLOPs per image of `model` at RESNET["image"]: 2 per
+    multiply-add of every convolution and the Dense in the forward
+    (their output shapes read by hooks over one image), times 3 for the
+    forward and the two products of the backward. Batch norm, ReLU,
+    pooling and the optimizer are not counted."""
+    from kubeflow_tpu_torch.models import resnet
+
+    macs = []
+
+    def count(module, args, out):
+        w = module.weight
+        macs.append(out[0].numel() * w[0].numel())  # per output element: fan-in
+
+    hooks = [m.register_forward_hook(count) for m in model.modules()
+             if isinstance(m, (resnet.Conv, resnet.Dense))]
+    try:
+        with torch.no_grad():
+            side = RESNET["image"]
+            model.eval()
+            model(torch.zeros(1, side, side, 3, device=model.Dense_0.weight.device))
+    finally:
+        for hook in hooks:
+            hook.remove()
+    return 3 * 2 * float(sum(macs))
+
+
+def resnet_model(torch, dtype, device=None, seed: int = SEED):
+    from kubeflow_tpu_torch.models import resnet50
+
+    return resnet50(RESNET["classes"], dtype=dtype, device=device or DEVICE, seed=seed)
+
+
+def resnet_trainer(torch, batch: int, guard=None):
+    """The bench's ResNet-50 training setup (bench.py:343-364): bf16
+    compute over f32 params, SGD-Nesterov momentum 0.9, lr 0.4, weight
+    decay 1e-4 on matrices, label smoothing 0.1."""
+    from kubeflow_tpu_torch.train import TrainConfig, Trainer
+
+    config = TrainConfig(batch_size=batch, learning_rate=RESNET["lr"],
+                         total_steps=10_000, fsdp_params=False)
+    return Trainer(resnet_model(torch, torch.bfloat16), config, device=DEVICE, guard=guard)
+
+
+def resnet_images(torch, batch: int, vary: bool):
+    from kubeflow_tpu_torch.train import SyntheticImages
+
+    return SyntheticImages(batch, RESNET["image"], RESNET["classes"], seed=SEED,
+                           dtype=torch.bfloat16, vary_per_step=vary, device=DEVICE)
+
+
+def resnet_state(torch, model, opt_state) -> dict:
+    """Copies of the parameters, the momentum and the running statistics."""
+    return {
+        "params": {n: p.detach().clone() for n, p in model.named_parameters()},
+        "momentum": {n: t.clone() for n, t in opt_state["trace"].items()},
+        "batch_stats": {n: b.clone() for n, b in model.named_buffers()},
+    }
+
+
+def same_state(a: dict, b: dict) -> bool:
+    return all(bool((a[g][n] == b[g][n]).all()) for g in a for n in a[g])
+
+
+def resnet_check_model(torch):
+    """resnet_check's f32 ResNet-50 on the CPU: flax's initialisation
+    from SEED, with the last BatchNorm of each block scaled to 0.2
+    (+-0.05) instead of 0, and every BatchNorm's bias and running
+    statistics moved off 0/0/1."""
+    from kubeflow_tpu_torch.models import resnet
+
+    model = resnet_model(torch, torch.float32, device="cpu")
+    gen = torch.Generator().manual_seed(SEED)
+    with torch.no_grad():
+        for bn in model.modules():
+            if isinstance(bn, resnet.BatchNorm):
+                shape = bn.weight.shape
+                if bn.zero_init:
+                    bn.weight.copy_(0.2 + 0.05 * torch.randn(shape, generator=gen))
+                bn.bias.copy_(0.1 * torch.randn(shape, generator=gen))
+                bn.running_mean.copy_(0.1 * torch.randn(shape, generator=gen))
+                bn.running_var.copy_(1 + 0.5 * torch.rand(shape, generator=gen))
+    return model
+
+
+def resnet_check_batch(n: int):
+    """resnet_check's NHWC f32 images (standard normal) and labels, from
+    SEED."""
+    rng = np.random.default_rng(SEED)
+    x = rng.standard_normal((n, RESNET["image"], RESNET["image"], 3)).astype(np.float32)
+    return x, rng.integers(0, RESNET["classes"], n)
+
+
+def resnet_check_phase(torch, card: str) -> None:
+    """ResNet-50 at full width in f32, batch RESNET_CHECK["batch"] at
+    224, one training-mode forward and backward of the train step's loss
+    (smoothing 0.1) on the card (TF32 off) and on the CPU in this process
+    (the CPU path is the one the tier-1 tests hold to JAX), on
+    `resnet_check_model`'s weights, so that every block and every
+    gradient takes part. Limits, card against CPU: logits, loss and
+    the updated running statistics atol = rtol = 1e-3 (both f32; cuDNN
+    and oneDNN sum in other orders). Gradients: the same step in float64
+    on the CPU is the reference, since f32 itself lies ~2e-3 from it by
+    relative norm: a ReLU whose input lies within f32's rounding of 0
+    takes the other side in f32 (one of the ~1e5 active units of a layer
+    moves that layer's input gradient by ~1/sqrt(1e5)), and batch norm's
+    backward spreads that to every gradient below it. The card's
+    gradients, by relative norm to float64, lie within twice the CPU
+    f32's, tensor for tensor at the worst and at the median. The bf16
+    model on the same weights: its training-mode logits lie within twice
+    the CPU bf16 forward's distance from the CPU f32 forward (relative
+    norm), the rule the tier-1 tests hold the CPU's bf16 to JAX's by."""
+    from kubeflow_tpu_torch.train import softmax_cross_entropy
+
+    t0 = time.perf_counter()
+    n = RESNET_CHECK["batch"]
+    cpu = resnet_check_model(torch)
+    card_model = resnet_model(torch, torch.float32)
+    card_model.load_state_dict(cpu.state_dict())
+    exact = resnet_model(torch, torch.float64, device="cpu").double()
+    exact.load_state_dict({k: v.double() for k, v in cpu.state_dict().items()})
+    x, y = resnet_check_batch(n)
+
+    def step(model, device):
+        model.train()
+        model.zero_grad(set_to_none=True)
+        logits = model(torch.tensor(x, device=device))
+        loss = softmax_cross_entropy(logits, torch.tensor(y, device=device), 0.1)
+        loss.backward()
+        out = {"logits": logits.detach().cpu(), "loss": loss.detach().cpu(),
+               "grads": {k: p.grad.cpu() for k, p in model.named_parameters()},
+               "stats": {k: b.cpu() for k, b in model.named_buffers()}}
+        model.zero_grad(set_to_none=True)
+        return out
+
+    t_cpu = time.perf_counter()
+    want = step(cpu, "cpu")
+    cpu_s = time.perf_counter() - t_cpu
+    got = step(card_model, DEVICE)
+    ref = step(exact, "cpu")
+
+    def rel64(a, b):
+        return float((a.double() - b).norm() / b.norm())
+
+    zero_grads = [k for k, g in ref["grads"].items() if float(g.norm()) == 0]
+    card_rel = {k: rel64(got["grads"][k], g) for k, g in ref["grads"].items()}
+    cpu_rel = {k: rel64(want["grads"][k], g) for k, g in ref["grads"].items()}
+    grad_rel = {k: rel(got["grads"][k], g) for k, g in want["grads"].items()}
+    stat_err = max(float((got["stats"][k] - s).abs().max()) for k, s in want["stats"].items())
+    median = lambda d: float(np.median(list(d.values())))
+    checks = {
+        "logits": close(got["logits"], want["logits"], 1e-3, 1e-3),
+        "loss": close(got["loss"], want["loss"], 1e-3, 1e-3),
+        "stats": all(close(got["stats"][k], s, 1e-3, 1e-3) for k, s in want["stats"].items()),
+        "grads": (not zero_grads and max(card_rel.values()) <= 2 * max(cpu_rel.values())
+                  and median(card_rel) <= 2 * median(cpu_rel)),
+    }
+    # The bf16 model on the same weights, training-mode forward, on the
+    # card and on the CPU (whose bf16 the tier-1 tests hold to JAX's).
+    bf16 = resnet_model(torch, torch.bfloat16)
+    bf16.load_state_dict(cpu.state_dict())
+    bf16.train()
+    bf16_cpu = resnet_model(torch, torch.bfloat16, device="cpu")
+    bf16_cpu.load_state_dict(cpu.state_dict())
+    bf16_cpu.train()
+    with torch.no_grad():
+        logits16 = bf16(torch.tensor(x, device=DEVICE)).cpu()
+        logits16_cpu = bf16_cpu(torch.tensor(x)).cpu()
+    bf16_gap = rel(logits16, got["logits"])
+    bf16_limit = 2 * rel(logits16_cpu, want["logits"])
+    checks["bf16_logits"] = bf16_gap <= bf16_limit
+    worst = max(card_rel, key=card_rel.get)
+    out = {
+        "phase": "resnet_check", "model": "resnet50", "dtype": "float32", "batch": n,
+        "image": RESNET["image"], "tf32": False,
+        "logits_max_abs_err": float((got["logits"] - want["logits"]).abs().max()),
+        "logits_max_abs": float(want["logits"].abs().max()),
+        "loss": float(want["loss"]), "loss_abs_err": float((got["loss"] - want["loss"]).abs()),
+        "grad_vs_f64_card_max": card_rel[worst], "grad_worst": worst,
+        "grad_vs_f64_cpu_max": max(cpu_rel.values()),
+        "grad_vs_f64_card_median": median(card_rel),
+        "grad_vs_f64_cpu_median": median(cpu_rel),
+        "grad_card_vs_cpu_max": max(grad_rel.values()),
+        "grads_checked": len(card_rel), "zero_grads": zero_grads,
+        "stats_max_abs_err": stat_err,
+        "bf16_vs_f32_logits_max_abs": float((logits16 - got["logits"]).abs().max()),
+        "bf16_vs_f32_logits_rel_norm": bf16_gap,
+        "cpu_bf16_vs_f32_logits_rel_norm": rel(logits16_cpu, want["logits"]),
+        "cpu_f32_vs_f64_logits_rel_norm": rel(want["logits"], ref["logits"]),
+        "limits": {"logits_stats_loss_atol_rtol": [1e-3, 1e-3],
+                   "grad_vs_f64": "card <= 2x cpu f32, max and median",
+                   "bf16_logits_rel_norm": bf16_limit},
+        "checks": checks, "cpu_step_s": cpu_s,
+        "seconds": time.perf_counter() - t0, "card": card,
+    }
+    emit(out)
+    del cpu, card_model, bf16, bf16_cpu, exact
+    torch.cuda.empty_cache()
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"resnet_check failed: {failed}")
+
+
+def resnet_train_phase(torch, card: str) -> None:
+    """ResNet-50 trained as `bench.py`'s default run trains it: batch
+    RESNET["batch"] of bf16 SyntheticImages (one batch, as the bench),
+    SGD; RESNET["warmup_steps"] warm-up steps, then RESNET["timed_steps"]
+    timed steps ending in a sync; step time, images/s, peak memory and a
+    profile of one step with device time by group (`resnet_groups`). The
+    flash kernels' counters are read too: the ResNet path launches none."""
+    from kubeflow_tpu_torch.ops import _kernels
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    batch = RESNET["batch"]
+    trainer = resnet_trainer(torch, batch)
+    flops_per_image = resnet_train_flops(torch, trainer.model)
+    state, step = trainer.init_state(), trainer.make_train_step()
+    data = iter(resnet_images(torch, batch, vary=False))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    _kernels.launches.clear()
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(RESNET["warmup_steps"]):
+        state, metrics = step(state, next(data))
+        losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+    n = RESNET["timed_steps"]
+    t0 = time.perf_counter()
+    for _ in range(n):
+        state, metrics = step(state, next(data))
+        losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / n
+    profile = profile_device(torch, lambda: step(state, next(data)), resnet_groups,
+                             RESNET_GROUPS)
+    launches = dict(_kernels.launches)
+    losses = [float(v) for v in losses]
+    out = {
+        "phase": "resnet_train", "model": "resnet50", "dtype": "bfloat16",
+        "batch": batch, "image": RESNET["image"], "optimizer": "sgd",
+        "learning_rate": RESNET["lr"], "init_s": init_s, "warmup_s": warmup_s,
+        "timed_steps": n, "step_ms": step_s * 1e3, "images_per_s": batch / step_s,
+        "flops_per_image": flops_per_image,
+        "tflops_per_s": batch * flops_per_image / step_s / 1e12,
+        "mfu": batch * flops_per_image / step_s / PEAK_FLOPS["bfloat16"],
+        "losses": losses, "flash_launches": launches,
+        "profile_one_step": profile,
+        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30, "card": card,
+    }
+    emit(out)
+    del trainer, state, step
+    torch.cuda.empty_cache()
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite ResNet loss: {losses}")
+    if launches:
+        raise AssertionError(f"the ResNet path launched flash kernels: {launches}")
+
+
+def resnet_fit_phase(torch, card: str, root: str) -> int:
+    """ResNet-50 through `fit()` at batch RESNET_FIT["batch"] with an
+    AnomalyGuard and a Checkpointer in `root` (cuDNN pinned to
+    deterministic algorithms for the phase, so that a step repeats
+    bitwise): an uninterrupted RESNET_FIT["steps"]-step run; a run that
+    saves every RESNET_FIT["save_every"] steps and gets a SIGTERM at step
+    RESNET_FIT["sigterm_at"] (`Preempted` at the next step, after its
+    save); a resumed run to the end, bitwise equal to the uninterrupted
+    one in parameters, momentum and running statistics; then one more
+    step through fit() whose input is multiplied by NaN: skipped, with
+    parameters, momentum and running statistics bitwise unchanged. Save
+    and restore seconds and the checkpoint's size. Returns the newest
+    step in `root`/ckpt, which resnet_serve serves."""
+    import signal
+
+    from kubeflow_tpu_torch.ops import _kernels
+    from kubeflow_tpu_torch.train import AnomalyGuard, Preempted, fit
+
+    t_phase = time.perf_counter()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    torch.cuda.reset_peak_memory_stats()
+    steps, save_every, sigterm_at = (RESNET_FIT[k] for k in ("steps", "save_every",
+                                                             "sigterm_at"))
+    trainer = resnet_trainer(torch, RESNET_FIT["batch"], guard=AnomalyGuard())
+    stream = lambda: Tape(resnet_images(torch, RESNET_FIT["batch"], vary=True))
+    ckpt_dir = os.path.join(root, "ckpt")
+    checks = {}
+
+    def sigterm(step, rec):
+        if step == sigterm_at:
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    try:
+        _kernels.launches.clear()
+        straight = fit(trainer, stream(), steps, rng=SEED, log_every=1)
+        want = resnet_state(torch, trainer.model, straight.state.opt_state)
+        step_ms = [RESNET_FIT["batch"] / rec["examples_per_sec"] * 1e3
+                   for rec in straight.history[1:]]
+        losses = [rec["loss"] for rec in straight.history]
+        del straight
+
+        ckpt = timed_checkpointer(ckpt_dir, save_interval_steps=save_every, max_to_keep=2)
+        first = fit(trainer, stream(), steps, rng=SEED, checkpointer=ckpt, log_every=1,
+                    on_metrics=sigterm)
+        checks["preempted"] = (isinstance(first, Preempted)
+                               and first.signum == signal.SIGTERM
+                               and int(first.state.step) == sigterm_at + 1
+                               and ckpt.all_steps() == [sigterm_at + 1])
+        del first
+        ckpt2 = timed_checkpointer(ckpt_dir, save_interval_steps=save_every, max_to_keep=2)
+        tape = stream()
+        resumed = fit(trainer, tape, steps, rng=SEED + 1, checkpointer=ckpt2, log_every=1)
+        got = resnet_state(torch, trainer.model, resumed.state.opt_state)
+        checks["resumed"] = (resumed.resumed_from == sigterm_at + 1
+                             and int(resumed.state.step) == steps
+                             and tape.positions == list(range(sigterm_at + 1, steps)))
+        checks["resume_bitwise"] = same_state(got, want)
+        del resumed, got
+        step_dir = os.path.join(ckpt_dir, str(steps))
+        ckpt_bytes = {name: os.path.getsize(os.path.join(step_dir, name))
+                      for name in os.listdir(step_dir)}
+
+        # One step through fit() with its input multiplied by NaN.
+        hook = trainer.model.register_forward_pre_hook(
+            lambda module, args: (args[0] * float("nan"),))
+        ckpt3 = timed_checkpointer(ckpt_dir, save_interval_steps=save_every, max_to_keep=2)
+        try:
+            poisoned = fit(trainer, stream(), steps + 1, checkpointer=ckpt3, log_every=1,
+                           handle_signals=False)
+        finally:
+            hook.remove()
+        rec = poisoned.history[-1]
+        after = resnet_state(torch, trainer.model, poisoned.state.opt_state)
+        checks["poison_skipped"] = (
+            poisoned.resumed_from == steps and rec["guard_skipped_total"] == 1
+            and not np.isfinite(rec["loss"]) and int(poisoned.state.step) == steps + 1
+            and same_state(after, want))
+        newest = ckpt3.latest_step()
+        del poisoned, after, want
+        launches = dict(_kernels.launches)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    seconds = {key: ckpt.seconds[key] + ckpt2.seconds[key] + ckpt3.seconds[key]
+               for key in ckpt.seconds}
+    checks["no_flash_launches"] = not launches
+    out = {
+        "phase": "resnet_fit", "model": "resnet50", "dtype": "bfloat16",
+        "batch": RESNET_FIT["batch"], "steps": steps, "save_every": save_every,
+        "sigterm_at": sigterm_at, "optimizer": "sgd", "guard": True,
+        "cudnn_deterministic": True, "checks": checks, "losses": losses,
+        "fit_step_ms": step_ms, "checkpoint_mb": sum(ckpt_bytes.values()) / 1e6,
+        "checkpoint_files_mb": {k: v / 1e6 for k, v in ckpt_bytes.items()},
+        "save_block_s": seconds["save_block"], "save_write_s": seconds["save_write"],
+        "restore_s": seconds["restore"], "newest_step": newest,
+        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "seconds": time.perf_counter() - t_phase, "card": card,
+    }
+    emit(out)
+    del trainer
+    torch.cuda.empty_cache()
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"resnet_fit checks failed: {failed}")
+    return newest
+
+
+def percentiles(seconds: list) -> dict:
+    ms = sorted(s * 1e3 for s in seconds)
+    return {"p50_ms": ms[len(ms) // 2], "p99_ms": ms[min(len(ms) - 1, int(len(ms) * 0.99))]}
+
+
+def serve_instances(n: int, side: int) -> np.ndarray:
+    """resnet_serve's `n` distinct float32 instances, side x side x 3,
+    from SEED: standard normal images (SyntheticImages' distribution),
+    each shifted by a colour offset of its own in [-1, 1], so that the
+    served model's answers to any two of them lie far apart."""
+    rng = np.random.default_rng(SEED)
+    images = rng.standard_normal((n, side, side, 3), dtype=np.float32)
+    return images + rng.uniform(-1, 1, (n, 1, 1, 3)).astype(np.float32)
+
+
+def serve_load_worker(url: str, clients: str, distinct: str, side: str, windows: str,
+                      out: str) -> int:
+    """chip_smoke.py --serve-load-worker URL CLIENTS DISTINCT SIDE
+    WARMUP,WINDOW,PROFILE OUT.npz: in a process of its own (so that the
+    clients share no interpreter lock with the server), `clients`
+    threads each post one-instance :predict requests (binary frames),
+    one after another over `serve_instances(DISTINCT, SIDE)`, from the
+    start until WARMUP + WINDOW + 2 x PROFILE seconds have passed. Prints
+    "measure" when the warm-up ends, "profile" when the measured window
+    ends and "stop" at the end, each on a line of its own, so that the
+    server's process can read its counters and run its profiler for
+    PROFILE seconds (the other PROFILE seconds leave room for the
+    profiler's start). Writes each request's start and end
+    (seconds from the start), instance and answer, the windows' bounds
+    and the start's `time.perf_counter()` (the system's monotonic clock,
+    which the server's process reads too) to OUT.npz."""
+    import threading
+
+    sys.path.insert(0, ROOT)
+    from kubeflow_tpu_torch.serving import wire
+
+    clients = int(clients)
+    warmup, window, profiled = (float(v) for v in windows.split(","))
+    bounds = np.cumsum([0.0, warmup, window, 2 * profiled])
+    instances = serve_instances(int(distinct), int(side))
+    records, failures = [[] for _ in range(clients)], []
+    stop = threading.Event()
+    t0 = time.perf_counter()
+
+    def client(c):
+        k = c
+        while not stop.is_set():
+            i = k % len(instances)
+            k += clients
+            body = wire.encode_tensor(instances[i:i + 1])
+            start = time.perf_counter() - t0
+            try:
+                status, _, raw = post(url, body, wire.TENSOR_CONTENT_TYPE,
+                                      wire.TENSOR_CONTENT_TYPE)
+            except OSError as e:
+                failures.append(repr(e))
+                return
+            if status != 200:
+                failures.append(status)
+                return
+            records[c].append((start, time.perf_counter() - t0, i,
+                               wire.decode_tensor(raw)[0]))
+
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(clients)]
+    for t in threads:
+        t.start()
+    for mark, at in zip(("measure", "profile", "stop"), bounds[1:]):
+        time.sleep(max(0.0, t0 + at - time.perf_counter()))
+        print(mark, flush=True)
+    stop.set()
+    for t in threads:
+        t.join(timeout=600)
+    flat = [r for rs in records for r in rs]
+    if failures or any(t.is_alive() for t in threads) or not flat:
+        print(f"serve load worker: failures {failures[:5]}", file=sys.stderr)
+        return 1
+    start, end, which, answers = zip(*flat)
+    np.savez(out, start=np.array(start), end=np.array(end), which=np.array(which),
+             answers=np.stack(answers), bounds=bounds, t0=t0)
+    return 0
+
+
+def window_stats(start, end, lo: float, hi: float) -> dict:
+    """Requests in [lo, hi): latency p50/p99 of those that started in
+    it, and predictions/s of those that ended in it."""
+    began = (start >= lo) & (start < hi)
+    done = int(((end >= lo) & (end < hi)).sum())
+    return {"seconds": hi - lo, "requests_started": int(began.sum()),
+            "predictions_per_s": done / (hi - lo),
+            **percentiles(list(end[began] - start[began]))}
+
+
+def concurrent_load(torch, url: str, clients: int, out: str, queue=None) -> dict:
+    """`serve_load_worker` against `url` in a child process, with
+    RESNET_SERVE's windows. The measured window gives latency p50/p99,
+    predictions/s and (batching on: `queue`) the executions and their
+    mean batch. Over the profiled window torch.profiler traces the
+    device's activity from this process, where the server runs: its
+    busy ms (kernels and copies) and idle share of the time the profiler
+    ran, and the predictions/s in that time. Returns those numbers, and the answers with the
+    instance each was for."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = RESNET_SERVE
+    windows = f"{cfg['warmup_s']},{cfg['window_s']},{cfg['profile_s']}"
+    counters = lambda: (queue.batches_total.value(model="resnet"),
+                        queue.batched_instances_total.value(model="resnet"))
+    err = tempfile.TemporaryFile(mode="w+")
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--serve-load-worker", url,
+         str(clients), str(cfg["distinct"]), str(RESNET["image"]), windows, out],
+        stdout=subprocess.PIPE, stderr=err, text=True,
+    )
+    marks, prof, profiling = {}, None, False
+    try:
+        for line in proc.stdout:
+            mark = line.strip()
+            marks[mark] = counters() if queue is not None else None
+            if mark == "profile":
+                # The device's activity only: tracing every operator of
+                # 64 handler threads would slow the host that bounds them.
+                prof = profile(activities=[ProfilerActivity.CUDA])
+                prof.start()
+                profiling, t_prof = True, time.perf_counter()
+                time.sleep(cfg["profile_s"])
+                torch.cuda.synchronize()
+                t_stop = time.perf_counter()
+                profiling = False
+                prof.stop()
+        rc = proc.wait(timeout=900)
+    finally:
+        if profiling:
+            prof.stop()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    err.seek(0)
+    if rc or set(marks) != {"measure", "profile", "stop"}:
+        raise AssertionError(f"serve load worker failed: rc {rc}, marks {sorted(marks)}: "
+                             f"{err.read()[-2000:]}")
+    got = np.load(out)
+    start, end, bounds = got["start"], got["end"], got["bounds"]
+    result = {"clients": clients, "window": window_stats(start, end, bounds[1], bounds[2])}
+    if queue is not None:
+        (b0, i0), (b1, i1) = marks["measure"], marks["profile"]
+        result["window"]["executions"] = b1 - b0
+        result["window"]["mean_batch"] = (i1 - i0) / max(1.0, b1 - b0)
+    busy = sum(evt.self_device_time_total for evt in prof.key_averages()
+               if evt.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    # The profiler ran from t_prof to t_stop on the worker's clock too.
+    lo, hi = t_prof - float(got["t0"]), t_stop - float(got["t0"])
+    profiled_ms = (t_stop - t_prof) * 1e3
+    result["profiled_window"] = {
+        "wall_ms": profiled_ms,
+        "predictions_per_s": int(((end >= lo) & (end < hi)).sum()) / (hi - lo),
+        "device_busy_ms": busy if busy else "not measured",
+        "device_idle_share": max(0.0, 1 - busy / profiled_ms) if busy else "not measured",
+    }
+    result["answers"] = list(zip(got["which"], got["answers"]))
+    return result
+
+
+def resnet_serve_phase(torch, card: str, ckpt_dir: str, step: int) -> None:
+    """The model-server binary's app (`serving.__main__.build_app`, as
+    `python -m kubeflow_tpu_torch.serving --model resnet=CKPT_DIR
+    --batch-timeout-ms 5` builds it) on resnet_fit's checkpoint, with
+    batching on (max_batch RESNET_SERVE["max_batch"], 5 ms), over HTTP
+    on a localhost port. Its version must be the checkpoint's step, and
+    every answer must match the restored model's own eval forward on the
+    same instances: within twice that forward's distance from the same
+    weights' f32 forward (bf16 rounds differently at other batch sizes);
+    and the closest two instances' answers must lie at least 4x that
+    limit apart (2x is what it takes for an answer sent to the wrong
+    caller to fail the check). Then `bench.py --workload serving`'s
+    numbers: single-instance p50/p99 (Servable.predict), batch-64
+    predictions/s on the device path (the model on a batch already on the
+    card) and the host path (predict() with the copy in and the logits
+    out), and, under RESNET_SERVE["clients"] concurrent one-instance
+    clients over HTTP (in a child process: `serve_load_worker`) with
+    batching on and off, p50/p99 and predictions/s over the measured
+    window and the device's busy time and idle share over the profiled
+    one (`concurrent_load`)."""
+    from kubeflow_tpu_torch.ops import _kernels
+    from kubeflow_tpu_torch.serving import ModelServerApp, wire
+    from kubeflow_tpu_torch.serving.__main__ import build_app
+    from kubeflow_tpu_torch.web import serve
+
+    t_phase = time.perf_counter()
+    cfg = RESNET_SERVE
+    side = RESNET["image"]
+    t0 = time.perf_counter()
+    app = build_app([("resnet", ckpt_dir)], max_batch=cfg["max_batch"],
+                    batch_timeout_ms=cfg["timeout_ms"], device=DEVICE)
+    load_s = time.perf_counter() - t0
+    servable = app.repository.get("resnet")
+    model = servable.variables
+    rng = np.random.default_rng(SEED)
+    instances = serve_instances(cfg["distinct"], side)
+    with torch.inference_mode():
+        direct = model(torch.tensor(instances, device=DEVICE)).float().cpu().numpy()
+        f32 = resnet_model(torch, torch.float32)
+        f32.load_state_dict(model.state_dict())
+        f32.eval()
+        exact = f32(torch.tensor(instances, device=DEVICE)).cpu().numpy()
+        del f32
+    limit = 2 * float(np.abs(direct - exact).max())
+    # The closest two instances' answers: an answer that went to the
+    # wrong caller lies at least `separation - limit` from the caller's
+    # own, so the check below fails it wherever separation > 2 x limit.
+    gaps = np.abs(direct[:, None, :] - direct[None, :, :]).max(axis=-1)
+    np.fill_diagonal(gaps, np.inf)
+    separation = float(gaps.min())
+
+    _kernels.launches.clear()
+    servers = {}
+    results = {}
+    work = tempfile.mkdtemp(prefix="kftpu_serve_")
+    try:
+        for mode, serving_app in (("batching_on", app),
+                                  ("batching_off", ModelServerApp(app.repository))):
+            server, thread = serve(serving_app, host="127.0.0.1", port=0)
+            servers[mode] = (server, thread)
+            url = f"http://127.0.0.1:{server.server_port}/v1/models/resnet:predict"
+            if mode == "batching_on":
+                # One request makes the model's queue, whose counters the
+                # windows read.
+                post(url, wire.encode_tensor(instances[:1]), wire.TENSOR_CONTENT_TYPE,
+                     wire.TENSOR_CONTENT_TYPE)
+            queue = (app._batchers[("resnet", servable.version)]
+                     if mode == "batching_on" else None)
+            results[mode] = concurrent_load(torch, url, cfg["clients"],
+                                            os.path.join(work, f"{mode}.npz"), queue)
+    finally:
+        for server, thread in servers.values():
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=30)
+        app.close_batchers()
+        shutil.rmtree(work, ignore_errors=True)
+    errs = []
+    for mode, res in results.items():
+        for i, pred in res.pop("answers"):
+            errs.append(float(np.abs(pred - direct[i]).max()))
+    answers_ok = max(errs) <= limit
+
+    one = rng.random((1, side, side, 3), dtype=np.float32)
+    single = []
+    for _ in range(cfg["single"]):
+        t0 = time.perf_counter()
+        servable.predict(one)
+        single.append(time.perf_counter() - t0)
+    batch = rng.random((cfg["max_batch"], side, side, 3), dtype=np.float32)
+    servable.predict(batch)
+    device_batch = torch.tensor(batch, device=DEVICE)
+    with torch.inference_mode():
+        device_ms = cuda_ms(torch, lambda: servable.apply_fn(model, device_batch),
+                            cfg["device_reps"])
+    t0 = time.perf_counter()
+    for _ in range(cfg["host_reps"]):
+        servable.predict(batch)
+    host_s = (time.perf_counter() - t0) / cfg["host_reps"]
+    launches = dict(_kernels.launches)
+    checks = {"version": servable.version == step, "answers": answers_ok,
+              "answers_told_apart": separation >= 4 * limit,
+              "no_flash_launches": not launches}
+    out = {
+        "phase": "resnet_serve", "model": "resnet50", "dtype": "bfloat16",
+        "checkpoint_step": step, "version": servable.version,
+        "max_batch": cfg["max_batch"], "batch_timeout_ms": cfg["timeout_ms"],
+        "load_and_warmup_s": load_s, "answers_max_abs_err": max(errs),
+        "answers_limit": limit, "answers_checked": len(errs),
+        "answers_min_separation": separation,
+        "single_instance": percentiles(single),
+        "device_path_predictions_per_s": cfg["max_batch"] / (device_ms / 1e3),
+        "device_path_batch_ms": device_ms,
+        "host_path_predictions_per_s": cfg["max_batch"] / host_s,
+        "concurrent": results, "checks": checks,
+        "seconds": time.perf_counter() - t_phase, "card": card,
+    }
+    emit(out)
+    del app, servable, model
+    torch.cuda.empty_cache()
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"resnet_serve checks failed: {failed}")
+
+
+
 def main() -> int:
     import torch
 
@@ -1772,6 +2499,14 @@ def main() -> int:
     by_path["ring_train"] = ring_train_phase(torch, card)
     ring_check_phase(torch)
     ring_nccl_phase(torch)
+    resnet_check_phase(torch, card)
+    resnet_train_phase(torch, card)
+    resnet_root = tempfile.mkdtemp(prefix="kftpu_resnet_")
+    try:
+        step = resnet_fit_phase(torch, card, resnet_root)
+        resnet_serve_phase(torch, card, os.path.join(resnet_root, "ckpt"), step)
+    finally:
+        shutil.rmtree(resnet_root, ignore_errors=True)
     for name, entry in entries.items():
         counts = {path: launches.get(name, 0) for path, launches in by_path.items()}
         entry["launches"] = sum(counts.values())
@@ -1801,4 +2536,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--ring-nccl-worker"]:
         sys.exit(ring_nccl_worker(sys.argv[2]))
+    if sys.argv[1:2] == ["--serve-load-worker"]:
+        sys.exit(serve_load_worker(*sys.argv[2:8]))
     sys.exit(main())

@@ -1,8 +1,11 @@
-"""Weights for the port's `TransformerLM`: converted or freshly drawn.
+"""Weights for the port's models: converted or freshly drawn.
 
 `from_flax` renames a JAX `TransformerLM`'s ``variables["params"]``
 tree into this package's state-dict keys. The layouts already agree,
-so no array is transposed. The caller hands over plain numpy arrays
+so no array is transposed. `resnet_from_flax` does the same for a JAX
+`ResNet`'s ``params`` and ``batch_stats``: the module names are flax's,
+conv kernels go from HWIO to OIHW and the Dense kernel from (in, out)
+to (out, in). The caller hands over plain numpy arrays
 (unboxing flax's ``LogicallyPartitioned`` wrappers on its side, e.g.
 ``jax.tree.map(np.asarray, flax.linen.unbox(variables["params"]))``):
 this package never imports flax.
@@ -52,6 +55,32 @@ def from_flax(params: Mapping) -> dict[str, torch.Tensor]:
         _torch_key(path): torch.from_numpy(np.array(value, np.float32))
         for path, value in _flatten(params)
     }
+
+
+_BN_KEYS = {"scale": "weight", "bias": "bias", "mean": "running_mean",
+            "var": "running_var"}
+
+
+def resnet_from_flax(params: Mapping, batch_stats: Mapping | None = None
+                     ) -> dict[str, torch.Tensor]:
+    """A JAX `ResNet`'s ``params`` (and ``batch_stats``) trees, nested
+    dicts of numpy arrays, → the port's `ResNet` state dict, float32
+    tensors on the CPU. A tree shaped like ``params`` (its gradients)
+    converts the same way."""
+    out = {}
+    for tree in (params, batch_stats or {}):
+        for path, value in _flatten(tree):
+            value = np.array(value, np.float32)
+            *module, leaf = path
+            if leaf == "kernel":
+                # HWIO → OIHW; a Dense's (in, out) → (out, in).
+                value = value.transpose(3, 2, 0, 1) if value.ndim == 4 else value.T
+                leaf = "weight"
+            else:
+                leaf = _BN_KEYS.get(leaf, leaf)
+            out[".".join((*module, leaf))] = torch.from_numpy(
+                np.ascontiguousarray(value))
+    return out
 
 
 def param_shapes(cfg) -> dict[str, tuple[int, ...]]:

@@ -7,10 +7,13 @@ the set of batch shapes the device sees (and that `warmup_with` has
 exercised before traffic arrives), and they keep predictions identical
 to the JAX server's, padding included. Weights are placed on the device
 once; a request moves only its own batch. Requests above ``max_batch``
-are split into chunks and re-batched through the same buckets.
+are split into chunks and re-batched through the same buckets. A
+module is served in eval mode (a ResNet's BatchNorm normalises by its
+running statistics, as JAX's serves with ``train=False``).
 
-Restoring from a checkpoint (`from_checkpoint`) waits for the
-checkpoint port (ROADMAP Queue 1).
+`from_checkpoint` restores the parameters and batch statistics that
+`train.fit` saved (the port's `Checkpointer`; orbax checkpoints of the
+JAX package are not read) and serves them as the checkpoint's step.
 """
 
 from __future__ import annotations
@@ -22,6 +25,8 @@ import numpy as np
 import torch
 
 from kubeflow_tpu_torch._device import resolve_device
+from kubeflow_tpu_torch.train.checkpoint import Checkpointer
+from kubeflow_tpu_torch.train.trainer import TensorSpec, batch_stats, map_tensors
 
 
 def _buckets(max_batch: int) -> list[int]:
@@ -72,9 +77,10 @@ class Servable:
         warmup_example=None,
         device=None,
     ) -> "Servable":
-        """Wrap a module (``module(batch)``) as a servable; the module
-        carries its own weights. Pass ``warmup_example`` (one instance, no
-        batch dim) to run every bucket before traffic."""
+        """Wrap a module (``module(batch)``) as a servable, in eval mode;
+        the module carries its own weights. Pass ``warmup_example`` (one
+        instance, no batch dim) to run every bucket before traffic."""
+        module.eval()
         servable = cls(
             name, lambda module, batch: module(batch), module, version=version,
             max_batch=max_batch, device=device,
@@ -82,6 +88,47 @@ class Servable:
         if warmup_example is not None:
             servable.warmup_with(warmup_example)
         return servable
+
+    @classmethod
+    def from_checkpoint(
+        cls,
+        name: str,
+        module: torch.nn.Module,
+        ckpt_dir,
+        example_input,
+        *,
+        max_batch: int = 64,
+        device=None,
+    ) -> "Servable":
+        """Restore `module`'s parameters and batch statistics from the
+        newest valid step of a checkpoint directory that the training
+        loop (`train.fit`) wrote, opened read-only (the optimizer's file
+        is not loaded). The version is the checkpoint's step (at least
+        1), so clients see which step is live; every bucket is warmed
+        with ``example_input[0]`` before this returns."""
+        template = {"params": dict(module.named_parameters())}
+        stats = batch_stats(module)
+        if stats:
+            template["batch_stats"] = stats
+        live = template
+        template = map_tensors(
+            lambda t: TensorSpec(tuple(t.shape), t.dtype, t.device), template)
+        # read_only: serving never renames a training run's steps.
+        ckpt = Checkpointer(ckpt_dir, read_only=True)
+        try:
+            restored = ckpt.restore_latest(template)
+        finally:
+            ckpt.close()
+        if restored is None:
+            raise FileNotFoundError(f"no checkpoint under {ckpt_dir}")
+        with torch.no_grad():
+            for key, tensors in live.items():
+                for tname, t in tensors.items():
+                    t.copy_(restored.state[key][tname])
+        return cls.from_module(
+            name, module, version=max(restored.step, 1), max_batch=max_batch,
+            warmup_example=np.asarray(example_input)[0], device=device,
+        )
 
     def _bucket_for(self, n: int) -> int:
         for b in self._bucket_sizes:

@@ -7,16 +7,20 @@ send and receive binary tensor frames (`serving/wire.py`) on the same
 route; ``GET /v1/models/<name>`` reports version state as TF Serving's
 model-status API does.
 
+With a `BatchingConfig` (``batching=``) every predict goes through a
+`BatchingQueue` per (model, version), so concurrent requests merge into
+one execution; a full queue answers 429 with a jittered Retry-After.
+
 A device fault on well-formed input (out of memory, a CUDA error, a
 refused kernel launch) is the server's error, 500; anything else that
 ``predict`` raises is a bad request, 400. Not ported yet (ROADMAP Queue
-1): the batching scheduler, and the front door with its router and
-registry.
+1): the front door with its router and registry.
 """
 
 from __future__ import annotations
 
 import logging
+import random
 import threading
 from typing import Iterable
 
@@ -24,6 +28,7 @@ import torch
 
 from kubeflow_tpu_torch.ops._kernels import KernelLaunchError
 from kubeflow_tpu_torch.serving import wire
+from kubeflow_tpu_torch.serving.batching import BatchingQueue, QueueClosed, QueueFull
 from kubeflow_tpu_torch.serving.servable import Servable
 from kubeflow_tpu_torch.utils.metrics import MetricsRegistry
 from kubeflow_tpu_torch.web import App, HttpError, Request, Response, json_response
@@ -32,6 +37,13 @@ log = logging.getLogger(__name__)
 
 # Faults of the device or runtime, not of the request.
 _DEVICE_ERRORS = (torch.OutOfMemoryError, torch.AcceleratorError, KernelLaunchError)
+
+
+def _format_retry_after(seconds: float) -> str:
+    """Retry-After in fractional seconds (two decimals): rounding a
+    jittered sub-second hint up to 1 would re-synchronise the herd that
+    the jitter spreads."""
+    return f"{max(0.01, seconds):.2f}"
 
 
 class ModelRepository:
@@ -104,12 +116,17 @@ class ModelServerApp(App):
         metrics: MetricsRegistry | None = None,
         batching=None,
     ):
-        if batching is not None:
-            raise NotImplementedError(
-                "the batching scheduler is not ported yet (ROADMAP Queue 1)"
-            )
+        """`batching`: a `BatchingConfig` turns on the batching
+        scheduler: concurrent requests merge into one execution per
+        flush (`serving/batching.py`)."""
         super().__init__("model-server")
         self.repository = repository
+        self._batching = batching
+        self._batchers: dict = {}
+        self._batcher_lock = threading.Lock()
+        # ±50% Retry-After spread, seeded: a fixed hint brings every shed
+        # client back in one wave.
+        self._retry_rng = random.Random(0)
         metrics = metrics or MetricsRegistry()
         self.request_count = metrics.counter(
             "serving_requests_total", "predict requests", ("model", "outcome")
@@ -195,9 +212,19 @@ class ModelServerApp(App):
                     400, "body must have a non-empty 'instances' list"
                 )
         try:
-            predictions = model.predict(instances)
+            try:
+                predictions = self._predictor(model)(instances)
+            except QueueClosed:
+                # Raced a version reload: the stale queue closed between
+                # lookup and predict. One retry reaches the fresh queue.
+                predictions = self._predictor(model)(instances)
         except HttpError:
             raise
+        except QueueFull as e:
+            self.request_count.inc(model=name, outcome="overload")
+            raise HttpError(
+                429, str(e), headers=[("Retry-After", self._retry_after())]
+            ) from None
         except _DEVICE_ERRORS:
             # The App's catch-all turns this into a 500.
             self.request_count.inc(model=name, outcome="error")
@@ -229,6 +256,64 @@ class ModelServerApp(App):
                 400, "tensor batch needs a non-empty leading dimension"
             )
         return arr
+
+    def _retry_after(self) -> str:
+        """One flush window, floored at 1 s (a full queue clears at flush
+        cadence), jittered ±50% from the seeded generator."""
+        timeout_ms = getattr(self._batching, "timeout_ms", 0.0) or 0.0
+        base = float(max(1, -(-int(timeout_ms) // 1000)))
+        return _format_retry_after(base * (0.5 + self._retry_rng.random()))
+
+    def _predictor(self, model):
+        """model.predict, or its batching queue when batching is on.
+
+        The repository decides which servable is current for (name,
+        version): a request racing a reload may hold the old object, and
+        deciding on it would let two generations close each other's
+        queues in turn. The stale request is served by the current
+        generation's queue. Queues of unloaded versions are pruned here
+        and drained off the request path."""
+        if self._batching is None:
+            return model.predict
+        try:
+            current = self.repository.get(model.name, model.version)
+        except HttpError:
+            # Unloaded between the route lookup and here: serve the
+            # caller's object directly, unbatched.
+            return model.predict
+        key = (model.name, model.version)
+        stale = []
+        with self._batcher_lock:
+            queue = self._batchers.get(key)
+            if queue is None or queue.servable is not current:
+                if queue is not None:
+                    stale.append(queue)
+                queue = self._batchers[key] = BatchingQueue(
+                    current, self._batching, metrics=self._metrics_registry
+                )
+            for other_key in list(self._batchers):
+                try:
+                    live = self.repository.get(*other_key)
+                except HttpError:
+                    live = None
+                if live is not self._batchers[other_key].servable:
+                    if other_key != key:
+                        stale.append(self._batchers.pop(other_key))
+        for old in stale:
+            # close() joins the scheduler through its remaining device
+            # work: not on the request path.
+            threading.Thread(
+                target=old.close, name="batcher-drain", daemon=True
+            ).start()
+        return queue.predict
+
+    def close_batchers(self) -> None:
+        """Drain and stop every batching queue (server shutdown)."""
+        with self._batcher_lock:
+            queues = list(self._batchers.values())
+            self._batchers.clear()
+        for queue in queues:
+            queue.close()
 
     def metrics_text(self, req: Request) -> Response:
         return Response(

@@ -2,7 +2,7 @@
 anomaly guard, checkpoints, profiling and the `fit` loop."""
 
 from kubeflow_tpu_torch.train.checkpoint import Checkpointer, Restored
-from kubeflow_tpu_torch.train.data import SyntheticTokens
+from kubeflow_tpu_torch.train.data import SyntheticImages, SyntheticTokens
 from kubeflow_tpu_torch.train.guard import AnomalyGuard, GuardConfig
 from kubeflow_tpu_torch.train.loop import (
     ElasticResize,
@@ -46,6 +46,7 @@ __all__ = [
     "ResizeEvent",
     "ResizeProposal",
     "Restored",
+    "SyntheticImages",
     "SyntheticTokens",
     "TrainConfig",
     "TrainState",

@@ -1,17 +1,17 @@
 """Synthetic input streams, made on the device.
 
 Counterpart of `kubeflow_tpu/train/data.py`'s `_SyntheticStream` and
-`SyntheticTokens`, with the same resumable-data protocol: ``state_dict``
+`SyntheticImages` and `SyntheticTokens`, with the same resumable-data protocol: ``state_dict``
 (the number of batches yielded and the salt), ``load_state_dict``,
 ``perturb(salt)`` (new future batches, same position; ``None`` on a
 fixed stream, whose every batch is the same), and ``vary_per_step``.
 Batches are drawn on the device from an explicit `torch.Generator`
 seeded from (seed, salt, position), so a position always yields the
-same batch; the numbers differ from JAX's threefry draws. Tokens are
-int64, PyTorch's index type (JAX's are int32).
+same batch; the numbers differ from JAX's threefry draws. Tokens and
+labels are int64, PyTorch's index type (JAX's are int32).
 
 Not ported yet: ``rebind(mesh)`` (the multi-device layer, ROADMAP
-Queue 1 item 12) and `SyntheticImages` (with ResNet-50, item 9).
+Queue 1 item 12).
 """
 
 from __future__ import annotations
@@ -66,6 +66,40 @@ class _SyntheticStream:
                 batch = self.batch
             self._position += 1
             yield batch
+
+
+class SyntheticImages(_SyntheticStream):
+    """Synthetic image batches: NHWC images from a standard normal in
+    `dtype`, and int64 labels in [0, num_classes), on `device`. The
+    default yields one batch forever (device-throughput benchmarking);
+    ``vary_per_step=True`` draws each batch from its position."""
+
+    def __init__(
+        self,
+        batch_size: int,
+        image_size: int = 224,
+        num_classes: int = 1000,
+        seed: int = 0,
+        dtype=torch.float32,
+        vary_per_step: bool = False,
+        *,
+        device=None,
+    ):
+        if batch_size <= 0:
+            raise ValueError(f"batch_size must be positive, got {batch_size}")
+        self.device = resolve_device(device)
+        self.batch_size = batch_size
+
+        def make(gen):
+            images = torch.randn(
+                (batch_size, image_size, image_size, 3), generator=gen,
+                device=self.device, dtype=dtype,
+            )
+            labels = torch.randint(0, num_classes, (batch_size,), generator=gen,
+                                   device=self.device)
+            return {"image": images, "label": labels}
+
+        self._init_stream(make, seed, vary_per_step)
 
 
 class SyntheticTokens(_SyntheticStream):

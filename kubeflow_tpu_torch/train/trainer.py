@@ -9,15 +9,23 @@ bf16 the way `optax.scale_by_adam(mu_dtype=bf16)` does, which stock
 metrics. A step makes no host sync: the step count, the learning rate
 and the metrics stay tensors on the device.
 
+The train step runs the model in training mode and the eval step in
+eval mode. A model's buffers (a ResNet's BatchNorm running statistics)
+are its ``batch_stats``: the forward moves them in place, each
+accumulation microbatch reading what the one before it left, as JAX's
+scan threads them.
+
 A model on an in-process sp ring (`parallel/mesh.build_mesh` in one
 process) trains here unchanged: its ring positions share one set of
 parameters, so their gradients sum by themselves.
 
 With an anomaly ``guard`` (`train/guard.py`) every step is screened on
-the device: the update is computed, then the applied and the skipped
-parameters and optimizer state are selected with `torch.where` on the
-guard's verdict, still without a host sync. The step count advances on
-a skip. `TrainState.state_dict`, `Trainer.abstract_state` and
+the device: the parameters, optimizer state and batch statistics are
+copied before the forward, the update is computed, and the applied or
+the kept values are selected with `torch.where` on the guard's verdict
+(the loss, the gradient norm, and the finiteness of the updated
+parameters and statistics), still without a host sync. The step count
+advances on a skip. `TrainState.state_dict`, `Trainer.abstract_state` and
 `Trainer.load_state_dict` are what the checkpointer saves and restores.
 
 Not ported yet: a model on a multi-process mesh, which needs a gradient
@@ -208,7 +216,8 @@ class SGD:
     """`optax.chain(add_decayed_weights(wd, mask=decay_mask),
     sgd(schedule, momentum, nesterov=True))`: decay on matrices only,
     then the Nesterov trace (t = g + m·t; update = g + m·t), scaled by
-    the negated learning rate."""
+    the negated learning rate. Every operation is a ``_foreach`` over all
+    the parameters."""
 
     def __init__(self, schedule, *, weight_decay: float, momentum: float):
         self.schedule, self.weight_decay, self.momentum = (
@@ -223,17 +232,23 @@ class SGD:
 
     @torch.no_grad()
     def step(self, params: dict, grads: dict, state: dict) -> dict:
+        names = list(params)
         mask = decay_mask(params)
         lr = self.schedule(state["count"])
-        trace = {}
-        for name, p in params.items():
-            g = grads[name]
-            if mask[name]:
-                g = g + self.weight_decay * p
-            t = g + self.momentum * state["trace"][name]
-            p.add_((g + self.momentum * t) * -lr)
-            trace[name] = t
-        return {"count": state["count"] + 1, "trace": trace}
+        g = [grads[n] for n in names]
+        decayed = [i for i, n in enumerate(names) if mask[n]]
+        if self.weight_decay and decayed:
+            wd = torch._foreach_add([g[i] for i in decayed],
+                                    [params[names[i]] for i in decayed],
+                                    alpha=self.weight_decay)
+            for i, d in zip(decayed, wd):
+                g[i] = d
+        trace = torch._foreach_add(g, [state["trace"][n] for n in names],
+                                   alpha=self.momentum)
+        update = torch._foreach_add(g, trace, alpha=self.momentum)
+        torch._foreach_mul_(update, -lr)
+        torch._foreach_add_([params[n] for n in names], update)
+        return {"count": state["count"] + 1, "trace": dict(zip(names, trace))}
 
 
 def make_optimizer(config: TrainConfig):
@@ -283,6 +298,36 @@ def _leaves(tree) -> list:
     return [] if tree is None else [tree]
 
 
+def batch_stats(model: nn.Module) -> dict[str, torch.Tensor]:
+    """The model's buffers by name (a ResNet's BatchNorm running mean and
+    variance); empty for a model without any (the LM)."""
+    return dict(model.named_buffers())
+
+
+def _remat_forward(model: nn.Module):
+    """``model`` for `torch.utils.checkpoint`, whose backward runs the
+    forward a second time: that rerun puts the buffers back as it found
+    them, so each forward moves the batch statistics once (JAX's
+    rematerialised forward is pure)."""
+    buffers = list(model.buffers())
+    calls = 0
+
+    def forward(x):
+        nonlocal calls
+        calls += 1
+        if calls == 1 or not buffers:
+            return model(x)
+        saved = [b.clone() for b in buffers]
+        try:
+            return model(x)
+        finally:
+            # Also when checkpoint stops the rerun early (by raising once
+            # it has every tensor it needs).
+            torch._foreach_copy_(buffers, saved)
+
+    return forward
+
+
 class TensorSpec(NamedTuple):
     """A tensor's shape, dtype and device, without storage: the leaves of
     `Trainer.abstract_state()` (JAX's `ShapeDtypeStruct` with a
@@ -296,10 +341,11 @@ class TensorSpec(NamedTuple):
 @dataclasses.dataclass
 class TrainState:
     """The step count (a device tensor), the model that holds the
-    parameters, the optimizer's state, and the anomaly guard's state
-    (None without a guard). The train step updates the parameters and
-    the optimizer's moments in place (JAX's step donates its state the
-    same way): keep the returned state, not the old one."""
+    parameters and the batch statistics, the optimizer's state, and the
+    anomaly guard's state (None without a guard). The train step updates
+    the parameters, the statistics and the optimizer's moments in place
+    (JAX's step donates its state the same way): keep the returned
+    state, not the old one."""
 
     step: torch.Tensor
     model: nn.Module
@@ -308,14 +354,20 @@ class TrainState:
 
     def state_dict(self) -> dict:
         """Every tensor of the state, by name, as a tree of dicts: the
-        step, the parameters (detached, not copies), the optimizer's
-        state and the guard's. `Trainer.load_state_dict` takes it back."""
-        return {
+        step, the parameters (detached, not copies), the batch statistics
+        (only for a model with buffers: an LM's state has no such key),
+        the optimizer's state and the guard's. `Trainer.load_state_dict`
+        takes it back."""
+        tree = {
             "step": self.step,
             "params": {n: p.detach() for n, p in self.model.named_parameters()},
             "opt_state": self.opt_state,
             "guard": self.guard,
         }
+        stats = batch_stats(self.model)
+        if stats:
+            tree["batch_stats"] = stats
+        return tree
 
 
 class Trainer:
@@ -389,22 +441,28 @@ class Trainer:
             "opt_state": self.tx.init(meta),
             "guard": self.guard.init_state("meta") if self.guard else None,
         }
+        stats = batch_stats(self.model)
+        if stats:
+            tree["batch_stats"] = stats
         return map_tensors(
             lambda t: TensorSpec(tuple(t.shape), t.dtype, self.device), tree)
 
     @torch.no_grad()
     def load_state_dict(self, state: dict) -> TrainState:
         """A `TrainState` from `TrainState.state_dict()`'s layout: the
-        parameters are copied into the trainer's model in place, every
-        other tensor is put on the trainer's device."""
-        params = dict(self.model.named_parameters())
-        if set(state["params"]) != set(params):
-            raise KeyError(
-                f"state's parameters {sorted(set(state['params']) ^ set(params))} "
-                "do not match the model's"
-            )
-        for name, p in params.items():
-            p.copy_(state["params"][name])
+        parameters and batch statistics are copied into the trainer's
+        model in place, every other tensor is put on the trainer's
+        device."""
+        for key, into in (("params", dict(self.model.named_parameters())),
+                          ("batch_stats", batch_stats(self.model))):
+            have = state.get(key, {})
+            if set(have) != set(into):
+                raise KeyError(
+                    f"state's {key} {sorted(set(have) ^ set(into))} do not "
+                    "match the model's"
+                )
+            for name, t in into.items():
+                t.copy_(have[name])
         to = lambda t: t.to(self.device)
         return TrainState(
             step=to(state["step"]),
@@ -425,11 +483,11 @@ class Trainer:
         guard = self.guard
 
         def forward_loss(model, mb):
-            tokens = mb[input_key]
+            inputs = mb[input_key]
             if cfg.step_remat == "full":
-                logits = checkpoint(model, tokens, use_reentrant=False)
+                logits = checkpoint(_remat_forward(model), inputs, use_reentrant=False)
             else:
-                logits = model(tokens)
+                logits = model(inputs)
             loss = softmax_cross_entropy(logits, mb[label_key], cfg.label_smoothing)
             acc = None
             if has_acc:
@@ -439,7 +497,11 @@ class Trainer:
 
         def train_step(state: TrainState, batch):
             model = state.model
+            model.train()
             params = dict(model.named_parameters())
+            stats = list(batch_stats(model).values())
+            if guard is not None:
+                keep(params, stats, state.opt_state)
             for p in params.values():
                 p.grad = None
             accum = cfg.accum_steps
@@ -472,33 +534,38 @@ class Trainer:
                 opt_state = self.tx.step(params, grads, state.opt_state)
                 return TrainState(step=state.step + 1, model=model,
                                   opt_state=opt_state), metrics
-            gstate, opt_state = guarded_update(params, grads, state, metrics)
+            gstate, opt_state = guarded_update(params, stats, grads, state, metrics)
             return TrainState(step=state.step + 1, model=model,
                               opt_state=opt_state, guard=gstate), metrics
 
         @torch.no_grad()
-        def guarded_update(params, grads, state, metrics):
-            """The update, then the guard's verdict on the loss, the
-            gradient norm and the updated parameters' finiteness, then
-            the applied or the kept parameters and optimizer state,
-            selected on the device in place. The optimizer updates the
-            parameters (and adamw its second moment) in place, so the
-            kept values are copies taken before it, into buffers made
-            once."""
-            grad_norm = global_norm(grads.values())
-            plist = list(params.values())
+        def keep(params, stats, opt_state):
+            """Copy what a skipped step keeps, before the forward moves
+            the batch statistics and the optimizer the parameters (and
+            adamw its second moment) in place, into buffers made once."""
             if self._kept is None:
-                self._kept = ([torch.empty_like(p) for p in plist],
-                              map_tensors(torch.empty_like, state.opt_state))
-            kept_params, kept_opt = self._kept
-            torch._foreach_copy_(kept_params, plist)
-            torch._foreach_copy_(_leaves(kept_opt), _leaves(state.opt_state))
+                self._kept = ([torch.empty_like(t) for t in (*params.values(), *stats)],
+                              map_tensors(torch.empty_like, opt_state))
+            kept_state, kept_opt = self._kept
+            torch._foreach_copy_(kept_state, [*params.values(), *stats])
+            torch._foreach_copy_(_leaves(kept_opt), _leaves(opt_state))
+
+        @torch.no_grad()
+        def guarded_update(params, stats, grads, state, metrics):
+            """The update, then the guard's verdict on the loss, the
+            gradient norm and the finiteness of the updated parameters
+            and statistics, then the applied or the kept parameters,
+            statistics and optimizer state, selected on the device in
+            place."""
+            grad_norm = global_norm(grads.values())
+            live = [*params.values(), *stats]
+            kept_state, kept_opt = self._kept
             opt_state = self.tx.step(params, grads, state.opt_state)
-            update_finite = torch.stack([torch.isfinite(p).all() for p in plist]).all()
+            update_finite = torch.stack([torch.isfinite(t).all() for t in live]).all()
             gstate, ok = guard.apply(state.guard, metrics["loss"], grad_norm,
                                      update_finite=update_finite)
-            for p, kept in zip(plist, kept_params):
-                torch.where(ok, p, kept, out=p)
+            for t, kept in zip(live, kept_state):
+                torch.where(ok, t, kept, out=t)
             for new, kept in zip(_leaves(opt_state), _leaves(kept_opt)):
                 torch.where(ok, new, kept, out=new)
             metrics.update(guard.metrics(gstate, ok, grad_norm))
@@ -508,11 +575,13 @@ class Trainer:
 
     def make_eval_step(self):
         """eval(state, batch) → {"loss", "accuracy"}: unsmoothed cross
-        entropy and argmax accuracy, no gradients."""
+        entropy and argmax accuracy of the model in eval mode, no
+        gradients."""
         input_key, label_key = self.input_key, self.label_key
 
         @torch.no_grad()
         def eval_step(state: TrainState, batch):
+            state.model.eval()
             logits = state.model(batch[input_key])
             return {
                 "loss": softmax_cross_entropy(logits, batch[label_key]),

@@ -1,10 +1,12 @@
 """Bounded joins with loud stuck-thread diagnostics.
 
 The port's own copy of the parts of `kubeflow_tpu/utils/threads.py` that
-the checkpointer uses: a drain-wait on a `queue.Queue` with a deadline
-(`queue.Queue.join` has none) that raises `StuckThreadError` with a
-stack dump of every live thread instead of hanging its caller forever.
-The deadline defaults to ``KFTPU_STUCK_TIMEOUT_S`` (300 s).
+the checkpointer and the model-server binary use: a thread join and a
+drain-wait on a `queue.Queue` with a deadline (`queue.Queue.join` has
+none), each raising `StuckThreadError` with a stack dump of every live
+thread instead of hanging its caller forever, and the binary's
+foreground loop (`run_until_interrupt`). The deadline defaults to
+``KFTPU_STUCK_TIMEOUT_S`` (300 s).
 """
 
 from __future__ import annotations
@@ -42,6 +44,23 @@ def dump_thread_stacks() -> str:
     return "\n".join(out)
 
 
+def join_thread(
+    thread: threading.Thread,
+    timeout: float | None = None,
+    *,
+    what: str = "",
+) -> None:
+    """`thread.join` with a deadline; raises `StuckThreadError` (with
+    every thread's stack) instead of hanging forever."""
+    deadline = timeout if timeout is not None else stuck_timeout_s()
+    thread.join(deadline)
+    if thread.is_alive():
+        raise StuckThreadError(
+            f"{what or thread.name} still running after {deadline:.0f}s join — "
+            f"thread stacks:\n{dump_thread_stacks()}"
+        )
+
+
 def join_queue(
     q: "queue_mod.Queue",
     timeout: float | None = None,
@@ -62,3 +81,16 @@ def join_queue(
                     f"thread stacks:\n{dump_thread_stacks()}"
                 )
             q.all_tasks_done.wait(remaining)
+
+
+def run_until_interrupt(thread: threading.Thread) -> bool:
+    """The foreground loop of a server binary: wait on the server thread
+    in bounded slices (so that ^C interrupts the wait) until it exits or
+    the operator hits ^C. True when interrupted, False when the thread
+    exited."""
+    try:
+        while thread.is_alive():
+            thread.join(1.0)
+    except KeyboardInterrupt:
+        return True
+    return False

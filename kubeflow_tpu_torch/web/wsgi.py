@@ -1,7 +1,8 @@
 """Minimal web application core: routing, JSON envelopes, error mapping.
 
 A cut-down copy of `kubeflow_tpu/web/wsgi.py`, holding what the model
-server uses: path-parameter routes, `HttpError` → JSON error envelope,
+server uses: path-parameter routes, `HttpError` → JSON error envelope
+(with the error's extra headers, e.g. 429's Retry-After),
 a catch-all 500, `serve()` (GET and POST) on an HTTP/1.1 threading
 server with persistent connections, and `TestClient`, which calls the
 app in-process with a WSGI-style environ. Not copied yet (ROADMAP
@@ -27,10 +28,18 @@ log = logging.getLogger(__name__)
 
 
 class HttpError(Exception):
-    def __init__(self, status: int, message: str):
+    def __init__(
+        self,
+        status: int,
+        message: str,
+        headers: list[tuple[str, str]] | None = None,
+    ):
         super().__init__(message)
         self.status = status
         self.message = message
+        # Extra response headers the error carries (429 + Retry-After,
+        # the model server's backpressure answer).
+        self.headers = list(headers or [])
 
 
 class Request:
@@ -76,10 +85,12 @@ class Response:
         body: bytes = b"",
         status: int = 200,
         content_type: str = "application/json",
+        headers: list[tuple[str, str]] | None = None,
     ):
         self.body = body
         self.status = status
-        self.headers = [("Content-Type", content_type)]
+        self.headers = list(headers or [])
+        self.headers.append(("Content-Type", content_type))
 
     @property
     def content_type(self) -> str:
@@ -97,13 +108,22 @@ def encode_json(payload: Any) -> bytes:
     return json.dumps(payload, separators=(",", ":")).encode()
 
 
-def json_response(payload: Any, status: int = 200) -> Response:
-    return Response(encode_json(payload), status=status)
+def json_response(
+    payload: Any,
+    status: int = 200,
+    headers: list[tuple[str, str]] | None = None,
+) -> Response:
+    return Response(encode_json(payload), status=status, headers=headers)
 
 
-def error_response(status: int, message: str) -> Response:
+def error_response(
+    status: int,
+    message: str,
+    headers: list[tuple[str, str]] | None = None,
+) -> Response:
     return json_response(
-        {"success": False, "status": status, "log": message}, status=status
+        {"success": False, "status": status, "log": message}, status=status,
+        headers=headers,
     )
 
 
@@ -143,7 +163,7 @@ class App:
         try:
             return self._dispatch(req)
         except HttpError as e:
-            return error_response(e.status, e.message)
+            return error_response(e.status, e.message, headers=e.headers)
         except Exception as e:  # the catch-all 500
             log.error("%s: unhandled error: %s", self.name, e)
             log.debug("%s", traceback.format_exc())

@@ -743,3 +743,41 @@ def test_guarded_full_width_lm_step_makes_no_host_sync(cuda):
     assert int(state.opt_state["count"]) == 2
     for p, k in zip(trainer.model.parameters(), kept):
         assert torch.equal(p, k)
+
+
+@pytest.mark.cuda
+def test_resnet50_channels_last_bf16_guarded_step_makes_no_host_sync(cuda):
+    """ResNet-50 built on the card keeps its conv weights, and the
+    stem's input, channels_last; one bf16 SGD step of the bench's
+    configuration at batch 32 with an AnomalyGuard runs under
+    `torch.cuda.set_sync_debug_mode("error")` (no host sync), moves the
+    running statistics, keeps the momentum channels_last and launches
+    no flash kernel."""
+    from kubeflow_tpu_torch.models import resnet50
+    from kubeflow_tpu_torch.train import AnomalyGuard, SyntheticImages, TrainConfig, Trainer
+
+    model = resnet50(device=cuda, seed=0)
+    cl = torch.channels_last
+    assert all(p.is_contiguous(memory_format=cl) for p in model.parameters() if p.dim() == 4)
+    seen = []
+    model.conv_stem.register_forward_pre_hook(lambda m, args: seen.append(args[0]))
+    trainer = Trainer(model, TrainConfig(batch_size=32, fsdp_params=False), device=cuda,
+                      guard=AnomalyGuard())
+    state, step = trainer.init_state(), trainer.make_train_step()
+    data = iter(SyntheticImages(32, 224, 1000, dtype=torch.bfloat16, vary_per_step=True,
+                                device=cuda))
+    state, _ = step(state, next(data))
+    torch.cuda.synchronize()
+    stats = [b.clone() for b in model.buffers()]
+    before = dict(_kernels.launches)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, metrics = step(state, next(data))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert seen[-1].dtype == torch.bfloat16 and seen[-1].is_contiguous(memory_format=cl)
+    assert int(metrics["guard_ok"]) == 1 and bool(torch.isfinite(metrics["loss"]))
+    assert any(not torch.equal(a, b) for a, b in zip(model.buffers(), stats))
+    assert all(t.is_contiguous(memory_format=cl)
+               for t in state.opt_state["trace"].values() if t.dim() == 4)
+    assert _kernels.launches == before

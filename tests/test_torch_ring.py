@@ -468,7 +468,9 @@ def test_port_parallel_modules_load_no_jax():
     code = (
         "import sys, kubeflow_tpu_torch.parallel.collectives, "
         "kubeflow_tpu_torch.parallel.mesh, kubeflow_tpu_torch.parallel.sharding, "
-        "kubeflow_tpu_torch.parallel.distributed, kubeflow_tpu_torch.ops.flash\n"
+        "kubeflow_tpu_torch.parallel.distributed, kubeflow_tpu_torch.ops.flash, "
+        "kubeflow_tpu_torch.models.resnet, kubeflow_tpu_torch.serving.batching, "
+        "kubeflow_tpu_torch.serving.__main__\n"
         "print(sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'kubeflow_tpu')))\n"
     )

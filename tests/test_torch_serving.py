@@ -218,11 +218,6 @@ def test_device_fault_is_500_and_counted(models):
     assert 'outcome="error"' in client.get("/metrics").body.decode()
 
 
-def test_batching_is_not_ported(models):
-    with pytest.raises(NotImplementedError):
-        ModelServerApp(ModelRepository(), batching=object())
-
-
 def test_http_server_answers_predict(servable, models):
     """The threaded HTTP/1.1 server end to end (predict runs on a
     server thread, where inference_mode must be entered anew)."""
@@ -255,10 +250,14 @@ def test_http_server_answers_predict(servable, models):
 _FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "kubeflow_tpu")
 
 
-# The training job's modules, imported by the walk below like every other.
+# The training job's modules and the ResNet slice's (the model, the
+# batching scheduler, the binary), imported by the walk below like every
+# other.
 _TRAIN = tuple(f"kubeflow_tpu_torch.train.{m}" for m in (
-    "guard", "trainer", "checkpoint", "profiling", "loop")) + (
-    "kubeflow_tpu_torch.utils.threads",)
+    "guard", "trainer", "checkpoint", "profiling", "loop", "data")) + (
+    "kubeflow_tpu_torch.utils.threads", "kubeflow_tpu_torch.models.resnet",
+    "kubeflow_tpu_torch.models.convert", "kubeflow_tpu_torch.serving.batching",
+    "kubeflow_tpu_torch.serving.__main__", "kubeflow_tpu_torch.web.wsgi")
 
 
 def test_importing_the_port_loads_no_jax():
