@@ -107,8 +107,18 @@ JSON line; any failure raises and the exit code is non-zero:
    p50/p99, batch-64 predictions/s on the device and host paths, and
    p50/p99 and predictions/s under 64 concurrent one-instance clients
    with batching on and off.
-19. kernels: one line per ported kernel (launches, error, times, bound).
-20. the last line: {"ok": true, "device": {...}}.
+19. frontdoor, main path 8: the multi-model front door (FrontDoorApp →
+   Router → 2 MultiModelReplicas, each a ServableRegistry paging at most
+   5 models' weights on the card) over HTTP, serving 7 ResNet-50s, each
+   restored from its own checkpoint at every page-in, and the LM: each
+   model probed and held against its direct forward (the LM's flash
+   launches counted), open-loop load at 150 requests/s with one replica
+   killed (no acknowledged request lost), page-in seconds, hot and cold
+   p99, goodput and the device's idle share, the weights' memory given
+   back after the fleet closes and across page cycles
+   (`frontdoor_phase`).
+20. kernels: one line per ported kernel (launches, error, times, bound).
+21. the last line: {"ok": true, "device": {...}}.
 
 Without a GPU, or outside a checkout (copied alone, where
 `kubeflow_tpu_torch` does not import), it says why on stderr and exits
@@ -223,6 +233,20 @@ RESNET_FIT = dict(batch=256, steps=4, save_every=2, sigterm_at=1)
 RESNET_SERVE = dict(max_batch=64, timeout_ms=5.0, single=60, device_reps=30,
                     host_reps=5, clients=64, distinct=64, warmup_s=2.0, window_s=8.0,
                     profile_s=3.0)
+# frontdoor: bench.py's multiplex phase (bench.py:1057-1240) on the card:
+# 7 ResNet-50s and the LM behind 2 replicas of at most 5 resident models
+# each, batching 64 / 5 ms as the binary; open-loop load at 150
+# requests/s (about half of what one batched ModelServerApp sustained
+# under 64 clients in resnet_serve), resnet-0..3 hot (weight 4), the
+# rest cold (1); a 2 s warm-up, an 8 s measured run, 3 s of it profiled;
+# page cycles at 2 resident; memory held within 64 MiB.
+# Each load worker keeps up to 256 requests in flight (bench.py's 64 is
+# sized for tiny models): a cold request waits out a page-in of seconds,
+# and a worker out of slots fires late, which is a closed loop.
+FRONTDOOR = dict(resnets=7, hot=4, replicas=2, max_resident=5, max_batch=64,
+                 timeout_ms=5.0, lm_max_batch=4, rate=150.0, warmup_s=2.0,
+                 window_s=8.0, workers=4, concurrency=256, profile_s=3.0,
+                 cycle_resident=2, memory_slack_mib=64)
 REQUESTS = [  # (wire format, batch, sequence length)
     ("json", 1, 2048),
     ("json", 3, 2048),  # padded to bucket 4
@@ -1872,13 +1896,17 @@ def same_state(a: dict, b: dict) -> bool:
 
 def resnet_check_model(torch):
     """resnet_check's f32 ResNet-50 on the CPU: flax's initialisation
-    from SEED, with the last BatchNorm of each block scaled to 0.2
+    from SEED, its BatchNorms moved off their init (`move_batch_norm`)."""
+    return move_batch_norm(torch, resnet_model(torch, torch.float32, device="cpu"), SEED)
+
+
+def move_batch_norm(torch, model, seed: int):
+    """`model` with the last BatchNorm of each block scaled to 0.2
     (+-0.05) instead of 0, and every BatchNorm's bias and running
-    statistics moved off 0/0/1."""
+    statistics moved off 0/0/1, drawn from `seed` on the CPU."""
     from kubeflow_tpu_torch.models import resnet
 
-    model = resnet_model(torch, torch.float32, device="cpu")
-    gen = torch.Generator().manual_seed(SEED)
+    gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for bn in model.modules():
             if isinstance(bn, resnet.BatchNorm):
@@ -2462,6 +2490,509 @@ def resnet_serve_phase(torch, card: str, ckpt_dir: str, step: int) -> None:
 
 
 
+# -- the multi-model front door ------------------------------------------------
+
+
+def memory_point(torch) -> dict:
+    """The caching allocator's allocated and reserved MiB on the card,
+    after the device has finished what was queued; then the allocated
+    MiB once cuBLAS's workspaces are let go ("tensors_mib"). cuBLAS keeps
+    a workspace from the allocator for every thread's handle that has
+    run a product, for as long as the process lives: the fleet's request
+    and scheduler threads add some, which are not weights. Call only
+    while no product runs."""
+    torch.cuda.synchronize()
+    point = {"allocated_mib": torch.cuda.memory_allocated() / 2**20,
+             "reserved_mib": torch.cuda.memory_reserved() / 2**20}
+    torch._C._cuda_clearCublasWorkspaces()
+    point["tensors_mib"] = torch.cuda.memory_allocated() / 2**20
+    return point
+
+
+def frontdoor_checkpoints(torch, root: str) -> list:
+    """FRONTDOOR["resnets"] distinct ResNet-50s (resnet_train's
+    configuration, weights from seeds 0, 1, ... with their BatchNorms
+    moved off their init, `move_batch_norm`), each written once by the
+    port's Checkpointer as step 1 of its own directory, in the layout
+    `Servable.from_checkpoint` reads. Returns the directories."""
+    from kubeflow_tpu_torch.train import Checkpointer
+    from kubeflow_tpu_torch.train.trainer import batch_stats
+
+    dirs = []
+    for seed in range(FRONTDOOR["resnets"]):
+        model = move_batch_norm(torch, resnet_model(torch, torch.bfloat16, seed=seed), seed)
+        directory = os.path.join(root, f"resnet-{seed}")
+        ckpt = Checkpointer(directory, save_interval_steps=1)
+        ckpt.save(1, {"params": dict(model.named_parameters()),
+                      "batch_stats": batch_stats(model)}, force=True)
+        ckpt.close()
+        dirs.append(directory)
+        del model
+    return dirs
+
+
+def frontdoor_lm_tokens():
+    """The `lm` probe: one seeded sequence of 2048 tokens, [1, 2048]."""
+    return np.random.default_rng(SEED + 1).integers(0, LM["vocab_size"], (1, 2048))
+
+
+def frontdoor_factory(torch, page_ins: list):
+    """The fleet's servable factory, as `bench.py:1100-1110`'s is the
+    bench's: "lm" builds serve_phase's LM (bf16, seed SEED, `last_logits`,
+    max_batch FRONTDOOR["lm_max_batch"], every bucket warmed at S = 2048:
+    3 forwards); every other model goes to the binary's
+    `build_servable_from_rspec` (its checkpoint restored into
+    `resnet50()`, every bucket up to 64 warmed). Each call's model and
+    seconds are appended to `page_ins`."""
+    from kubeflow_tpu_torch.models import TransformerConfig, TransformerLM
+    from kubeflow_tpu_torch.serving import Servable
+    from kubeflow_tpu_torch.serving.__main__ import build_servable_from_rspec
+
+    def factory(rspec):
+        t0 = time.perf_counter()
+        if rspec["model"] == "lm":
+            model = TransformerLM(TransformerConfig(**LM, dtype=torch.bfloat16),
+                                  device=DEVICE, seed=SEED)
+            servable = Servable("lm", last_logits, model,
+                                max_batch=FRONTDOOR["lm_max_batch"], device=DEVICE)
+            servable.warmup_with(frontdoor_lm_tokens()[0])
+        else:
+            servable = build_servable_from_rspec(rspec, device=DEVICE)
+        page_ins.append((rspec["model"], time.perf_counter() - t0))
+        return servable
+
+    return factory
+
+
+def frontdoor_references(torch, dirs: list, instance, tokens) -> dict:
+    """Each model's answer from a direct eval forward, and its limit.
+    ResNet i: a module restored from its checkpoint (the binary's
+    factory at max_batch 1) on `instance`; limit: 2x that answer's
+    distance from the same weights' f32 forward (resnet_serve's rule).
+    The LM: the kernel path, the plain path and the dense path on
+    `tokens` (check_phase's rule: 2x the plain-vs-dense gap, held
+    against the plain path)."""
+    from kubeflow_tpu_torch.models import TransformerConfig, TransformerLM
+    from kubeflow_tpu_torch.serving.__main__ import build_servable_from_rspec
+
+    refs = {}
+    x = torch.tensor(instance, device=DEVICE)
+    with torch.inference_mode():
+        for i, directory in enumerate(dirs):
+            name = f"resnet-{i}"
+            model = build_servable_from_rspec(
+                {"model": name, "checkpointDir": directory, "maxBatch": 1},
+                device=DEVICE).variables
+            direct = model(x).float().cpu().numpy()
+            f32 = resnet_model(torch, torch.float32)
+            f32.load_state_dict(model.state_dict())
+            exact = f32.eval()(x).cpu().numpy()
+            refs[name] = {"answer": direct,
+                          "limit": 2 * float(np.abs(direct - exact).max())}
+            del model, f32
+        model = TransformerLM(TransformerConfig(**LM, dtype=torch.bfloat16),
+                              device=DEVICE, seed=SEED)
+        t = torch.tensor(tokens, device=DEVICE)
+        kernel = last_logits(model, t).float().cpu().numpy()
+        with plain_kernels():
+            plain = last_logits(model, t).float().cpu().numpy()
+        with attention_via(dense_attend):
+            dense = last_logits(model, t).float().cpu().numpy()
+        refs["lm"] = {"answer": plain, "kernel_path": kernel,
+                      "limit": 2 * float(np.abs(plain - dense).max())}
+        del model
+    return refs
+
+
+def frontdoor_probe(url: str, model: str, x):
+    """One binary-frame :predict through the front door: (answer, s)."""
+    from kubeflow_tpu_torch.serving import wire
+
+    t0 = time.perf_counter()
+    status, _, raw = post(f"{url}/v1/models/{model}:predict", wire.encode_tensor(x),
+                          wire.TENSOR_CONTENT_TYPE, wire.TENSOR_CONTENT_TYPE)
+    seconds = time.perf_counter() - t0
+    if status != 200:
+        raise AssertionError(f"{model} probe answered {status}: {raw[:300]!r}")
+    return wire.decode_tensor(raw), seconds
+
+
+def lm_page_ins(registries) -> int:
+    return sum(r.stats()["models"]["lm"]["page_ins"] for r in registries)
+
+
+def frontdoor_lm_probe(torch, url: str, registries, tokens) -> dict:
+    """Probe `lm` with the launch counters zeroed just before and read
+    just after; the flash_fwd launches must be 16 x (forwards served +
+    3 warm-up buckets x LM page-ins)."""
+    from kubeflow_tpu_torch.ops import _kernels
+
+    before = lm_page_ins(registries)
+    _kernels.launches.clear()
+    answer, seconds = frontdoor_probe(url, "lm", tokens)
+    launches = dict(_kernels.launches)
+    page_ins = lm_page_ins(registries) - before
+    want = LM["n_layers"] * (1 + 3 * page_ins)
+    if launches.get("flash_fwd", 0) != want or set(launches) != {"flash_fwd"}:
+        raise AssertionError(f"lm probe launched {launches}; expected flash_fwd {want} "
+                             f"(1 forward, {page_ins} page-ins)")
+    return {"answer": answer, "seconds": seconds, "page_ins": page_ins,
+            "launches": launches}
+
+
+def frontdoor_load(torch, router, registries, addr: str, total: int, seed: int,
+                   measured: bool) -> dict:
+    """`testing/loadgen.run_open_loop` against the front door: Poisson
+    arrivals at FRONTDOOR["rate"], `total` of them, 4 spawned workers,
+    one f32 1 x 224 x 224 x 3 instance per request, the traffic classes
+    of `bench.py:1150-1155` (resnet-0..3 hot at weight 4, resnet-4..6
+    cold at weight 1, lm not in the mix). The run goes on in a thread
+    while this one polls every 20 ms: the residency of each registry,
+    and, when `measured`, a `ReplicaKillSchedule(seed, kills=1,
+    replicas=2)` whose fraction is the share of this run's requests
+    completed (`bench.py:1163-1186`), and the device's busy time in a
+    window of FRONTDOOR["profile_s"] from a quarter of the requests on,
+    cut from a torch.profiler trace of the device's activity only."""
+    import threading
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from kubeflow_tpu_torch.testing import loadgen
+    from kubeflow_tpu_torch.testing.chaos import ReplicaKillSchedule
+
+    cfg = FRONTDOOR
+    classes = [loadgen.TrafficClass(f"resnet-{i}", weight=4.0 if i < cfg["hot"] else 1.0)
+               for i in range(cfg["resnets"])]
+    counters = lambda: {name: getattr(router, f"{name}_total").value()
+                        for name in ("acked", "completed", "failed", "shed", "retried")}
+    start = counters()
+    sched = ReplicaKillSchedule(seed, kills=1, replicas=cfg["replicas"]) if measured else None
+    out, kills = {}, []
+
+    def drive():
+        try:
+            out["report"] = loadgen.run_open_loop(
+                {"mode": "http", "addr": addr, "shape": [1, RESNET["image"], RESNET["image"], 3],
+                 "timeout_s": 120.0},
+                classes, rate=cfg["rate"], total=total, seed=seed, workers=cfg["workers"],
+                concurrency=cfg["concurrency"], timeout_s=600.0)
+        except BaseException as e:  # surfaced below, on this thread
+            out["error"] = e
+
+    t0 = time.perf_counter()
+    done = lambda: (router.completed_total.value() - start["completed"]) / total
+    seen = {"max_resident": 0}
+
+    def watch():
+        # Kills and residency on a thread of their own, polled while
+        # this one keeps the profiled window.
+        while load.is_alive():
+            frac = done()
+            kill = sched.due(frac) if sched is not None else None
+            if kill is not None:
+                ready = router.ready_names()
+                victim = ready[kill.victim % len(ready)]
+                router.replica(victim).kill()
+                sched.mark_injected(kill)
+                kills.append({"replica": victim, "at_fraction": frac,
+                              "s": time.perf_counter() - t0})
+            seen["max_resident"] = max(
+                [seen["max_resident"]] + [r.stats()["resident"] for r in registries])
+            time.sleep(0.02)
+
+    load = threading.Thread(target=drive, name="frontdoor-load")
+    watcher = threading.Thread(target=watch, name="frontdoor-watch")
+    window = None
+    if measured:
+        # Started while the server idles: a start under this load held
+        # every CUDA call of the process for seconds. The trace runs
+        # through the load; the window is cut from it below.
+        prof = profile(activities=[ProfilerActivity.CUDA])
+        prof.start()
+        origin = time.perf_counter()
+    try:
+        load.start()
+        watcher.start()
+        if measured:
+            while load.is_alive() and done() < 0.25:
+                time.sleep(0.02)
+            window = {"t0": time.perf_counter(), "c0": router.completed_total.value()}
+            time.sleep(cfg["profile_s"])
+            window["t1"] = time.perf_counter()
+            window["c1"] = router.completed_total.value()
+    finally:
+        load.join()
+        watcher.join()
+        if measured:
+            torch.cuda.synchronize()
+            prof.stop()
+    max_resident = seen["max_resident"]
+    if "error" in out:
+        raise out["error"]
+    report = out["report"]
+    end = counters()
+    delta = {name: int(end[name] - start[name]) for name in start}
+    hot = [c for c in report.classes if int(c.model.split("-")[1]) < cfg["hot"]]
+    cold = [c for c in report.classes if c not in hot]
+    result = {
+        "offered_rate": report.offered_rate, "achieved_rate": report.achieved_rate,
+        "offered_rate_error": report.offered_rate_error, "fired": report.fired,
+        "ok": report.ok, "shed": report.shed, "client_errors": report.error,
+        "duration_s": report.duration_s, "fire_lag_p99_ms": report.fire_lag_p99_ms,
+        "goodput_per_s": report.ok / report.duration_s if report.duration_s else 0.0,
+        "goodput_share": report.ok / report.fired if report.fired else 0.0,
+        "p50_ms": report.p50_ms, "p99_ms": report.p99_ms,
+        # Per-class percentiles; a group's is its worst class's.
+        "hot": {"p50_ms": max(c.p50_ms for c in hot), "p99_ms": max(c.p99_ms for c in hot)},
+        "cold": {"p50_ms": max(c.p50_ms for c in cold),
+                 "p99_ms": max(c.p99_ms for c in cold)},
+        "classes": [{"model": c.model, "count": c.count, "ok": c.ok, "shed": c.shed,
+                     "error": c.error, "p50_ms": c.p50_ms, "p99_ms": c.p99_ms}
+                    for c in report.classes],
+        "router": delta, "max_resident_seen": max_resident, "kills": kills,
+    }
+    if sched is not None:
+        result["kill_plan_exhausted"] = sched.exhausted
+        result["kill_coverage"] = sched.coverage()
+    if measured:
+        # Device time inside the window: each kernel's or copy's overlap
+        # with it, on the trace's clock (microseconds from its start,
+        # which `origin` marks on the host's).
+        lo, hi = ((window[k] - origin) * 1e6 for k in ("t0", "t1"))
+        busy = sum(max(0.0, min(evt.time_range.end, hi) - max(evt.time_range.start, lo))
+                   for evt in prof.events()
+                   if evt.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+        wall_ms = (window["t1"] - window["t0"]) * 1e3
+        result["profiled_window"] = {
+            "wall_ms": wall_ms,
+            "completed_per_s": (window["c1"] - window["c0"]) / (wall_ms / 1e3),
+            "device_busy_ms": busy if busy else "not measured",
+            "device_idle_share": max(0.0, 1 - busy / wall_ms) if busy else "not measured",
+        }
+    return result
+
+
+def page_in_seconds(page_ins: list) -> dict:
+    """Mean and max factory seconds of the page-ins, ResNet-50 and LM."""
+    out = {}
+    for kind, pick in (("resnet50", lambda m: m != "lm"), ("lm", lambda m: m == "lm")):
+        seconds = [s for m, s in page_ins if pick(m)]
+        out[kind] = {"count": len(seconds),
+                     "mean_s": sum(seconds) / len(seconds) if seconds else None,
+                     "max_s": max(seconds) if seconds else None}
+    return out
+
+
+def frontdoor_phase(torch, card: str) -> dict:
+    """The multi-model front door at full width on the card, as
+    `bench.py:1057-1240` runs it on the TPU: FRONTDOOR["resnets"]
+    ResNet-50s from `frontdoor_checkpoints` and serve_phase's LM behind
+    FRONTDOOR["replicas"] `MultiModelReplica`s, each its own
+    `ServableRegistry` at `PagingConfig(max_resident=5)` with batching at
+    64 / 5 ms, brought up through `LocalReplicaRuntime.ensure` from an
+    rspec with ``models`` and ``paging.maxResident`` as a controller
+    renders it, behind one `Router` (seeded jitter) and one `FrontDoorApp`
+    over HTTP on localhost. Every page-in is a real restore through the
+    factory (`frontdoor_factory`).
+
+    Every page-in runs on the thread that claimed it: the request's
+    HTTP handler thread under load, this one in the page cycles; one
+    more page-in from a fresh thread after them shows what a thread's
+    first run of the model costs.
+
+    Probes: each model once through the front door (binary frames; a
+    ResNet the instance `serve_instances(1, 224)`, the LM
+    `frontdoor_lm_tokens`), each held against its direct forward within
+    its limit (`frontdoor_references`); the closest two ResNets' answers
+    at least 4x the largest limit apart; the LM's flash launches counted
+    (`frontdoor_lm_probe`). Load: a 2 s warm-up and an 8 s measured run
+    at 150 requests/s (`frontdoor_load`) with one replica killed; failed
+    = 0, acked = completed, no client error, the kill plan exhausted, at
+    most 5 models resident on a replica, offered-rate error <= 5%. Then
+    `lm` and a cold ResNet probed again, each a page-in, equal to their
+    first answers within the same limits. Memory (`memory_point`)
+    before the phase, with the fleet up, after the load and after the
+    fleet closed (gc run): the live tensors at the last within 64 MiB of
+    the first. Last, every model paged in twice through one registry at
+    max_resident=2: the live tensors after the second cycle within 64
+    MiB of the first's. Returns the probes' kernel launches."""
+    import gc
+    import threading
+
+    from kubeflow_tpu_torch.serving import FrontDoorApp, LocalReplicaRuntime, Router
+    from kubeflow_tpu_torch.serving import BatchingConfig, PagingConfig, ServableRegistry
+    from kubeflow_tpu_torch.utils.metrics import MetricsRegistry
+    from kubeflow_tpu_torch.web import serve
+
+    t_phase = time.perf_counter()
+    cfg = FRONTDOOR
+    # Garbage of the earlier phases (a reference cycle can hold a model)
+    # goes now, not inside this phase's readings.
+    gc.collect()
+    memory = {"before": memory_point(torch)}
+    slack = cfg["memory_slack_mib"]
+    root = tempfile.mkdtemp(prefix="kftpu_frontdoor_")
+    checks, out = {}, {"phase": "frontdoor", "card": card}
+    try:
+        t0 = time.perf_counter()
+        dirs = frontdoor_checkpoints(torch, root)
+        out["checkpoints_s"] = time.perf_counter() - t0
+        instance = serve_instances(1, RESNET["image"])
+        tokens = frontdoor_lm_tokens()
+        t0 = time.perf_counter()
+        refs = frontdoor_references(torch, dirs, instance, tokens)
+        out["references_s"] = time.perf_counter() - t0
+        names = [f"resnet-{i}" for i in range(cfg["resnets"])]
+        limit = max(refs[n]["limit"] for n in names)
+        separation = min(float(np.abs(refs[a]["answer"] - refs[b]["answer"]).max())
+                         for i, a in enumerate(names) for b in names[i + 1:])
+        checks["resnets_told_apart"] = separation >= 4 * limit
+        memory["references_dropped"] = memory_point(torch)
+
+        rspec = {
+            "maxBatch": cfg["max_batch"],
+            "batching": {"timeoutMs": cfg["timeout_ms"], "maxPending": 1024},
+            "models": [{"name": n, "checkpointDir": d} for n, d in zip(names, dirs)]
+            + [{"name": "lm"}],
+            "paging": {"maxResident": cfg["max_resident"]},
+        }
+        page_ins: list = []
+        factory = frontdoor_factory(torch, page_ins)
+        metrics = MetricsRegistry()
+        router = Router(metrics, dispatch_timeout_s=120.0, retry_jitter_seed=SEED)
+        runtime = LocalReplicaRuntime(router, factory, metrics)
+        for r in range(cfg["replicas"]):
+            runtime.ensure(f"replica-{r}", rspec)
+        registries = [router.replica(n).registry for n in router.replica_names()]
+        server, thread = serve(FrontDoorApp(router, metrics=metrics), host="127.0.0.1", port=0)
+        addr = f"127.0.0.1:{server.server_port}"
+        url = f"http://{addr}"
+        try:
+            probes, errs = {}, {}
+            for name in names:
+                answer, seconds = frontdoor_probe(url, name, instance)
+                probes[name] = {"answer": answer, "seconds": seconds}
+                errs[name] = float(np.abs(answer - refs[name]["answer"]).max())
+            lm = frontdoor_lm_probe(torch, url, registries, tokens)
+            launches = dict(lm["launches"])
+            probes["lm"] = lm
+            errs["lm"] = float(np.abs(lm["answer"] - refs["lm"]["answer"]).max())
+            checks["probes"] = all(errs[n] <= refs[n]["limit"] for n in names + ["lm"])
+            checks["lm_first_probe_paged_in"] = lm["page_ins"] == 1
+            out["probes"] = {
+                n: {"max_abs_err": errs[n], "limit": refs[n]["limit"],
+                    "seconds": probes[n]["seconds"]} for n in names + ["lm"]}
+            out["lm_served_vs_kernel_path_bitwise"] = bool(
+                np.array_equal(lm["answer"], refs["lm"]["kernel_path"]))
+            out["resnet_min_separation"] = separation
+            out["resnet_limit"] = limit
+            memory["fleet_up"] = memory_point(torch)
+
+            warm = frontdoor_load(torch, router, registries, addr,
+                                  int(cfg["rate"] * cfg["warmup_s"]), SEED + 1, measured=False)
+            page_ins_before = len(page_ins)
+            load = frontdoor_load(torch, router, registries, addr,
+                                  int(cfg["rate"] * cfg["window_s"]), SEED, measured=True)
+            memory["after_load"] = memory_point(torch)
+            out["warmup"] = {k: warm[k] for k in ("ok", "shed", "client_errors", "p99_ms",
+                                                  "offered_rate_error")}
+            out["load"] = load
+            out["page_in_seconds_during_load"] = page_in_seconds(page_ins[page_ins_before:])
+            checks.update({
+                "failed_0": load["router"]["failed"] == 0 and warm["router"]["failed"] == 0,
+                "acked_eq_completed": load["router"]["acked"] == load["router"]["completed"],
+                "client_errors_0": load["client_errors"] == 0 and warm["client_errors"] == 0,
+                "kill_plan_exhausted": load["kill_plan_exhausted"]
+                and load["kill_coverage"] == {"replica_kill": 1},
+                "resident_le_max": max(warm["max_resident_seen"], load["max_resident_seen"])
+                <= cfg["max_resident"],
+                "offered_rate_error_le_5pct": load["offered_rate_error"] <= 0.05,
+            })
+
+            # After the load: lm and a cold ResNet again, each a page-in.
+            alive = [router.replica(n).registry for n in router.ready_names()]
+            lm2 = frontdoor_lm_probe(torch, url, registries, tokens)
+            for name, count in lm2["launches"].items():
+                launches[name] = launches.get(name, 0) + count
+            rows = alive[0].stats()["models"]
+            cold = [n for n in names[cfg["hot"]:] if rows[n]["state"] != "resident"]
+            if not cold:  # every cold model resident: page one out by hand
+                cold = [names[-1]]
+                alive[0].kill(cold[0])
+            before = sum(r.stats()["models"][cold[0]]["page_ins"] for r in registries)
+            again, _ = frontdoor_probe(url, cold[0], instance)
+            cold_page_ins = sum(
+                r.stats()["models"][cold[0]]["page_ins"] for r in registries) - before
+            checks["again_paged_in"] = lm2["page_ins"] == 1 and cold_page_ins == 1
+            checks["again_equal"] = (
+                float(np.abs(lm2["answer"] - lm["answer"]).max()) <= refs["lm"]["limit"]
+                and float(np.abs(again - probes[cold[0]]["answer"]).max())
+                <= refs[cold[0]]["limit"])
+            out["again"] = {
+                "lm_bitwise_equal": bool(np.array_equal(lm2["answer"], lm["answer"])),
+                "lm_max_abs_diff": float(np.abs(lm2["answer"] - lm["answer"]).max()),
+                "cold_model": cold[0],
+                "cold_bitwise_equal": bool(np.array_equal(again, probes[cold[0]]["answer"])),
+                "cold_max_abs_diff": float(np.abs(again - probes[cold[0]]["answer"]).max()),
+            }
+            out["launches"] = launches
+            out["page_ins_by_model"] = {
+                n: sum(r.stats()["models"][n]["page_ins"] for r in registries)
+                for n in names + ["lm"]}
+            out["page_outs_by_model"] = {
+                n: int(registries[0].page_outs_total.value(model=n)) for n in names + ["lm"]}
+            out["page_in_seconds"] = page_in_seconds(page_ins)
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=30)
+            for name in runtime.names():
+                runtime.stop(name)
+        del router, runtime, registries, factory, server, thread
+        gc.collect()
+        memory["fleet_closed"] = memory_point(torch)
+        checks["memory_back"] = abs(memory["fleet_closed"]["tensors_mib"]
+                                    - memory["before"]["tensors_mib"]) <= slack
+
+        # Page cycles: every model in twice through one registry.
+        cycle_page_ins: list = []
+        registry = ServableRegistry(
+            frontdoor_factory(torch, cycle_page_ins),
+            batching=BatchingConfig(max_batch=cfg["max_batch"], timeout_ms=cfg["timeout_ms"]),
+            paging=PagingConfig(max_resident=cfg["cycle_resident"]))
+        try:
+            for mspec in rspec["models"]:
+                registry.ensure(LocalReplicaRuntime.model_rspec(rspec, mspec))
+            for cycle in (1, 2):
+                for name in names + ["lm"]:
+                    registry.predict(name, tokens if name == "lm" else instance)
+                memory[f"page_cycle_{cycle}"] = memory_point(torch)
+            # One more page-in, from a thread that never ran the model:
+            # PyTorch keeps cuDNN's execution plans per thread.
+            fresh = threading.Thread(target=registry.predict, args=(names[0], instance))
+            fresh.start()
+            fresh.join()
+        finally:
+            registry.close()
+        del registry
+        memory["page_cycles_closed"] = memory_point(torch)
+        checks["no_growth_across_page_cycles"] = abs(
+            memory["page_cycle_2"]["tensors_mib"]
+            - memory["page_cycle_1"]["tensors_mib"]) <= slack
+        out["page_cycles"] = {"page_ins": len(cycle_page_ins) - 1,
+                              "page_in_seconds": page_in_seconds(cycle_page_ins[:-1]),
+                              "fresh_thread_page_in_s": cycle_page_ins[-1][1]}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out.update({"memory": memory, "memory_slack_mib": slack, "checks": checks,
+                "seconds": time.perf_counter() - t_phase})
+    emit(out)
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"frontdoor checks failed: {failed}")
+    return out["launches"]
+
+
 def main() -> int:
     import torch
 
@@ -2507,6 +3038,7 @@ def main() -> int:
         resnet_serve_phase(torch, card, os.path.join(resnet_root, "ckpt"), step)
     finally:
         shutil.rmtree(resnet_root, ignore_errors=True)
+    by_path["frontdoor"] = frontdoor_phase(torch, card)
     for name, entry in entries.items():
         counts = {path: launches.get(name, 0) for path, launches in by_path.items()}
         entry["launches"] = sum(counts.values())

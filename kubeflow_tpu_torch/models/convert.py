@@ -5,7 +5,8 @@ tree into this package's state-dict keys. The layouts already agree,
 so no array is transposed. `resnet_from_flax` does the same for a JAX
 `ResNet`'s ``params`` and ``batch_stats``: the module names are flax's,
 conv kernels go from HWIO to OIHW and the Dense kernel from (in, out)
-to (out, in). The caller hands over plain numpy arrays
+to (out, in). `tinymlp_from_flax` converts a JAX `TinyMLP`'s two Dense
+layers the same way. The caller hands over plain numpy arrays
 (unboxing flax's ``LogicallyPartitioned`` wrappers on its side, e.g.
 ``jax.tree.map(np.asarray, flax.linen.unbox(variables["params"]))``):
 this package never imports flax.
@@ -128,4 +129,17 @@ def init_params(cfg, seed: int | torch.Generator = 0, *, device=None) -> dict[st
             continue
         std = 0.02 if key == "embedding" else math.sqrt(1.0 / _fan_in(key, shape))
         out[key] = (torch.randn(shape, generator=gen, device=gen.device) * std).to(device)
+    return out
+
+
+def tinymlp_from_flax(params: Mapping) -> dict[str, torch.Tensor]:
+    """A JAX `TinyMLP`'s ``params`` tree (nested dicts of numpy arrays)
+    → the port's `testing.tinymodels.TinyMLP` state dict, float32
+    tensors on the CPU: each Dense kernel (in, out) → (out, in)."""
+    out = {}
+    for (module, leaf), value in _flatten(params):
+        value = np.array(value, np.float32)
+        if leaf == "kernel":
+            value, leaf = value.T, "weight"
+        out[f"{module}.{leaf}"] = torch.from_numpy(np.ascontiguousarray(value))
     return out

@@ -11,6 +11,8 @@ from seed 0, is served as "demo" so that the REST surface can be probed
 alone. ``--batch-timeout-ms`` turns on the batching scheduler with that
 flush window (``--max-batch`` instances at most); without it every
 request runs on its own. The models run on CUDA.
+`build_servable_from_rspec` builds the same models from a replica spec
+dict, the factory a multiplexed fleet's registries page models in with.
 
 Not ported yet: replica mode (``--apiserver``/``--replica``), which
 needs the serving controller and the apiserver client; the flags are
@@ -43,6 +45,28 @@ def parse_model_spec(spec: str) -> tuple[str, str]:
     return name, ckpt_dir
 
 
+def build_servable_from_rspec(rspec: dict, *, device=None) -> Servable:
+    """The replica spec's model: with ``checkpointDir`` set, the newest
+    valid step of that directory restored into `resnet50()` (version =
+    the step, every bucket up to ``maxBatch`` warmed at 224x224x3), else
+    the demo `tiny_resnet(num_classes=10)` with weights from seed 0 at
+    the spec's ``modelVersion``. `device` defaults to CUDA."""
+    name = rspec.get("model", "demo")
+    max_batch = int(rspec.get("maxBatch", 64))
+    ckpt_dir = rspec.get("checkpointDir") or ""
+    if ckpt_dir:
+        return Servable.from_checkpoint(
+            name, resnet50(device=device), ckpt_dir,
+            np.zeros((1, 224, 224, 3), np.float32), max_batch=max_batch,
+            device=device,
+        )
+    return Servable.from_module(
+        name, tiny_resnet(num_classes=10, device=device),
+        version=int(rspec.get("modelVersion") or 1), max_batch=max_batch,
+        warmup_example=np.zeros((32, 32, 3), np.float32), device=device,
+    )
+
+
 def build_app(
     models: list[tuple[str, str]],
     *,
@@ -54,19 +78,12 @@ def build_app(
     `resnet50()` (every bucket warmed at 224x224x3), or the "demo"
     `tiny_resnet` when `models` is empty; batching on when
     `batch_timeout_ms` is given. `device` defaults to CUDA."""
+    rspecs = [{"model": name, "checkpointDir": ckpt_dir, "maxBatch": max_batch}
+              for name, ckpt_dir in models]
     servables = [
-        Servable.from_checkpoint(
-            name, resnet50(device=device), ckpt_dir,
-            np.zeros((1, 224, 224, 3), np.float32), max_batch=max_batch,
-            device=device,
-        )
-        for name, ckpt_dir in models
+        build_servable_from_rspec(rspec, device=device)
+        for rspec in rspecs or [{"model": "demo", "maxBatch": max_batch}]
     ]
-    if not servables:
-        servables.append(Servable.from_module(
-            "demo", tiny_resnet(num_classes=10, device=device), max_batch=max_batch,
-            warmup_example=np.zeros((32, 32, 3), np.float32), device=device,
-        ))
     batching = (
         BatchingConfig(max_batch=max_batch, timeout_ms=batch_timeout_ms)
         if batch_timeout_ms is not None

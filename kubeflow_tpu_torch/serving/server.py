@@ -1,11 +1,11 @@
 """Model server: the TF-Serving REST surface over the port's servables.
 
 Counterpart of `kubeflow_tpu/serving/server.py` (`ModelRepository`,
-`ModelServerApp`). Clients POST ``/v1/models/<name>:predict`` with
-``{"instances": [...]}`` and get ``{"predictions": [...]}`` back, or
-send and receive binary tensor frames (`serving/wire.py`) on the same
-route; ``GET /v1/models/<name>`` reports version state as TF Serving's
-model-status API does.
+`ModelServerApp`, `FrontDoorApp`). Clients POST
+``/v1/models/<name>:predict`` with ``{"instances": [...]}`` and get
+``{"predictions": [...]}`` back, or send and receive binary tensor
+frames (`serving/wire.py`) on the same route; ``GET /v1/models/<name>``
+reports version state as TF Serving's model-status API does.
 
 With a `BatchingConfig` (``batching=``) every predict goes through a
 `BatchingQueue` per (model, version), so concurrent requests merge into
@@ -13,8 +13,12 @@ one execution; a full queue answers 429 with a jittered Retry-After.
 
 A device fault on well-formed input (out of memory, a CUDA error, a
 refused kernel launch) is the server's error, 500; anything else that
-``predict`` raises is a bad request, 400. Not ported yet (ROADMAP Queue
-1): the front door with its router and registry.
+``predict`` raises is a bad request, 400.
+
+`FrontDoorApp` is the same surface over a `Router` for a whole,
+possibly multiplexed, fleet (`serving/replica.py`,
+`serving/registry.py`): the path selects the model on every replica,
+and priority class and tenant ride request headers.
 """
 
 from __future__ import annotations
@@ -29,6 +33,13 @@ import torch
 from kubeflow_tpu_torch.ops._kernels import KernelLaunchError
 from kubeflow_tpu_torch.serving import wire
 from kubeflow_tpu_torch.serving.batching import BatchingQueue, QueueClosed, QueueFull
+from kubeflow_tpu_torch.serving.registry import ModelNotFound
+from kubeflow_tpu_torch.serving.router import (
+    NoReadyReplicas,
+    Overloaded,
+    ReplicaGone,
+    Router,
+)
 from kubeflow_tpu_torch.serving.servable import Servable
 from kubeflow_tpu_torch.utils.metrics import MetricsRegistry
 from kubeflow_tpu_torch.web import App, HttpError, Request, Response, json_response
@@ -38,12 +49,52 @@ log = logging.getLogger(__name__)
 # Faults of the device or runtime, not of the request.
 _DEVICE_ERRORS = (torch.OutOfMemoryError, torch.AcceleratorError, KernelLaunchError)
 
+# Priority and tenant ride request headers, so the admission decision
+# needs no body parse.
+PRIORITY_HEADER = "x-kftpu-priority"
+TENANT_HEADER = "x-kftpu-tenant"
+
 
 def _format_retry_after(seconds: float) -> str:
     """Retry-After in fractional seconds (two decimals): rounding a
     jittered sub-second hint up to 1 would re-synchronise the herd that
     the jitter spreads."""
     return f"{max(0.01, seconds):.2f}"
+
+
+def _request_instances(req: Request, name: str, request_count):
+    """The instances of a :predict request: a tensor frame (a read-only
+    view over the request bytes; the servable copies it to the device)
+    or a JSON ``instances`` list. A malformed body counts as invalid in
+    `request_count` and answers 400."""
+    if wire.is_tensor_request(req.headers):
+        try:
+            instances = wire.decode_tensor(req.body)
+        except wire.WireFormatError as e:
+            request_count.inc(model=name, outcome="invalid")
+            raise HttpError(400, f"bad tensor frame: {e}") from None
+        if instances.ndim < 1 or instances.shape[0] < 1:
+            request_count.inc(model=name, outcome="invalid")
+            raise HttpError(
+                400, "tensor batch needs a non-empty leading dimension"
+            )
+        return instances
+    instances = req.json().get("instances")
+    if not isinstance(instances, list) or not instances:
+        request_count.inc(model=name, outcome="invalid")
+        raise HttpError(400, "body must have a non-empty 'instances' list")
+    return instances
+
+
+def _predictions_response(req: Request, predictions) -> Response:
+    """The predictions as a tensor frame when the request asks for one,
+    else TF Serving's JSON envelope."""
+    if wire.wants_tensor_response(req.headers):
+        return Response(
+            body=wire.encode_tensor(predictions),
+            content_type=wire.TENSOR_CONTENT_TYPE,
+        )
+    return json_response({"predictions": predictions.tolist()})
 
 
 class ModelRepository:
@@ -202,15 +253,7 @@ class ModelServerApp(App):
         if verb != "predict":
             raise HttpError(400, f"unsupported verb {verb!r}")
         model = self.repository.get(name, version)
-        if wire.is_tensor_request(req.headers):
-            instances = self._binary_instances(req, name)
-        else:
-            instances = req.json().get("instances")
-            if not isinstance(instances, list) or not instances:
-                self.request_count.inc(model=name, outcome="invalid")
-                raise HttpError(
-                    400, "body must have a non-empty 'instances' list"
-                )
+        instances = _request_instances(req, name, self.request_count)
         try:
             try:
                 predictions = self._predictor(model)(instances)
@@ -235,27 +278,7 @@ class ModelServerApp(App):
             log.info("predict on %s rejected: %s", name, e)
             raise HttpError(400, f"bad instances: {e}") from None
         self.request_count.inc(model=name, outcome="ok")
-        if wire.wants_tensor_response(req.headers):
-            return Response(
-                body=wire.encode_tensor(predictions),
-                content_type=wire.TENSOR_CONTENT_TYPE,
-            )
-        return json_response({"predictions": predictions.tolist()})
-
-    def _binary_instances(self, req: Request, name: str):
-        """Decode a tensor-framed request body (a read-only view over the
-        request bytes; the servable copies it to the device)."""
-        try:
-            arr = wire.decode_tensor(req.body)
-        except wire.WireFormatError as e:
-            self.request_count.inc(model=name, outcome="invalid")
-            raise HttpError(400, f"bad tensor frame: {e}") from None
-        if arr.ndim < 1 or arr.shape[0] < 1:
-            self.request_count.inc(model=name, outcome="invalid")
-            raise HttpError(
-                400, "tensor batch needs a non-empty leading dimension"
-            )
-        return arr
+        return _predictions_response(req, predictions)
 
     def _retry_after(self) -> str:
         """One flush window, floored at 1 s (a full queue clears at flush
@@ -320,3 +343,132 @@ class ModelServerApp(App):
             body=self._metrics_registry.expose_text().encode(),
             content_type="text/plain; version=0.0.4",
         )
+
+
+class FrontDoorApp(App):
+    """The multi-model front door: one HTTP surface over the drain-aware
+    `Router` for a whole (possibly multiplexed) fleet.
+
+    Same routes and negotiation as `ModelServerApp` — ``/v1/models/<m>``
+    stops being decorative: the path segment selects the servable on
+    every replica, priority class and tenant ride the
+    ``X-KFTPU-Priority`` / ``X-KFTPU-Tenant`` headers, and the router's
+    verdicts map onto honest status codes:
+
+    - `Overloaded` (capacity, priority headroom, or tenant quota) →
+      429 with the router's already-jittered ``retry_after`` as a
+      fractional-seconds Retry-After;
+    - `NoReadyReplicas` / a dead fleet mid-request → 503;
+    - `ModelNotFound` → 404 (every replica carries the same catalog);
+    - an unknown priority class → 400 (client error, not a shed).
+    """
+
+    def __init__(
+        self,
+        router: Router,
+        *,
+        metrics: MetricsRegistry | None = None,
+    ):
+        super().__init__("serving-front-door")
+        self.router = router
+        metrics = metrics or MetricsRegistry()
+        self._metrics_registry = metrics
+        self.request_count = metrics.counter(
+            "serving_front_door_requests_total",
+            "front-door predict requests",
+            ("model", "outcome"),
+        )
+        self.add_route("/v1/models/<name>", self.model_get)
+        self.add_route("/v1/models/<name>", self.model_post, ("POST",))
+        self.add_route("/v1/models", self.models_list)
+        self.add_route("/metrics", self.metrics_text)
+
+    # -- catalog views (aggregated across the fleet) -----------------------
+
+    def _catalog(self) -> dict:
+        """model → per-replica state rows, from the router's aggregated
+        stats (MultiModelReplica exposes its registry snapshot there)."""
+        catalog: dict[str, dict[str, dict]] = {}
+        for rname, row in self.router.stats()["replicas"].items():
+            for model, mrow in (row.get("models") or {}).items():
+                catalog.setdefault(model, {})[rname] = mrow
+        return catalog
+
+    def models_list(self, req: Request) -> Response:
+        return json_response({"models": sorted(self._catalog())})
+
+    def model_get(self, req: Request) -> Response:
+        name, verb = ModelServerApp._split_verb(req.path_params["name"])
+        if verb is not None:
+            raise HttpError(405, "verbs require POST")
+        rows = self._catalog().get(name)
+        if rows is None:
+            raise HttpError(404, f"model {name!r} not found")
+        resident = sum(
+            1 for r in rows.values() if r.get("state") == "resident"
+        )
+        return json_response(
+            {
+                "model_version_status": [
+                    {
+                        "version": str(
+                            max(r.get("version", 0) for r in rows.values())
+                        ),
+                        "state": "AVAILABLE",
+                        "status": {"error_code": "OK", "error_message": ""},
+                    }
+                ],
+                "replicas": {
+                    rname: {
+                        "state": r.get("state", "resident"),
+                        "version": r.get("version", 0),
+                    }
+                    for rname, r in rows.items()
+                },
+                "resident_replicas": resident,
+            }
+        )
+
+    # -- predict -----------------------------------------------------------
+
+    def model_post(self, req: Request) -> Response:
+        name, verb = ModelServerApp._split_verb(req.path_params["name"])
+        if verb != "predict":
+            raise HttpError(400, f"unsupported verb {verb!r}")
+        instances = _request_instances(req, name, self.request_count)
+        # No header → None → the router applies the model's
+        # catalog-declared default class before falling back to
+        # "standard".
+        priority = req.headers.get(PRIORITY_HEADER) or None
+        tenant = req.headers.get(TENANT_HEADER) or None
+        try:
+            predictions = self.router.predict(
+                instances, model=name, priority=priority, tenant=tenant
+            )
+        except Overloaded as e:
+            # Honest shed: never acked by the router, surfaced as 429
+            # with the (already jittered) backoff hint.
+            self.request_count.inc(model=name, outcome="overload")
+            raise HttpError(
+                429,
+                str(e),
+                headers=[
+                    ("Retry-After", _format_retry_after(e.retry_after))
+                ],
+            ) from None
+        except (NoReadyReplicas, ReplicaGone) as e:
+            # No fleet left (or it died out from under an acked request
+            # after the retry budget) — unavailable, retryable.
+            self.request_count.inc(model=name, outcome="unavailable")
+            raise HttpError(503, str(e)) from None
+        except ModelNotFound:
+            self.request_count.inc(model=name, outcome="invalid")
+            raise HttpError(404, f"model {name!r} not found") from None
+        except ValueError as e:
+            # Unknown priority class, ragged instances — client errors.
+            self.request_count.inc(model=name, outcome="invalid")
+            raise HttpError(400, str(e)) from None
+        self.request_count.inc(model=name, outcome="ok")
+        return _predictions_response(req, predictions)
+
+    metrics_text = ModelServerApp.metrics_text

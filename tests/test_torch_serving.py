@@ -250,14 +250,17 @@ def test_http_server_answers_predict(servable, models):
 _FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "kubeflow_tpu")
 
 
-# The training job's modules and the ResNet slice's (the model, the
-# batching scheduler, the binary), imported by the walk below like every
-# other.
+# The training job's modules, the ResNet slice's (the model, the
+# batching scheduler, the binary) and the multi-model front door's,
+# imported by the walk below like every other.
 _TRAIN = tuple(f"kubeflow_tpu_torch.train.{m}" for m in (
     "guard", "trainer", "checkpoint", "profiling", "loop", "data")) + (
     "kubeflow_tpu_torch.utils.threads", "kubeflow_tpu_torch.models.resnet",
     "kubeflow_tpu_torch.models.convert", "kubeflow_tpu_torch.serving.batching",
-    "kubeflow_tpu_torch.serving.__main__", "kubeflow_tpu_torch.web.wsgi")
+    "kubeflow_tpu_torch.serving.__main__", "kubeflow_tpu_torch.web.wsgi") + tuple(
+    f"kubeflow_tpu_torch.serving.{m}" for m in (
+        "admission", "router", "registry", "replica")) + tuple(
+    f"kubeflow_tpu_torch.testing.{m}" for m in ("tinymodels", "loadgen", "chaos"))
 
 
 def test_importing_the_port_loads_no_jax():
@@ -302,3 +305,14 @@ def test_entry_points_refuse_cpu_without_device(monkeypatch, models):
         convert.init_params(cfg, seed=0)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Servable("lm", _last_logits, models[1])
+    # The front door's model factories: the binary's (both of its
+    # branches) and the tiny models.
+    from kubeflow_tpu_torch.serving.__main__ import build_servable_from_rspec
+    from kubeflow_tpu_torch.testing.tinymodels import TinyMLP
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_servable_from_rspec({"model": "demo"})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_servable_from_rspec({"model": "r", "checkpointDir": "/nonexistent"})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TinyMLP(8)
