@@ -107,7 +107,20 @@ JSON line; any failure raises and the exit code is non-zero:
    p50/p99, batch-64 predictions/s on the device and host paths, and
    p50/p99 and predictions/s under 64 concurrent one-instance clients
    with batching on and off.
-19. frontdoor, main path 8: the multi-model front door (FrontDoorApp →
+19. controller, main path 9: the serving control plane (`controller_phase`):
+   a ServingDeployment CR on that checkpoint directory reconciled by
+   the port's ServingDeploymentController into 2 ResNet-50 replicas
+   (LocalReplicaRuntime): owned ServingReplica objects, readiness,
+   versions and answers; 64 closed-loop clients (p50/p99,
+   predictions/s, the device's idle share); a drain-based roll to a
+   step that fit() commits, under the same load (one replica at a
+   time, no failure); 10 reconciles after a third step without a roll;
+   scale 2 -> 3 -> 1 with the weights' memory given back; then 2
+   model-server worker processes in replica mode behind the apiserver
+   facade (ProcessReplicaRuntime), one SIGKILLed under load and
+   respawned, a self-roll on a modelVersion push, and the workers
+   reaped when the CR is deleted.
+20. frontdoor, main path 8: the multi-model front door (FrontDoorApp →
    Router → 2 MultiModelReplicas, each a ServableRegistry paging at most
    5 models' weights on the card) over HTTP, serving 7 ResNet-50s, each
    restored from its own checkpoint at every page-in, and the LM: each
@@ -117,8 +130,8 @@ JSON line; any failure raises and the exit code is non-zero:
    p99, goodput and the device's idle share, the weights' memory given
    back after the fleet closes and across page cycles
    (`frontdoor_phase`).
-20. kernels: one line per ported kernel (launches, error, times, bound).
-21. the last line: {"ok": true, "device": {...}}.
+21. kernels: one line per ported kernel (launches, error, times, bound).
+22. the last line: {"ok": true, "device": {...}}.
 
 Without a GPU, or outside a checkout (copied alone, where
 `kubeflow_tpu_torch` does not import), it says why on stderr and exits
@@ -247,6 +260,20 @@ FRONTDOOR = dict(resnets=7, hot=4, replicas=2, max_resident=5, max_batch=64,
                  timeout_ms=5.0, lm_max_batch=4, rate=150.0, warmup_s=2.0,
                  window_s=8.0, workers=4, concurrency=256, profile_s=3.0,
                  cycle_resident=2, memory_slack_mib=64)
+# controller: bench.py's serving data plane (bench.py:727-1050) through
+# the control plane at full width: a ServingDeployment on resnet_fit's
+# checkpoint directory, 2 replicas, batching 64 / 5 ms; 64 closed-loop
+# one-instance clients over 64 distinct instances (a 2 s warm-up, an 8 s
+# measured window, 3 s of it profiled); a roll under the same load that
+# must converge within 120 s; 10 reconciles after a third step; scale
+# 2 -> 3 -> 1; then 2 worker processes behind the facade, each serving
+# within 120 s, 16 closed-loop clients for 8 s with one worker SIGKILLed;
+# memory held within 64 MiB.
+CONTROLLER = dict(replicas=2, max_batch=64, timeout_ms=5.0, clients=64, distinct=64,
+                  warmup_s=2.0, window_s=8.0, profile_s=3.0, roll_timeout_s=120.0,
+                  fault_reconciles=10, scale=(3, 1), workers=2, worker_start_s=120.0,
+                  process_clients=16, process_load_s=8.0, process_compare_s=4.0,
+                  memory_slack_mib=64)
 REQUESTS = [  # (wire format, batch, sequence length)
     ("json", 1, 2048),
     ("json", 3, 2048),  # padded to bucket 4
@@ -2993,6 +3020,673 @@ def frontdoor_phase(torch, card: str) -> dict:
     return out["launches"]
 
 
+# -- the serving control plane -------------------------------------------------
+
+
+class ClosedLoop:
+    """`clients` threads, each sending one-instance requests through
+    `router.predict` one after another (instance c, c + clients, ... of
+    `instances`) from `start()` until `stop()`. A shed (`Overloaded`)
+    waits out its Retry-After and counts; any other exception is a
+    client error. Records each request's start and end (seconds from
+    `start()`), instance and answer."""
+
+    def __init__(self, router, instances, clients: int):
+        self.router, self.instances, self.clients = router, instances, clients
+        self.records = [[] for _ in range(clients)]
+        self.errors, self.shed = [], [0] * clients
+        self._stop = None
+        self._threads = []
+
+    def _client(self, c: int) -> None:
+        from kubeflow_tpu_torch.serving import Overloaded
+
+        k = c
+        while not self._stop.is_set():
+            i = k % len(self.instances)
+            k += self.clients
+            start = time.perf_counter() - self.t0
+            try:
+                answer = np.asarray(self.router.predict(self.instances[i:i + 1]))[0]
+            except Overloaded as e:
+                self.shed[c] += 1
+                time.sleep(min(e.retry_after, 0.1))
+                continue
+            except Exception as e:  # a client error: counted, the loop goes on
+                self.errors.append(repr(e))
+                continue
+            self.records[c].append((start, time.perf_counter() - self.t0, i, answer))
+
+    def start(self) -> "ClosedLoop":
+        import threading
+
+        self._stop = threading.Event()
+        self.t0 = time.perf_counter()
+        self._threads = [threading.Thread(target=self._client, args=(c,), daemon=True)
+                         for c in range(self.clients)]
+        for t in self._threads:
+            t.start()
+        return self
+
+    def stop(self) -> dict:
+        """Stop the clients; returns the records as arrays."""
+        self._stop.set()
+        for t in self._threads:
+            t.join(timeout=300)
+        if any(t.is_alive() for t in self._threads):
+            raise AssertionError("closed-loop clients did not stop")
+        flat = [r for rs in self.records for r in rs]
+        start, end, which, answers = zip(*flat) if flat else ((), (), (), ())
+        return {"start": np.array(start), "end": np.array(end), "which": np.array(which),
+                "answers": list(answers), "errors": list(self.errors), "shed": sum(self.shed)}
+
+
+def router_counts(router) -> dict:
+    return {name: int(getattr(router, f"{name}_total").value())
+            for name in ("acked", "completed", "failed", "shed", "retried")}
+
+
+def controller_reference(torch, rspec: dict, instances) -> dict:
+    """What the spec's replicas must answer: the servable the binary's
+    factory restores from the spec (`build_servable_from_rspec`, the
+    checkpoint directory's newest step), its own eval forward on
+    `instances` on the card, and resnet_serve's limit: twice that
+    forward's distance from the same weights' f32 forward."""
+    from kubeflow_tpu_torch.serving.__main__ import build_servable_from_rspec
+
+    servable = build_servable_from_rspec(rspec, device=DEVICE)
+    model = servable.variables
+    with torch.inference_mode():
+        x = torch.tensor(instances, device=DEVICE)
+        direct = model(x).float().cpu().numpy()
+        f32 = resnet_model(torch, torch.float32)
+        f32.load_state_dict(model.state_dict())
+        f32.eval()
+        exact = f32(x).cpu().numpy()
+    ref = {"version": servable.version, "answers": direct,
+           "limit": 2 * float(np.abs(direct - exact).max())}
+    del servable, model, f32, x
+    torch.cuda.empty_cache()
+    return ref
+
+
+def held_to(ref: dict, which, answers) -> float:
+    """The largest distance of `answers` (to instances `which`) from
+    the reference's."""
+    return max((float(np.abs(a - ref["answers"][i]).max()) for i, a in zip(which, answers)),
+               default=float("inf"))
+
+
+def probe(router, instances) -> tuple:
+    """Every instance once through the router, one request each."""
+    which = list(range(len(instances)))
+    return which, [np.asarray(router.predict(instances[i:i + 1]))[0] for i in which]
+
+
+def commit_step(torch, ckpt_dir: str) -> int:
+    """One more step of resnet_fit's run (its trainer, guard and stream)
+    through `fit()`, resumed from the newest step in `ckpt_dir` and saved
+    there: training that goes on beside the fleet. The trainer is let go
+    before it returns, so that memory readings see only the fleet.
+    Returns the new step."""
+    from kubeflow_tpu_torch.train import AnomalyGuard, Checkpointer, fit
+
+    trainer = resnet_trainer(torch, RESNET_FIT["batch"], guard=AnomalyGuard())
+    ckpt = Checkpointer(ckpt_dir, save_interval_steps=RESNET_FIT["save_every"], max_to_keep=3)
+    stream = Tape(resnet_images(torch, RESNET_FIT["batch"], vary=True))
+    result = fit(trainer, stream, ckpt.latest_step() + 1, rng=SEED, checkpointer=ckpt,
+                 log_every=1, handle_signals=False)
+    ckpt.wait()
+    step = int(result.state.step)
+    del trainer, result, stream
+    torch.cuda.empty_cache()
+    return step
+
+
+def nvidia_smi(query: str) -> list[str]:
+    out = subprocess.run(["nvidia-smi", query, "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=30, check=True).stdout
+    return [line.strip() for line in out.strip().splitlines() if line.strip()]
+
+
+def compute_apps() -> dict:
+    """nvidia-smi's compute processes on the card: pid -> used MiB (as
+    nvidia-smi prints it). Empty where the machine hides them (a
+    container's own pids are not the host's)."""
+    apps = {}
+    for line in nvidia_smi("--query-compute-apps=pid,used_memory"):
+        pid, _, used = line.partition(",")
+        if pid.strip().isdigit():
+            apps[int(pid)] = used.strip()
+    return apps
+
+
+def card_used_mib(torch) -> float:
+    """nvidia-smi's memory.used of the card, after this process has
+    handed its cached blocks and cuBLAS's workspaces back: what the
+    other processes on the card hold, beside this one's context and
+    live tensors."""
+    torch.cuda.synchronize()
+    torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
+    return float(nvidia_smi("--query-gpu=memory.used")[0])
+
+
+def rolled_out_seconds(api, name: str) -> dict:
+    """Each ReplicaRolled event's seconds out of rotation, by replica
+    (the controller writes them into the event's message)."""
+    import re
+
+    out = {}
+    for ev in api.list("Event", "default"):
+        if ev.spec.get("reason") != "ReplicaRolled" or \
+                ev.spec["involvedObject"]["name"] != name:
+            continue
+        m = re.match(r"(\S+) .*\(([0-9.]+)s out of rotation\)", ev.spec["message"])
+        if m:
+            out.setdefault(m.group(1), []).append(float(m.group(2)))
+    return out
+
+
+def edit_spec(api, name: str, **changes) -> None:
+    from kubeflow_tpu_torch.api import serving as serving_api
+
+    dep = api.get(serving_api.KIND, name, "default").thaw()
+    dep.spec = {**dep.spec, **changes}
+    api.update(dep)
+
+
+def wait_for(predicate, timeout: float, what: str, tick=None) -> float:
+    """Poll every 20 ms (calling `tick` first) until `predicate()` holds;
+    returns the seconds it took. Raises after `timeout`."""
+    t0 = time.perf_counter()
+    while True:
+        if tick is not None:
+            tick()
+        if predicate():
+            return time.perf_counter() - t0
+        if time.perf_counter() - t0 > timeout:
+            raise AssertionError(f"controller: timed out after {timeout} s waiting for {what}")
+        time.sleep(0.02)
+
+
+def controller_phase(torch, card: str, ckpt_dir: str, step: int) -> None:
+    """The serving control plane at full width on the card, as
+    `bench.py:727-1050` drives it with tiny CPU models: a ServingDeployment
+    CR reconciled by the port's `ServingDeploymentController` into
+    ResNet-50 replicas restored from resnet_fit's checkpoint directory.
+
+    Local fleet (`LocalReplicaRuntime`, the binary's factory on the
+    card): the CR at ``modelVersion`` = `step`, 2 replicas, batching 64 /
+    5 ms must give 2 owned ServingReplica objects, 2 ready replicas
+    serving `step` (runtime and status), and answers through the router
+    within resnet_serve's limit of the restored model's own forward.
+    Steady: CONTROLLER["clients"] closed-loop clients (`ClosedLoop`) for
+    a warm-up and a measured window (p50/p99, predictions/s, the device's
+    idle share over a window cut from a trace), no client error, no
+    failure. Roll: a second step committed by `fit()`, the spec bumped
+    to it, the controller threaded (`ControllerManager`) under the same
+    load: both replicas at the new step within 120 s, no failure, at
+    least one replica admitting at every 20 ms sample, answers after it
+    within the limit of the new step's forward; roll seconds and each
+    replica's seconds out of rotation. The endless roll: a third step
+    committed after the bump, 10 reconciles, no roll and every replica
+    at the spec's step. Scale 2 -> 3 -> 1: replicas start and stop (the
+    added one at the spec's step, not the newest), the stopped ones'
+    objects are deleted and their weights' memory given back; the CR
+    deleted, the live tensors within 64 MiB of the phase's start
+    (`memory_point`).
+
+    Process fleet (`ProcessReplicaRuntime` behind `ApiServerApp` over
+    HTTP): 2 workers, each `python -m kubeflow_tpu_torch.serving
+    --apiserver URL --replica NAME` on the card restoring the newest
+    step and batching as the CR says, admitted as `HttpReplica`s (binary
+    frames) within 120 s, their answers within the limit, each stamping
+    its card memory (`cudaMemoryMiB`); CONTROLLER["process_clients"]
+    clients through both workers and then through one (the other
+    drained), CONTROLLER["process_compare_s"] each; the same clients for
+    CONTROLLER["process_load_s"] with a seeded `ReplicaKillSchedule`
+    SIGKILLing one worker: acked = completed, no failure, no client
+    error, the worker respawned (a new pid) and admitted; a fourth step
+    and a bump: both workers load it themselves (same pids) and answer
+    within its limit; a roll back to the third step, the same; after
+    each roll each worker's allocated card memory back within 64 MiB of
+    its reading at rest after the two-against-one load, and its reserved
+    memory not grown by the roll back; the CR deleted: every worker exits, no compute process
+    beyond those before them is left in nvidia-smi, and the card's
+    memory.used is back within 64 MiB of its reading before them
+    (`card_used_mib`). Startup seconds per worker; on a failure, each
+    worker's exit code and its ServingReplica's last status go to
+    stderr."""
+    import gc
+
+    from kubeflow_tpu_torch.api import serving as serving_api
+    from kubeflow_tpu_torch.controllers import ControllerManager, ServingDeploymentController
+    from kubeflow_tpu_torch.ops import _kernels
+    from kubeflow_tpu_torch.serving import LocalReplicaRuntime, ProcessReplicaRuntime, Router
+    from kubeflow_tpu_torch.serving.__main__ import build_servable_from_rspec
+    from kubeflow_tpu_torch.testing.apiserver_http import ApiServerApp
+    from kubeflow_tpu_torch.testing.fake_apiserver import FakeApiServer
+    from kubeflow_tpu_torch.utils.metrics import MetricsRegistry
+    from kubeflow_tpu_torch.web import serve
+    from torch.profiler import ProfilerActivity, profile
+
+    t_phase = time.perf_counter()
+    cfg = CONTROLLER
+    gc.collect()
+    memory = {"before": memory_point(torch)}
+    slack = cfg["memory_slack_mib"]
+    instances = serve_instances(cfg["distinct"], RESNET["image"])
+    checks, out = {}, {"phase": "controller", "card": card, "checkpoint_step": step}
+    _kernels.launches.clear()
+
+    api = FakeApiServer()
+    facade, facade_thread = serve(ApiServerApp(api), host="127.0.0.1", port=0)
+    metrics = MetricsRegistry()
+    router = Router(metrics, dispatch_timeout_s=120.0, retry_jitter_seed=SEED)
+    runtime = LocalReplicaRuntime(
+        router, lambda rspec: build_servable_from_rspec(rspec, device=DEVICE), metrics)
+    proc_router = Router(MetricsRegistry(), dispatch_timeout_s=120.0, retry_jitter_seed=SEED)
+    procs = ProcessReplicaRuntime(api, f"http://127.0.0.1:{facade.server_port}",
+                                  router=proc_router, extra_env={"PYTHONPATH": ROOT})
+    controller = ServingDeploymentController(api, runtime=runtime, metrics=metrics,
+                                             resync_seconds=0.1, process_runtime=procs)
+    reconcile = controller.controller.run_until_idle
+    rspec = {"model": "resnet", "checkpointDir": ckpt_dir, "maxBatch": cfg["max_batch"]}
+    names = [serving_api.replica_name("fleet", i) for i in range(cfg["replicas"])]
+    versions = lambda: [(runtime.stats(n) or {}).get("version") for n in names]
+    status = lambda name="fleet": api.get(serving_api.KIND, name, "default").status
+    manager = None
+    try:
+        # -- CR -> fleet
+        t0 = time.perf_counter()
+        api.create(serving_api.make_serving_deployment(
+            "fleet", model="resnet", replicas=cfg["replicas"], max_batch=cfg["max_batch"],
+            batch_timeout_ms=cfg["timeout_ms"], checkpoint_dir=ckpt_dir, model_version=step))
+        reconcile()
+        out["fleet_up_s"] = time.perf_counter() - t0
+        owned = api.list(serving_api.REPLICA_KIND, "default",
+                         label_selector={serving_api.LABEL_DEPLOYMENT: "fleet"})
+        checks["owned_replica_objects"] = (
+            [r.metadata.name for r in owned] == names
+            and all(r.metadata.owner_references[0]["name"] == "fleet" for r in owned))
+        checks["ready_replicas"] = status()["readyReplicas"] == cfg["replicas"]
+        checks["versions_are_the_step"] = versions() == [step] * cfg["replicas"]
+        checks["version_column_is_the_step"] = [
+            row["version"] for row in status()["replicas"]] == [step] * cfg["replicas"]
+        ref = controller_reference(torch, rspec, instances)
+        err = held_to(ref, *probe(router, instances))
+        checks["answers"] = ref["version"] == step and err <= ref["limit"]
+        out["answers"] = {"max_abs_err": err, "limit": ref["limit"]}
+        memory["fleet_up"] = memory_point(torch)
+
+        # -- steady load
+        prof = profile(activities=[ProfilerActivity.CUDA])
+        prof.start()  # before the load: a start under load stalls the process's CUDA calls
+        origin = time.perf_counter()
+        counts0 = router_counts(router)
+        load = ClosedLoop(router, instances, cfg["clients"]).start()
+        lo = cfg["warmup_s"]
+        hi = lo + cfg["window_s"]
+        time.sleep(max(0.0, load.t0 + lo + (cfg["window_s"] - cfg["profile_s"]) / 2
+                       - time.perf_counter()))
+        window = (time.perf_counter() - origin) * 1e6
+        time.sleep(cfg["profile_s"])
+        window = (window, (time.perf_counter() - origin) * 1e6)
+        time.sleep(max(0.0, load.t0 + hi - time.perf_counter()))
+        rec = load.stop()
+        torch.cuda.synchronize()
+        prof.stop()
+        delta = {k: v - counts0[k] for k, v in router_counts(router).items()}
+        busy = sum(max(0.0, min(evt.time_range.end, window[1])
+                       - max(evt.time_range.start, window[0]))
+                   for evt in prof.events()
+                   if evt.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+        wall_ms = (window[1] - window[0]) / 1e3
+        steady = window_stats(rec["start"], rec["end"], lo, hi)
+        steady.update({
+            "clients": cfg["clients"], "router": delta, "client_errors": len(rec["errors"]),
+            "answers_max_abs_err": held_to(ref, rec["which"], rec["answers"]),
+            "profiled_window": {
+                "wall_ms": wall_ms, "device_busy_ms": busy if busy else "not measured",
+                "device_idle_share": max(0.0, 1 - busy / wall_ms) if busy else "not measured"},
+        })
+        del prof
+        out["steady"] = steady
+        checks["steady_failed_0"] = delta["failed"] == 0 and not rec["errors"]
+        checks["steady_answers"] = steady["answers_max_abs_err"] <= ref["limit"]
+
+        # -- the roll under load
+        step2 = commit_step(torch, ckpt_dir)
+        manager = ControllerManager()
+        manager.add(controller.controller)
+        manager.start()
+        counts0 = router_counts(router)
+        load = ClosedLoop(router, instances, cfg["clients"]).start()
+        time.sleep(cfg["warmup_s"])
+        samples = []
+        edit_spec(api, "fleet", modelVersion=step2)
+        roll_s = wait_for(lambda: versions() == [step2] * cfg["replicas"],
+                          cfg["roll_timeout_s"], "the roll",
+                          tick=lambda: samples.append(len(router.ready_names())))
+        time.sleep(1.0)  # the load goes on past the roll's end
+        rec = load.stop()
+        manager.stop()
+        manager = None
+        delta = {k: v - counts0[k] for k, v in router_counts(router).items()}
+        ref2 = controller_reference(torch, rspec, instances)
+        err2 = held_to(ref2, *probe(router, instances))
+        out["roll"] = {
+            "from_step": step, "to_step": step2, "roll_s": roll_s,
+            "out_of_rotation_s": rolled_out_seconds(api, "fleet"),
+            "min_admitting": min(samples), "samples": len(samples), "router": delta,
+            "client_errors": len(rec["errors"]),
+            "during": window_stats(rec["start"], rec["end"], cfg["warmup_s"],
+                                   float(rec["end"].max())),
+            "answers_after": {"max_abs_err": err2, "limit": ref2["limit"]},
+        }
+        checks["roll_converged"] = versions() == [step2] * cfg["replicas"]
+        checks["roll_failed_0"] = delta["failed"] == 0 and not rec["errors"]
+        checks["roll_one_at_a_time"] = min(samples) >= 1
+        checks["roll_answers"] = ref2["version"] == step2 and err2 <= ref2["limit"]
+        rolls = controller.rolls_total.value(deployment="fleet")
+        checks["rolled_each_replica_once"] = rolls == cfg["replicas"]
+
+        # -- a checkpoint directory past the spec: no endless roll
+        step3 = commit_step(torch, ckpt_dir)
+        for _ in range(cfg["fault_reconciles"]):
+            controller.controller.enqueue(("default", "fleet"))
+            reconcile()
+        out["past_the_spec"] = {"spec": step2, "newest": step3, "versions": versions(),
+                                "rolls": controller.rolls_total.value(deployment="fleet")}
+        checks["no_roll_past_the_spec"] = (
+            controller.rolls_total.value(deployment="fleet") == rolls
+            and versions() == [step2] * cfg["replicas"])
+
+        # -- scale 2 -> 3 -> 1
+        scaled = {}
+        for n in cfg["scale"]:
+            t0 = time.perf_counter()
+            edit_spec(api, "fleet", replicas=n)
+            reconcile()
+            gc.collect()
+            scaled[n] = {
+                "seconds": time.perf_counter() - t0, "router": router.replica_names(),
+                "objects": [r.metadata.name for r in api.list(serving_api.REPLICA_KIND)],
+                "ready": status()["readyReplicas"], "versions": {
+                    r: (runtime.stats(r) or {}).get("version") for r in router.replica_names()},
+                "memory": memory_point(torch)}
+        want = {n: [serving_api.replica_name("fleet", i) for i in range(n)]
+                for n in cfg["scale"]}
+        checks["scaled"] = all(scaled[n]["router"] == scaled[n]["objects"] == want[n]
+                               and scaled[n]["ready"] == n for n in cfg["scale"])
+        # The replica the scale-up added restored the spec's own step,
+        # which the directory still holds, not the newest: one version
+        # in the fleet, and no roll.
+        up = cfg["scale"][0]
+        checks["scale_up_no_roll"] = (
+            controller.rolls_total.value(deployment="fleet") == rolls
+            and list(scaled[up]["versions"].values()) == [step2] * up)
+        per_replica = (memory["fleet_up"]["tensors_mib"] - memory["before"]["tensors_mib"]) \
+            / cfg["replicas"]
+        one = scaled[cfg["scale"][-1]]["memory"]["tensors_mib"]
+        checks["scale_down_gave_memory_back"] = abs(
+            one - memory["before"]["tensors_mib"] - per_replica) <= slack
+        out["scale"] = scaled
+        out["replica_tensors_mib"] = per_replica
+        api.delete(serving_api.KIND, "fleet", "default")
+        reconcile()
+        checks["fleet_deleted"] = (router.replica_names() == []
+                                   and api.list(serving_api.REPLICA_KIND) == [])
+        gc.collect()
+        memory["fleet_deleted"] = memory_point(torch)
+        checks["memory_back"] = abs(memory["fleet_deleted"]["tensors_mib"]
+                                    - memory["before"]["tensors_mib"]) <= slack
+
+        # -- the process runtime
+        out["process"] = process_fleet(torch, api, controller, procs, proc_router, step3,
+                                       rspec, instances, checks)
+    finally:
+        if manager is not None:
+            manager.stop()
+        procs.shutdown()
+        for name in runtime.names():
+            runtime.stop(name)
+        facade.shutdown()
+        facade.server_close()
+        facade_thread.join(timeout=30)
+    del router, runtime, controller
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = dict(_kernels.launches)
+    checks["no_flash_launches"] = not launches
+    out.update({"memory": memory, "memory_slack_mib": slack, "checks": checks,
+                "seconds": time.perf_counter() - t_phase})
+    emit(out)
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"controller checks failed: {failed}")
+
+
+def process_fleet(torch, api, controller, procs, router, step: int, rspec: dict,
+                  instances, checks: dict) -> dict:
+    """controller_phase's process fleet (see there): the CR "workers"
+    with ``runtime: process`` at ``modelVersion`` = `step` (the
+    directory's newest), driven by the threaded controller."""
+    import signal
+
+    from kubeflow_tpu_torch.api import serving as serving_api
+    from kubeflow_tpu_torch.controllers import ControllerManager
+    from kubeflow_tpu_torch.serving import HttpReplica
+    from kubeflow_tpu_torch.testing.chaos import ReplicaKillSchedule
+    from kubeflow_tpu_torch.testing.fake_apiserver import NotFound
+
+    cfg = CONTROLLER
+    slack = cfg["memory_slack_mib"]
+    names = [serving_api.replica_name("workers", i) for i in range(cfg["workers"])]
+    robj = lambda n: api.get(serving_api.REPLICA_KIND, n, "default")
+    cuda_mib = lambda: {n: robj(n).status.get("cudaMemoryMiB") for n in names}
+    out, started = {}, {}
+    spawned = {}
+
+    def settled_mib(base: dict) -> dict:
+        """The workers' stamped card memory once each one's allocated
+        MiB is back within the slack of `base` (a roll's old version is
+        let go when the next request prunes its batching queue; a worker
+        stamps at its 1 s heartbeat), or after 15 s, as it stands."""
+        try:
+            wait_for(lambda: all(cuda_mib()[n]["allocated"] - base[n]["allocated"] <= slack
+                                 for n in names), 15.0, "the workers' card memory")
+        except AssertionError:
+            pass  # the check fails and the readings show why
+        return cuda_mib()
+
+    def live(n) -> bool:
+        proc = procs._procs.get(n)
+        try:
+            status = robj(n).status
+        except NotFound:  # not created yet
+            return False
+        return (proc is not None and proc.poll() is None and status.get("ready")
+                and status.get("pid") == proc.pid and n in router.ready_names())
+
+    used = {"before": card_used_mib(torch)}
+    apps_before = compute_apps()
+
+    def note_ready():
+        for n in names:
+            proc = procs._procs.get(n)
+            if proc is not None and proc.pid not in spawned:
+                spawned[proc.pid] = time.perf_counter()
+            if proc is not None and proc.pid not in started and live(n):
+                started[proc.pid] = time.perf_counter() - spawned[proc.pid]
+
+    manager = ControllerManager()
+    manager.add(controller.controller)
+    manager.start()
+    try:
+        api.create(serving_api.make_serving_deployment(
+            "workers", model="resnet", replicas=cfg["workers"], max_batch=cfg["max_batch"],
+            batch_timeout_ms=cfg["timeout_ms"], checkpoint_dir=rspec["checkpointDir"],
+            model_version=step, runtime="process"))
+        out["fleet_up_s"] = wait_for(lambda: all(live(n) for n in names),
+                                     cfg["worker_start_s"], "the workers", tick=note_ready)
+        note_ready()
+        pids = {n: procs._procs[n].pid for n in names}
+        out["startup_s"] = {n: started[pids[n]] for n in names}
+        used["workers_up"] = card_used_mib(torch)
+        # Each worker's own reading (allocated and reserved MiB), and the
+        # card's memory.used over the phase's own reading for them all.
+        worker_mib = {"up": cuda_mib()}
+        checks["workers_on_the_card"] = all(
+            m and m["allocated"] > 0 for m in worker_mib["up"].values())
+        out["card_used_by_workers_mib"] = used["workers_up"] - used["before"]
+        ref = controller_reference(torch, rspec, instances)
+        err = held_to(ref, *probe(router, instances))
+        versions = [robj(n).status["version"] for n in names]
+        checks["workers_answer"] = (err <= ref["limit"]
+                                    and versions == [step] * cfg["workers"] == [ref["version"]]
+                                    * cfg["workers"])
+        out["answers"] = {"max_abs_err": err, "limit": ref["limit"], "versions": versions}
+        checks["workers_admitted_as_http"] = all(
+            isinstance(router.replica(n), HttpReplica) and router.replica(n)._binary
+            for n in names)
+
+        # The same clients and batching through two workers, then one.
+        compare = {}
+        for k in (2, 1):
+            if k == 1:
+                router.drain(names[1], timeout=60.0)
+            load = ClosedLoop(router, instances, cfg["process_clients"]).start()
+            time.sleep(cfg["warmup_s"] + cfg["process_compare_s"])
+            rec = load.stop()
+            compare[k] = window_stats(rec["start"], rec["end"], cfg["warmup_s"],
+                                      cfg["warmup_s"] + cfg["process_compare_s"])
+            compare[k]["client_errors"] = len(rec["errors"])
+        router.admit(names[1])
+        time.sleep(2.5)  # two idle heartbeats: each worker stamps its reading at rest
+        # The base of the roll's memory checks: the version loaded, and
+        # the threads that served it holding their cuBLAS workspaces.
+        worker_mib["served"] = cuda_mib()
+        out["workers_compare"] = {"clients": cfg["process_clients"], "2": compare[2],
+                                  "1": compare[1]}
+        checks["workers_compare_clean"] = not compare[2]["client_errors"] \
+            and not compare[1]["client_errors"]
+
+        # Load with one worker SIGKILLed.
+        sched = ReplicaKillSchedule(SEED, kills=1, replicas=cfg["workers"])
+        counts0 = router_counts(router)
+        load = ClosedLoop(router, instances, cfg["process_clients"]).start()
+        kills = []
+        while time.perf_counter() - load.t0 < cfg["process_load_s"]:
+            frac = (time.perf_counter() - load.t0) / cfg["process_load_s"]
+            kill = sched.due(frac)
+            if kill is not None:
+                ready = router.ready_names()
+                victim = ready[kill.victim % len(ready)]
+                os.kill(procs._procs[victim].pid, signal.SIGKILL)
+                t_kill = time.perf_counter()
+                sched.mark_injected(kill)
+                kills.append({"replica": victim, "pid": procs._procs[victim].pid,
+                              "at_fraction": frac})
+            note_ready()
+            time.sleep(0.02)
+        rec = load.stop()
+        delta = {k: v - counts0[k] for k, v in router_counts(router).items()}
+        victim = kills[0]["replica"] if kills else None
+        respawn_s = wait_for(lambda: all(live(n) for n in names), cfg["worker_start_s"],
+                             "the respawned worker", tick=note_ready) if kills else None
+        new_pid = procs._procs[victim].pid if kills else None
+        out["chaos"] = {
+            "router": delta, "client_errors": len(rec["errors"]), "kills": kills,
+            "kill_coverage": sched.coverage(), "requests": len(rec["start"]),
+            "predictions_per_s": len(rec["start"]) / cfg["process_load_s"],
+            "respawned_pid": new_pid,
+            "respawn_s": (time.perf_counter() - t_kill) if kills else None,
+            "respawn_wait_after_load_s": respawn_s,
+            "respawned_startup_s": started.get(new_pid),
+            **percentiles(list(rec["end"] - rec["start"]))}
+        checks["chaos_acked_eq_completed"] = delta["acked"] == delta["completed"]
+        checks["chaos_failed_0"] = delta["failed"] == 0 and not rec["errors"]
+        checks["chaos_kill_plan_exhausted"] = sched.exhausted and len(kills) == 1
+        checks["chaos_respawned"] = bool(kills) and new_pid != kills[0]["pid"] and live(victim)
+
+        # Self-roll on the config push.
+        pids = {n: procs._procs[n].pid for n in names}
+        step4 = commit_step(torch, rspec["checkpointDir"])
+        edit_spec(api, "workers", modelVersion=step4)
+        out["self_roll_s"] = wait_for(
+            lambda: all(robj(n).status.get("version") == step4 for n in names) and all(
+                live(n) for n in names), cfg["worker_start_s"], "the workers' self-roll")
+        ref4 = controller_reference(torch, rspec, instances)
+        err4 = held_to(ref4, *probe(router, instances))
+        checks["self_rolled"] = (
+            {n: procs._procs[n].pid for n in names} == pids
+            and ref4["version"] == step4 and err4 <= ref4["limit"])
+        worker_mib["self_rolled"] = settled_mib(worker_mib["served"])
+        used["self_rolled"] = card_used_mib(torch)
+        out["after_self_roll"] = {"step": step4, "max_abs_err": err4, "limit": ref4["limit"],
+                                  "card_used_by_workers_mib": used["self_rolled"]
+                                  - used["before"]}
+
+        # A roll back to the third step, which the directory still holds.
+        edit_spec(api, "workers", modelVersion=step)
+        out["roll_back_s"] = wait_for(
+            lambda: all(robj(n).status.get("version") == step for n in names) and all(
+                live(n) for n in names), cfg["worker_start_s"], "the workers' roll back")
+        ref3 = controller_reference(torch, {**rspec, "modelVersion": step}, instances)
+        err3 = held_to(ref3, *probe(router, instances))
+        checks["rolled_back"] = (
+            {n: procs._procs[n].pid for n in names} == pids
+            and ref3["version"] == step and err3 <= ref3["limit"])
+        worker_mib["rolled_back"] = settled_mib(worker_mib["served"])
+        out["after_roll_back"] = {"step": step, "max_abs_err": err3, "limit": ref3["limit"]}
+        out["worker_cuda_mib"] = worker_mib
+        checks["worker_memory_back"] = all(
+            worker_mib[when][n]["allocated"] - worker_mib["served"][n]["allocated"] <= slack
+            for when in ("self_rolled", "rolled_back") for n in names) and all(
+            worker_mib["rolled_back"][n]["reserved"]
+            - worker_mib["self_rolled"][n]["reserved"] <= slack for n in names)
+
+        # Delete: the workers are reaped.
+        gone = dict(procs._procs)
+        api.delete(serving_api.KIND, "workers", "default")
+        out["teardown_s"] = wait_for(
+            lambda: procs.names() == [] and router.replica_names() == []
+            and all(p.poll() is not None for p in gone.values()),
+            60.0, "the workers' reaping")
+        # The workers' contexts leave the card with them: no compute
+        # process beyond those before them, and memory.used back.
+        try:
+            wait_for(lambda: not set(compute_apps()) - set(apps_before)
+                     and card_used_mib(torch) - used["before"] <= slack,
+                     30.0, "the workers' card memory")
+        except AssertionError:
+            pass  # the check below fails and the readings show why
+        used["reaped"] = card_used_mib(torch)
+        left = set(compute_apps()) - set(apps_before)
+        checks["workers_reaped"] = (
+            not left and all(p.returncode is not None for p in gone.values())
+            and used["reaped"] - used["before"] <= slack)
+        out["exit_codes"] = {n: p.returncode for n, p in gone.items()}
+        out["compute_apps_left"] = sorted(left)
+        out["card_used_mib"] = used
+    except BaseException:
+        for n in names:
+            proc = procs._procs.get(n)
+            try:
+                last = robj(n).status
+            except Exception as e:
+                last = repr(e)
+            print(f"controller: worker {n}: exit code "
+                  f"{proc.poll() if proc is not None else 'not running'}; "
+                  f"last status {last}", file=sys.stderr)
+        raise
+    finally:
+        manager.stop()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3036,6 +3730,7 @@ def main() -> int:
     try:
         step = resnet_fit_phase(torch, card, resnet_root)
         resnet_serve_phase(torch, card, os.path.join(resnet_root, "ckpt"), step)
+        controller_phase(torch, card, os.path.join(resnet_root, "ckpt"), step)
     finally:
         shutil.rmtree(resnet_root, ignore_errors=True)
     by_path["frontdoor"] = frontdoor_phase(torch, card)

@@ -9,7 +9,11 @@ The multi-model front door: `FrontDoorApp` over a drain-aware `Router`
 (`serving/router.py`, with priority and quota admission from
 `serving/admission.py`) over replicas (`serving/replica.py`), each a
 `ServableRegistry` (`serving/registry.py`) that pages models' weights
-in and out of the device under an LRU limit."""
+in and out of the device under an LRU limit. A ServingDeployment CR
+(`api/serving.py`) reconciled by the serving controller
+(`controllers/serving.py`) materializes that fleet in process
+(`LocalReplicaRuntime`) or as worker processes in replica mode
+(`ProcessReplicaRuntime`)."""
 
 from kubeflow_tpu_torch.serving.admission import (
     AdmissionController,
@@ -31,6 +35,7 @@ from kubeflow_tpu_torch.serving.replica import (
     LocalReplica,
     LocalReplicaRuntime,
     MultiModelReplica,
+    ProcessReplicaRuntime,
 )
 from kubeflow_tpu_torch.serving.router import (
     NoReadyReplicas,
@@ -61,6 +66,7 @@ __all__ = [
     "NoReadyReplicas",
     "Overloaded",
     "PagingConfig",
+    "ProcessReplicaRuntime",
     "QueueClosed",
     "QueueFull",
     "QuotaSpec",

@@ -20,19 +20,24 @@ implement it:
 
 `LocalReplicaRuntime` is the materialization backend a serving
 controller drives: ensure/stop/roll replicas against a router,
-reporting per-replica readiness and queue stats. The process runtime
-(replica mode) is not ported yet.
+reporting per-replica readiness and queue stats. `ProcessReplicaRuntime`
+materializes a ``runtime: process`` fleet as model-server worker
+processes in replica mode instead.
 """
 
 from __future__ import annotations
 
 import http.client
 import json
+import os
 import select
+import subprocess
+import sys
 import threading
 
 import numpy as np
 
+from kubeflow_tpu_torch.api import serving as serving_api
 from kubeflow_tpu_torch.serving import wire
 from kubeflow_tpu_torch.serving.batching import (
     BatchingConfig,
@@ -583,12 +588,13 @@ class LocalReplicaRuntime:
         for mspec in desired:
             mr = self.model_rspec(rspec, mspec)
             row = live.get(mspec["name"])
-            want = int(mr.get("modelVersion", 0) or 0)
             if (
                 row is not None
                 and row["state"] == "resident"
-                and want
-                and row["version"] != want
+                and not serving_api.version_current(
+                    row["version"], int(mr.get("modelVersion", 0) or 0),
+                    mr["checkpointDir"],
+                )
             ):
                 replica.roll_model(mspec["name"], mr)
             else:
@@ -603,3 +609,139 @@ class LocalReplicaRuntime:
         if replica is None:
             return None
         return replica.stats()
+
+
+class ProcessReplicaRuntime:
+    """A replica fleet as model-server processes in replica mode
+    (``python -m kubeflow_tpu_torch.serving --apiserver URL --replica
+    NAME``), behind ``spec.runtime: process``.
+
+    This runtime only spawns and reaps processes. Config reaches a worker
+    through its ServingReplica object over the apiserver facade; the
+    worker loads new versions itself on the config push, stamps its own
+    status and advertises its endpoint there. So there is no
+    ``stats``/``roll`` surface here, on purpose: the serving controller
+    reads readiness from the replica objects, as it would for workers on
+    another machine.
+
+    With a ``router``, each worker's advertised endpoint is registered as
+    an `HttpReplica` once the worker is ready, so in-process clients
+    reach process replicas through the same drain-aware router.
+
+    Workers run on CUDA, as the binary does by default. ``device="cpu"``
+    asks for the CPU (the binary's ``--device cpu``; the counterpart of
+    the JAX runtime's ``JAX_PLATFORMS=cpu`` pin, which the JAX runtime
+    always sets). Nothing else puts a worker on the CPU.
+
+    Departure from the JAX runtime: an endpoint is registered only from
+    a status stamped by the live process (its pid). The JAX runtime
+    registers a respawned worker at the endpoint its SIGKILLed
+    predecessor left in the object.
+    """
+
+    def __init__(
+        self,
+        api,
+        apiserver_url: str,
+        *,
+        router: Router | None = None,
+        namespace: str = "default",
+        device: str | None = None,
+        extra_env: dict | None = None,
+    ):
+        self.api = api
+        self.apiserver_url = apiserver_url
+        self.router = router
+        self._namespace = namespace
+        self._device = device
+        self._extra_env = dict(extra_env or {})
+        self._procs: dict[str, subprocess.Popen] = {}
+
+    def names(self) -> list[str]:
+        return list(self._procs)
+
+    def command(self, name: str, rspec: dict) -> list[str]:
+        """The worker's command line. It batches as the rspec says
+        (``maxBatch``, ``batching.timeoutMs``), as an in-process replica
+        does; ``batching.maxPending`` stays the binary's 1024 (the spec's
+        default), and a running worker keeps the batching it was started
+        with."""
+        batching = LocalReplicaRuntime._config(rspec)
+        cmd = [
+            sys.executable, "-m", "kubeflow_tpu_torch.serving",
+            "--host", "127.0.0.1", "--port", "0",
+            "--apiserver", self.apiserver_url,
+            "--replica", name,
+            "--namespace", self._namespace,
+            "--max-batch", str(batching.max_batch),
+            "--batch-timeout-ms", str(batching.timeout_ms),
+        ]
+        if self._device is not None:
+            cmd += ["--device", self._device]
+        return cmd
+
+    def ensure(self, name: str, rspec: dict) -> None:
+        """Idempotent: spawn the worker if it isn't running (a worker
+        that died is respawned on the next reconcile), and register its
+        advertised endpoint once it has stamped one."""
+        proc = self._procs.get(name)
+        if proc is None or proc.poll() is not None:
+            if proc is not None and self.router is not None:
+                # The old incarnation's endpoint died with it, pooled
+                # keep-alive sockets included.
+                stale = self.router.replica(name)
+                self.router.remove(name)
+                if stale is not None:
+                    stale.close()
+            # Worker logs go to this process's stderr: a worker that
+            # dies while loading its model says why.
+            self._procs[name] = subprocess.Popen(
+                self.command(name, rspec),
+                env={**os.environ, **self._extra_env},
+                stdout=subprocess.DEVNULL,
+            )
+        self._register(name)
+
+    def _register(self, name: str) -> None:
+        """Put the worker's advertised endpoint behind the router, once
+        per live process."""
+        from kubeflow_tpu_torch.testing.fake_apiserver import NotFound
+
+        if self.router is None or self.router.replica(name) is not None:
+            return
+        try:
+            robj = self.api.get("ServingReplica", name, self._namespace)
+        except NotFound:
+            return
+        status = robj.status
+        if (
+            status.get("ready")
+            and status.get("endpoint")
+            and status.get("pid") == self._procs[name].pid
+        ):
+            self.router.add(
+                HttpReplica(name, status["endpoint"], robj.spec.get("model", "demo"))
+            )
+
+    def stop(self, name: str) -> None:
+        """Teardown: out of the router first (stop admitting), then the
+        process. The worker also exits by itself when its object is
+        deleted; the SIGTERM makes teardown prompt."""
+        if self.router is not None and self.router.replica(name) is not None:
+            replica = self.router.replica(name)
+            self.router.drain(name)
+            self.router.remove(name)
+            replica.close()
+        proc = self._procs.pop(name, None)
+        if proc is None or proc.poll() is not None:
+            return
+        proc.terminate()
+        try:
+            proc.wait(timeout=5)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=5)
+
+    def shutdown(self) -> None:
+        for name in list(self._procs):
+            self.stop(name)

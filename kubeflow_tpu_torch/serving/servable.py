@@ -99,11 +99,13 @@ class Servable:
         *,
         max_batch: int = 64,
         device=None,
+        step: int | None = None,
     ) -> "Servable":
         """Restore `module`'s parameters and batch statistics from the
         newest valid step of a checkpoint directory that the training
         loop (`train.fit`) wrote, opened read-only (the optimizer's file
-        is not loaded). The version is the checkpoint's step (at least
+        is not loaded); with `step`, from that step while the directory
+        holds it valid. The version is the checkpoint's step (at least
         1), so clients see which step is live; every bucket is warmed
         with ``example_input[0]`` before this returns."""
         template = {"params": dict(module.named_parameters())}
@@ -116,7 +118,7 @@ class Servable:
         # read_only: serving never renames a training run's steps.
         ckpt = Checkpointer(ckpt_dir, read_only=True)
         try:
-            restored = ckpt.restore_latest(template)
+            restored = ckpt.restore_latest(template, prefer_step=step)
         finally:
             ckpt.close()
         if restored is None:

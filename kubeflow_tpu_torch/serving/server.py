@@ -122,6 +122,14 @@ class ModelRepository:
                 )
             versions[servable.version] = servable
 
+    def replace(self, servable: Servable) -> None:
+        """Make `servable` its model's one version, in one step: a
+        replica worker serves only the version its spec names, so an
+        older one is not kept resident, and a roll back to a lower
+        version is not shadowed by a higher one as the default."""
+        with self._lock:
+            self._models[servable.name] = {servable.version: servable}
+
     def unload(self, name: str, version: int) -> None:
         with self._lock:
             versions = self._models.get(name) or {}

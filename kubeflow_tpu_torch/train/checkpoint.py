@@ -34,6 +34,7 @@ Out of scope: reading the orbax checkpoints that the JAX package writes.
 from __future__ import annotations
 
 import concurrent.futures
+import functools
 import hashlib
 import json
 import logging
@@ -147,6 +148,28 @@ def verify_manifest(step_dir: Path) -> dict | None:
         if size != want.get("size") or digest != want.get("sha256"):
             return None
     return manifest
+
+
+@functools.lru_cache(maxsize=256)
+def _verified(step_dir: str, stamp: tuple) -> bool:
+    return verify_manifest(Path(step_dir)) is not None
+
+
+def holds_step(directory: str | Path, step: int) -> bool:
+    """Whether `directory` holds `step` committed and verified against
+    its manifest: the step `Checkpointer.restore_latest(prefer_step=)`
+    restores. The verdict is cached per stamp of the step's files (name,
+    inode, size, mtime), so asking again about an unchanged step costs a
+    few stats instead of hashing the step."""
+    step_dir = Path(directory) / str(step)
+    try:
+        stamp = tuple(sorted(
+            (p.name, st.st_ino, st.st_size, st.st_mtime_ns)
+            for p in step_dir.iterdir() for st in (p.stat(),)
+        ))
+    except OSError:
+        return False
+    return _verified(str(step_dir.absolute()), stamp)
 
 
 def _conform(tree: Any, template: Any, where: str = "state") -> Any:
@@ -371,10 +394,14 @@ class Checkpointer:
         else:
             self._quarantine(step)
 
-    def restore_latest(self, template: Any) -> Restored | None:
+    def restore_latest(
+        self, template: Any, *, prefer_step: int | None = None
+    ) -> Restored | None:
         """The newest valid checkpoint, conformed to `template` (the
         trainer's `abstract_state()`: the layout, with a `TensorSpec` for
         each tensor) and put on its devices; None when there is none.
+        With `prefer_step`, that step is tried first (serving restores
+        the version its spec names while the directory holds it).
 
         Every candidate is verified against its manifest first (unless
         ``verify=False``): a torn write, a flipped byte or a garbled
@@ -383,7 +410,11 @@ class Checkpointer:
         but does not fit the template raises: the bytes are sound, the
         caller's template is not."""
         self.wait()  # in-flight saves must be on disk with their manifests
-        for step in sorted(self._disk_steps(), reverse=True):
+        steps = sorted(self._disk_steps(), reverse=True)
+        if prefer_step in steps:
+            steps.remove(prefer_step)
+            steps.insert(0, prefer_step)
+        for step in steps:
             step_dir = self.directory / str(step)
             if self.verify:
                 manifest = verify_manifest(step_dir)

@@ -1,14 +1,16 @@
 """Minimal web application core: routing, JSON envelopes, error mapping.
 
 A cut-down copy of `kubeflow_tpu/web/wsgi.py`, holding what the model
-server uses: path-parameter routes, `HttpError` → JSON error envelope
-(with the error's extra headers, e.g. 429's Retry-After),
-a catch-all 500, `serve()` (GET and POST) on an HTTP/1.1 threading
-server with persistent connections, and `TestClient`, which calls the
-app in-process with a WSGI-style environ. Not copied yet (ROADMAP
-Queue 1): the control-plane storage error mapping, the tracing span per
-request, TLS, static mounts, streaming responses and the WSGI
-``__call__`` shim.
+server and the apiserver facade use: path-parameter routes and query
+parameters, `HttpError` → JSON error envelope (with the error's extra
+headers, e.g. 429's Retry-After), the control-plane storage errors
+mapped onto statuses (NotFound 404, AlreadyExists and Conflict 409,
+Invalid 422, Unavailable 503), a catch-all 500, `serve()` (GET, POST,
+PUT, PATCH, DELETE) on an HTTP/1.1 threading server with persistent
+connections and chunked `StreamResponse`s (the watch stream's
+transport), and `TestClient`, which calls the app in-process with a
+WSGI-style environ. Not copied yet (ROADMAP Queue 1): the tracing span
+per request, TLS, static mounts and the WSGI ``__call__`` shim.
 """
 
 from __future__ import annotations
@@ -23,6 +25,8 @@ import threading
 import traceback
 import urllib.parse
 from typing import Any, Callable
+
+from kubeflow_tpu_torch.testing import fake_apiserver as storage
 
 log = logging.getLogger(__name__)
 
@@ -47,6 +51,10 @@ class Request:
         self.environ = environ
         self.method = environ.get("REQUEST_METHOD", "GET").upper()
         self.path = environ.get("PATH_INFO", "/")
+        self.query: dict[str, str] = {
+            k: v[-1]
+            for k, v in urllib.parse.parse_qs(environ.get("QUERY_STRING", "")).items()
+        }
         self.headers: dict[str, str] = {}
         for key, value in environ.items():
             if key.startswith("HTTP_"):
@@ -101,6 +109,25 @@ class Response:
 
     def json(self) -> dict:
         return json.loads(self.body)
+
+
+class StreamResponse(Response):
+    """A response whose body is produced incrementally (chunked transfer
+    on the wire): `chunks` is an iterable of bytes, each framed and
+    flushed as soon as it is produced, so a handler can hold the
+    connection open and push events as they happen (the watch
+    stream)."""
+
+    def __init__(
+        self,
+        chunks,
+        status: int = 200,
+        content_type: str = "application/json",
+        headers: list[tuple[str, str]] | None = None,
+    ):
+        super().__init__(b"", status=status, content_type=content_type,
+                         headers=headers)
+        self.chunks = chunks
 
 
 def encode_json(payload: Any) -> bytes:
@@ -164,6 +191,14 @@ class App:
             return self._dispatch(req)
         except HttpError as e:
             return error_response(e.status, e.message, headers=e.headers)
+        except storage.NotFound as e:
+            return error_response(404, str(e))
+        except (storage.AlreadyExists, storage.Conflict) as e:
+            return error_response(409, str(e))
+        except storage.Invalid as e:
+            return error_response(422, str(e))
+        except storage.Unavailable as e:
+            return error_response(503, str(e))
         except Exception as e:  # the catch-all 500
             log.error("%s: unhandled error: %s", self.name, e)
             log.debug("%s", traceback.format_exc())
@@ -235,7 +270,10 @@ class _Http11Handler(http.server.BaseHTTPRequestHandler):
             return
         resp = self.server.app.handle(Request(self._environ()))
         try:
-            self._send(resp)
+            if isinstance(resp, StreamResponse):
+                self._send_stream(resp)
+            else:
+                self._send(resp)
         except (BrokenPipeError, ConnectionResetError, TimeoutError):
             self.close_connection = True
 
@@ -248,8 +286,32 @@ class _Http11Handler(http.server.BaseHTTPRequestHandler):
         self.end_headers()
         self.wfile.write(resp.body)
 
+    def _send_stream(self, resp: StreamResponse) -> None:
+        """Chunked transfer: each produced chunk is framed and flushed as
+        it arrives. The framing is self-delimiting, so the connection
+        stays reusable after the terminal 0-chunk."""
+        self.send_response(resp.status)
+        for key, value in resp.headers:
+            self.send_header(key, value)
+        self.send_header("Transfer-Encoding", "chunked")
+        self.end_headers()
+        try:
+            for chunk in resp.chunks:
+                if not chunk:
+                    continue
+                self.wfile.write(f"{len(chunk):x}\r\n".encode() + chunk + b"\r\n")
+                self.wfile.flush()
+            self.wfile.write(b"0\r\n\r\n")
+        finally:
+            close = getattr(resp.chunks, "close", None)
+            if close is not None:
+                close()  # the generator's cleanup runs even on a client abort
+
     do_GET = _handle
     do_POST = _handle
+    do_PUT = _handle
+    do_PATCH = _handle
+    do_DELETE = _handle
 
     def handle_one_request(self):
         try:
@@ -323,3 +385,12 @@ class TestClient:
 
     def post(self, path: str, body: dict | None = None, **kw) -> Response:
         return self.request("POST", path, body=body, **kw)
+
+    def put(self, path: str, body: dict | None = None, **kw) -> Response:
+        return self.request("PUT", path, body=body, **kw)
+
+    def patch(self, path: str, body: dict | None = None, **kw) -> Response:
+        return self.request("PATCH", path, body=body, **kw)
+
+    def delete(self, path: str, **kw) -> Response:
+        return self.request("DELETE", path, **kw)

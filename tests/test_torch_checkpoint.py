@@ -236,6 +236,32 @@ def test_restore_survives_eviction_racing_it(trainer, data, tmp_path):
     ckpt.close()
 
 
+def test_restore_prefers_a_named_step_while_it_is_valid(trainer, data, tmp_path):
+    """`prefer_step` restores that step while the directory holds it
+    valid (serving restores the version its spec names), and the newest
+    valid step once it is missing or damaged; `holds_step` gives the
+    same verdict, also after a byte flipped in a step it had vouched
+    for."""
+    _save_steps(trainer, data, tmp_path, steps={1, 2, 3})
+    ckpt = Checkpointer(tmp_path / "ck", read_only=True)
+    template = trainer.abstract_state()
+    two = ckpt.restore_latest(template, prefer_step=2)
+    assert two.step == 2 and two.data_state == {"position": 2}
+    assert ckpt.restore_latest(template, prefer_step=7).step == 3
+    assert [tckpt.holds_step(tmp_path / "ck", n) for n in (1, 2, 3, 7)] == [
+        True, True, True, False]
+    params = tmp_path / "ck" / "2" / "params.pt"
+    raw = bytearray(params.read_bytes())
+    raw[len(raw) // 2] ^= 0xFF
+    params.write_bytes(bytes(raw))
+    assert not tckpt.holds_step(tmp_path / "ck", 2)
+    assert ckpt.restore_latest(template, prefer_step=2).step == 3
+    shutil.rmtree(tmp_path / "ck" / "1")
+    assert not tckpt.holds_step(tmp_path / "ck", 1)
+    assert ckpt.restore_latest(template, prefer_step=1).step == 3
+    ckpt.close()
+
+
 def test_read_only_restore_skips_without_quarantine(trainer, data, tmp_path):
     _save_steps(trainer, data, tmp_path, steps={1, 2})
     (tmp_path / "ck" / "2" / tckpt.MANIFEST_NAME).unlink()

@@ -1,7 +1,8 @@
 """The port's multi-model front door, by the JAX package's own tests.
 
 Every test of tests/test_serving_front_door.py but the one that goes
-through the serving controller (not ported), run against
+through the serving controller (tests/test_torch_serving_controller.py
+runs that one), run against
 `kubeflow_tpu_torch.serving.FrontDoorApp` over the real registry →
 replica → router stack on the same stand-in servables: the path selects
 the model, priority and tenant ride headers, and every router verdict

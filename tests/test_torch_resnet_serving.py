@@ -164,8 +164,8 @@ def test_binary_app_restores_resnet50_from_a_checkpoint(tmp_path):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--apiserver", "http://x", "--replica", "r"], "not ported"),
-    (["--replica", "r"], "not ported"),
+    (["--apiserver", "http://x"], "--apiserver and --replica go together"),
+    (["--replica", "r"], "--apiserver and --replica go together"),
     (["--model", "nodir"], "NAME=CKPT_DIR"),
     (["--model", "=dir"], "NAME=CKPT_DIR"),
 ])

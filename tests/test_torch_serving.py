@@ -251,8 +251,8 @@ _FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "kubeflow_tpu")
 
 
 # The training job's modules, the ResNet slice's (the model, the
-# batching scheduler, the binary) and the multi-model front door's,
-# imported by the walk below like every other.
+# batching scheduler, the binary), the multi-model front door's and the
+# serving control plane's, imported by the walk below like every other.
 _TRAIN = tuple(f"kubeflow_tpu_torch.train.{m}" for m in (
     "guard", "trainer", "checkpoint", "profiling", "loop", "data")) + (
     "kubeflow_tpu_torch.utils.threads", "kubeflow_tpu_torch.models.resnet",
@@ -260,7 +260,10 @@ _TRAIN = tuple(f"kubeflow_tpu_torch.train.{m}" for m in (
     "kubeflow_tpu_torch.serving.__main__", "kubeflow_tpu_torch.web.wsgi") + tuple(
     f"kubeflow_tpu_torch.serving.{m}" for m in (
         "admission", "router", "registry", "replica")) + tuple(
-    f"kubeflow_tpu_torch.testing.{m}" for m in ("tinymodels", "loadgen", "chaos"))
+    f"kubeflow_tpu_torch.testing.{m}" for m in (
+        "tinymodels", "loadgen", "chaos", "fake_apiserver", "apiserver_http")) + (
+    "kubeflow_tpu_torch.api.objects", "kubeflow_tpu_torch.api.serving",
+    "kubeflow_tpu_torch.controllers.runtime", "kubeflow_tpu_torch.controllers.serving")
 
 
 def test_importing_the_port_loads_no_jax():
