@@ -120,7 +120,20 @@ JSON line; any failure raises and the exit code is non-zero:
    facade (ProcessReplicaRuntime), one SIGKILLed under load and
    respawned, a self-roll on a modelVersion push, and the workers
    reaped when the CR is deleted.
-20. frontdoor, main path 8: the multi-model front door (FrontDoorApp →
+20. rl, main path 10: the actor–learner RL loop (`rl_phase`, `bench.py
+   --workload rl` phase A at its configuration: an 8 -> 32 -> 4 policy,
+   8 envs x horizon 4, 48 learner steps, a publish every 12, 2 actors):
+   a CR "rl-policy" of 2 replicas reconciled through
+   `PolicyCheckpointPublisher`, the REINFORCE learner (`loss_in_model`)
+   on the card solo and under actor traffic (steps/s and their ratio,
+   the device's idle share over 3 s), then `run_actor_learner`: actor
+   steps/s, publish-to-actor seconds, each replica rolled once per
+   publish, servedVersions [48], nothing lost, a replica's answer
+   against the restored policy, the return against a fresh init's; in
+   two arms, the policy fleet on the card (the path) and pinned to the
+   CPU as the bench pins it; the card's loss and gradients against the
+   CPU's, and the live tensors back after the fleets close.
+21. frontdoor, main path 8: the multi-model front door (FrontDoorApp →
    Router → 2 MultiModelReplicas, each a ServableRegistry paging at most
    5 models' weights on the card) over HTTP, serving 7 ResNet-50s, each
    restored from its own checkpoint at every page-in, and the LM: each
@@ -130,8 +143,8 @@ JSON line; any failure raises and the exit code is non-zero:
    p99, goodput and the device's idle share, the weights' memory given
    back after the fleet closes and across page cycles
    (`frontdoor_phase`).
-21. kernels: one line per ported kernel (launches, error, times, bound).
-22. the last line: {"ok": true, "device": {...}}.
+22. kernels: one line per ported kernel (launches, error, times, bound).
+23. the last line: {"ok": true, "device": {...}}.
 
 Without a GPU, or outside a checkout (copied alone, where
 `kubeflow_tpu_torch` does not import), it says why on stderr and exits
@@ -156,6 +169,7 @@ import sys
 import tempfile
 import time
 import urllib.request
+import weakref
 
 import numpy as np
 
@@ -274,6 +288,21 @@ CONTROLLER = dict(replicas=2, max_batch=64, timeout_ms=5.0, clients=64, distinct
                   fault_reconciles=10, scale=(3, 1), workers=2, worker_start_s=120.0,
                   process_clients=16, process_load_s=8.0, process_compare_s=4.0,
                   memory_slack_mib=64)
+# rl: bench.py --workload rl's phase A (bench.py:2137-2146, :2186-2190,
+# :244-249): an 8 -> 32 -> 4 policy, 8 envs x horizon 4, 48 learner steps
+# at lr 0.05 (3 warm-up steps before the solo and loaded timings), a
+# publish every 12, 2 actors, replay capacity 8; 2 replicas batching
+# 8 / 1 ms; a 3 s profiled window. The last 20 trajectories' mean return
+# (of 4, the horizon) must beat the fresh init's by `margin`: on the CPU
+# over seeds 0-4 the gap read 1.26-1.85 (tools/rl_margin.py), and the
+# fresh init's return moves by about 0.1 between index sets. A replica's
+# answer within f32 1e-6 of the restored policy's forward; the card's
+# loss and gradients within 1e-5 of the CPU's.
+RL = dict(obs_dim=8, n_actions=4, n_envs=8, horizon=4, hidden=32, steps=48,
+          publish_every=12, actors=2, capacity=8, lr=0.05, replicas=2, max_batch=8,
+          timeout_ms=1.0, warmup_steps=3, timed_steps=max(10, 48), profile_s=3.0,
+          last=20, margin=0.5, answer_tol=1e-6, grad_tol=1e-5,
+          stall_timeout_s=120.0, memory_slack_mib=64)
 REQUESTS = [  # (wire format, batch, sequence length)
     ("json", 1, 2048),
     ("json", 3, 2048),  # padded to bucket 4
@@ -3687,6 +3716,462 @@ def process_fleet(torch, api, controller, procs, router, step: int, rspec: dict,
     return out
 
 
+def rl_config(seed: int = SEED):
+    """bench.py's phase-A run (`bench.py:2137-2146`): an 8 -> 32 -> 4
+    policy, 8 envs x horizon 4 (a batch of 32 transitions), 48 learner
+    steps at lr 0.05, a publish every 12, staleness bound 24, 2 actors,
+    replay capacity 8; the env drawn from `seed`."""
+    from kubeflow_tpu_torch.rl import EnvConfig, RLConfig
+
+    return RLConfig(
+        env=EnvConfig(seed=seed, obs_dim=RL["obs_dim"], n_actions=RL["n_actions"],
+                      n_envs=RL["n_envs"], horizon=RL["horizon"]),
+        hidden=RL["hidden"], learning_rate=RL["lr"], total_steps=RL["steps"],
+        publish_every=RL["publish_every"], staleness_bound=2 * RL["publish_every"],
+        n_actors=RL["actors"], replay_capacity=RL["capacity"])
+
+
+def rl_fleet(cfg, ckpt_dir: str, trainer, device: str, refs: list, seed: int = SEED):
+    """The policy fleet as `bench.py:2171-2190` stands it up: a CR
+    "rl-policy" of RL["replicas"] replicas batching RL["max_batch"] /
+    RL["timeout_ms"], reconciled by the port's controller through
+    `LocalReplicaRuntime` and a `PolicyCheckpointPublisher` on `device`
+    reading the learner's checkpoint directory (before the first publish:
+    the init from `seed`, at version 1). A weak reference to the router
+    and to every servable the fleet builds (rolls included) goes into
+    `refs`. Returns (api, router, controller)."""
+    from kubeflow_tpu_torch.api import serving as serving_api
+    from kubeflow_tpu_torch.controllers import ServingDeploymentController
+    from kubeflow_tpu_torch.rl import PolicyCheckpointPublisher
+    from kubeflow_tpu_torch.serving import LocalReplicaRuntime, Router
+    from kubeflow_tpu_torch.testing.fake_apiserver import FakeApiServer
+    from kubeflow_tpu_torch.utils.metrics import MetricsRegistry
+
+    publisher = PolicyCheckpointPublisher(
+        ckpt_dir, trainer.abstract_state, obs_dim=cfg.env.obs_dim,
+        n_actions=cfg.env.n_actions, hidden=cfg.hidden, init_seed=seed, device=device)
+
+    def build(rspec):
+        servable = publisher(rspec)
+        refs.append(weakref.ref(servable))
+        return servable
+
+    metrics = MetricsRegistry()
+    api, router = FakeApiServer(), Router(metrics, retry_jitter_seed=seed)
+    refs.append(weakref.ref(router))
+    controller = ServingDeploymentController(
+        api, runtime=LocalReplicaRuntime(router, build, metrics), metrics=metrics)
+    api.create(serving_api.make_serving_deployment(
+        "rl-policy", model="policy", replicas=RL["replicas"], max_batch=RL["max_batch"],
+        batch_timeout_ms=RL["timeout_ms"]))
+    controller.controller.run_until_idle()
+    return api, router, controller
+
+
+def rl_close(api, router) -> None:
+    """Takes every replica out of the router and closes it (its batching
+    thread joined), then closes the fleet's apiserver, whose dispatcher
+    thread would otherwise keep the controller, its runtime and the
+    router alive; fails if the router still holds a replica."""
+    for name in router.replica_names():
+        replica = router.replica(name)
+        router.remove(name)
+        replica.close()
+    api.close()
+    if router.replica_names():
+        raise AssertionError(f"rl: replicas left in the router: {router.replica_names()}")
+
+
+def rl_fresh_return(torch, cfg, indices, seed: int = SEED) -> float:
+    """The mean return of the policy's init from `seed` (the fleet's
+    version 1, where the learner starts) over the trajectory `indices`
+    (salt 0), rolled out on the CPU."""
+    from kubeflow_tpu_torch.rl import PolicyMLP, VectorEnv, rollout
+
+    policy = PolicyMLP(cfg.env.obs_dim, cfg.env.n_actions, cfg.hidden, seed=seed,
+                       device="cpu")
+    env = VectorEnv(cfg.env)
+
+    def predict(obs):
+        with torch.inference_mode():
+            return policy(torch.from_numpy(obs)).numpy(), 1
+
+    return float(np.mean([rollout(env, predict, i).mean_return for i in indices]))
+
+
+def rl_coupled(torch, cfg, root: str, fleet_device: str, refs: list,
+               seed: int = SEED) -> dict:
+    """`run_actor_learner` as `bench.py:2236-2256` runs it, the learner on
+    DEVICE, the fleet on `fleet_device`, the controller's
+    `run_until_idle` as `reconcile`. Returns the result, the fleet's end
+    state (each replica's version, the CR's servedVersions, the rolls by
+    replica from the ReplicaRolled events, the MixedVersions events the
+    apiserver's journal recorded during the loop, the router's counters
+    and outstanding requests), the replay accounting,
+    a replica's answer against `PolicyMLP`'s forward on the weights
+    restored from the last step, the mean return of the last
+    RL["last"] trajectories against the fresh init's on the same
+    indices, and the fleet's apiserver and router (still up: the caller
+    closes them).
+    Weak references to the learner and its final state go into `refs`."""
+    from kubeflow_tpu_torch.api import serving as serving_api
+    from kubeflow_tpu_torch.rl import (
+        PolicyMLP, ReplayQueue, build_learner, extract_policy_variables,
+        run_actor_learner, split_predictions)
+    from kubeflow_tpu_torch.train import Checkpointer
+    from kubeflow_tpu_torch.train.trainer import TensorSpec
+
+    ckpt_dir = os.path.join(root, "ckpt")
+    trainer = build_learner(cfg, device=DEVICE)
+    refs.append(weakref.ref(trainer))
+    t0 = time.perf_counter()
+    api, router, controller = rl_fleet(cfg, ckpt_dir, trainer, fleet_device, refs, seed)
+    fleet_up_s = time.perf_counter() - t0
+    counts0 = router_counts(router)
+    ckpt = Checkpointer(ckpt_dir, save_interval_steps=cfg.publish_every)
+    queue = ReplayQueue(capacity=cfg.replay_capacity, staleness_bound=cfg.staleness_bound,
+                        device=trainer.device, stall_timeout_s=RL["stall_timeout_s"])
+    bookmark = api.current_rv
+    try:
+        result = run_actor_learner(
+            api=api, deployment="rl-policy", router=router, trainer=trainer,
+            checkpointer=ckpt, queue=queue, cfg=cfg, rng=seed,
+            reconcile=controller.controller.run_until_idle)
+    finally:
+        ckpt.close()
+    refs.append(weakref.ref(result.fit_result.state))
+    journal, _ = api.events_since(bookmark, kind="Event")
+    names = [serving_api.replica_name("rl-policy", i) for i in range(RL["replicas"])]
+    dep = api.get(serving_api.KIND, "rl-policy", "default")
+    rolls = {}
+    for ev in api.list("Event", "default"):
+        if ev.spec["reason"] == "ReplicaRolled":
+            replica, _, _, version = ev.spec["message"].split()[:4]
+            rolls.setdefault(replica, []).append(int(version))
+    last = cfg.total_steps
+    # What a replica answers for RL["max_batch"] observations, against
+    # the policy forward on the weights restored from the last step.
+    obs = np.random.default_rng(seed).standard_normal(
+        (RL["max_batch"], cfg.env.obs_dim)).astype(np.float32)
+    logits, version = split_predictions(np.asarray(router.predict(obs)))
+    template = {"params": {n: TensorSpec(s.shape, s.dtype, torch.device(fleet_device))
+                           for n, s in trainer.abstract_state()["params"].items()}}
+    reader = Checkpointer(ckpt_dir, read_only=True)
+    try:
+        restored = reader.restore_latest(template, prefer_step=last)
+    finally:
+        reader.close()
+    policy = PolicyMLP(cfg.env.obs_dim, cfg.env.n_actions, cfg.hidden, device=fleet_device)
+    policy.load_state_dict(extract_policy_variables(restored.state["params"]))
+    with torch.inference_mode():
+        direct = policy(torch.from_numpy(obs).to(fleet_device)).cpu().numpy()
+    trajectories = result.trajectories
+    indices = range(max(0, trajectories - RL["last"]), trajectories)
+    fresh = rl_fresh_return(torch, cfg, indices, seed)
+    return {
+        "result": result, "api": api, "router": router, "fleet_up_s": fleet_up_s,
+        "versions": [router.replica(n).version for n in names],
+        "served_versions": dep.status.get("servedVersions"),
+        "rolls": {r: sorted(v) for r, v in sorted(rolls.items())},
+        "mixed_events": [ev.spec["message"] for _, kind, ev in journal
+                         if kind == "ADDED" and ev.spec["reason"] == "MixedVersions"],
+        "router_delta": {k: v - counts0[k] for k, v in router_counts(router).items()},
+        "outstanding": router.stats()["outstanding"],
+        "position": queue.state_dict()["position"],
+        "answer": {"version": version, "restored_step": int(restored.step),
+                   "max_abs_err": float(np.abs(logits - direct).max())},
+        "mean_return_last": result.mean_return, "fresh_return": fresh,
+        "out_of_rotation_s": rolled_out_seconds(api, "rl-policy"),
+    }
+
+
+class RLActors:
+    """`bench.py:2198-2220`'s actors for the under-traffic measurement:
+    RL["actors"] threads rolling trajectories out through the router
+    (`_RouterPolicy`), index a, a + actors, ..., until `stop()`; counts
+    the actor steps (rows answered)."""
+
+    def __init__(self, router, cfg):
+        self.router, self.cfg = router, cfg
+        self.steps, self.errors = [0] * cfg.n_actors, []
+
+    def _act(self, a: int) -> None:
+        from kubeflow_tpu_torch.rl import VectorEnv, rollout
+        from kubeflow_tpu_torch.rl.loop import _RouterPolicy
+
+        env = VectorEnv(self.cfg.env)
+        policy = _RouterPolicy(self.router, timeout_s=30)
+        index = a
+        while not self._stop.is_set():
+            try:
+                traj = rollout(env, policy, index)
+                self.steps[a] += traj.obs.shape[0] * traj.obs.shape[1]
+            except Exception as e:  # a client error: counted, the loop goes on
+                if self._stop.is_set():
+                    return
+                self.errors.append(repr(e))
+            index += self.cfg.n_actors
+
+    def start(self) -> "RLActors":
+        import threading
+
+        self._stop = threading.Event()
+        self._threads = [threading.Thread(target=self._act, args=(a,), daemon=True)
+                         for a in range(self.cfg.n_actors)]
+        for t in self._threads:
+            t.start()
+        return self
+
+    def stop(self) -> None:
+        self._stop.set()
+        for t in self._threads:
+            t.join(timeout=60)
+        if any(t.is_alive() for t in self._threads):
+            raise AssertionError("rl: actor threads did not stop")
+
+
+def rl_synthetic_step(torch, trainer, cfg, seed: int, refs: list):
+    """(state, step, batch): the learner's train step on a fresh state
+    (params from `seed`; a weak reference to it goes into `refs`) and
+    `bench.py:2159-2168`'s synthetic batch of zeros on the learner's
+    device."""
+    b = cfg.batch_size
+    batch = {"obs": torch.zeros((b, cfg.env.obs_dim), device=trainer.device),
+             "target": torch.zeros((b, 2), device=trainer.device)}
+    state = trainer.init_state(seed)
+    refs.append(weakref.ref(state))
+    return state, trainer.make_train_step(), batch
+
+
+def rl_learner_rate(torch, trainer, cfg, seed: int, refs: list) -> float:
+    """`bench.py:2155-2168`'s solo rate: `rl_synthetic_step`,
+    RL["warmup_steps"] steps, then RL["timed_steps"] timed with one sync
+    at the end of the window. Steps per second."""
+    state, step, batch = rl_synthetic_step(torch, trainer, cfg, seed, refs)
+    for _ in range(RL["warmup_steps"]):
+        state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(RL["timed_steps"]):
+        state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    return RL["timed_steps"] / (time.perf_counter() - t0)
+
+
+def rl_profiled_window(torch, trainer, cfg, router, refs: list) -> dict:
+    """One RL["profile_s"] window of the under-traffic run, cut from a
+    device-only trace started before the actors (a start under load
+    stalls the process's CUDA calls): the learner stepping on synthetic
+    batches while the actors roll out through the fleet. The device's
+    busy ms and idle share, the learner's steps and the actors' steps in
+    the window's run."""
+    from torch.profiler import ProfilerActivity, profile
+
+    state, step, batch = rl_synthetic_step(torch, trainer, cfg, SEED, refs)
+    torch.cuda.synchronize()
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    prof.start()
+    origin = time.perf_counter()
+    actors = RLActors(router, cfg).start()
+    steps, window = 0, None
+    lead = 0.5  # the actors and the learner under way before the window
+    try:
+        while time.perf_counter() - origin < lead + RL["profile_s"] + 0.25:
+            state, _ = step(state, batch)
+            steps += 1
+            now = time.perf_counter() - origin
+            if window is None and now >= lead:
+                window = [now * 1e6, None]
+            elif window is not None and window[1] is None and now >= lead + RL["profile_s"]:
+                window[1] = now * 1e6
+    finally:
+        actors.stop()
+    torch.cuda.synchronize()
+    prof.stop()
+    busy = sum(max(0.0, min(evt.time_range.end, window[1]) - max(evt.time_range.start,
+                                                                   window[0]))
+               for evt in prof.events()
+               if evt.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    wall_ms = (window[1] - window[0]) / 1e3
+    return {"wall_ms": wall_ms, "device_busy_ms": busy if busy else "not measured",
+            "device_idle_share": max(0.0, 1 - busy / wall_ms) if busy else "not measured",
+            "learner_steps": steps, "actor_steps": sum(actors.steps),
+            "actor_errors": len(actors.errors)}
+
+
+def rl_arm(torch, cfg, root: str, fleet_device: str, refs: list) -> tuple[dict, dict]:
+    """One arm of the rl phase, the learner on DEVICE and the policy
+    fleet on `fleet_device`: the solo rate, the rate under actor
+    traffic and their ratio, a profiled window under traffic, then the
+    coupled loop (`rl_coupled`). Weak references to the fleets, their
+    servables, the learners and their states go into `refs`. Returns
+    (numbers, checks)."""
+    from kubeflow_tpu_torch.rl import build_learner
+
+    out, checks = {"fleet_device": fleet_device}, {}
+    solo = build_learner(cfg, device=DEVICE)
+    refs.append(weakref.ref(solo))
+    api, router, _ = rl_fleet(cfg, os.path.join(root, "idle"), solo, fleet_device, refs)
+    try:
+        out["solo_steps_per_sec"] = rl_learner_rate(torch, solo, cfg, SEED, refs)
+        t0 = time.perf_counter()
+        actors = RLActors(router, cfg).start()
+        try:
+            out["loaded_steps_per_sec"] = rl_learner_rate(torch, solo, cfg, SEED + 1, refs)
+        finally:
+            actors.stop()
+        # The actors' rate over their whole run, the learner's warm-up included.
+        out["loaded_actor_steps_per_sec"] = sum(actors.steps) / (time.perf_counter() - t0)
+        out["rl_learner_mfu_under_actor_traffic"] = (
+            out["loaded_steps_per_sec"] / out["solo_steps_per_sec"])
+        out["profiled_window"] = rl_profiled_window(torch, solo, cfg, router, refs)
+        checks["traffic_no_client_error"] = (
+            not actors.errors and not out["profiled_window"]["actor_errors"])
+    finally:
+        rl_close(api, router)
+    del solo, api, router
+    run = rl_coupled(torch, cfg, root, fleet_device, refs)
+    result = run.pop("result")
+    rl_close(run.pop("api"), run.pop("router"))
+    latencies = result.publish_latencies
+    out.update({
+        "rl_actor_steps_per_sec": result.actor_steps_per_sec,
+        "rl_policy_publish_to_actor_seconds": latencies,
+        "rl_policy_publish_to_actor_seconds_max": max(latencies, default=None),
+        "learner_steps_per_sec_in_loop": result.learner_steps_per_sec,
+        "actor_steps": result.actor_steps, "trajectories": result.trajectories,
+        "predict_retries": result.predict_retries, "stale_dropped": result.stale_dropped,
+        "rejected_pushes": result.rejected_pushes, "final_loss": result.final_loss,
+        "publishes": [p.version for p in result.publishes],
+        **run,
+    })
+    steps, every = cfg.total_steps, cfg.publish_every
+    want = list(range(every, steps + 1, every))
+    names = sorted(run["rolls"]) or ["none"]
+    checks.update({
+        "publishes": out["publishes"] == want,
+        "each_publish_observed": len(latencies) == len(want),
+        "each_replica_rolled_once_per_publish": (
+            len(run["rolls"]) == RL["replicas"]
+            and all(run["rolls"][n] == want for n in names)),
+        "fleet_at_the_last_step": run["versions"] == [steps] * RL["replicas"],
+        "served_versions": run["served_versions"] == [steps] and not run["mixed_events"],
+        "nothing_lost": (run["outstanding"] == 0 and run["router_delta"]["failed"] == 0
+                         and run["position"] == steps + result.stale_dropped
+                         and result.fit_result.steps_done == steps),
+        "answer": (run["answer"]["version"] == run["answer"]["restored_step"] == steps
+                   and run["answer"]["max_abs_err"] <= RL["answer_tol"]),
+        "return_beats_fresh_init": (
+            run["mean_return_last"] >= run["fresh_return"] + RL["margin"]),
+    })
+    return out, checks
+
+
+def rl_loss_check(torch, cfg) -> dict:
+    """The learner's loss on the card against the CPU's: `PolicyWithLoss`
+    with the same weights (the init from SEED, as converted parameters
+    are the same on both) on one batch of transitions rolled out by that
+    init: the loss and every gradient's largest distance."""
+    from kubeflow_tpu_torch.rl import PolicyWithLoss, VectorEnv, rollout
+
+    losses, grads = {}, {}
+    cpu = PolicyWithLoss(cfg.env.obs_dim, cfg.env.n_actions, cfg.hidden, seed=SEED,
+                         device="cpu")
+
+    def predict(obs):
+        with torch.inference_mode():
+            return cpu.policy(torch.from_numpy(obs)).numpy(), 1
+
+    batch = rollout(VectorEnv(cfg.env), predict, 0).transitions()
+    for device in ("cpu", DEVICE):
+        model = PolicyWithLoss(cfg.env.obs_dim, cfg.env.n_actions, cfg.hidden,
+                               device=device)
+        model.load_state_dict(cpu.state_dict())
+        loss = model(torch.from_numpy(batch["obs"]).to(device),
+                     labels=torch.from_numpy(batch["target"]).to(device))
+        loss.backward()
+        losses[device] = loss.item()
+        grads[device] = {n: p.grad.cpu() for n, p in model.named_parameters()}
+    return {"loss": losses, "loss_abs_err": abs(losses["cpu"] - losses[DEVICE]),
+            "grad_max_abs_err": max(float((grads["cpu"][n] - grads[DEVICE][n]).abs().max())
+                                    for n in grads["cpu"])}
+
+
+def rl_phase(torch, card: str) -> None:
+    """The actor–learner RL loop (`bench.py --workload rl`, phase A,
+    `bench.py:2074-2270`) at the bench's configuration (`rl_config`):
+    control plane, serving and training loaded at once. Two arms, both
+    with the learner on the card: the slice's path with the policy fleet
+    on the card too, and a comparison with the fleet pinned to the CPU
+    as `bench.py:2179` pins it (named explicitly). Each arm (`rl_arm`):
+    the learner's rate solo, under 2 actors' traffic and their ratio
+    (`rl_learner_mfu_under_actor_traffic`), the device's idle share over
+    a 3 s window under traffic, then the coupled loop with its gates:
+    publishes at [12, 24, 36, 48], each observed by an actor in-band;
+    each replica rolled exactly once per publish (ReplicaRolled events);
+    both replicas at 48 and servedVersions [48], and no MixedVersions
+    event recorded during the loop (the apiserver's journal: an
+    in-process fleet rolls both replicas in one reconcile, so it never
+    shows a mixed set); nothing outstanding or failed in the router and
+    the replay position = steps + stale drops; a replica's answer within f32 1e-6 of
+    `PolicyMLP`'s forward on the weights restored from step 48 (TF32 is
+    off); the mean return of the last 20 trajectories at least
+    RL["margin"] above the fresh init's on the same trajectory indices
+    (up to the ones in flight at the end). Before the arms,
+    `PolicyWithLoss`'s loss and gradients on the card within
+    RL["grad_tol"] of the CPU's on the same weights and batch. After
+    them, every router emptied by `rl_close`; every router, servable,
+    learner and learner state the arms built collected (weak references:
+    the phase moves well under 1 MiB, so a leak shows there and not in
+    the allocator); and the live tensors within RL["memory_slack_mib"] of
+    the phase's start (cuBLAS's workspaces released first). No flash
+    kernel runs."""
+    import gc
+
+    from kubeflow_tpu_torch.ops import _kernels
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    memory = {"before": memory_point(torch)}
+    _kernels.launches.clear()
+    cfg = rl_config()
+    out = {"phase": "rl", "card": card, "config": {
+        k: RL[k] for k in ("obs_dim", "hidden", "n_actions", "n_envs", "horizon", "steps",
+                           "publish_every", "actors", "capacity", "replicas", "max_batch",
+                           "timeout_ms")}}
+    checks = {}
+    out["loss_check"] = rl_loss_check(torch, cfg)
+    checks["loss_and_grads_card_vs_cpu"] = (
+        out["loss_check"]["loss_abs_err"] <= RL["grad_tol"]
+        and out["loss_check"]["grad_max_abs_err"] <= RL["grad_tol"])
+    root = tempfile.mkdtemp(prefix="kftpu_rl_")
+    arms, refs = {}, []
+    try:
+        for arm, fleet_device in (("card", DEVICE), ("cpu", "cpu")):
+            os.mkdir(os.path.join(root, arm))
+            arms[arm], arm_checks = rl_arm(torch, cfg, os.path.join(root, arm), fleet_device,
+                                           refs)
+            checks.update({f"{arm}_{k}": v for k, v in arm_checks.items()})
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["arms"] = arms
+    gc.collect()
+    left = [type(ref()).__name__ for ref in refs if ref() is not None]
+    out["released"] = {"tracked": len(refs), "alive": left}
+    checks["fleets_and_learners_released"] = len(refs) > 0 and not left
+    torch.cuda.empty_cache()
+    memory["after"] = memory_point(torch)
+    checks["memory_back"] = abs(memory["after"]["tensors_mib"]
+                                - memory["before"]["tensors_mib"]) <= RL["memory_slack_mib"]
+    checks["no_flash_launches"] = not _kernels.launches
+    out.update({"memory": memory, "margin": RL["margin"], "checks": checks,
+                "seconds": time.perf_counter() - t_phase})
+    emit(out)
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"rl checks failed: {failed}")
+
+
 def main() -> int:
     import torch
 
@@ -3733,6 +4218,7 @@ def main() -> int:
         controller_phase(torch, card, os.path.join(resnet_root, "ckpt"), step)
     finally:
         shutil.rmtree(resnet_root, ignore_errors=True)
+    rl_phase(torch, card)
     by_path["frontdoor"] = frontdoor_phase(torch, card)
     for name, entry in entries.items():
         counts = {path: launches.get(name, 0) for path, launches in by_path.items()}

@@ -18,7 +18,7 @@ the fleet (`api/serving.py`); this controller materializes it:
 - a ``spec.modelVersion`` bump triggers a drain-based roll, one replica
   at a time and only while the rest of the fleet is ready.
 
-Two departures from the JAX controller, each a fault there:
+Three departures from the JAX controller, each a fault there:
 
 - A checkpoint-backed replica restores the step the spec's
   ``modelVersion`` names while its directory holds it, and a step past
@@ -31,6 +31,17 @@ Two departures from the JAX controller, each a fault there:
   ``resync_seconds``: a SIGKILLed worker cannot report its own death
   (its object still reads ready), so only a resync finds the dead
   process and respawns it.
+- A single-model fleet's status carries ``servedVersions``, the sorted
+  versions its ready replicas serve. Once retention evicts the step the
+  spec names, replicas started at different times may restore different
+  steps, each current by `version_current`; while they differ, a
+  ``MixedVersions`` Warning event names the set, recorded once per set
+  and deleted when the replicas agree again. The JAX controller has
+  neither, so its mixed fleet shows nothing. An in-process fleet rolls
+  all its replicas within one reconcile, so a roll shows no mixed set;
+  a ``runtime: process`` fleet's workers self-roll each at its own
+  heartbeat, so a reconcile between two of them can record the Warning
+  during an ordinary roll, until the last worker has rolled.
 """
 
 from __future__ import annotations
@@ -46,7 +57,7 @@ from kubeflow_tpu_torch.controllers.runtime import (
     Result,
     retry_on_conflict,
 )
-from kubeflow_tpu_torch.testing.fake_apiserver import FakeApiServer, NotFound
+from kubeflow_tpu_torch.testing.fake_apiserver import FakeApiServer, NotFound, event_name
 from kubeflow_tpu_torch.utils.metrics import MetricsRegistry
 
 log = logging.getLogger(__name__)
@@ -391,6 +402,8 @@ class ServingDeploymentController:
             target=target,
             queue_depth=total_depth,
             models=list(models_agg.values()) if spec.models else None,
+            served=None if spec.models else sorted(
+                {row["version"] for row in rows if row["ready"]}),
         )
         if (
             spec.autoscale is not None
@@ -528,7 +541,10 @@ class ServingDeploymentController:
         queue_depth: int | None = None,
         reason: str | None = None,
         models=None,
+        served: list[int] | None = None,
     ) -> Result:
+        before = []
+
         def write():
             try:
                 fresh = api.get(
@@ -552,9 +568,31 @@ class ServingDeploymentController:
                 new_status["models"] = models
             if reason is not None:
                 new_status["reason"] = reason
+            if served is not None:
+                new_status["servedVersions"] = served
+            before[:] = fresh.status.get("servedVersions") or []
             if new_status != fresh.status:
                 fresh.status = new_status
                 api.update_status(fresh)
 
         retry_on_conflict(write)
+        if served is not None and served != before:
+            self._mixed_versions_event(api, dep, before, served)
         return Result()
+
+    @staticmethod
+    def _mixed_versions_event(api, dep: Resource, before: list, served: list) -> None:
+        """The Warning that the ready replicas serve more than one
+        version: recorded when such a set first appears, deleted when it
+        gives way to another set (recorded in turn if it is mixed too)."""
+        def message(versions):
+            return f"ready replicas serve versions {versions}"
+
+        if len(before) > 1:
+            try:
+                api.delete("Event", event_name(dep, "MixedVersions", message(before),
+                                               "Warning"), dep.metadata.namespace)
+            except NotFound:
+                pass
+        if len(served) > 1:
+            api.record_event(dep, "MixedVersions", message(served), type_="Warning")

@@ -5,8 +5,9 @@ tree into this package's state-dict keys. The layouts already agree,
 so no array is transposed. `resnet_from_flax` does the same for a JAX
 `ResNet`'s ``params`` and ``batch_stats``: the module names are flax's,
 conv kernels go from HWIO to OIHW and the Dense kernel from (in, out)
-to (out, in). `tinymlp_from_flax` converts a JAX `TinyMLP`'s two Dense
-layers the same way. The caller hands over plain numpy arrays
+to (out, in). `tinymlp_from_flax` and `policy_from_flax` convert a JAX
+`TinyMLP`'s and an RL policy's Dense layers the same way
+(`dense_from_flax`). The caller hands over plain numpy arrays
 (unboxing flax's ``LogicallyPartitioned`` wrappers on its side, e.g.
 ``jax.tree.map(np.asarray, flax.linen.unbox(variables["params"]))``):
 this package never imports flax.
@@ -132,14 +133,23 @@ def init_params(cfg, seed: int | torch.Generator = 0, *, device=None) -> dict[st
     return out
 
 
-def tinymlp_from_flax(params: Mapping) -> dict[str, torch.Tensor]:
-    """A JAX `TinyMLP`'s ``params`` tree (nested dicts of numpy arrays)
-    → the port's `testing.tinymodels.TinyMLP` state dict, float32
-    tensors on the CPU: each Dense kernel (in, out) → (out, in)."""
+def dense_from_flax(params: Mapping) -> dict[str, torch.Tensor]:
+    """A tree of flax Dense layers (nested dicts of numpy arrays) → the
+    state dict of the same module names with `nn.Linear`s, float32
+    tensors on the CPU: each kernel (in, out) → weight (out, in), biases
+    as they are. Submodule levels become dotted prefixes."""
     out = {}
-    for (module, leaf), value in _flatten(params):
+    for path, value in _flatten(params):
+        *module, leaf = path
         value = np.array(value, np.float32)
         if leaf == "kernel":
             value, leaf = value.T, "weight"
-        out[f"{module}.{leaf}"] = torch.from_numpy(np.ascontiguousarray(value))
+        out[".".join((*module, leaf))] = torch.from_numpy(np.ascontiguousarray(value))
     return out
+
+
+# A JAX `TinyMLP`'s ``params`` → `testing.tinymodels.TinyMLP`'s state dict.
+tinymlp_from_flax = dense_from_flax
+# A JAX `PolicyMLP`'s ``params`` → `rl.policy.PolicyMLP`'s state dict, or
+# a `PolicyWithLoss`'s (its ``policy`` level) → `rl.policy.PolicyWithLoss`'s.
+policy_from_flax = dense_from_flax

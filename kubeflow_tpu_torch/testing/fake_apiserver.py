@@ -8,7 +8,7 @@ with no JAX in it), holding what the serving control plane uses:
 - label selectors on list
 - watch events (ADDED/MODIFIED/DELETED) delivered to subscribers on a
   dispatcher thread, off the store lock; `flush()` is the barrier that
-  deterministic tests drain on
+  deterministic tests drain on, and `close()` ends the thread
 - the resumable event journal (`events_since`, `wait_events`) that the
   HTTP facade's watch stream serves, with `Gone` past its horizon
 - owner references: deleting an object deletes its dependents
@@ -133,14 +133,17 @@ class FakeApiServer:
         self._dispatch_enqueued = 0
         self._dispatch_done = 0
         self._dispatcher: threading.Thread | None = None
+        self._closed = False
 
     # -- watch ------------------------------------------------------------
 
     def watch(self, handler: WatchHandler, kind: str | None = None) -> None:
         """Subscribe to events; kind=None receives everything. Handlers
         receive the shared frozen snapshot. The first subscription starts
-        the dispatcher thread."""
+        the dispatcher thread. Raises once the store is closed."""
         with self._lock:
+            if self._closed:
+                raise RuntimeError("watch on a closed apiserver")
             self._watchers.append((kind, handler))
         with self._dispatch_cv:
             if self._dispatcher is None:
@@ -148,6 +151,25 @@ class FakeApiServer:
                     target=self._dispatch_loop, name="apiserver-dispatch", daemon=True
                 )
                 self._dispatcher.start()
+
+    def close(self) -> None:
+        """End watch delivery: drop every handler and stop the dispatcher
+        thread. The thread otherwise lives as long as the process and
+        keeps every handler alive, with what it holds (a controller, its
+        runtime, the fleet). Reads, writes and the journal go on
+        working; a later `watch` raises. The JAX store's `close` only
+        checkpoints its WAL, so its dispatcher never ends."""
+        with self._lock:
+            self._closed = True
+            self._watchers.clear()
+        with self._dispatch_cv:
+            dispatcher, self._dispatcher = self._dispatcher, None
+            if dispatcher is None:
+                return
+            self._dispatch_q.append(None)  # the stop mark, after what is queued
+            self._dispatch_cv.notify_all()
+        if dispatcher is not threading.current_thread():
+            dispatcher.join()
 
     def _emit(self, event: str, obj: Resource) -> None:
         """Journal and queue one committed snapshot (caller holds the
@@ -169,7 +191,10 @@ class FakeApiServer:
             with self._dispatch_cv:
                 while not self._dispatch_q:
                     self._dispatch_cv.wait()
-                event, obj = self._dispatch_q.pop(0)
+                item = self._dispatch_q.pop(0)
+                if item is None:
+                    return
+                event, obj = item
             with self._lock:
                 watchers = list(self._watchers)
             for kind, handler in watchers:

@@ -28,11 +28,14 @@ parameters and statistics), still without a host sync. The step count
 advances on a skip. `TrainState.state_dict`, `Trainer.abstract_state` and
 `Trainer.load_state_dict` are what the checkpointer saves and restores.
 
+With ``loss_in_model`` the model owns the objective: it is called as
+``model(inputs, labels=labels)`` and returns the scalar loss (the RL
+learner's `rl.policy.PolicyWithLoss`); accuracy is not reported.
+
 Not ported yet: a model on a multi-process mesh, which needs a gradient
-all-reduce over dp and sp, the shardings, `resize`/`reshard_state`
-(ROADMAP Queue 1 item 12) and ``loss_in_model`` (the pipelined model,
-the same item); each raises `NotImplementedError` where it would be
-asked for.
+all-reduce over dp and sp, the shardings and `resize`/`reshard_state`
+(ROADMAP Queue 1 item 12); it raises `NotImplementedError` where it
+would be asked for.
 """
 
 from __future__ import annotations
@@ -113,10 +116,6 @@ class TrainConfig:
                     "model; TrainConfig.label_smoothing would be "
                     "silently ignored — set it to 0.0"
                 )
-            raise NotImplementedError(
-                "loss_in_model drives the pipelined transformer's loss "
-                "path, which is not ported yet (ROADMAP Queue 1 item 12)"
-            )
         if self.step_remat in ("dots", "attn", "flash"):
             raise NotImplementedError(
                 f"step_remat {self.step_remat!r} needs selective "
@@ -312,14 +311,14 @@ def _remat_forward(model: nn.Module):
     buffers = list(model.buffers())
     calls = 0
 
-    def forward(x):
+    def forward(*args, **kwargs):
         nonlocal calls
         calls += 1
         if calls == 1 or not buffers:
-            return model(x)
+            return model(*args, **kwargs)
         saved = [b.clone() for b in buffers]
         try:
-            return model(x)
+            return model(*args, **kwargs)
         finally:
             # Also when checkpoint stops the rerun early (by raising once
             # it has every tensor it needs).
@@ -476,7 +475,8 @@ class Trainer:
         with ``train_metrics="full"``) of the batch, its gradient, one
         optimizer update. With ``accum_steps`` > 1 the batch is split into
         that many microbatches, run and differentiated one after another,
-        and the loss is the mean of their means, as in JAX."""
+        and the loss is the mean of their means, as in JAX. With
+        ``loss_in_model`` the model's output is the loss."""
         cfg = self.config
         has_acc = cfg.train_metrics == "full"
         input_key, label_key = self.input_key, self.label_key
@@ -484,10 +484,15 @@ class Trainer:
 
         def forward_loss(model, mb):
             inputs = mb[input_key]
+            kwargs = {"labels": mb[label_key]} if cfg.loss_in_model else {}
             if cfg.step_remat == "full":
-                logits = checkpoint(_remat_forward(model), inputs, use_reentrant=False)
+                out = checkpoint(_remat_forward(model), inputs, use_reentrant=False,
+                                 **kwargs)
             else:
-                logits = model(inputs)
+                out = model(inputs, **kwargs)
+            if cfg.loss_in_model:
+                return out, None
+            logits = out
             loss = softmax_cross_entropy(logits, mb[label_key], cfg.label_smoothing)
             acc = None
             if has_acc:
@@ -576,12 +581,16 @@ class Trainer:
     def make_eval_step(self):
         """eval(state, batch) → {"loss", "accuracy"}: unsmoothed cross
         entropy and argmax accuracy of the model in eval mode, no
-        gradients."""
+        gradients. With ``loss_in_model``, {"loss"}: the model's own
+        objective in eval mode."""
         input_key, label_key = self.input_key, self.label_key
+        loss_in_model = self.config.loss_in_model
 
         @torch.no_grad()
         def eval_step(state: TrainState, batch):
             state.model.eval()
+            if loss_in_model:
+                return {"loss": state.model(batch[input_key], labels=batch[label_key])}
             logits = state.model(batch[input_key])
             return {
                 "loss": softmax_cross_entropy(logits, batch[label_key]),

@@ -934,7 +934,9 @@ def test_cr_sequence_matches_the_jax_controller():
     """The same CR sequence through both packages' controllers (each on
     its own package's store, one scripted runtime class) leaves the same
     ServingReplica specs and statuses, CR statuses, events, roll order
-    and runtime state after every step."""
+    and runtime state after every step. The port's CR status also holds
+    ``servedVersions`` (the JAX one has no such field): the sorted
+    versions of the ready replicas."""
     jax_trace = _cr_sequence(_jax_stack())
     port_trace = _cr_sequence(_port_stack())
     assert len(port_trace) == len(jax_trace) == 8
@@ -944,6 +946,11 @@ def test_cr_sequence_matches_the_jax_controller():
     assert sizes == [2, 3, 1, 4, 4, 1, 1, 0]
     assert port_trace[6]["rolls"] == [serving_api.replica_name("fleet", 0)]
     for step, (want, got) in enumerate(zip(jax_trace, port_trace)):
+        if got["status"] is not None:
+            served = got["status"].pop("servedVersions")
+            assert "servedVersions" not in want["status"]
+            assert served == sorted({r["version"] for r in got["runtime"].values()
+                                     if r["ready"]}), step
         assert got == want, step
 
 
@@ -1283,3 +1290,34 @@ def test_a_replaced_version_is_let_go_after_the_next_request():
         assert old() is None
     finally:
         app.close_batchers()
+
+
+def test_closing_the_apiserver_ends_its_dispatcher_and_lets_the_fleet_go():
+    """A watched store runs a dispatcher thread that holds every watch
+    handler: the controller, its runtime and the fleet behind it live as
+    long as the process. `close()` ends the thread and drops the
+    handlers; reads and writes go on, a later watch raises, and a second
+    close does nothing."""
+    import gc
+    import weakref
+
+    api, runtime = FakeApiServer(), FakeRuntime()
+    controller = ServingDeploymentController(api, runtime=runtime)
+    api.create(serving_api.make_serving_deployment("fleet", replicas=2))
+    converge(controller)
+    dispatcher = api._dispatcher
+    assert dispatcher is not None and dispatcher.is_alive()
+    refs = [weakref.ref(controller), weakref.ref(runtime)]
+    del controller, runtime
+    gc.collect()
+    assert all(ref() is not None for ref in refs)  # the dispatcher's handlers hold them
+    api.close()
+    assert not dispatcher.is_alive()
+    gc.collect()
+    assert [ref() for ref in refs] == [None, None]
+    assert dep_status(api)["readyReplicas"] == 2
+    api.delete(serving_api.KIND, "fleet", "default")
+    assert api.list(serving_api.KIND, "default") == []
+    with pytest.raises(RuntimeError, match="closed"):
+        api.watch(lambda event, obj: None)
+    api.close()

@@ -13,6 +13,11 @@ into an update of about ±lr, so a gradient near 0 whose sign differs
 by 1e-9 between the two moves its parameter by up to 2·lr a step; the
 parameters are held at atol = 2·lr·steps. The optimizer alone, on the
 same gradients, is held at 1e-6.
+
+The in-model objective (``loss_in_model``) is held the same way on the
+RL learner: three guarded REINFORCE steps of `rl.loop.build_learner`
+against JAX's at accum_steps 1 and 2, on numpy batches of observations
+and packed [action, return] labels.
 """
 
 import dataclasses
@@ -94,8 +99,7 @@ def test_schedule_matches_optax():
         (dict(batch_size=6, accum_steps=4), ValueError),
         (dict(loss_in_model=True), ValueError),
         (dict(loss_in_model=True, train_metrics="loss", label_smoothing=0.1), ValueError),
-        (dict(loss_in_model=True, train_metrics="loss", label_smoothing=0.0),
-         NotImplementedError),
+        (dict(step_remat="dots"), NotImplementedError),
         (dict(step_remat="flash"), NotImplementedError),
     ],
 )
@@ -105,6 +109,14 @@ def test_train_config_refuses(kwargs, error):
     if error is ValueError:  # JAX refuses the same config
         with pytest.raises(ValueError):
             jtrainer.TrainConfig(**kwargs)
+
+
+def test_train_config_takes_loss_in_model():
+    """The in-model objective (the RL learner's) is ported: accepted
+    where JAX accepts it."""
+    kwargs = dict(loss_in_model=True, train_metrics="loss", label_smoothing=0.0)
+    assert ttrainer.TrainConfig(**kwargs).loss_in_model
+    assert jtrainer.TrainConfig(**kwargs).loss_in_model
 
 
 @pytest.mark.parametrize("optimizer", ["adamw", "sgd"])
@@ -264,3 +276,133 @@ def test_eval_step_and_refusals(jax_run):
     assert np.isfinite(metrics["loss"].item())
     with pytest.raises(TypeError, match="AnomalyGuard"):
         ttrainer.Trainer(state.model, trainer.config, device="cpu", guard=object())
+
+
+# -- loss_in_model: the REINFORCE learner ------------------------------------------
+
+
+def _rl_batches(n):
+    """`n` learner batches of 32 transitions: observations, and packed
+    [action, return] labels (0/1 rewards, as the env pays)."""
+    rng = np.random.default_rng(7)
+    return [{"obs": rng.standard_normal((32, 8)).astype(np.float32),
+             "target": np.stack([rng.integers(0, 4, 32), rng.integers(0, 2, 32)],
+                                axis=1).astype(np.float32)} for _ in range(n)]
+
+
+def _rl_cfg(jax_side: bool):
+    from kubeflow_tpu.rl import loop as jloop
+    from kubeflow_tpu_torch.rl import loop as tloop
+
+    mod = jloop if jax_side else tloop
+    return mod.RLConfig(env=mod.EnvConfig(seed=5, horizon=4, n_envs=8, obs_dim=8,
+                                          n_actions=4),
+                        hidden=16, total_steps=48, learning_rate=0.05)
+
+
+@pytest.fixture(scope="module")
+def rl_jax_runs():
+    """Three guarded steps of the JAX REINFORCE learner (`rl.loop.build_learner`,
+    ``loss_in_model=True``) at accum_steps 1 and 2, from one init: each
+    step's loss and gradient norm, and the final params; and the eval
+    step's loss on the first batch."""
+    from kubeflow_tpu.rl import loop as jloop
+    from kubeflow_tpu.rl.policy import PolicyWithLoss
+    from kubeflow_tpu.train.guard import AnomalyGuard
+
+    mesh = build_mesh(MeshSpec(dp=1), devices=jax.devices()[:1])
+    base = jloop.build_learner(_rl_cfg(True), mesh, guard=AnomalyGuard())
+    init = base.init_state(jax.random.PRNGKey(0))
+    runs = {}
+    for accum in (1, 2):
+        trainer = base if accum == 1 else jtrainer.Trainer(
+            PolicyWithLoss(n_actions=4, hidden=16),
+            dataclasses.replace(base.config, accum_steps=2), mesh,
+            example_input_shape=(32, 8), input_key="obs", label_key="target",
+            guard=AnomalyGuard())
+        state = trainer.init_state(jax.random.PRNGKey(0))
+        step = trainer.make_train_step()
+        losses, norms = [], []
+        for batch in _rl_batches(STEPS):
+            state, metrics = step(state, jax.tree.map(jnp.asarray, batch))
+            losses.append(float(metrics["loss"]))
+            norms.append(float(metrics["grad_norm"]))
+            assert int(metrics["guard_skipped_total"]) == 0
+        runs[accum] = losses, norms, _unbox(state.params)
+    first = jax.tree.map(jnp.asarray, _rl_batches(1)[0])
+    eval_loss = float(base.make_eval_step()(init, first)["loss"])
+    return _unbox(init.params), runs, eval_loss
+
+
+def _rl_port_trainer(init, accum=1, **changes):
+    from kubeflow_tpu_torch.rl import loop as tloop
+    from kubeflow_tpu_torch.train.guard import AnomalyGuard
+
+    trainer = tloop.build_learner(_rl_cfg(False), guard=AnomalyGuard(), device="cpu")
+    trainer.model.load_state_dict(convert.policy_from_flax(init))
+    if accum == 1 and not changes:
+        return trainer
+    config = dataclasses.replace(trainer.config, accum_steps=accum, **changes)
+    return ttrainer.Trainer(trainer.model, config, input_key="obs", label_key="target",
+                            device="cpu", guard=AnomalyGuard())
+
+
+def _rl_port_run(trainer):
+    state = trainer.init_state()
+    step = trainer.make_train_step()
+    losses, norms = [], []
+    for batch in _rl_batches(STEPS):
+        state, metrics = step(state, _torch_batch(batch))
+        losses.append(metrics["loss"].item())
+        norms.append(metrics["grad_norm"].item())
+        assert metrics["guard_skipped_total"].item() == 0
+    return losses, norms, state
+
+
+@pytest.mark.parametrize("accum", [1, 2])
+def test_reinforce_steps_match_jax_trainer(rl_jax_runs, accum):
+    """Three guarded adamw steps of the REINFORCE learner against JAX's
+    Trainer on converted weights: losses and gradient norms at 5e-5,
+    parameters at 2·lr·steps (this file's tolerances)."""
+    init, runs, _ = rl_jax_runs
+    jlosses, jnorms, jfinal = runs[accum]
+    trainer = _rl_port_trainer(init, accum)
+    assert trainer.config.loss_in_model and trainer.config.accum_steps == accum
+    losses, norms, state = _rl_port_run(trainer)
+    assert int(state.step) == STEPS
+    np.testing.assert_allclose(losses, jlosses, **TOL)
+    np.testing.assert_allclose(norms, jnorms, **TOL)
+    final = convert.policy_from_flax(jfinal)
+    atol = 2 * trainer.config.learning_rate * STEPS
+    for name, p in state.model.named_parameters():
+        np.testing.assert_allclose(p.detach().numpy(), final[name].numpy(),
+                                   atol=atol, rtol=0, err_msg=name)
+    diffs = np.concatenate([
+        np.abs(p.detach().numpy() - final[n].numpy()).ravel()
+        for n, p in state.model.named_parameters()
+    ])
+    assert np.median(diffs) < 1e-6
+
+
+def test_reinforce_under_full_remat_equals_the_plain_step(rl_jax_runs):
+    """``step_remat="full"`` composes with the in-model loss and the
+    guard: the same losses and parameters as without it."""
+    init = rl_jax_runs[0]
+    plain = _rl_port_run(_rl_port_trainer(init))
+    remat = _rl_port_run(_rl_port_trainer(init, step_remat="full"))
+    np.testing.assert_allclose(remat[0], plain[0], atol=1e-7, rtol=0)
+    for (name, a), b in zip(remat[2].model.named_parameters(),
+                            plain[2].model.parameters()):
+        np.testing.assert_allclose(a.detach().numpy(), b.detach().numpy(),
+                                   atol=1e-7, rtol=0, err_msg=name)
+
+
+def test_reinforce_eval_step_matches_jax(rl_jax_runs):
+    """Under loss_in_model the eval step reports the model's own loss
+    (in eval mode) and nothing else, as JAX's does."""
+    init, _, jloss = rl_jax_runs
+    trainer = _rl_port_trainer(init)
+    metrics = trainer.make_eval_step()(trainer.init_state(),
+                                       _torch_batch(_rl_batches(1)[0]))
+    assert set(metrics) == {"loss"}
+    np.testing.assert_allclose(metrics["loss"].item(), jloss, **TOL)
