@@ -143,8 +143,29 @@ JSON line; any failure raises and the exit code is non-zero:
    p99, goodput and the device's idle share, the weights' memory given
    back after the fleet closes and across page cycles
    (`frontdoor_phase`).
-22. kernels: one line per ported kernel (launches, error, times, bound).
-23. the last line: {"ok": true, "device": {...}}.
+22. job, main path 11: the job plane (`job_plane_phases`): the apiserver
+   facade over this process's store, the controller-manager binary as
+   its own process (``python -m kubeflow_tpu_torch.controllers
+   --controllers tpujob,study``), the local pod runner. A TpuJob
+   "lm-train" (1 worker, 1 GPU, maxRestarts 1) runs the same LM through
+   the launcher and fit() in a worker process on the default dispatch,
+   SIGKILLs itself after step 6 once step 4 is committed, is restarted
+   by the operator and resumes from step 4 to 8: Succeeded, restarts 1,
+   step 5's loss bitwise equal across the incarnations, the worker's
+   flash launches (16 flash_fwd, flash_delta and flash_bwd_fused a
+   step); CR to Running, spawn to first step, kill to first resumed
+   step, step ms beside the train phase's, wall time, peak memory
+   (`job_phase`).
+23. rl_soak, main path 12: RL's study soak on the same plane
+   (`rl_soak_phase`, bench.py's phase B at its configuration): a grid
+   Study of 4 trial TpuJobs, 2 at a time, each a worker process with its
+   learner and 2-replica policy fleet on the card, under the seeded
+   trial, learner and actor kills: Succeeded, 4 scored trials, every
+   fault class covered, each trial's restarts as planned;
+   rl_studies_per_hour, each trial's seconds and return, the worst
+   publish latency, the card's memory with two trials running.
+24. kernels: one line per ported kernel (launches, error, times, bound).
+25. the last line: {"ok": true, "device": {...}}.
 
 Without a GPU, or outside a checkout (copied alone, where
 `kubeflow_tpu_torch` does not import), it says why on stderr and exits
@@ -303,6 +324,16 @@ RL = dict(obs_dim=8, n_actions=4, n_envs=8, horizon=4, hidden=32, steps=48,
           timeout_ms=1.0, warmup_steps=3, timed_steps=max(10, 48), profile_s=3.0,
           last=20, margin=0.5, answer_tol=1e-6, grad_tol=1e-5,
           stall_timeout_s=120.0, memory_slack_mib=64)
+# The job plane (path A): TpuJob "lm-train" of one worker running TRAIN's
+# LM through fit() (fused backward), saving every 4 steps, SIGKILLed by
+# itself after step 6 once step 4 is committed, resumed by the
+# operator's gang restart, 8 steps in all. Waits in seconds.
+JOB = dict(steps=8, save_every=4, kill_at=6, max_restarts=1, timeout_s=600,
+           manager_ready_s=120)
+# RL's study soak (path B): bench.py's nightly configuration
+# (tests/e2e/test_rl_soak_e2e.py:158-171): seed 7, 4 grid trials over lr
+# in [0.02, 0.08], 18 learner steps, a publish every 6.
+RL_SOAK = dict(seed=7, trials=4, steps=18, publish_every=6, deadline_s=420)
 REQUESTS = [  # (wire format, batch, sequence length)
     ("json", 1, 2048),
     ("json", 3, 2048),  # padded to bucket 4
@@ -1113,10 +1144,10 @@ def two_pass_backward():
             os.environ["KFTPU_FLASH_FUSED_BWD"] = old
 
 
-def train_phase(torch, card: str) -> dict:
+def train_phase(torch, card: str) -> tuple[dict, float]:
     """Main path 2: the bench's train step at full width on one card.
     Returns the launch counts of the timed steps and of the two-pass
-    step."""
+    step, and the step's ms."""
     from kubeflow_tpu_torch.ops import _kernels
     from kubeflow_tpu_torch.train import SyntheticTokens
 
@@ -1189,7 +1220,7 @@ def train_phase(torch, card: str) -> dict:
     emit(result)
     del trainer, state, step
     torch.cuda.empty_cache()
-    return {"train": launches, "train_two_pass": two_pass}
+    return {"train": launches, "train_two_pass": two_pass}, step_s * 1e3
 
 
 class Tape:
@@ -4172,6 +4203,238 @@ def rl_phase(torch, card: str) -> None:
         raise AssertionError(f"rl checks failed: {failed}")
 
 
+def log_records(text: str) -> list:
+    """The LM job worker's JSON lines (start, step, kill, done) in a pod log."""
+    out = []
+    for line in text.splitlines():
+        if line.startswith('{"event"'):
+            out.append(json.loads(line))
+    return out
+
+
+def job_phase(torch, card: str, plane, root: str, bare_step_ms: float,
+              loss_limit: float) -> dict:
+    """Path A, the job plane: the full-width LM trained as a TpuJob
+    ("lm-train": 1 worker, 1 GPU, maxRestarts 1) that the
+    controller-manager binary gangs and the local pod runner execs:
+    ``python -m kubeflow_tpu_torch.launcher --module
+    kubeflow_tpu_torch.testing.workers.lm_job:main``, TRAIN's LM and
+    stream through fit() with an AnomalyGuard and a Checkpointer on the
+    default dispatch (flash_fwd, flash_delta, flash_bwd_fused), every
+    step's loss reported to the TpuJob's status.metrics. Incarnation 1
+    SIGKILLs itself after step JOB["kill_at"] once step 4 is committed;
+    the operator restarts the gang (status.restarts 1) and incarnation 2
+    resumes in fit() from step 4 to JOB["steps"] and reports its
+    observation. Gates: Succeeded, restarts 1, resumed_from 4, 4 steps
+    done; step 5's loss (a forward from the restored state on the
+    repositioned stream) bitwise equal across the incarnations; step 6's
+    bitwise, or else within `loss_limit` (LOSS_Z of train_check's bf16
+    standard error: the fused backward sums dq with atomics; the line
+    says which held); 16 launches a step of each of flash_fwd,
+    flash_delta and flash_bwd_fused in the worker. Numbers: CR to pod
+    Running, the runner's spawn to the worker's first step, kill to
+    first resumed step (s), the job's
+    step ms beside the train phase's bare step (`bare_step_ms`), the
+    job's wall time, the worker's peak memory and the card's
+    memory.used. Returns the worker's launch counts."""
+    from kubeflow_tpu_torch.api import make_tpujob
+    from kubeflow_tpu_torch.controllers.tpujob import LABEL_INCARNATION, LABEL_JOB
+
+    t_phase = time.perf_counter()
+    used_before = card_used_mib(torch)
+    env = {
+        "KFTPU_CKPT_DIR": os.path.join(root, "lm-ckpt"),
+        "KFTPU_TOTAL_STEPS": str(JOB["steps"]),
+        "KFTPU_SAVE_EVERY": str(JOB["save_every"]),
+        "KFTPU_KILL_AT_STEP": str(JOB["kill_at"]),
+        "KFTPU_LM_SIZE": json.dumps({**LM, "batch": TRAIN["batch"], "seq": TRAIN["seq"],
+                                     "dtype": "bfloat16", "lr": TRAIN["lr"]}),
+    }
+    running_at, used = {}, {"max": used_before, "t": 0.0}
+
+    def tick():
+        now = time.time()
+        for pod in plane.api.list("Pod", "default", label_selector={LABEL_JOB: "lm-train"}):
+            if pod.status.get("phase") == "Running":
+                running_at.setdefault(int(pod.metadata.labels[LABEL_INCARNATION]), now)
+        if now - used["t"] >= 1.0:
+            used["t"] = now
+            used["max"] = max(used["max"], float(nvidia_smi("--query-gpu=memory.used")[0]))
+
+    t_create = time.time()
+    plane.api.create(make_tpujob(
+        "lm-train", replicas=1, tpu_chips_per_worker=1, max_restarts=JOB["max_restarts"],
+        command=(sys.executable, "-m", "kubeflow_tpu_torch.launcher", "--module",
+                 "kubeflow_tpu_torch.testing.workers.lm_job:main"),
+        env=tuple(env.items())))
+    plane.run_until(
+        lambda: plane.api.get("TpuJob", "lm-train").status.get("phase")
+        in ("Succeeded", "Failed"), JOB["timeout_s"], "TpuJob lm-train to finish", tick=tick)
+    wall_s = time.time() - t_create
+    job = plane.api.get("TpuJob", "lm-train")
+    obs = job.status.get("observation") or {}
+    records = log_records(plane.pod_logs().get("lm-train-worker-0.log", ""))
+    steps = {(r["incarnation"], r["step"]): r for r in records if r["event"] == "step"}
+    starts = {r["incarnation"]: r for r in records if r["event"] == "start"}
+    kills = [r for r in records if r["event"] == "kill"]
+    first = {inc: min((r for (i, _), r in steps.items() if i == inc),
+                      key=lambda r: r["step"], default=None) for inc in (0, 1)}
+    resume_step = JOB["save_every"] + 1
+    loss = lambda inc, step: steps.get((inc, step), {}).get("loss")
+    step5_equal = loss(0, resume_step) is not None and loss(0, resume_step) == loss(1, resume_step)
+    later = {}
+    for step in range(resume_step + 1, JOB["kill_at"] + 1):
+        a, b = loss(0, step), loss(1, step)
+        diff = abs(a - b) if a is not None and b is not None else float("nan")
+        later[step] = {"killed_run": a, "resumed_run": b, "abs_diff": diff,
+                       "holds": "bitwise" if diff == 0.0 else
+                       "within the bf16 limit" if diff <= loss_limit else "no"}
+    launches = {k[len("launches_"):]: int(v) for k, v in obs.items()
+                if k.startswith("launches_")}
+    done = int(obs.get("steps_done", 0))
+    want_launches = {name: LM["n_layers"] * done
+                     for name in ("flash_fwd", "flash_delta", "flash_bwd_fused")}
+    checks = {
+        "succeeded": job.status.get("phase") == "Succeeded",
+        "restarts_1": job.status.get("restarts") == 1,
+        "resumed_from_4": obs.get("resumed_from") == float(JOB["save_every"]),
+        "steps_done": done == JOB["steps"] - JOB["save_every"],
+        "killed_once_after_commit": [(k["step"], k["committed"]) for k in kills]
+        == [(JOB["kill_at"], JOB["save_every"])],
+        "killed_run_curve": sorted(s for i, s in steps if i == 0)
+        == list(range(1, JOB["kill_at"] + 1)),
+        "resumed_run_curve": sorted(s for i, s in steps if i == 1)
+        == list(range(resume_step, JOB["steps"] + 1)),
+        "step5_loss_bitwise": step5_equal,
+        "later_losses": all(v["holds"] != "no" for v in later.values()),
+        "worker_launches": launches == want_launches,
+        "status_curve": [p["step"] for p in job.status.get("metrics", [])]
+        == list(range(1, JOB["steps"] + 1)),
+    }
+    out = {
+        "phase": "job", "card": card, "job": "lm-train", "worker_command": "python -m "
+        "kubeflow_tpu_torch.launcher --module kubeflow_tpu_torch.testing.workers.lm_job:main",
+        "model": {**LM, "dtype": "bfloat16", "remat": "none"}, "batch": TRAIN["batch"],
+        "seq": TRAIN["seq"], "steps": JOB["steps"], "save_every": JOB["save_every"],
+        "kill_at": JOB["kill_at"], "phase_final": job.status.get("phase"),
+        "restarts": job.status.get("restarts"), "observation": obs,
+        "manager_ready_s": plane.manager_ready_s,
+        "cr_to_running_s": running_at[0] - t_create if 0 in running_at else None,
+        "kill_to_pod_running_s": (running_at[1] - kills[0]["time"]
+                                  if kills and 1 in running_at else None),
+        # From the runner's spawn (the pod's Running) to the worker's
+        # start line (torch imported, the job read) and to its first step.
+        "spawn_to_worker_start_s": {inc: starts[inc]["time"] - running_at[inc]
+                                    for inc in (0, 1) if inc in starts and inc in running_at},
+        "spawn_to_first_step_s": {inc: first[inc]["time"] - running_at[inc]
+                                  for inc in (0, 1) if first.get(inc) and inc in running_at},
+        "kill_to_first_resumed_step_s": (first[1]["time"] - kills[0]["time"]
+                                         if kills and first.get(1) else None),
+        "job_step_ms": obs.get("step_ms"), "train_phase_step_ms": bare_step_ms,
+        "job_vs_bare_step": obs.get("step_ms", 0.0) / bare_step_ms,
+        "job_wall_s": wall_s,
+        "worker_peak_memory_gib": obs.get("peak_memory_gib"),
+        "card_memory_used_mib": {"before_spawn": used_before, "max_during_job": used["max"]},
+        "losses": {f"{i}:{s}": r["loss"] for (i, s), r in sorted(steps.items())},
+        "step5": {"killed_run": loss(0, resume_step), "resumed_run": loss(1, resume_step)},
+        "later_steps": later, "later_limit": loss_limit,
+        "launches": launches, "want_launches": want_launches, "checks": checks,
+        "seconds": time.perf_counter() - t_phase,
+    }
+    emit(out)
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"job phase checks failed: {failed}")
+    return launches
+
+
+def rl_soak_phase(torch, card: str, plane, root: str) -> None:
+    """Path B, RL's study soak (bench.py phase B, `rl_studies_per_hour`)
+    at bench.py's configuration (RL_SOAK): a grid Study of 4 trials over
+    lr in [0.02, 0.08], parallelism 2, maxRestarts 2, reconciled by the
+    same controller-manager process as path A; each trial
+    (`testing/workers/rl_trial.py`, ``tpu.chipsPerWorker: 1``, where JAX's
+    trials ask for 0 and run on the CPU) runs its learner and its
+    2-replica policy fleet on the card, with the seeded RLFaultSchedule's
+    trial_kill, learner_kill and actor_kill self-delivered. Gates (the
+    JAX soak's, `testing/rl_soak.run_rl_study_soak`): Succeeded, 4 scored
+    trials, every fault class covered by worker-reported evidence, the
+    best return > 0, each trial's restarts as its plan says. Numbers:
+    rl_studies_per_hour (3600 / the study's seconds), each trial's
+    seconds and return, the worst publish latency, the card's
+    memory.used while trials run (sampled each second) and each trial's
+    peak allocated memory. No flash kernel runs on this path."""
+    from kubeflow_tpu_torch.testing.rl_soak import run_rl_study_soak
+
+    t_phase = time.perf_counter()
+    used_before = card_used_mib(torch)
+    samples = []
+
+    def tick():
+        now = time.time()
+        if not samples or now - samples[-1][0] >= 1.0:
+            samples.append((now, float(nvidia_smi("--query-gpu=memory.used")[0]),
+                            plane.runner.running_count()))
+
+    m = run_rl_study_soak(plane, os.path.join(root, "rl"), seed=RL_SOAK["seed"],
+                          trials=RL_SOAK["trials"], steps=RL_SOAK["steps"],
+                          publish_every=RL_SOAK["publish_every"],
+                          deadline_s=RL_SOAK["deadline_s"], name="rl-soak", tick=tick)
+    two = [used for _, used, running in samples if running >= 2]
+    emit({
+        "phase": "rl_soak", "card": card, "config": RL_SOAK, "chips_per_worker": 1,
+        "rl_studies_per_hour": m["studies_per_hour"], "elapsed_s": m["elapsed_seconds"],
+        "per_trial": m["per_trial"], "coverage": m["coverage"], "plan": m["plan"],
+        "best_return": m["best_return"], "worst_publish_latency_s": m["publish_latency_s"],
+        "card_memory_used_mib": {
+            "before": used_before, "max": max((u for _, u, _ in samples), default=None),
+            "max_with_two_trials_running": max(two, default=None),
+            "two_trials_over_before": (max(two) - used_before) if two else None},
+        "seconds": time.perf_counter() - t_phase,
+    })
+
+
+def job_plane_phases(torch, card: str, bare_step_ms: float, loss_se: float) -> dict:
+    """Paths A and B on one job plane (`testing/job_plane.JobPlane`): the
+    apiserver facade over this process's store (with the TpuJob
+    admission), the controller-manager binary as its own process
+    (``--controllers tpujob,study``) and the local pod runner stepped
+    here. This process gives back its cached card memory before anything
+    is spawned. The manager must exit 0 on SIGTERM at the end; the pods,
+    the manager and the facade are reaped on every exit path, and on a
+    failure the manager's output and the pod logs are printed.
+    `bare_step_ms` is the train phase's step, `loss_se` train_check's
+    bf16 standard error of the mean loss. Returns path A's launch
+    counts."""
+    import gc
+
+    from kubeflow_tpu_torch.testing.job_plane import JobPlane
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="kftpu_jobs_")
+    plane = None
+    try:
+        plane = JobPlane(controllers=("tpujob", "study"),
+                         capture_dir=os.path.join(root, "logs"),
+                         ready_timeout=JOB["manager_ready_s"])
+        launches = job_phase(torch, card, plane, root, bare_step_ms, LOSS_Z * loss_se)
+        rl_soak_phase(torch, card, plane, root)
+        code = plane.stop_manager()
+        if code != 0:
+            raise AssertionError(f"the controller manager exited {code} on SIGTERM")
+    except BaseException:
+        if plane is not None:
+            print(plane.diagnostics(), file=sys.stderr, flush=True)
+        raise
+    finally:
+        if plane is not None:
+            plane.close()
+        shutil.rmtree(root, ignore_errors=True)
+    return {"job": launches}
+
+
 def main() -> int:
     import torch
 
@@ -4202,8 +4465,9 @@ def main() -> int:
     timing_phase(torch, servable, batches)
     del servable
     torch.cuda.empty_cache()
-    by_path = {"serve": result["launches"], **train_phase(torch, card)}
-    train_check_phase(torch)
+    train_launches, train_step_ms = train_phase(torch, card)
+    by_path = {"serve": result["launches"], **train_launches}
+    _, check_rows = train_check_phase(torch)
     by_path["fit"] = fit_phase(torch, card)
     entries.update(rect_entries)
     by_path["ring_train"] = ring_train_phase(torch, card)
@@ -4220,6 +4484,8 @@ def main() -> int:
         shutil.rmtree(resnet_root, ignore_errors=True)
     rl_phase(torch, card)
     by_path["frontdoor"] = frontdoor_phase(torch, card)
+    by_path.update(job_plane_phases(torch, card, train_step_ms,
+                                    check_rows[0]["loss_kernel_vs_plain"]["se"]))
     for name, entry in entries.items():
         counts = {path: launches.get(name, 0) for path, launches in by_path.items()}
         entry["launches"] = sum(counts.values())

@@ -1,6 +1,7 @@
-"""The API object model the serving control plane speaks: K8s-style
-resources (`api/objects.py`) and the ServingDeployment CRD
-(`api/serving.py`)."""
+"""The API object model the control planes speak: K8s-style resources
+(`api/objects.py`), the ServingDeployment CRD (`api/serving.py`), the
+TpuJob training-job CRD (`api/tpujob.py`) and the Study
+hyperparameter-search CRD (`api/study.py`)."""
 
 from kubeflow_tpu_torch.api.objects import (
     GROUP,
@@ -9,5 +10,7 @@ from kubeflow_tpu_torch.api.objects import (
     new_resource,
     owner_ref,
 )
+from kubeflow_tpu_torch.api.tpujob import TpuJobSpec, make_tpujob
 
-__all__ = ["GROUP", "ObjectMeta", "Resource", "new_resource", "owner_ref"]
+__all__ = ["GROUP", "ObjectMeta", "Resource", "TpuJobSpec", "make_tpujob", "new_resource",
+           "owner_ref"]

@@ -1,11 +1,11 @@
 """Generic resource model: metadata + free-form spec/status dicts.
 
 A cut-down copy of `kubeflow_tpu/api/objects.py` (a module with no JAX
-in it), holding what the serving control plane uses: `Resource`,
+in it), holding what the serving and job control planes use: `Resource`,
 `ObjectMeta`, `new_resource`, `owner_ref`, frozen snapshots with
-`thaw()` and their cached wire bytes. Not copied: the K8s quantity
-parser and the pod resource totals (quota and the gang scheduler, not
-ported).
+`thaw()` and their cached wire bytes, the K8s quantity parser and the
+pod limit totals the gang scheduler reserves by. Not copied: the
+requests/limits defaulting rule of quota admission (not ported).
 
 The store (`testing/fake_apiserver.py`) commits ONE copy per write,
 freezes it and shares that snapshot with every consumer: journal,
@@ -19,6 +19,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import json
+import math
 import time
 import uuid
 from typing import Any
@@ -298,6 +299,55 @@ def owner_ref(owner: Resource, *, controller: bool = True) -> dict:
         "uid": owner.metadata.uid,
         "controller": controller,
     }
+
+
+# K8s quantity suffixes (resource.Quantity): decimal SI, binary, milli.
+_QUANTITY_SUFFIXES = {
+    "m": 1e-3,
+    "k": 1e3, "M": 1e6, "G": 1e9, "T": 1e12, "P": 1e15, "E": 1e18,
+    "Ki": 2**10, "Mi": 2**20, "Gi": 2**30,
+    "Ti": 2**40, "Pi": 2**50, "Ei": 2**60,
+}
+_SUFFIXES_BY_LEN = sorted(_QUANTITY_SUFFIXES, key=len, reverse=True)
+
+
+def parse_quantity(value) -> float:
+    """A K8s resource quantity as a float in its base unit (cores,
+    bytes, chips): ``"500m"`` → 0.5, ``"128Gi"`` → 137438953472.0,
+    ``2`` → 2.0. Raises ValueError on anything unparseable, negative or
+    not finite."""
+
+    def _finite(x: float) -> float:
+        if not math.isfinite(x) or x < 0:
+            raise ValueError(f"not a non-negative finite quantity: {value!r}")
+        return x
+
+    if isinstance(value, bool):
+        raise ValueError(f"not a quantity: {value!r}")
+    if isinstance(value, (int, float)):
+        return _finite(float(value))
+    s = str(value).strip()
+    for suffix in _SUFFIXES_BY_LEN:
+        if s.endswith(suffix):
+            try:
+                return _finite(float(s[: -len(suffix)]) * _QUANTITY_SUFFIXES[suffix])
+            except ValueError:
+                break  # e.g. "Gi" alone / "xMi": fall through to error
+    try:
+        return _finite(float(s))
+    except ValueError:
+        raise ValueError(f"not a quantity: {value!r}") from None
+
+
+def container_limits_total(pod: "Resource", resource: str) -> int | float:
+    """Sum a resource limit across ALL of a pod's containers (an empty
+    container list is 0). Values are K8s quantities ("500m", "128Gi",
+    4); integral totals come back as int (chip counts)."""
+    total = sum(
+        parse_quantity(c.get("resources", {}).get("limits", {}).get(resource, 0))
+        for c in pod.spec.get("containers", [])
+    )
+    return int(total) if total == int(total) else total
 
 
 def fresh_uid() -> str:

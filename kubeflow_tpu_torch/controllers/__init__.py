@@ -1,6 +1,9 @@
-"""Controllers: the reconcile runtime (`controllers/runtime.py`) and the
-serving controller (`controllers/serving.py`), which reconciles a
-ServingDeployment into a replica fleet."""
+"""Controllers: the reconcile runtime (`controllers/runtime.py`), the
+serving controller (`controllers/serving.py`, a ServingDeployment into a
+replica fleet), the TpuJob operator (`controllers/tpujob.py`, a job into
+a gang of worker pods, placed by `controllers/gang.py`), the Study
+controller (`controllers/study.py`, a search into trial TpuJobs) and the
+controller-manager binary (``python -m kubeflow_tpu_torch.controllers``)."""
 
 from kubeflow_tpu_torch.controllers.runtime import (
     Controller,
@@ -8,5 +11,8 @@ from kubeflow_tpu_torch.controllers.runtime import (
     Result,
 )
 from kubeflow_tpu_torch.controllers.serving import ServingDeploymentController
+from kubeflow_tpu_torch.controllers.study import StudyController
+from kubeflow_tpu_torch.controllers.tpujob import TpuJobController
 
-__all__ = ["Controller", "ControllerManager", "Result", "ServingDeploymentController"]
+__all__ = ["Controller", "ControllerManager", "Result", "ServingDeploymentController",
+           "StudyController", "TpuJobController"]

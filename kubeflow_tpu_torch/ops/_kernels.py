@@ -4,7 +4,12 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (sm_90a) into
 its own shared library with a plain C interface, loaded with `ctypes`
 (no PyTorch headers, so a build takes seconds). Libraries go to
 ``build/kubeflow_tpu_torch/`` at the repository root, named by a hash
-of their source and flags: an unchanged source is built once. Nothing is
+of their source and flags: an unchanged source is built once. Each
+``nvcc`` writes a file of its own (named by its pid) and moves it into
+place with one atomic rename, so processes that build at the same time
+can at worst compile the same source twice, never leave a partial
+library; a launcher that builds before it spawns its workers (as
+``chip_smoke.py`` does) spares them the compile. Nothing is
 built when this module is imported — only when a kernel is first called
 on a CUDA tensor, or when `build` is called — so the CPU tests, which
 never launch a kernel, need no CUDA toolkit.

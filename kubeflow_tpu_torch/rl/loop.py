@@ -232,15 +232,18 @@ def run_actor_learner(
     namespace: str = "default",
     reconcile=None,
     rng=None,
+    fault_hook=None,
 ) -> RLResult:
     """Run one coupled actor–learner session to completion.
 
     ``reconcile`` (optional) is polled on a background thread — pass the
     serving controller's ``run_until_idle`` so CR bumps actually
     materialize into rolls; in a full controller-manager deployment the
-    controller is already running and this stays None. May return a
-    `Preempted` fit result; the caller resumes exactly like any other
-    trainer (same checkpointer, same queue protocol).
+    controller is already running and this stays None. ``fault_hook``
+    (chaos, called with the step) runs at every learner log boundary,
+    after the boundary's publish. May return a `Preempted` fit result;
+    the caller resumes exactly like any other trainer (same checkpointer,
+    same queue protocol).
     """
     from kubeflow_tpu_torch.train import Preempted, fit
 
@@ -310,6 +313,8 @@ def run_actor_learner(
                     publishes.append(
                         PublishRecord(int(version), time.monotonic())
                     )
+        if fault_hook is not None:
+            fault_hook(step)
 
     t0 = time.monotonic()
     for t in threads:

@@ -39,6 +39,14 @@ of silent off-policy drift. (Resume-exactness is orthogonal: a staleness
 drop is a counted policy decision, never a bookkeeping loss — restore
 still repeats or skips no index.)
 
+One departure from JAX: a push whose index is already buffered is
+rejected. A restore to the checkpoint's salt leaves the tickets issued
+before it valid (same salt, index past the restored position) and issues
+their indices again; JAX's queue buffers both pushes, and the second
+copy, left behind the position once the first is consumed, holds the
+head forever (`ReplayStalled`). A learner resumed while its actors are
+already claiming (the RL soak's ``learner_kill``) meets exactly that.
+
 Not ported yet: `rebind`, the elastic resize's re-targeting of batch
 placement at a new mesh (ROADMAP Queue 1 item 12); it raises.
 """
@@ -139,7 +147,10 @@ class ReplayQueue:
         with self._cond:
             if self._closed or self._draining:
                 return False
-            if salt != self._salt or index < self._position:
+            if (salt != self._salt or index < self._position
+                    or any(item[0] == index for item in self._buf)):
+                # Stale, or a duplicate: a ticket issued before a restore
+                # to the same salt, whose index was issued again after it.
                 self.rejected_pushes += 1
                 return False
             self._buf.append((index, int(version), batch))

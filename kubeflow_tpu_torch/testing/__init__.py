@@ -1,9 +1,12 @@
 """Test and load-generation support for the port: the open-loop load
-harness (`testing/loadgen.py`), the serving data plane's replica-kill
-plans (`testing/chaos.py`), the tiny models of the resilience suites
-(`testing/tinymodels.py`), and the control plane's in-process API server
-(`testing/fake_apiserver.py`) with its HTTP facade and client
-(`testing/apiserver_http.py`).
+harness (`testing/loadgen.py`), the fault plans of the serving chaos run
+and of RL's study soak (`testing/chaos.py`), the tiny models of the
+resilience suites (`testing/tinymodels.py`), the control plane's
+in-process API server (`testing/fake_apiserver.py`) with its HTTP facade
+and client (`testing/apiserver_http.py`), the one-host job plane
+(`testing/job_plane.py`: the facade, the controller-manager binary and
+the local pod runner), RL's study soak (`testing/rl_soak.py`) and the
+workers its TpuJobs run (`testing/workers/`).
 
 Imports nothing at package level: `loadgen`'s worker processes start
 under the spawn context and import this package first."""

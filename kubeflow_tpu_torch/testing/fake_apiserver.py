@@ -14,6 +14,9 @@ with no JAX in it), holding what the serving control plane uses:
 - owner references: deleting an object deletes its dependents
 - `apply` (create-or-update, a no-op when nothing changed) and
   `record_event`
+- in-process admission hooks (`register_admission`), run on create and
+  spec update inside the store lock: the TpuJob operator's strict spec
+  validation is one
 
 Storage is copy-on-write: each commit deep-copies the incoming object
 once, freezes it and shares that snapshot with the object map, the
@@ -21,7 +24,7 @@ journal, every watch handler and get/list results. `.thaw()` gives a
 private mutable copy.
 
 Not copied (no ported caller needs them): persistence (WAL and
-snapshots), mutating admission hooks and admission webhooks, lease-guard
+snapshots), admission webhooks, lease-guard
 write fencing, multi-version conversion, finalizers and the Namespace
 drain. A deleted object is removed at once.
 """
@@ -134,6 +137,7 @@ class FakeApiServer:
         self._dispatch_done = 0
         self._dispatcher: threading.Thread | None = None
         self._closed = False
+        self._admission: list[tuple[str | None, Callable[[Resource], Resource]]] = []
 
     # -- watch ------------------------------------------------------------
 
@@ -270,6 +274,25 @@ class FakeApiServer:
                     return events, rv
                 self._journal_cv.wait(remaining)
 
+    # -- admission --------------------------------------------------------
+
+    def register_admission(
+        self, mutator: Callable[[Resource], Resource], kind: str | None = None
+    ) -> None:
+        """An admission hook applied on create AND spec update, inside the
+        store lock. It gets a private copy and returns the object to
+        store, or raises (`Invalid` for a refusal, which the HTTP facade
+        answers with 422). Hooks must be idempotent: an update re-runs
+        them over an already-admitted object."""
+        with self._lock:
+            self._admission.append((kind, mutator))
+
+    def _admit(self, obj: Resource) -> Resource:
+        for kind, mutator in list(self._admission):
+            if kind is None or kind == obj.kind:
+                obj = mutator(obj.deepcopy())
+        return obj
+
     # -- CRUD -------------------------------------------------------------
 
     def _commit(self, stored: Resource, event: str) -> Resource:
@@ -287,7 +310,7 @@ class FakeApiServer:
         with self._lock:
             if obj.key in self._objects:
                 raise AlreadyExists(f"{obj.key} already exists")
-            stored = obj.deepcopy()
+            stored = self._admit(obj).deepcopy()
             stored.metadata.uid = fresh_uid()
             stored.metadata.generation = 1
             stored.metadata.creation_timestamp = now()
@@ -340,7 +363,8 @@ class FakeApiServer:
             return self._commit(stored, "MODIFIED")
 
     def update(self, obj: Resource) -> Resource:
-        return self._update(obj, status_only=False)
+        with self._lock:  # admission atomic with the write
+            return self._update(self._admit(obj), status_only=False)
 
     def update_status(self, obj: Resource) -> Resource:
         return self._update(obj, status_only=True)

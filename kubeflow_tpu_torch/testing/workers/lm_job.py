@@ -1,0 +1,140 @@
+"""A TpuJob worker that trains the TransformerLM through `fit()`.
+
+The pattern of the JAX package's `tests/e2e/resume_worker.py`, at the
+bench's full width: the TpuJob's command is
+
+    python -m kubeflow_tpu_torch.launcher \
+        --module kubeflow_tpu_torch.testing.workers.lm_job:main
+
+and each incarnation of the gang runs `fit()` with a `Checkpointer` on
+the LM (`bench.py --workload lm`'s: vocab 32000, d_model 1024, 16
+layers, 8 x 128 heads, d_ff 4096, bf16 compute over f32 params; adamw
+with a bf16 first moment, an `AnomalyGuard`, `SyntheticTokens` at 8 x
+2048 varying per step), on the default dispatch: on CUDA the flash
+forward, delta and fused backward kernels.
+
+Env (besides the operator's TPUJOB_*):
+
+- ``KFTPU_APISERVER``: the apiserver facade; every step's loss goes to
+  the TpuJob's ``status.metrics`` (`report_metrics`), and the run that
+  finishes reports its observation (`report_observation`): the final
+  loss, ``resumed_from``, ``steps_done``, the median step ms, the peak
+  device memory and each kernel's launches (``launches_<kernel>``).
+- ``KFTPU_CKPT_DIR``, ``KFTPU_TOTAL_STEPS`` (8), ``KFTPU_SAVE_EVERY`` (4),
+  ``KFTPU_KILL_AT_STEP`` (0 = never): the first incarnation (the job's
+  ``status.restarts`` is 0) SIGKILLs itself after that step, once the
+  newest save at or below it is committed on disk, so the operator's
+  whole-gang restart resumes it from there.
+- ``KFTPU_LM_SIZE``: JSON overrides of the model's widths, ``batch``,
+  ``seq``, ``dtype`` and ``lr`` (the CPU tests shrink it).
+- ``KFTPU_DEVICE``: ``cpu`` runs it on the CPU (the tests); unset, CUDA,
+  and without a GPU it raises. On CUDA a run that launched none of the
+  flash kernels fails.
+
+Every step prints one JSON line (``{"event": "step", ...}``, with the
+incarnation, the loss and the wall-clock time), as do the start (once
+torch is imported and the job read) and the kill, so the pod log holds
+each incarnation's curve.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import signal
+import statistics
+import sys
+import time
+
+FULL_WIDTH = dict(vocab_size=32000, d_model=1024, n_layers=16, n_heads=8, head_dim=128,
+                  d_ff=4096, batch=8, seq=2048, dtype="bfloat16", lr=3e-4)
+# The kernels the default dispatch runs in a train step on CUDA.
+STEP_KERNELS = ("flash_fwd", "flash_delta", "flash_bwd_fused")
+
+
+def say(event: str, **fields) -> None:
+    print(json.dumps({"event": event, **fields}), flush=True)
+
+
+def main() -> int:
+    import torch
+
+    from kubeflow_tpu_torch._device import resolve_device
+    from kubeflow_tpu_torch.launcher import report_metrics, report_observation
+    from kubeflow_tpu_torch.models import TransformerConfig, TransformerLM
+    from kubeflow_tpu_torch.ops import _kernels
+    from kubeflow_tpu_torch.testing.apiserver_http import HttpApiClient
+    from kubeflow_tpu_torch.train import (
+        AnomalyGuard, Checkpointer, SyntheticTokens, TrainConfig, Trainer, fit)
+
+    device = resolve_device(os.environ.get("KFTPU_DEVICE") or None)
+    api = HttpApiClient(os.environ["KFTPU_APISERVER"])
+    name, ns = os.environ["TPUJOB_NAME"], os.environ["TPUJOB_NAMESPACE"]
+    incarnation = int(api.get("TpuJob", name, ns).status.get("restarts", 0) or 0)
+    total = int(os.environ.get("KFTPU_TOTAL_STEPS", "8"))
+    save_every = int(os.environ.get("KFTPU_SAVE_EVERY", "4"))
+    kill_at = int(os.environ.get("KFTPU_KILL_AT_STEP", "0"))
+    size = {**FULL_WIDTH, **json.loads(os.environ.get("KFTPU_LM_SIZE", "{}"))}
+    say("start", incarnation=incarnation, time=time.time(), device=str(device))
+
+    widths = {k: size[k] for k in ("vocab_size", "d_model", "n_layers", "n_heads",
+                                   "head_dim", "d_ff")}
+    cfg = TransformerConfig(**widths, dtype=getattr(torch, size["dtype"]),
+                            remat_policy="none")
+    trainer = Trainer(
+        TransformerLM(cfg, device=device, seed=0),
+        TrainConfig(batch_size=size["batch"], learning_rate=size["lr"], total_steps=10_000,
+                    optimizer="adamw", adam_mu_dtype="bfloat16", label_smoothing=0.0,
+                    fsdp_params=False, train_metrics="loss"),
+        input_key="tokens", label_key="labels", device=device, guard=AnomalyGuard())
+    data = SyntheticTokens(size["batch"], size["seq"], size["vocab_size"], seed=0,
+                           vary_per_step=True, device=device)
+    ckpt = Checkpointer(os.environ["KFTPU_CKPT_DIR"], save_interval_steps=save_every)
+    _kernels.launches.clear()
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+    def on_metrics(step: int, rec: dict) -> None:
+        say("step", incarnation=incarnation, step=step, loss=rec["loss"],
+            step_ms=size["batch"] / rec["examples_per_sec"] * 1e3, time=time.time())
+        report_metrics(api, name, ns, step, {"loss": rec["loss"]})
+        if incarnation == 0 and step == kill_at:
+            # A kill while the newest save is still being written would
+            # leave it partial and the resume would start from scratch.
+            ckpt.wait()
+            committed = ckpt.latest_step()
+            if committed != step - step % save_every:
+                raise RuntimeError(f"step {step}: newest committed save is {committed}")
+            say("kill", incarnation=incarnation, step=step, committed=committed,
+                time=time.time())
+            os.kill(os.getpid(), signal.SIGKILL)
+
+    try:
+        result = fit(trainer, data, total, rng=0, checkpointer=ckpt, log_every=1,
+                     on_metrics=on_metrics)
+    finally:
+        ckpt.close()
+    launches = dict(_kernels.launches)
+    if device.type == "cuda":
+        missing = [k for k in STEP_KERNELS if not launches.get(k)]
+        if missing:
+            raise RuntimeError(f"the train steps launched none of {missing}")
+    # The first step of an incarnation carries its start-up.
+    step_ms = [size["batch"] / rec["examples_per_sec"] * 1e3 for rec in result.history[1:]]
+    observation = {
+        "loss": result.history[-1]["loss"],
+        "resumed_from": float(result.resumed_from or 0),
+        "steps_done": float(result.steps_done),
+        "step_ms": statistics.median(step_ms) if step_ms else float("nan"),
+        "peak_memory_gib": (torch.cuda.max_memory_allocated() / 2**30
+                            if device.type == "cuda" else 0.0),
+        **{f"launches_{k}": float(v) for k, v in sorted(launches.items())},
+    }
+    report_observation(api, name, ns, observation)
+    say("done", incarnation=incarnation, time=time.time(), **observation)
+    api.close()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,2 +1,3 @@
-"""Utilities: Prometheus-style metrics (`utils/metrics.py`) and bounded
-joins (`utils/threads.py`)."""
+"""Utilities: Prometheus-style metrics (`utils/metrics.py`), bounded
+joins (`utils/threads.py`) and shutdown signal handling
+(`utils/signals.py`)."""
