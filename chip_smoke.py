@@ -164,8 +164,22 @@ JSON line; any failure raises and the exit code is non-zero:
    fault class covered, each trial's restarts as planned;
    rl_studies_per_hour, each trial's seconds and return, the worst
    publish latency, the card's memory with two trials running.
-24. kernels: one line per ported kernel (launches, error, times, bound).
-25. the last line: {"ok": true, "device": {...}}.
+24. preempt, main path 13: the multi-tenant, highly available job plane
+   on the same facade and runner (`preempt_phase`): a one-GPU Node and
+   two tenants with a ResourceQuota of one GPU each; two operator
+   replicas on one Lease (a `testing/workers/preempt_ha.py` leader that
+   stalls after a preemption's evictions, the binary with
+   ``--leader-elect`` as standby); the LM as TpuJob lm-low (priority 1,
+   16 steps), evicted at its step boundary by lm-high (priority 10, 6
+   steps) once it has logged step 6; the leader SIGKILLed in the stall,
+   the standby taking over and placing lm-high; lm-low resumed from its
+   preemption's save after lm-high: one eviction, no lost or repeated
+   step, restarts 0, quota usage, each worker's flash launches, the
+   card's memory at lm-high's first step; SIGTERM to the victim's exit,
+   eviction to lm-high's first step, kill to the standby's first write,
+   lm-high's end to lm-low's first resumed step.
+25. kernels: one line per ported kernel (launches, error, times, bound).
+26. the last line: {"ok": true, "device": {...}}.
 
 Without a GPU, or outside a checkout (copied alone, where
 `kubeflow_tpu_torch` does not import), it says why on stderr and exits
@@ -185,6 +199,7 @@ import contextlib
 import json
 import os
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -330,6 +345,16 @@ RL = dict(obs_dim=8, n_actions=4, n_envs=8, horizon=4, hidden=32, steps=48,
 # operator's gang restart, 8 steps in all. Waits in seconds.
 JOB = dict(steps=8, save_every=4, kill_at=6, max_restarts=1, timeout_s=600,
            manager_ready_s=120)
+# Priority preemption under leader election (path C): lm-low (team-a,
+# priority 1, 16 steps) runs until step 6, then lm-high (team-b, priority
+# 10, 6 steps) evicts it on the one-GPU cluster model; the leader, a
+# preempt_ha replica, stalls 6 s after the eviction and is SIGKILLed in
+# it; the standby binary takes the Lease (2 s, renew deadline 1.2 s,
+# polls every 0.25 s as the JAX e2e's) and places lm-high; lm-low resumes
+# after it. Waits in seconds; the memory slack is this gate's 2 GiB.
+PREEMPT = dict(low_steps=16, high_steps=6, save_every=4, submit_at=6, lease_s=2.0,
+               renew_s=1.2, retry_s=0.25, stall_s=6.0, timeout_s=480, manager_ready_s=120,
+               memory_slack_mib=2048)
 # RL's study soak (path B): bench.py's nightly configuration
 # (tests/e2e/test_rl_soak_e2e.py:158-171): seed 7, 4 grid trials over lr
 # in [0.02, 0.08], 18 learner steps, a publish every 6.
@@ -4236,7 +4261,8 @@ def job_phase(torch, card: str, plane, root: str, bare_step_ms: float,
     first resumed step (s), the job's
     step ms beside the train phase's bare step (`bare_step_ms`), the
     job's wall time, the worker's peak memory and the card's
-    memory.used. Returns the worker's launch counts."""
+    memory.used. Returns the worker's launch counts and its footprint on
+    the card (memory.used's peak over the reading before the spawn)."""
     from kubeflow_tpu_torch.api import make_tpujob
     from kubeflow_tpu_torch.controllers.tpujob import LABEL_INCARNATION, LABEL_JOB
 
@@ -4345,7 +4371,7 @@ def job_phase(torch, card: str, plane, root: str, bare_step_ms: float,
     failed = [name for name, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"job phase checks failed: {failed}")
-    return launches
+    return launches, used["max"] - used_before
 
 
 def rl_soak_phase(torch, card: str, plane, root: str) -> None:
@@ -4394,18 +4420,283 @@ def rl_soak_phase(torch, card: str, plane, root: str) -> None:
     })
 
 
+def lm_job_spec(name: str, namespace: str, priority: int, steps: int, root: str):
+    """A TpuJob of one worker running TRAIN's LM through fit() in
+    `testing/workers/lm_job.py`, saving every PREEMPT["save_every"]."""
+    from kubeflow_tpu_torch.api import make_tpujob
+
+    env = {
+        "KFTPU_CKPT_DIR": os.path.join(root, name),
+        "KFTPU_TOTAL_STEPS": str(steps),
+        "KFTPU_SAVE_EVERY": str(PREEMPT["save_every"]),
+        "KFTPU_LM_SIZE": json.dumps({**LM, "batch": TRAIN["batch"], "seq": TRAIN["seq"],
+                                     "dtype": "bfloat16", "lr": TRAIN["lr"]}),
+    }
+    return make_tpujob(
+        name, namespace=namespace, replicas=1, tpu_chips_per_worker=1, priority=priority,
+        command=(sys.executable, "-m", "kubeflow_tpu_torch.launcher", "--module",
+                 "kubeflow_tpu_torch.testing.workers.lm_job:main"),
+        env=tuple(env.items()))
+
+
+def preempt_phase(torch, card: str, plane, root: str, bare_step_ms: float,
+                  worker_mib: float) -> dict:
+    """Path C, the multi-tenant, highly available job plane: priority
+    preemption against leader election on the card. The cluster model is
+    one Node "h100-0" (pool default, 1 accelerator) and two tenants,
+    team-a and team-b, each with a ResourceQuota of nvidia.com/gpu 1 (the
+    facade's store has the TpuJob admission and `quota.register`). Two
+    operator replicas hold one Lease "tpujob-controller" (PREEMPT's 2 s,
+    1.2 s renew deadline): the leader is a `testing/workers/preempt_ha.py`
+    replica that stalls PREEMPT["stall_s"] after a preemption's
+    evictions, the standby the controller-manager binary with
+    ``--leader-elect --controllers tpujob``. Both jobs are TRAIN's LM in
+    a worker process (`lm_job_spec`): lm-low (team-a, priority 1, 16
+    steps) and, once lm-low has logged step 6, lm-high (team-b, priority
+    10, 6 steps). The leader evicts lm-low (its pod deleted, SIGTERM from
+    the runner; fit() saves at the next step boundary and the worker
+    exits 0 as preempted) and stalls; it is SIGKILLed on its ``evicted``
+    line; the standby takes the Lease and places lm-high, which runs to
+    Succeeded; lm-low is placed again after it and resumes from its
+    preemption's save to step 16.
+
+    Gates: lm-low has one Preempted event and is named by one
+    PreemptedLowerPriority event, its pod uid changes once, restarts 0,
+    Succeeded, its worker exited 0 with the job's observation untouched;
+    resumed_from = the last step of its first run, and steps 1..16 are
+    logged once across its runs; lm-high never evicted (one pod uid),
+    Succeeded; leaseTransitions 1 -> 2 at the takeover, the standby's
+    first write (its Lease acquisition) within the lease duration + the
+    renew deadline + 2 s of the kill, the standby exits 0 on SIGTERM;
+    each tenant's status.used["nvidia.com/gpu"] reads 1 while its job has
+    a Running pod and 0 at the end; each worker run launched flash_fwd,
+    flash_delta and flash_bwd_fused 16 times a step it ran; memory.used
+    at lm-high's first step at most this process's reading before the
+    phase + one job worker's footprint (`worker_mib`, the job phase's) +
+    PREEMPT["memory_slack_mib"]. Returns the workers' launch counts."""
+    from kubeflow_tpu_torch.controllers import quota
+    from kubeflow_tpu_torch.controllers.leader import LEASE_KIND
+    from kubeflow_tpu_torch.controllers.tpujob import LABEL_JOB
+
+    t_phase = time.perf_counter()
+    api = plane.api
+    baseline = card_used_mib(torch)
+    plane.add_node("h100-0", chips=1)
+    for ns in ("team-a", "team-b"):
+        plane.set_quota(ns, {"nvidia.com/gpu": 1})
+    lease = dict(lease_name="tpujob-controller", lease_duration=PREEMPT["lease_s"],
+                 renew_deadline=PREEMPT["renew_s"], timeout=PREEMPT["manager_ready_s"])
+    leader = plane.start_preempt_ha("mgr-a", stall=PREEMPT["stall_s"],
+                                    wait_for="leading mgr-a", **lease)
+    standby = plane.start_manager(("tpujob",), leader_elect=True, identity="mgr-b",
+                                  retry_period=PREEMPT["retry_s"], **lease)
+    transitions_before = api.get(LEASE_KIND, "tpujob-controller", "").spec["leaseTransitions"]
+    acquired = {}
+
+    def on_lease(event: str, obj) -> None:
+        if obj.spec.get("holderIdentity") == "mgr-b":
+            acquired.setdefault("t", time.time())
+
+    api.watch(on_lease, LEASE_KIND)
+    jobs = {"lm-low": "team-a", "lm-high": "team-b"}
+
+    def log(name: str) -> list:
+        path = os.path.join(plane.capture_dir, f"{name}-worker-0.log")
+        if not os.path.exists(path):
+            return []
+        with open(path, errors="replace") as f:
+            return log_records(f.read())
+
+    def phase(name: str):
+        found = api.list("TpuJob", jobs[name])
+        return next((j.status.get("phase") for j in found if j.metadata.name == name), None)
+
+    seen = {"uids": {name: set() for name in jobs}, "quota": [], "memory_t": 0.0,
+            "memory_max": baseline, "running": {}}
+
+    def tick() -> None:
+        now = time.time()
+        for name, ns in jobs.items():
+            pods = api.list("Pod", ns, label_selector={LABEL_JOB: name})
+            seen["uids"][name] |= {p.metadata.uid for p in pods}
+            running = any(p.status.get("phase") == "Running" for p in pods)
+            for p in pods:
+                if p.status.get("phase") == "Running":
+                    seen["running"].setdefault(p.metadata.uid, now)
+            used = api.get("ResourceQuota", quota.QUOTA_NAME, ns).status.get("used", {})
+            seen["quota"].append((now, ns, running, used.get("nvidia.com/gpu")))
+        if "high_succeeded" not in seen and phase("lm-high") == "Succeeded":
+            seen["high_succeeded"] = now
+        for (ns, name, _), ev in plane.runner.evictions.items():
+            if ns == "team-a" and ev["exit"] is not None and "victim_exit_obs" not in seen:
+                seen["victim_exit_obs"] = api.get("TpuJob", "lm-low", ns).status.get(
+                    "observation")
+        if "high_first_step_mib" not in seen and any(r["event"] == "step"
+                                                     for r in log("lm-high")):
+            seen["high_first_step_mib"] = float(nvidia_smi("--query-gpu=memory.used")[0])
+        if now - seen["memory_t"] >= 1.0:
+            seen["memory_t"] = now
+            seen["memory_max"] = max(seen["memory_max"],
+                                     float(nvidia_smi("--query-gpu=memory.used")[0]))
+
+    t_create = time.time()
+    api.create(lm_job_spec("lm-low", "team-a", 1, PREEMPT["low_steps"], root))
+    plane.run_until(lambda: any(r["event"] == "step" and r["step"] >= PREEMPT["submit_at"]
+                                for r in log("lm-low")),
+                    PREEMPT["timeout_s"], "lm-low's step 6", tick=tick)
+    t_submit = time.time()
+    api.create(lm_job_spec("lm-high", "team-b", 10, PREEMPT["high_steps"], root))
+    plane.run_until(lambda: leader.line_time("evicted mgr-a") is not None,
+                    PREEMPT["timeout_s"], "the leader's eviction", tick=tick)
+    t_kill = leader.kill()
+    plane.run_until(lambda: phase("lm-low") in ("Succeeded", "Failed")
+                    and phase("lm-high") in ("Succeeded", "Failed"),
+                    PREEMPT["timeout_s"], "lm-low and lm-high to finish", tick=tick)
+    t_done = time.time()
+
+    def used_after() -> dict:
+        return {ns: api.get("ResourceQuota", quota.QUOTA_NAME, ns).status.get("used", {}).get(
+            "nvidia.com/gpu") for ns in jobs.values()}
+
+    # status.used is published asynchronously: give it a moment to reach 0.
+    deadline = time.monotonic() + 10
+    while any(used_after().values()) and time.monotonic() < deadline:
+        time.sleep(0.05)
+    final_used = used_after()
+    standby_code = standby.stop()
+
+    low, high = (api.get("TpuJob", n, ns) for n, ns in jobs.items())
+    low_records, high_records = log("lm-low"), log("lm-high")
+    pids = sorted({r["pid"] for r in low_records},
+                  key=lambda pid: min(r["time"] for r in low_records if r["pid"] == pid))
+    preempted = [r for r in low_records if r["event"] == "preempted"]
+    k = preempted[0]["step"] if len(preempted) == 1 else None
+    low_steps = [(r["pid"], r["step"]) for r in low_records if r["event"] == "step"]
+    first_resumed = next((r for r in low_records if r["event"] == "step"
+                          and len(pids) == 2 and r["pid"] == pids[1]), None)
+    high_first = next((r for r in high_records if r["event"] == "step"), None)
+    low_obs, high_obs = low.status.get("observation") or {}, high.status.get("observation") or {}
+    evictions = [(key, ev) for key, ev in plane.runner.evictions.items()
+                 if key[0] == "team-a"]
+    eviction = evictions[0][1] if len(evictions) == 1 else {}
+    events = {ns: [e.spec for e in api.list("Event", ns)] for ns in jobs.values()}
+    preempted_events = [e["involvedObject"]["name"] for ns in events for e in events[ns]
+                        if e["reason"] == "Preempted"]
+    lowered = [e["message"] for e in events["team-b"] if e["reason"] == "PreemptedLowerPriority"]
+    lease_obj = api.get(LEASE_KIND, "tpujob-controller", "")
+    high_pod = api.list("Pod", "team-b", label_selector={LABEL_JOB: "lm-high"})
+    kernels = ("flash_fwd", "flash_delta", "flash_bwd_fused")
+    runs = {"lm-low:preempted": (preempted[0] if k is not None else {}),
+            "lm-low:resumed": low_obs, "lm-high": high_obs}
+    run_launches = {run: {name: int(rec.get(f"launches_{name}", 0)) for name in kernels}
+                    for run, rec in runs.items()}
+    run_steps = {run: int(rec.get("steps_done", 0)) for run, rec in runs.items()}
+    launches = {name: sum(r[name] for r in run_launches.values()) for name in kernels}
+    quota_live = {ns: [used for _, n, running, used in seen["quota"] if n == ns and running]
+                  for ns in jobs.values()}
+    memory_limit = baseline + worker_mib + PREEMPT["memory_slack_mib"]
+    takeover_s = acquired["t"] - t_kill if "t" in acquired else None
+    checks = {
+        "low_one_preempted_event": preempted_events == ["lm-low"],
+        "low_named_by_one_preemptor_event": len(lowered) == 1
+        and lowered[0].endswith(": team-a/lm-low"),
+        "low_pod_uid_changed_once": len(seen["uids"]["lm-low"]) == 2,
+        "low_restarts_0": low.status.get("restarts", 0) == 0,
+        "low_succeeded": low.status.get("phase") == "Succeeded",
+        "victim_exit_0": eviction.get("returncode") == 0,
+        "victim_observation_untouched": "victim_exit_obs" in seen
+        and seen["victim_exit_obs"] is None,
+        "resumed_from_preempted_step": k is not None and low_obs.get("resumed_from") == float(k),
+        "low_steps_once": len(pids) == 2 and k is not None
+        and [s for pid, s in low_steps if pid == pids[0]] == list(range(1, k + 1))
+        and [s for pid, s in low_steps if pid == pids[1]]
+        == list(range(k + 1, PREEMPT["low_steps"] + 1)),
+        "high_never_evicted": len(seen["uids"]["lm-high"]) == 1
+        and "lm-high" not in preempted_events,
+        "high_succeeded": high.status.get("phase") == "Succeeded",
+        "lease_transitions_plus_one": lease_obj.spec["leaseTransitions"]
+        == transitions_before + 1,
+        "standby_first_write_in_time": takeover_s is not None
+        and takeover_s <= PREEMPT["lease_s"] + PREEMPT["renew_s"] + 2.0,
+        "standby_exit_0": standby_code == 0,
+        "quota_used_1_while_running": all(v and all(u == 1 for u in v)
+                                          for v in quota_live.values()),
+        "quota_used_0_after": final_used == {ns: 0 for ns in jobs.values()},
+        "worker_launches": all(all(n == LM["n_layers"] * run_steps[run]
+                                   for n in run_launches[run].values()) and run_steps[run] > 0
+                               for run in runs),
+        "memory_at_high_first_step": seen.get("high_first_step_mib", float("inf"))
+        <= memory_limit,
+    }
+    out = {
+        "phase": "preempt", "card": card, "jobs": {
+            "lm-low": {"namespace": "team-a", "priority": 1, "steps": PREEMPT["low_steps"]},
+            "lm-high": {"namespace": "team-b", "priority": 10, "steps": PREEMPT["high_steps"]}},
+        "model": {**LM, "dtype": "bfloat16", "remat": "none"}, "batch": TRAIN["batch"],
+        "seq": TRAIN["seq"], "config": PREEMPT,
+        "preempted_at_step": k, "resumed_from": low_obs.get("resumed_from"),
+        "leadership": plane.leadership(), "lease_transitions": [
+            transitions_before, lease_obj.spec["leaseTransitions"]],
+        "sigterm_to_victim_exit_s": (eviction["exit"] - eviction["sigterm"]
+                                     if eviction.get("exit") else None),
+        # The victim's exit, split: to fit()'s return (the step under way,
+        # the forced save and fit()'s wait for every pending save's
+        # write), to the writer closed, to the process's end.
+        "victim_exit_split_s": ({
+            "to_fit_returned": preempted[0]["fit_returned"] - eviction["sigterm"],
+            "writer_close": preempted[0]["time"] - preempted[0]["fit_returned"],
+            "to_exit": eviction["exit"] - preempted[0]["time"]}
+            if k is not None and eviction.get("exit") else None),
+        # > 0: both workers were processes at once for that long.
+        "victim_exit_after_preemptor_spawn_s": (
+            eviction["exit"] - seen["running"][high_pod[0].metadata.uid]
+            if eviction.get("exit") and high_pod
+            and high_pod[0].metadata.uid in seen["running"] else None),
+        "submit_to_eviction_s": eviction["sigterm"] - t_submit if eviction else None,
+        "eviction_to_preemptor_first_step_s": (high_first["time"] - eviction["sigterm"]
+                                               if high_first and eviction else None),
+        "kill_to_standby_first_write_s": takeover_s,
+        "kill_to_preemptor_placed_s": (high_pod[0].metadata.creation_timestamp - t_kill
+                                       if high_pod else None),
+        "high_succeeded_to_low_resumed_step_s": (first_resumed["time"] - seen["high_succeeded"]
+                                                 if first_resumed and "high_succeeded" in seen
+                                                 else None),
+        "step_ms": {"lm-low:preempted": statistics.median(
+                        [r["step_ms"] for r in low_records if r["event"] == "step"
+                         and r["pid"] == pids[0] and r["step"] > 1]) if pids else None,
+                    "lm-low:resumed": low_obs.get("step_ms"),
+                    "lm-high": high_obs.get("step_ms"), "train_phase": bare_step_ms},
+        "card_memory_used_mib": {
+            "before_phase": baseline, "one_worker_footprint": worker_mib,
+            "at_high_first_step": seen.get("high_first_step_mib"), "limit": memory_limit,
+            "max_during_phase": seen["memory_max"]},
+        "worker_peak_memory_gib": {"lm-low": low_obs.get("peak_memory_gib"),
+                                   "lm-high": high_obs.get("peak_memory_gib")},
+        "quota_used_while_running": {ns: sorted(set(v), key=str) for ns, v in quota_live.items()},
+        "quota_used_after": final_used,
+        "run_launches": run_launches, "run_steps": run_steps, "checks": checks,
+        "wall_s": t_done - t_create, "seconds": time.perf_counter() - t_phase,
+    }
+    emit(out)
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"preempt phase checks failed: {failed}")
+    return launches
+
+
 def job_plane_phases(torch, card: str, bare_step_ms: float, loss_se: float) -> dict:
-    """Paths A and B on one job plane (`testing/job_plane.JobPlane`): the
-    apiserver facade over this process's store (with the TpuJob
-    admission), the controller-manager binary as its own process
-    (``--controllers tpujob,study``) and the local pod runner stepped
-    here. This process gives back its cached card memory before anything
-    is spawned. The manager must exit 0 on SIGTERM at the end; the pods,
-    the manager and the facade are reaped on every exit path, and on a
-    failure the manager's output and the pod logs are printed.
-    `bare_step_ms` is the train phase's step, `loss_se` train_check's
-    bf16 standard error of the mean loss. Returns path A's launch
-    counts."""
+    """Paths A, B and C on one job plane (`testing/job_plane.JobPlane`):
+    the apiserver facade over this process's store (with the TpuJob and
+    ResourceQuota admission), the controller-manager binary as its own
+    process (``--controllers tpujob,study``) and the local pod runner
+    stepped here. This process gives back its cached card memory before
+    anything is spawned. The manager must exit 0 on SIGTERM after paths
+    A and B; path C then starts its two leader-elected replicas on the
+    same facade. The pods, the managers and the facade are reaped on
+    every exit path, and on a failure the managers' output, the
+    leadership timeline and the pod logs are printed. `bare_step_ms` is
+    the train phase's step, `loss_se` train_check's bf16 standard error
+    of the mean loss. Returns paths A's and C's launch counts."""
     import gc
 
     from kubeflow_tpu_torch.testing.job_plane import JobPlane
@@ -4419,11 +4710,13 @@ def job_plane_phases(torch, card: str, bare_step_ms: float, loss_se: float) -> d
         plane = JobPlane(controllers=("tpujob", "study"),
                          capture_dir=os.path.join(root, "logs"),
                          ready_timeout=JOB["manager_ready_s"])
-        launches = job_phase(torch, card, plane, root, bare_step_ms, LOSS_Z * loss_se)
+        launches, worker_mib = job_phase(torch, card, plane, root, bare_step_ms,
+                                         LOSS_Z * loss_se)
         rl_soak_phase(torch, card, plane, root)
         code = plane.stop_manager()
         if code != 0:
             raise AssertionError(f"the controller manager exited {code} on SIGTERM")
+        preempt_launches = preempt_phase(torch, card, plane, root, bare_step_ms, worker_mib)
     except BaseException:
         if plane is not None:
             print(plane.diagnostics(), file=sys.stderr, flush=True)
@@ -4432,7 +4725,7 @@ def job_plane_phases(torch, card: str, bare_step_ms: float, loss_se: float) -> d
         if plane is not None:
             plane.close()
         shutil.rmtree(root, ignore_errors=True)
-    return {"job": launches}
+    return {"job": launches, "preempt": preempt_launches}
 
 
 def main() -> int:

@@ -339,6 +339,24 @@ def parse_quantity(value) -> float:
         raise ValueError(f"not a quantity: {value!r}") from None
 
 
+def container_resource_total(pod: "Resource", resource: str, *, source: str) -> int | float:
+    """Sum `resource` across a pod's containers from `source`
+    ("requests" or "limits"), with the K8s defaulting rule per
+    container: absent requests default to the container's limits, and
+    absent limits fall back to requests (K8s leaves that to LimitRanger;
+    without it a pod sized by one figure slips a cap on the other).
+    Integral totals come back as int (chip counts)."""
+    other = "limits" if source == "requests" else "requests"
+    total = 0.0
+    for c in pod.spec.get("containers", []):
+        res = c.get("resources", {})
+        value = res.get(source, {}).get(resource)
+        if value is None:
+            value = res.get(other, {}).get(resource, 0)
+        total += parse_quantity(value)
+    return int(total) if total == int(total) else total
+
+
 def container_limits_total(pod: "Resource", resource: str) -> int | float:
     """Sum a resource limit across ALL of a pod's containers (an empty
     container list is 0). Values are K8s quantities ("500m", "128Gi",

@@ -9,10 +9,11 @@ that `kubeflow_tpu_torch.parallel.distributed.initialize_from_env`
 consumes, and restarts the whole gang on any worker failure, bounded by
 `maxRestarts`.
 
-`priority` and `elasticMinReplicas` are parsed and validated as in JAX,
-but the port's operator does not preempt and does not resize a gang
-yet: `unported_fields` names what a spec asks of those, and the port's
-admission and reconcile refuse it (ROADMAP Queue 1 item 12).
+`priority` orders gangs for preemption: a pending gang evicts gangs of
+strictly lower priority when that lets it place. `elasticMinReplicas`
+is parsed and validated as in JAX, but the port's operator does not
+resize a gang yet: `unported_fields` names it, and the port's admission
+and reconcile refuse such a spec (ROADMAP Queue 1 item 12).
 """
 
 from __future__ import annotations
@@ -46,7 +47,7 @@ class TpuJobSpec:
     # Per-worker host-resource limits (K8s quantities, e.g.
     # ("cpu", "500m"), ("memory", "2Gi")).
     resources: tuple[tuple[str, str], ...] = ()
-    # Gang priority (preemption of lower-priority gangs): not ported.
+    # Gang priority: a pending gang may evict strictly lower ones.
     priority: int = 0
     # Elastic gang floor (shrink instead of eviction): not ported.
     elastic_min_replicas: int = 0
@@ -84,12 +85,6 @@ class TpuJobSpec:
         """What this spec asks that the port's operator cannot do yet,
         one sentence each; empty when it can run the spec as written."""
         out = []
-        if self.priority != 0:
-            out.append(
-                f"priority {self.priority}: gang preemption is not ported to "
-                "the PyTorch operator yet (it comes with elastic resize, "
-                "Trainer.resize)"
-            )
         if self.elastic_min_replicas > 0:
             out.append(
                 f"elasticMinReplicas {self.elastic_min_replicas}: elastic gang "

@@ -2,7 +2,9 @@
 serving controller (`controllers/serving.py`, a ServingDeployment into a
 replica fleet), the TpuJob operator (`controllers/tpujob.py`, a job into
 a gang of worker pods, placed by `controllers/gang.py`), the Study
-controller (`controllers/study.py`, a search into trial TpuJobs) and the
+controller (`controllers/study.py`, a search into trial TpuJobs),
+ResourceQuota admission (`controllers/quota.py`), leader election over a
+Lease with write fencing (`controllers/leader.py`) and the
 controller-manager binary (``python -m kubeflow_tpu_torch.controllers``)."""
 
 from kubeflow_tpu_torch.controllers.runtime import (

@@ -4,17 +4,27 @@ against the apiserver facade.
 Counterpart of `kubeflow_tpu/controllers/__main__.py`:
 
     python -m kubeflow_tpu_torch.controllers \
-        --apiserver http://<facade> [--controllers tpujob,study,serving]
+        --apiserver http://<facade> [--controllers tpujob,study,serving] \
+        [--leader-elect [--lease-name N] [--identity I]]
 
 builds each named controller on one `HttpApiClient` (its streaming
 watch feeds every controller's queue), starts them, prints ``manager
 ready <names>`` and reconciles until SIGTERM or SIGINT, then stops the
 controllers and exits 0.
 
+With ``--leader-elect``, N replicas run with one active (the Lease and
+write fencing, `controllers/leader.py`): a replica prints ``standby
+<identity>`` and reconciles nothing, and builds no controller, until it
+holds the Lease; then it arms the client's lease guard with its term,
+prints ``leading <identity> gen <transitions>`` and starts the
+controllers. On SIGTERM it stops them, releases the Lease and exits 0;
+on losing the Lease it prints ``deposed <identity>`` and exits 2, since a
+deposed manager's in-flight state belongs to a dead term and its
+supervisor starts a fresh standby.
+
 `CONTROLLERS` holds the ported controllers. A controller the JAX binary
 runs and the port has not ported yet is refused as "not yet ported";
-any other name as unknown. Not ported yet: ``--leader-elect`` (the Lease
-and write fencing, `controllers/leader.py`), TLS and tokens, endpoint
+any other name as unknown. Not ported yet: TLS and tokens, endpoint
 failover and the client's fault-tolerance flags (ROADMAP).
 """
 
@@ -41,6 +51,7 @@ NOT_YET_PORTED = ("profile", "notebook", "tensorboard", "nodehealth", "workflow"
 
 
 def main(argv: list[str] | None = None) -> int:
+    from kubeflow_tpu_torch.controllers.leader import LeaderElector
     from kubeflow_tpu_torch.testing.apiserver_http import HttpApiClient
     from kubeflow_tpu_torch.utils import signals as sigutil
 
@@ -49,6 +60,16 @@ def main(argv: list[str] | None = None) -> int:
                         help="the facade's URL (one http:// endpoint)")
     parser.add_argument("--controllers", default=",".join(CONTROLLERS),
                         help="comma-separated subset to run (default: all ported)")
+    parser.add_argument(
+        "--leader-elect", action="store_true",
+        help="N replicas, one active: stand by until the Lease is held, arm "
+        "write fencing, exit 2 on losing it")
+    parser.add_argument("--lease-name", default="controller-manager")
+    parser.add_argument("--identity", default=None,
+                        help="leader-election identity (default: controllers-<pid>)")
+    parser.add_argument("--lease-duration", type=float, default=15.0)
+    parser.add_argument("--renew-deadline", type=float, default=10.0)
+    parser.add_argument("--retry-period", type=float, default=2.0)
     args = parser.parse_args(argv)
 
     names = [n.strip() for n in args.controllers.split(",") if n.strip()]
@@ -62,13 +83,43 @@ def main(argv: list[str] | None = None) -> int:
 
     client = HttpApiClient(args.apiserver)
     shutdown = sigutil.install_shutdown_handlers()
-    manager = ControllerManager()
-    for name in names:
-        manager.add(CONTROLLERS[name](client).controller)
-    manager.start()
-    print(f"manager ready {','.join(names)}", flush=True)
-    sigutil.wait_for_shutdown(shutdown)
-    manager.stop()
+
+    def start_manager() -> ControllerManager:
+        # Built only once this replica is active: construction registers
+        # the watches and lists, and a standby reconciles nothing.
+        manager = ControllerManager()
+        for name in names:
+            manager.add(CONTROLLERS[name](client).controller)
+        manager.start()
+        print(f"manager ready {','.join(names)}", flush=True)
+        return manager
+
+    if not args.leader_elect:
+        manager = start_manager()
+        sigutil.wait_for_shutdown(shutdown)
+        manager.stop()
+        client.close()
+        return 0
+
+    elector = LeaderElector(
+        client, args.lease_name, args.identity or f"controllers-{os.getpid()}",
+        lease_duration=args.lease_duration, renew_deadline=args.renew_deadline,
+        retry_period=args.retry_period)
+    print(f"standby {elector.identity}", flush=True)
+    manager = None
+
+    def on_lead(el) -> None:
+        nonlocal manager
+        client.set_lease_guard(el.guard)
+        print(f"leading {el.identity} gen {el.transitions}", flush=True)
+        manager = start_manager()
+
+    lost = elector.run(shutdown, on_lead)
+    if manager is not None:
+        manager.stop()
+    if lost:
+        print(f"deposed {elector.identity}", flush=True)
+        return 2
     client.close()
     return 0
 

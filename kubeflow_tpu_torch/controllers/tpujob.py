@@ -12,6 +12,17 @@ worker, injects the coordination env and supervises the gang:
 - **placement** through the gang scheduler (`controllers/gang.py`)
   whenever Node objects exist: a topology names its pool, a
   topology-less gang tries every pool, most free accelerators first;
+- **priority preemption** at gang granularity (`_preempt_for`): a gang
+  that cannot place evicts gangs of strictly lower priority holding
+  accelerators in its pool, lowest priority and youngest first, and only
+  when a what-if placement without their reservations succeeds; the
+  victims go back to Pending (``reason: Preempted``, then
+  ``PreemptedBackoff`` for 3 s so the preemptor claims the freed
+  accelerators first) with their restart budget untouched;
+- **quota episodes**: a worker refused by admission (ResourceQuota,
+  `controllers/quota.py`) tears down the partial gang and holds the job
+  Pending with ``reason: QuotaExceeded`` and one Warning, retried after
+  `quota_retry_seconds`, never a crash loop;
 - the headless Service that gives every worker a stable DNS name.
 
 The accelerator translation, the one difference from the JAX operator's
@@ -22,11 +33,16 @@ TPUJOB_NAME/TPUJOB_NAMESPACE are the same. The scheduler reserves by the
 resource the pod asks for.
 
 Not ported yet (ROADMAP Queue 1 item 12, beside `Trainer.resize`):
-priority preemption and elastic gang resize. A spec that asks for either
-(`priority != 0`, `elasticMinReplicas > 0`) is refused by the admission
-hook (`register_admission`) and, if it reached the store without it,
-failed by reconcile with an ``Unsupported`` event; it is never run as if
-the field were absent. Nor is quota admission.
+elastic gang resize, the JAX operator's shrink offer before an eviction
+and its grow-back. A spec that asks for it (`elasticMinReplicas > 0`) is
+refused by the admission hook (`register_admission`) and, if it reached
+the store without it, failed by reconcile with an ``Unsupported`` event;
+it is never run as if the field were absent.
+
+`preempt_stall`, when set, is called after a preemption's evictions have
+committed and before the preemptor is placed: the widest window for a
+leader to die in, which the HA tests and chip_smoke's preempt phase
+widen (`testing/workers/preempt_ha.py`); the binary never sets it.
 
 Job phases: Pending → Running → Succeeded | Failed (with Restarting
 transitions in between).
@@ -35,6 +51,7 @@ transitions in between).
 from __future__ import annotations
 
 import re
+import time
 
 from kubeflow_tpu_torch.api.objects import (
     Resource,
@@ -57,6 +74,7 @@ from kubeflow_tpu_torch.controllers.runtime import (
 )
 from kubeflow_tpu_torch.parallel.distributed import ProcessEnv
 from kubeflow_tpu_torch.testing.fake_apiserver import (
+    Conflict,
     FakeApiServer,
     Invalid,
     NotFound,
@@ -100,10 +118,24 @@ def coordinator_address(job: Resource) -> str:
             f"{COORDINATOR_PORT}")
 
 
+# The reasons of a Pending episode that a placement or a gang creation ends.
+EPISODE_REASONS = ("Unschedulable", "Preempted", "PreemptedBackoff", "QuotaExceeded")
+# How long a freshly evicted gang holds back before it competes again.
+PREEMPTED_BACKOFF_S = 3.0
+
+
 class TpuJobController:
-    def __init__(self, api: FakeApiServer, metrics: MetricsRegistry | None = None):
+    def __init__(
+        self,
+        api: FakeApiServer,
+        metrics: MetricsRegistry | None = None,
+        quota_retry_seconds: float = 10.0,
+        preempt_stall=None,
+    ):
         self.api = api
         self._pools: list[str] = []
+        self._quota_retry_seconds = quota_retry_seconds
+        self._preempt_stall = preempt_stall
         metrics = metrics or MetricsRegistry()
         self.jobs_running = metrics.gauge("tpujob_running", "TpuJobs currently running")
         self.gang_restarts = metrics.counter(
@@ -194,10 +226,14 @@ class TpuJobController:
 
     # -- placement --------------------------------------------------------
 
-    def _build_scheduler(self, api: FakeApiServer, placing_job: str):
+    def _build_scheduler(
+        self, api: FakeApiServer, placing_job: str, exclude: frozenset[str] = frozenset()
+    ):
         """A fresh scheduler from OBSERVED state — current Nodes plus the
         reservations of live pods' nodeName — for one placement
-        decision; None when the cluster model has no Nodes."""
+        decision; None when the cluster model has no Nodes. `exclude`
+        drops more gangs' reservations (``ns/name``): the what-if of a
+        preemption that evicts them."""
         nodes = api.list("Node")
         if not nodes:
             return None
@@ -227,18 +263,19 @@ class TpuJobController:
             if not node or pod.status.get("phase") in ("Succeeded", "Failed"):
                 continue
             gang = f"{pod.metadata.namespace}/{pod.metadata.labels.get(LABEL_JOB, '')}"
-            if gang == placing_job:
-                continue  # the gang being replaced
+            if gang == placing_job or gang in exclude:
+                continue  # the gang being replaced, or hypothetically evicted
             sched.reserve(gang, node, container_limits_total(pod, ACCELERATOR_RESOURCE))
         # Pool preference for topology-less gangs: most free first,
         # computed after the reservations.
         self._pools = sorted(coords, key=lambda p: -sched.free_chips(p))
         return sched
 
-    def _place(self, sched, gang_id: str, spec: TpuJobSpec):
+    def _place(self, sched, gang_id: str, spec: TpuJobSpec, *, count: bool = True):
         """One gang placement: a topology names its pool exactly; a
         topology-less gang tries every pool, most free first. Raises
-        PlacementError when no pool fits."""
+        PlacementError when no pool fits. A what-if (`count=False`) is
+        not counted in tpujob_gang_placements_total."""
         pools = [spec.topology] if spec.topology else self._pools
         last: Exception | None = None
         for pool in pools:
@@ -249,11 +286,128 @@ class TpuJobController:
             except PlacementError as e:
                 last = e
                 continue
-            self.gang_placements.inc(backend="python")
+            if count:
+                self.gang_placements.inc(backend="python")
             return result
         raise last if last is not None else PlacementError(
             f"no node pools exist to place {gang_id}"
         )
+
+    # -- preemption -------------------------------------------------------
+
+    def _preempt_for(self, api: FakeApiServer, job: Resource, spec: TpuJobSpec) -> bool:
+        """Evict lower-priority gangs so `job` can place; True if any was
+        evicted (the caller requeues and places again).
+
+        The kube-scheduler's rules at gang granularity: only gangs of
+        STRICTLY lower priority that hold accelerators on a node of the
+        preemptor's pool qualify; the lowest priority goes first, and the
+        youngest first within a priority; and no gang is touched unless a
+        what-if placement without the chosen gangs' reservations
+        succeeds (freed accelerators spread over nodes can still leave
+        the preemptor unplaceable, and evicting for that is pure
+        disruption). Victims go back to Pending with their restart budget
+        intact."""
+        if spec.replicas * spec.tpu_chips_per_worker <= 0:
+            return False
+
+        # One pod scan: each gang's held accelerators and nodes.
+        held_by_gang: dict[str, int] = {}
+        nodes_by_gang: dict[str, set[str]] = {}
+        for pod in api.list("Pod"):
+            node = pod.spec.get("nodeName")
+            if not node or pod.status.get("phase") in ("Succeeded", "Failed"):
+                continue
+            gang = f"{pod.metadata.namespace}/{pod.metadata.labels.get(LABEL_JOB, '')}"
+            held_by_gang[gang] = held_by_gang.get(gang, 0) + container_limits_total(
+                pod, ACCELERATOR_RESOURCE)
+            nodes_by_gang.setdefault(gang, set()).add(node)
+
+        # Victims are scoped by where their accelerators are, not by their
+        # spec's topology string: any gang on a node of the pool can block it.
+        pool_nodes = {
+            n.metadata.name for n in api.list("Node")
+            if not spec.topology or n.spec.get("pool", "default") == spec.topology
+        }
+        candidates = []
+        for other in api.list(KIND):
+            if (other.metadata.uid == job.metadata.uid
+                    or other.status.get("phase") in ("Succeeded", "Failed")):
+                continue
+            try:
+                other_spec = TpuJobSpec.from_dict(other.spec)
+            except Exception:
+                continue
+            if other_spec.priority >= spec.priority:
+                continue
+            gang = f"{other.metadata.namespace}/{other.metadata.name}"
+            if held_by_gang.get(gang, 0) > 0 and nodes_by_gang.get(gang, set()) & pool_nodes:
+                candidates.append((other_spec.priority, other, gang))
+        # Lowest priority first; youngest first within a priority.
+        candidates.sort(key=lambda c: (c[0], -(c[1].metadata.creation_timestamp or 0)))
+        gang_id = f"{job.metadata.namespace}/{job.metadata.name}"
+
+        # Grow the victim set until the gang places on a what-if scheduler
+        # without their reservations.
+        victims: list[tuple[Resource, str]] = []
+        excluded: set[str] = set()
+        for _, victim, gang in candidates:
+            victims.append((victim, gang))
+            excluded.add(gang)
+            trial = self._build_scheduler(api, gang_id, exclude=frozenset(excluded))
+            if trial is None:
+                return False
+            try:
+                self._place(trial, gang_id, spec, count=False)
+                break
+            except PlacementError:
+                continue
+        else:
+            return False  # even evicting every lower gang would not place it
+
+        for victim, _ in victims:
+            vns = victim.metadata.namespace
+            for pod in api.list("Pod", vns, label_selector={LABEL_JOB: victim.metadata.name}):
+                try:
+                    api.delete("Pod", pod.metadata.name, vns)
+                except NotFound:
+                    pass
+            api.record_event(
+                victim, "Preempted",
+                f"evicted by higher-priority gang {gang_id} (priority {spec.priority})",
+                type_="Warning")
+            # A victim deleted meanwhile is simply a freed one.
+            for _ in range(3):
+                try:
+                    fresh = api.get(KIND, victim.metadata.name, vns).thaw()
+                except NotFound:
+                    break
+                fresh.status["phase"] = "Pending"
+                fresh.status["reason"] = "Preempted"
+                try:
+                    api.update_status(fresh)
+                    break
+                except Conflict:
+                    continue
+        # The message names the victims (JAX's gives only their count).
+        api.record_event(
+            job, "PreemptedLowerPriority",
+            f"evicted {len(victims)} gang(s) "
+            f"({sum(held_by_gang.get(g, 0) for g in excluded)} chips): "
+            f"{', '.join(gang for _, gang in victims)}")
+        if self._preempt_stall is not None:
+            self._preempt_stall()  # evicted, the preemptor not yet placed
+        return True
+
+    def _set_reason(self, api: FakeApiServer, job: Resource, **fields) -> None:
+        """Write status fields (None drops one) on a fresh read of the job."""
+        fresh = api.get(KIND, job.metadata.name, job.metadata.namespace).thaw()
+        for key, value in fields.items():
+            if value is None:
+                fresh.status.pop(key, None)
+            else:
+                fresh.status[key] = value
+        api.update_status(fresh)
 
     # -- reconcile --------------------------------------------------------
 
@@ -298,6 +452,21 @@ class TpuJobController:
         by_index = {p.metadata.labels.get(LABEL_WORKER): p for p in pods}
 
         if not pods:
+            reason = job.status.get("reason")
+            if reason == "Preempted":
+                # Freshly evicted: hold back so the preemptor gets first
+                # claim on the accelerators it freed. Deadline-based: the
+                # status write re-triggers this reconcile at once.
+                self._set_reason(api, job, reason="PreemptedBackoff",
+                                 preemptedUntil=time.time() + PREEMPTED_BACKOFF_S)
+                return Result(requeue_after=PREEMPTED_BACKOFF_S)
+            if reason in ("PreemptedBackoff", "QuotaExceeded"):
+                # Time-gated: a quota retry creates and deletes a pod, whose
+                # events re-enqueue this job; ungated, that is a hot loop.
+                until = "preemptedUntil" if reason == "PreemptedBackoff" else "quotaRetryAt"
+                remaining = job.status.get(until, 0) - time.time()
+                if remaining > 0:
+                    return Result(requeue_after=remaining)
             # Gang creation: all pods in one pass, placed whenever a
             # cluster node model exists.
             assignment: list[str] | None = None
@@ -307,29 +476,45 @@ class TpuJobController:
                 try:
                     assignment, ring_cost = self._place(sched, gang_id, spec)
                 except PlacementError as e:
+                    if self._preempt_for(api, job, spec):
+                        return Result(requeue_after=0.5)
                     # One event per stuck episode, not per retry.
                     if job.status.get("reason") != "Unschedulable":
                         api.record_event(job, "Unschedulable", str(e), type_="Warning")
-                        fresh = api.get(KIND, name, ns).thaw()
-                        fresh.status["reason"] = "Unschedulable"
-                        api.update_status(fresh)
+                        self._set_reason(api, job, reason="Unschedulable")
                     self._set_phase(api, job, "Pending")
                     return Result(requeue_after=10.0)
                 api.record_event(
                     job, "GangPlaced",
                     f"placed on {len(set(assignment))} node(s), ring cost {ring_cost}",
                 )
+                if job.status.get("reason") in EPISODE_REASONS:
+                    self._set_reason(api, job, reason=None, preemptedUntil=None)
             incarnation = job.status.get("restarts", 0)
-            for i in range(spec.replicas):
-                pod = self._desired_pod(job, spec, i, incarnation)
-                if assignment is not None:
-                    pod.spec["nodeName"] = assignment[i]
-                api.create(pod)
+            created = []
+            try:
+                for i in range(spec.replicas):
+                    pod = self._desired_pod(job, spec, i, incarnation)
+                    if assignment is not None:
+                        pod.spec["nodeName"] = assignment[i]
+                    api.create(pod)
+                    created.append(pod)
+            except Invalid as e:
+                # Admission (quota) refused a worker: the gang is
+                # all-or-nothing, so nothing starts. Tear down the partial
+                # set and hold a Pending episode instead of crash-looping.
+                self._teardown(api, created, ns)
+                if job.status.get("reason") != "QuotaExceeded":
+                    api.record_event(job, "QuotaExceeded", str(e), type_="Warning")
+                self._set_reason(api, job, reason="QuotaExceeded",
+                                 quotaRetryAt=time.time() + self._quota_retry_seconds)
+                self._set_phase(api, job, "Pending")
+                return Result(requeue_after=self._quota_retry_seconds)
             api.record_event(job, "GangCreated", f"created {spec.replicas} workers")
-            if job.status.get("reason") == "Unschedulable":
-                fresh = api.get(KIND, name, ns).thaw()
-                fresh.status.pop("reason", None)
-                api.update_status(fresh)
+            if job.status.get("reason") in EPISODE_REASONS:
+                # Episode over (also where no scheduler placed the gang).
+                self._set_reason(api, job, reason=None, preemptedUntil=None,
+                                 quotaRetryAt=None)
             return self._set_phase(api, job, "Pending")
 
         if len(pods) != spec.replicas or set(by_index) != {

@@ -18,6 +18,12 @@ port per gang incarnation. With `capture_dir`, a pod's output goes to
 ``<capture_dir>/<pod>.log``; a restarted gang's pod APPENDS to its
 predecessor's log, after a header line naming its incarnation (the JAX
 runner truncates it), so the killed incarnation's output survives.
+
+A process whose pod is deleted (a teardown, or a preemption's eviction)
+gets SIGTERM and is untracked at once: its exit never becomes a pod
+phase, since the pod is gone. The runner keeps each such process until
+it has exited and records, in `evictions`, when the SIGTERM went out
+and when the exit was seen (by `step`), with its exit code.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ import os
 import socket
 import subprocess
 import threading
+import time
 
 from kubeflow_tpu_torch.api.objects import Resource
 from kubeflow_tpu_torch.testing.fake_apiserver import FakeApiServer, NotFound
@@ -56,6 +63,11 @@ class LocalPodRunner:
         self._procs: dict[tuple[str, str], subprocess.Popen] = {}
         self._job_ports: dict[str, int] = {}
         self._lock = threading.Lock()
+        # Processes of deleted pods until they exit, and each deletion's
+        # SIGTERM and exit times: (ns, name, uid) -> {"sigterm": t,
+        # "exit": t | None, "returncode": rc | None}.
+        self._terminating: dict[tuple[str, str, str], subprocess.Popen] = {}
+        self.evictions: dict[tuple[str, str, str], dict] = {}
         api.watch(self._on_pod, "Pod")
 
     def _on_pod(self, event: str, pod: Resource) -> None:
@@ -64,8 +76,13 @@ class LocalPodRunner:
                 proc = self._procs.pop(
                     (pod.metadata.namespace, pod.metadata.name), None
                 )
-            if proc is not None and proc.poll() is None:
-                proc.terminate()
+                if proc is None or proc.poll() is not None:
+                    return
+                key = (pod.metadata.namespace, pod.metadata.name, pod.metadata.uid)
+                self._terminating[key] = proc
+                self.evictions[key] = {"sigterm": time.time(), "exit": None,
+                                       "returncode": None}
+            proc.terminate()
 
     def _pod_env(self, pod: Resource) -> dict[str, str]:
         env = dict(os.environ)
@@ -89,7 +106,13 @@ class LocalPodRunner:
         return env
 
     def step(self) -> None:
-        """Start new pods, reap finished ones. Call in a loop."""
+        """Start new pods, reap finished ones (and the processes of
+        deleted pods). Call in a loop."""
+        with self._lock:
+            for key, proc in list(self._terminating.items()):
+                if proc.poll() is not None:
+                    del self._terminating[key]
+                    self.evictions[key].update(exit=time.time(), returncode=proc.returncode)
         for pod in self.api.list("Pod"):
             key = (pod.metadata.namespace, pod.metadata.name)
             phase = pod.status.get("phase")
@@ -187,8 +210,9 @@ class LocalPodRunner:
 
     def shutdown(self) -> None:
         with self._lock:
-            procs = list(self._procs.values())
+            procs = list(self._procs.values()) + list(self._terminating.values())
             self._procs.clear()
+            self._terminating.clear()
         for p in procs:
             if p.poll() is None:
                 p.terminate()

@@ -16,6 +16,12 @@ The watch is the streaming form: one chunked response held open across
 events, one JSON event per line, BOOKMARK lines for quiet progress and
 an ERROR line (410 past the journal's horizon) before the stream ends.
 
+A write may carry ``X-Kftpu-Lease-Guard: [ns, name, holder,
+transitions]`` (a leader-elected client arms it with
+`HttpApiClient.set_lease_guard`): the store checks it under its commit
+lock and a fenced write is a 409, as a Conflict is; a malformed header
+is a 400.
+
 `HttpApiClient` mirrors the FakeApiServer surface (get, list, create,
 update, update_status, delete, record_event, watch), so controller-side
 code runs the same in-process or against the facade: keep-alive
@@ -176,6 +182,20 @@ class ApiServerApp(App):
 
         return StreamResponse(gen())
 
+    @staticmethod
+    def _lease_guard(req: Request):
+        """The write's lease guard from X-Kftpu-Lease-Guard, or None: the
+        store verifies holder and generation atomically with the commit
+        (`fake_apiserver.check_lease_guard`)."""
+        raw = req.headers.get("x-kftpu-lease-guard")
+        if not raw:
+            return None
+        try:
+            ns, name, holder, transitions = json.loads(raw)
+            return (str(ns), str(name), str(holder), int(transitions))
+        except (ValueError, TypeError) as e:
+            raise HttpError(400, f"malformed X-Kftpu-Lease-Guard header: {e}") from None
+
     def get(self, req: Request) -> Response:
         obj = self.api.get(
             req.path_params["kind"], req.path_params["name"], _seg_ns(req.path_params["ns"])
@@ -186,7 +206,8 @@ class ApiServerApp(App):
         obj = Resource.from_dict(req.json())
         if obj.kind != req.path_params["kind"]:
             raise HttpError(400, "kind mismatch between path and body")
-        return json_response(self.api.create(obj).to_dict(), status=201)
+        return json_response(
+            self.api.create(obj, lease_guard=self._lease_guard(req)).to_dict(), status=201)
 
     def _body_matching_path(self, req: Request) -> Resource:
         """The path is authoritative: a body naming another object than
@@ -201,14 +222,17 @@ class ApiServerApp(App):
         return obj
 
     def update(self, req: Request) -> Response:
-        return json_response(self.api.update(self._body_matching_path(req)).to_dict())
+        return json_response(self.api.update(
+            self._body_matching_path(req), lease_guard=self._lease_guard(req)).to_dict())
 
     def update_status(self, req: Request) -> Response:
-        return json_response(self.api.update_status(self._body_matching_path(req)).to_dict())
+        return json_response(self.api.update_status(
+            self._body_matching_path(req), lease_guard=self._lease_guard(req)).to_dict())
 
     def delete(self, req: Request) -> Response:
         self.api.delete(
-            req.path_params["kind"], req.path_params["name"], _seg_ns(req.path_params["ns"])
+            req.path_params["kind"], req.path_params["name"], _seg_ns(req.path_params["ns"]),
+            lease_guard=self._lease_guard(req),
         )
         return json_response({"deleted": True})
 
@@ -280,6 +304,17 @@ class HttpApiClient:
         self._watch_lock = threading.Lock()
         self._watch_thread: threading.Thread | None = None
         self._closed = threading.Event()
+        # Leader-election write fencing: when armed, every write carries
+        # the guard and the store refuses it (Conflict) unless the lease
+        # still shows this holder and generation.
+        self.lease_guard: tuple[str, str, str, int] | None = None
+
+    def set_lease_guard(self, guard: tuple[str, str, str, int] | None) -> None:
+        """Arm (or, with None, disarm) the lease guard on every write.
+        Pass `LeaderElector.guard` once leading: from then on a deposed
+        leader's writes are Conflicts, never changes to its successor's
+        term."""
+        self.lease_guard = guard
 
     # -- transport ----------------------------------------------------------
 
@@ -315,6 +350,9 @@ class HttpApiClient:
         propagates to `_write_with_retry`."""
         data = json.dumps(body).encode() if body is not None else None
         headers = {"Content-Type": "application/json"}
+        guard = self.lease_guard
+        if guard is not None and method in ("POST", "PUT", "DELETE"):
+            headers["X-Kftpu-Lease-Guard"] = json.dumps(list(guard))
         while True:
             conn = self._get_conn()
             try:

@@ -16,7 +16,10 @@ with no JAX in it), holding what the serving control plane uses:
   `record_event`
 - in-process admission hooks (`register_admission`), run on create and
   spec update inside the store lock: the TpuJob operator's strict spec
-  validation is one
+  validation and ResourceQuota admission (`controllers/quota.py`)
+- lease-guard write fencing (`check_lease_guard`): a write that carries
+  a `lease_guard` lands only while the Lease it names still shows that
+  holder and generation, checked under the commit lock
 
 Storage is copy-on-write: each commit deep-copies the incoming object
 once, freezes it and shares that snapshot with the object map, the
@@ -24,9 +27,8 @@ journal, every watch handler and get/list results. `.thaw()` gives a
 private mutable copy.
 
 Not copied (no ported caller needs them): persistence (WAL and
-snapshots), admission webhooks, lease-guard
-write fencing, multi-version conversion, finalizers and the Namespace
-drain. A deleted object is removed at once.
+snapshots), admission webhooks, multi-version conversion, finalizers
+and the Namespace drain. A deleted object is removed at once.
 """
 
 from __future__ import annotations
@@ -117,6 +119,39 @@ def event_resource(
     )
 
 
+def check_lease_guard(get_lease_spec, guard, kind: str) -> None:
+    """Write fencing: a guarded write lands only while its lease still
+    shows the presented holder AND generation (leaseTransitions). The
+    caller holds its store's commit lock, so the check is atomic with the
+    write: a deposed leader resurfacing after a partition, even with its
+    last write already in flight, gets a Conflict instead of mutating
+    state its successor owns. Writes to Leases are exempt (the election
+    is arbitrated by resourceVersion CAS and must stay able to transfer
+    ownership). `guard` is (namespace, name, holder, transitions) or
+    None; `get_lease_spec(ns, name)` returns the lease's spec, or None
+    when it does not exist."""
+    if guard is None or kind == "Lease":
+        return
+    ns, name, holder, transitions = guard
+    spec = get_lease_spec(ns, name)
+    if (
+        spec is None
+        or spec.get("holderIdentity") != holder
+        or int(spec.get("leaseTransitions", 0)) != int(transitions)
+    ):
+        current = (
+            f"held by {spec.get('holderIdentity')!r} generation "
+            f"{spec.get('leaseTransitions')}"
+            if spec is not None
+            else "gone"
+        )
+        raise Conflict(
+            f"fenced: lease {ns or '_'}/{name} is {current}; writer "
+            f"presented {holder!r} generation {transitions}: a deposed "
+            f"leader must not write into its successor's term"
+        )
+
+
 class FakeApiServer:
     def __init__(self, *, journal_size: int = 10_000):
         self._objects: dict[tuple[str, str, str], Resource] = {}
@@ -174,6 +209,10 @@ class FakeApiServer:
             self._dispatch_cv.notify_all()
         if dispatcher is not threading.current_thread():
             dispatcher.join()
+
+    @property
+    def closed(self) -> bool:
+        return self._closed
 
     def _emit(self, event: str, obj: Resource) -> None:
         """Journal and queue one committed snapshot (caller holds the
@@ -295,6 +334,16 @@ class FakeApiServer:
 
     # -- CRUD -------------------------------------------------------------
 
+    def _check_lease_guard(self, guard, kind: str) -> None:
+        """`check_lease_guard` against this store (the caller holds the
+        lock, so check and commit are atomic)."""
+
+        def lookup(ns: str, name: str):
+            lease = self._objects.get(("Lease", ns, name))
+            return lease.spec if lease is not None else None
+
+        check_lease_guard(lookup, guard, kind)
+
     def _commit(self, stored: Resource, event: str) -> Resource:
         """THE commit point: stamp a fresh rv, freeze, install (or, for
         DELETED, leave out), emit."""
@@ -306,8 +355,9 @@ class FakeApiServer:
         self._emit(event, stored)
         return stored
 
-    def create(self, obj: Resource) -> Resource:
+    def create(self, obj: Resource, *, lease_guard=None) -> Resource:
         with self._lock:
+            self._check_lease_guard(lease_guard, obj.kind)
             if obj.key in self._objects:
                 raise AlreadyExists(f"{obj.key} already exists")
             stored = self._admit(obj).deepcopy()
@@ -322,6 +372,12 @@ class FakeApiServer:
             if obj is None:
                 raise NotFound(f"{kind} {namespace}/{name} not found")
             return obj  # frozen shared snapshot; .thaw() to mutate
+
+    def kinds(self) -> list[str]:
+        """The distinct kinds with live objects (quota's count/<resource>
+        inverse: `resource_for_kind` is lossy for CamelCase kinds)."""
+        with self._lock:
+            return sorted({k[0] for k in self._objects})
 
     def list(
         self,
@@ -338,8 +394,9 @@ class FakeApiServer:
                 and (not label_selector or _matches(obj.metadata.labels, label_selector))
             ]
 
-    def _update(self, obj: Resource, *, status_only: bool) -> Resource:
+    def _update(self, obj: Resource, *, status_only: bool, lease_guard=None) -> Resource:
         with self._lock:
+            self._check_lease_guard(lease_guard, obj.kind)
             current = self._objects.get(obj.key)
             if current is None:
                 raise NotFound(f"{obj.key} not found")
@@ -362,15 +419,18 @@ class FakeApiServer:
                 stored.metadata.owner_references = incoming.metadata.owner_references
             return self._commit(stored, "MODIFIED")
 
-    def update(self, obj: Resource) -> Resource:
+    def update(self, obj: Resource, *, lease_guard=None) -> Resource:
         with self._lock:  # admission atomic with the write
-            return self._update(self._admit(obj), status_only=False)
+            return self._update(self._admit(obj), status_only=False, lease_guard=lease_guard)
 
-    def update_status(self, obj: Resource) -> Resource:
-        return self._update(obj, status_only=True)
+    def update_status(self, obj: Resource, *, lease_guard=None) -> Resource:
+        return self._update(obj, status_only=True, lease_guard=lease_guard)
 
-    def delete(self, kind: str, name: str, namespace: str = "default") -> None:
+    def delete(
+        self, kind: str, name: str, namespace: str = "default", *, lease_guard=None
+    ) -> None:
         with self._lock:
+            self._check_lease_guard(lease_guard, kind)
             obj = self._objects.pop((kind, namespace, name), None)
             if obj is None:
                 raise NotFound(f"{(kind, namespace, name)} not found")
@@ -387,7 +447,7 @@ class FakeApiServer:
 
     # -- conveniences ------------------------------------------------------
 
-    def apply(self, obj: Resource) -> Resource:
+    def apply(self, obj: Resource, *, lease_guard=None) -> Resource:
         """Create-or-update by (kind, namespace, name): a no-op when the
         desired fields already match, so level-triggered reconcilers
         don't re-trigger their own watches."""
@@ -395,7 +455,7 @@ class FakeApiServer:
             try:
                 current = self.get(obj.kind, obj.metadata.name, obj.metadata.namespace)
             except NotFound:
-                return self.create(obj)
+                return self.create(obj, lease_guard=lease_guard)
             if (
                 current.spec == obj.spec
                 and current.metadata.labels == obj.metadata.labels
@@ -405,7 +465,7 @@ class FakeApiServer:
             merged = obj.deepcopy()
             merged.metadata.resource_version = current.metadata.resource_version
             merged.metadata.uid = current.metadata.uid
-            return self.update(merged)
+            return self.update(merged, lease_guard=lease_guard)
 
     def record_event(
         self, about: Resource, reason: str, message: str, *, type_: str = "Normal"

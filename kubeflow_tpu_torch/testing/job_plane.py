@@ -1,30 +1,43 @@
-"""The job plane on one host: store, facade, controller manager, kubelet.
+"""The job plane on one host: store, facade, controller managers, kubelet.
 
 `JobPlane` stands up what a TpuJob or a Study needs to run end to end
 on one machine, as the JAX package's e2e soaks do:
 
-- an in-process `FakeApiServer` with the TpuJob admission hook, served
-  over HTTP by `ApiServerApp` on a free localhost port;
-- the controller-manager binary (``python -m kubeflow_tpu_torch.controllers
-  --apiserver <facade> --controllers ...``) as a separate process,
-  waited on until it prints ``manager ready``;
+- an in-process `FakeApiServer` with the TpuJob admission hook and
+  ResourceQuota admission (`controllers/quota.register`; a namespace
+  without a ResourceQuota is unmetered), served over HTTP by
+  `ApiServerApp` on a free localhost port;
+- controller-manager processes (`Manager`), each waited on until it
+  prints its marker: the binary (``python -m kubeflow_tpu_torch.controllers
+  --apiserver <facade> --controllers ...``, with ``--leader-elect`` or
+  without), or the `testing/workers/preempt_ha.py` replica, which can
+  stall mid-preemption; the first is started by the constructor unless
+  `controllers` is empty;
 - a `LocalPodRunner` in this process, stepped by `run_until`, that execs
-  each pod (every pod gets ``KFTPU_APISERVER``, the facade's URL).
+  each pod (every pod gets ``KFTPU_APISERVER``, the facade's URL);
+  `run_pods=False` leaves pods unrun, as the JAX HA tests do;
+- `add_node` and `set_quota`, the cluster model's Nodes and a tenant's
+  ResourceQuota.
 
-Every wait has a deadline and fails loudly with the manager's output
-and the pod logs; `close` reaps the pods, the manager and the facade on
-every exit path (use it as a context manager).
+Every wait has a deadline and fails loudly with `diagnostics()`: each
+manager's output stamped with seconds since the plane started, the
+leadership timeline (which replica led, stood by, evicted and was
+deposed, when) and the pod logs. `close` reaps the pods, the managers
+and the facade on every exit path (use it as a context manager).
 """
 
 from __future__ import annotations
 
 import os
+import signal
 import subprocess
 import sys
 import threading
 import time
 from pathlib import Path
 
+from kubeflow_tpu_torch.api.objects import new_resource
+from kubeflow_tpu_torch.controllers import quota
 from kubeflow_tpu_torch.controllers.tpujob import register_admission
 from kubeflow_tpu_torch.runtime.local import LocalPodRunner
 from kubeflow_tpu_torch.testing.apiserver_http import ApiServerApp
@@ -32,6 +45,78 @@ from kubeflow_tpu_torch.testing.fake_apiserver import FakeApiServer
 from kubeflow_tpu_torch.web.wsgi import serve
 
 ROOT = Path(__file__).resolve().parents[2]
+# The markers a leader-elected replica prints, in the timeline.
+LEADERSHIP_MARKERS = ("standby ", "leading ", "evicted ", "deposed ")
+
+
+class Manager:
+    """One controller-manager process: its output lines, each with the
+    wall-clock time it arrived, marker waits, stop and kill. A manager
+    stopped or killed through these methods is expected to have exited;
+    any other exit fails `JobPlane.run_until`."""
+
+    def __init__(self, name: str, argv: list[str], env: dict[str, str]):
+        self.name = name
+        self.lines: list[tuple[float, str]] = []
+        self.expect_exit = False
+        self._cv = threading.Condition()
+        self.proc = subprocess.Popen(argv, cwd=str(ROOT), env=env, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True)
+        threading.Thread(target=self._read, name=f"manager-{name}", daemon=True).start()
+
+    def _read(self) -> None:
+        for line in self.proc.stdout:
+            with self._cv:
+                self.lines.append((time.time(), line.rstrip("\n")))
+                self._cv.notify_all()
+
+    def line_time(self, prefix: str) -> float | None:
+        """When the first line starting with `prefix` arrived, or None."""
+        with self._cv:
+            return next((t for t, line in self.lines if line.startswith(prefix)), None)
+
+    def wait_for(self, prefix: str, timeout: float) -> float:
+        """Block until a line starts with `prefix`; returns its arrival
+        time. Raises if the process exits first or after `timeout`."""
+        deadline = time.monotonic() + timeout
+        with self._cv:
+            while True:
+                t = next((t for t, line in self.lines if line.startswith(prefix)), None)
+                if t is not None:
+                    return t
+                if self.proc.poll() is not None:
+                    raise RuntimeError(f"manager {self.name} exited {self.proc.returncode} "
+                                       f"before printing {prefix!r}")
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    raise TimeoutError(f"manager {self.name}: no {prefix!r} line in "
+                                       f"{timeout} s")
+                self._cv.wait(min(remaining, 0.1))
+
+    def signal(self, sig: int) -> None:
+        if self.proc.poll() is None:
+            os.kill(self.proc.pid, sig)
+
+    def kill(self) -> float:
+        """SIGKILL, the death without warning; returns when it was sent."""
+        self.expect_exit = True
+        t = time.time()
+        self.signal(signal.SIGKILL)
+        self.proc.wait(timeout=10)
+        return t
+
+    def stop(self, timeout: float = 30.0) -> int:
+        """SIGTERM (after SIGCONT, in case it was stopped) and wait;
+        returns the exit code, SIGKILLing it after `timeout`."""
+        self.expect_exit = True
+        self.signal(signal.SIGCONT)
+        self.signal(signal.SIGTERM)
+        try:
+            self.proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait()
+        return self.proc.returncode
 
 
 class JobPlane:
@@ -42,67 +127,151 @@ class JobPlane:
         extra_env: dict[str, str] | None = None,
         capture_dir: str | None = None,
         ready_timeout: float = 120.0,
+        run_pods: bool = True,
     ):
+        self.started = time.time()
         self.api = FakeApiServer()
         register_admission(self.api)
+        quota.register(self.api)
         self.server, _ = serve(ApiServerApp(self.api), host="127.0.0.1", port=0)
         self.url = f"http://127.0.0.1:{self.server.server_port}"
-        self.manager_output: list[str] = []
-        self.manager: subprocess.Popen | None = None
+        self.managers: list[Manager] = []
+        self.manager_ready_s: float | None = None
         self.runner: LocalPodRunner | None = None
         self.capture_dir = capture_dir
         try:
-            self._start_manager(controllers, ready_timeout)
-            self.runner = LocalPodRunner(
-                self.api, cwd=str(ROOT),
-                extra_env={"KFTPU_APISERVER": self.url, **(extra_env or {})},
-                capture_dir=capture_dir)
+            if controllers:
+                t0 = time.monotonic()
+                self.start_manager(controllers, timeout=ready_timeout)
+                # Process start to "manager ready".
+                self.manager_ready_s = time.monotonic() - t0
+            if run_pods:
+                self.runner = LocalPodRunner(
+                    self.api, cwd=str(ROOT),
+                    extra_env={"KFTPU_APISERVER": self.url, **(extra_env or {})},
+                    capture_dir=capture_dir)
         except BaseException:
             self.close()
             raise
 
-    def _start_manager(self, controllers, timeout: float) -> None:
+    # -- managers ---------------------------------------------------------
+
+    def _env(self, extra: dict[str, str] | None = None) -> dict[str, str]:
         env = dict(os.environ)
         env["PYTHONPATH"] = os.pathsep.join(
             [str(ROOT)] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p])
-        self.manager = subprocess.Popen(
-            [sys.executable, "-m", "kubeflow_tpu_torch.controllers", "--apiserver", self.url,
-             "--controllers", ",".join(controllers)],
-            cwd=str(ROOT), env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)
-        ready = threading.Event()
+        env.update(extra or {})
+        return env
 
-        def read() -> None:
-            for line in self.manager.stdout:
-                self.manager_output.append(line.rstrip("\n"))
-                if line.startswith("manager ready"):
-                    ready.set()
+    def _spawn(self, name: str, argv: list[str], env: dict[str, str], marker: str,
+               timeout: float) -> Manager:
+        manager = Manager(name, argv, env)
+        self.managers.append(manager)
+        try:
+            manager.wait_for(marker, timeout)
+        except (RuntimeError, TimeoutError) as e:
+            raise RuntimeError(f"{e}\n{self.diagnostics()}") from None
+        return manager
 
-        threading.Thread(target=read, name="manager-output", daemon=True).start()
-        t0 = time.monotonic()
-        while not ready.wait(0.1):
-            if self.manager.poll() is not None or time.monotonic() - t0 > timeout:
-                raise RuntimeError(
-                    f"the controller manager did not come up within {timeout} s "
-                    f"(exit {self.manager.poll()}):\n" + "\n".join(self.manager_output))
-        # Process start to "manager ready".
-        self.manager_ready_s = time.monotonic() - t0
+    def start_manager(
+        self,
+        controllers: tuple[str, ...] = ("tpujob",),
+        *,
+        leader_elect: bool = False,
+        identity: str | None = None,
+        lease_name: str = "controller-manager",
+        lease_duration: float = 15.0,
+        renew_deadline: float = 10.0,
+        retry_period: float = 2.0,
+        wait_for: str | None = None,
+        timeout: float = 120.0,
+    ) -> Manager:
+        """Start the controller-manager binary and wait for `wait_for`
+        (default: ``manager ready``, or ``standby <identity>`` with
+        `leader_elect`)."""
+        argv = [sys.executable, "-m", "kubeflow_tpu_torch.controllers", "--apiserver",
+                self.url, "--controllers", ",".join(controllers)]
+        name = identity or f"manager-{len(self.managers)}"
+        if leader_elect:
+            argv += ["--leader-elect", "--identity", name, "--lease-name", lease_name,
+                     "--lease-duration", str(lease_duration),
+                     "--renew-deadline", str(renew_deadline),
+                     "--retry-period", str(retry_period)]
+        marker = wait_for or (f"standby {name}" if leader_elect else "manager ready")
+        return self._spawn(name, argv, self._env(), marker, timeout)
+
+    def start_preempt_ha(
+        self,
+        identity: str,
+        *,
+        lease_name: str = "tpujob-controller",
+        lease_duration: float = 3.0,
+        renew_deadline: float = 2.0,
+        stall: float = 0.0,
+        wait_for: str | None = None,
+        timeout: float = 120.0,
+    ) -> Manager:
+        """Start a `testing/workers/preempt_ha.py` replica (the TpuJob
+        operator alone, stalling `stall` s after a preemption's
+        evictions) and wait for `wait_for` (default ``standby
+        <identity>``)."""
+        env = self._env({
+            "KFTPU_APISERVER": self.url, "KFTPU_IDENTITY": identity,
+            "KFTPU_LEASE_NAME": lease_name, "KFTPU_LEASE_DURATION": str(lease_duration),
+            "KFTPU_RENEW_DEADLINE": str(renew_deadline), "KFTPU_PREEMPT_STALL": str(stall),
+        })
+        argv = [sys.executable, "-m", "kubeflow_tpu_torch.testing.workers.preempt_ha"]
+        return self._spawn(identity, argv, env, wait_for or f"standby {identity}", timeout)
+
+    @property
+    def manager(self) -> Manager:
+        """The first manager started."""
+        return self.managers[0]
+
+    @property
+    def manager_output(self) -> list[str]:
+        return [line for _, line in self.manager.lines]
+
+    def stop_manager(self, timeout: float = 30.0) -> int:
+        """SIGTERM the first manager and wait for it; returns its exit code."""
+        return self.manager.stop(timeout)
+
+    # -- the cluster model -----------------------------------------------
+
+    def add_node(self, name: str, *, pool: str = "default", chips: int = 1, x: int = 0,
+                 y: int = 0) -> None:
+        """A Node of the cluster model: once one exists the TpuJob operator
+        places every gang through its scheduler."""
+        node = new_resource("Node", name, "", spec={"pool": pool, "chips": chips, "x": x,
+                                                    "y": y})
+        node.status = {"ready": True}
+        self.api.create(node)
+
+    def set_quota(self, namespace: str, hard: dict) -> None:
+        """The namespace's ResourceQuota (`quota.QUOTA_NAME`) with `hard` caps."""
+        self.api.create(new_resource("ResourceQuota", quota.QUOTA_NAME, namespace,
+                                     spec={"hard": dict(hard)}))
+
+    # -- driving ------------------------------------------------------------
 
     def run_until(self, predicate, timeout: float, what: str, tick=None) -> float:
         """Step the pod runner every 50 ms (calling `tick` too) until
-        `predicate()` holds; returns the seconds it took. Raises with the
-        manager's output and the pod logs after `timeout`, or at once if
-        the manager died."""
+        `predicate()` holds; returns the seconds it took. Raises with
+        `diagnostics()` after `timeout`, or at once if a manager that was
+        not stopped or killed exited."""
         t0 = time.monotonic()
         while True:
-            self.runner.step()
+            if self.runner is not None:
+                self.runner.step()
             if tick is not None:
                 tick()
             if predicate():
                 return time.monotonic() - t0
-            if self.manager.poll() is not None:
-                raise RuntimeError(f"the controller manager exited ({self.manager.poll()}) "
-                                   f"while waiting for {what}\n{self.diagnostics()}")
+            dead = [m for m in self.managers if not m.expect_exit and m.proc.poll() is not None]
+            if dead:
+                raise RuntimeError(
+                    f"manager {dead[0].name} exited ({dead[0].proc.returncode}) while "
+                    f"waiting for {what}\n{self.diagnostics()}")
             if time.monotonic() - t0 > timeout:
                 raise TimeoutError(f"timed out after {timeout} s waiting for {what}\n"
                                    f"{self.diagnostics()}")
@@ -116,28 +285,27 @@ class JobPlane:
                     out[name] = f.read()
         return out
 
+    def leadership(self) -> list[tuple[float, str]]:
+        """Every manager's standby/leading/evicted/deposed line, in time
+        order, each with its seconds since the plane started."""
+        return sorted((t - self.started, line) for m in self.managers for t, line in m.lines
+                      if line.startswith(LEADERSHIP_MARKERS))
+
     def diagnostics(self, tail: int = 60) -> str:
-        parts = ["--- controller manager ---", *self.manager_output[-tail:]]
+        parts = ["--- leadership (s since the plane started) ---",
+                 *(f"{t:9.3f} {line}" for t, line in self.leadership())]
+        for m in self.managers:
+            parts.append(f"--- manager {m.name} (exit {m.proc.poll()}) ---")
+            parts += [f"{t - self.started:9.3f} {line}" for t, line in m.lines[-tail:]]
         for name, text in self.pod_logs().items():
             parts += [f"--- {name} ---", *text.splitlines()[-tail:]]
         return "\n".join(parts)
 
-    def stop_manager(self, timeout: float = 30.0) -> int:
-        """SIGTERM the manager and wait for it; returns its exit code."""
-        if self.manager.poll() is None:
-            self.manager.terminate()
-            try:
-                self.manager.wait(timeout=timeout)
-            except subprocess.TimeoutExpired:
-                self.manager.kill()
-                self.manager.wait()
-        return self.manager.returncode
-
     def close(self) -> None:
         if self.runner is not None:
             self.runner.shutdown()
-        if self.manager is not None:
-            self.stop_manager()
+        for m in self.managers:
+            m.stop()
         self.server.shutdown()
         self.server.server_close()
         self.api.close()

@@ -1,3 +1,5 @@
-"""Worker entry points that TpuJob pods run: the LM training job
-(`lm_job.py`, through the launcher's ``--module``) and the RL study's
-trial (`rl_trial.py`, ``python -m``)."""
+"""Worker entry points: the LM training job (`lm_job.py`, through the
+launcher's ``--module``) and the RL study's trial (`rl_trial.py`,
+``python -m``), which TpuJob pods run, and a leader-elected TpuJob
+operator replica that can stall mid-preemption (`preempt_ha.py`,
+``python -m``), which `testing/job_plane.JobPlane` runs as a manager."""

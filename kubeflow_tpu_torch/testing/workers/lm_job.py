@@ -25,6 +25,8 @@ Env (besides the operator's TPUJOB_*):
   ``status.restarts`` is 0) SIGKILLs itself after that step, once the
   newest save at or below it is committed on disk, so the operator's
   whole-gang restart resumes it from there.
+- ``KFTPU_STEP_SLEEP_S`` (0): seconds slept after each step's report, to
+  pace a run that a test preempts mid-run whatever the host's load.
 - ``KFTPU_LM_SIZE``: JSON overrides of the model's widths, ``batch``,
   ``seq``, ``dtype`` and ``lr`` (the CPU tests shrink it).
 - ``KFTPU_DEVICE``: ``cpu`` runs it on the CPU (the tests); unset, CUDA,
@@ -32,9 +34,19 @@ Env (besides the operator's TPUJOB_*):
   flash kernels fails.
 
 Every step prints one JSON line (``{"event": "step", ...}``, with the
-incarnation, the loss and the wall-clock time), as do the start (once
-torch is imported and the job read) and the kill, so the pod log holds
-each incarnation's curve.
+incarnation, the process id, the loss and the wall-clock time), as do
+the start (once torch is imported and the job read) and the kill, so the
+pod log holds each incarnation's curve. A preemption spends no restart,
+so two runs of one incarnation are told apart by their process ids.
+
+Preemption: the operator deletes the pod and the runner sends SIGTERM;
+`fit()` saves at the next step boundary, waits for the save's write and
+returns `Preempted`. The worker then prints ``{"event": "preempted",
+"step": ...}`` (with its launch counts, steps done and when fit()
+returned) and exits 0 WITHOUT reporting an observation: the run is not finished, and the
+job's status must not read a victim's half-run as its result. The pod
+was deleted, so no runner reads that exit as the job's success; the
+next placement resumes from the preemption's save.
 """
 
 from __future__ import annotations
@@ -53,7 +65,7 @@ STEP_KERNELS = ("flash_fwd", "flash_delta", "flash_bwd_fused")
 
 
 def say(event: str, **fields) -> None:
-    print(json.dumps({"event": event, **fields}), flush=True)
+    print(json.dumps({"event": event, "pid": os.getpid(), **fields}), flush=True)
 
 
 def main() -> int:
@@ -65,7 +77,7 @@ def main() -> int:
     from kubeflow_tpu_torch.ops import _kernels
     from kubeflow_tpu_torch.testing.apiserver_http import HttpApiClient
     from kubeflow_tpu_torch.train import (
-        AnomalyGuard, Checkpointer, SyntheticTokens, TrainConfig, Trainer, fit)
+        AnomalyGuard, Checkpointer, Preempted, SyntheticTokens, TrainConfig, Trainer, fit)
 
     device = resolve_device(os.environ.get("KFTPU_DEVICE") or None)
     api = HttpApiClient(os.environ["KFTPU_APISERVER"])
@@ -74,6 +86,7 @@ def main() -> int:
     total = int(os.environ.get("KFTPU_TOTAL_STEPS", "8"))
     save_every = int(os.environ.get("KFTPU_SAVE_EVERY", "4"))
     kill_at = int(os.environ.get("KFTPU_KILL_AT_STEP", "0"))
+    step_sleep = float(os.environ.get("KFTPU_STEP_SLEEP_S", "0"))
     size = {**FULL_WIDTH, **json.loads(os.environ.get("KFTPU_LM_SIZE", "{}"))}
     say("start", incarnation=incarnation, time=time.time(), device=str(device))
 
@@ -98,6 +111,8 @@ def main() -> int:
         say("step", incarnation=incarnation, step=step, loss=rec["loss"],
             step_ms=size["batch"] / rec["examples_per_sec"] * 1e3, time=time.time())
         report_metrics(api, name, ns, step, {"loss": rec["loss"]})
+        if step_sleep:
+            time.sleep(step_sleep)
         if incarnation == 0 and step == kill_at:
             # A kill while the newest save is still being written would
             # leave it partial and the resume would start from scratch.
@@ -112,6 +127,7 @@ def main() -> int:
     try:
         result = fit(trainer, data, total, rng=0, checkpointer=ckpt, log_every=1,
                      on_metrics=on_metrics)
+        fit_returned = time.time()
     finally:
         ckpt.close()
     launches = dict(_kernels.launches)
@@ -119,6 +135,12 @@ def main() -> int:
         missing = [k for k in STEP_KERNELS if not launches.get(k)]
         if missing:
             raise RuntimeError(f"the train steps launched none of {missing}")
+    if isinstance(result, Preempted):
+        say("preempted", incarnation=incarnation, step=int(result.state.step),
+            steps_done=result.steps_done, signum=result.signum, fit_returned=fit_returned,
+            time=time.time(), **{f"launches_{k}": v for k, v in sorted(launches.items())})
+        api.close()
+        return 0
     # The first step of an incarnation carries its start-up.
     step_ms = [size["batch"] / rec["examples_per_sec"] * 1e3 for rec in result.history[1:]]
     observation = {

@@ -467,11 +467,16 @@ class Checkpointer:
             raise RuntimeError(f"checkpoint saves failed: {errors!r}") from errors[0]
 
     def close(self) -> None:
+        """`wait`, then end the writer thread and join it. A writer left
+        running past close() can abort the process at exit ("terminate
+        called without an active exception") once the trainer it saved
+        has been freed."""
         try:
             self.wait()
         finally:
             if self._thread is not None:
                 self._queue.put(None)
+                self._thread.join(timeout=threads.stuck_timeout_s())
 
 
 def _fsync_dir(path: Path) -> None:

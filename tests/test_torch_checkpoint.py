@@ -431,3 +431,39 @@ def test_manifest_error_does_not_mask_inflight_exception(trainer, data, tmp_path
         # applied its NaN update (no guard).
         fit(plain, data, total_steps=1, rng=0, checkpointer=ckpt2, log_every=1)
     ckpt2.close()
+
+
+def test_close_joins_the_writer_so_the_process_exits_cleanly(tmp_path):
+    """close() ends the writer thread. Left running past close(), it
+    aborted the process at exit ("terminate called without an active
+    exception", exit 134) once the trainer had been freed, as a
+    preempted job worker frees it to hand the card back."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    code = (
+        "import gc, sys, torch\n"
+        "sys.path.insert(0, sys.argv[1])\n"
+        "from kubeflow_tpu_torch.models import transformer as ttf\n"
+        "from kubeflow_tpu_torch.train import (AnomalyGuard, Checkpointer, SyntheticTokens,\n"
+        "    TrainConfig, Trainer, fit)\n"
+        f"cfg = ttf.TransformerConfig(**{TINY!r}, dtype=torch.float32)\n"
+        "trainer = Trainer(ttf.TransformerLM(cfg, device='cpu', seed=0), TrainConfig(\n"
+        f"    batch_size={BATCH}, learning_rate=1e-2, total_steps=20, optimizer='adamw',\n"
+        "    label_smoothing=0.0, fsdp_params=False, train_metrics='loss'),\n"
+        "    input_key='tokens', label_key='labels', device='cpu', guard=AnomalyGuard())\n"
+        f"data = SyntheticTokens({BATCH}, {SEQ}, 128, seed=0, vary_per_step=True, device='cpu')\n"
+        "ckpt = Checkpointer(sys.argv[2], save_interval_steps=2)\n"
+        "fit(trainer, data, 4, rng=0, checkpointer=ckpt, log_every=1)\n"
+        "del trainer, data\n"
+        "gc.collect()\n"
+        "ckpt.close()\n"
+        "assert not ckpt._thread.is_alive()\n"
+        "print('closed', ckpt.latest_step())\n"
+    )
+    root = Path(__file__).resolve().parents[1]
+    out = subprocess.run([sys.executable, "-c", code, str(root), str(tmp_path / "ckpt")],
+                         cwd=root, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().splitlines()[-1] == "closed 4"

@@ -13,6 +13,14 @@ launcher and the LM job worker (`testing/workers/lm_job.py`).
   from step 2 and finishes; the job ends Succeeded with ``restarts`` 1,
   ``resumed_from`` 2, and the first resumed step's loss bitwise equal to
   the killed run's.
+- Priority preemption through the binary (``--leader-elect``, one
+  replica) on a one-accelerator cluster model with a ResourceQuota of one
+  GPU per tenant: a higher-priority TpuJob evicts a running LM job; the
+  victim's worker honours the SIGTERM at a step boundary, saves, prints
+  its ``preempted`` line and exits 0 without touching the job's
+  ``status.observation``; the preemptor runs to Succeeded; the victim is
+  placed again, resumes from the step its SIGTERM was honoured at, with
+  ``status.restarts`` 0, and each of its steps is logged exactly once.
 - No module of the port's job plane imports JAX or the JAX package.
 
 Every wait has a deadline (`JobPlane.run_until`) and every process is
@@ -114,6 +122,81 @@ def test_lm_job_sigkilled_restarted_and_resumed_bitwise(tmp_path):
         assert plane.stop_manager() == 0
 
 
+def _records(log: str) -> list[dict]:
+    return [json.loads(line) for line in log.splitlines() if line.startswith('{"event"')]
+
+
+def test_lm_job_preempted_by_higher_priority_resumes_with_no_lost_step(tmp_path):
+    TOTAL = 30
+    def job(name, ns, priority, steps, save_every, step_sleep=0.0):
+        env = {"KFTPU_CKPT_DIR": str(tmp_path / name), "KFTPU_TOTAL_STEPS": str(steps),
+               "KFTPU_SAVE_EVERY": str(save_every), "KFTPU_LM_SIZE": json.dumps(TINY),
+               "KFTPU_STEP_SLEEP_S": str(step_sleep)}
+        return make_tpujob(
+            name, namespace=ns, replicas=1, tpu_chips_per_worker=1, priority=priority,
+            command=(sys.executable, "-m", "kubeflow_tpu_torch.launcher", "--module",
+                     "kubeflow_tpu_torch.testing.workers.lm_job:main"),
+            env=tuple(env.items()))
+
+    # lm-low is paced at >= 0.3 s a step, so the eviction lands mid-run
+    # however loaded the host is; one thread a worker keeps it light.
+    with JobPlane(controllers=(), capture_dir=str(tmp_path / "logs"),
+                  extra_env={"KFTPU_DEVICE": "cpu", "OMP_NUM_THREADS": "1"}) as plane:
+        manager = plane.start_manager(("tpujob",), leader_elect=True, identity="m",
+                                      wait_for="manager ready tpujob", timeout=60)
+        plane.add_node("cpu-0", chips=1)
+        for ns in ("team-a", "team-b"):
+            plane.set_quota(ns, {"nvidia.com/gpu": 1})
+        api = plane.api
+        low_log = lambda: _records(plane.pod_logs().get("lm-low-worker-0.log", ""))  # noqa: E731
+        api.create(job("lm-low", "team-a", 1, TOTAL, 10, step_sleep=0.3))
+        plane.run_until(lambda: any(r["event"] == "step" and r["step"] >= 2 for r in low_log()),
+                        120, "lm-low's step 2")
+        api.create(job("lm-high", "team-b", 10, 4, 2))
+        observed = {}
+
+        def tick():
+            for (ns, name, _), ev in plane.runner.evictions.items():
+                if ns == "team-a" and ev["exit"] is not None and "at_exit" not in observed:
+                    observed["at_exit"] = api.get("TpuJob", "lm-low", "team-a").status.get(
+                        "observation")
+                    observed["returncode"] = ev["returncode"]
+
+        plane.run_until(
+            lambda: {api.get("TpuJob", n, ns).status.get("phase")
+                     for n, ns in (("lm-low", "team-a"), ("lm-high", "team-b"))}
+            <= {"Succeeded", "Failed"}, 300, "both jobs to finish", tick=tick)
+        low, high = api.get("TpuJob", "lm-low", "team-a"), api.get("TpuJob", "lm-high", "team-b")
+        assert (low.status["phase"], high.status["phase"]) == ("Succeeded", "Succeeded"), \
+            plane.diagnostics()
+        assert low.status.get("restarts", 0) == 0 and high.status.get("restarts", 0) == 0
+        # The victim's worker exited 0 at its preemption, and the job's
+        # observation was untouched until the resumed run reported.
+        assert observed == {"at_exit": None, "returncode": 0}, observed
+        records = low_log()
+        runs = sorted({r["pid"] for r in records}, key=lambda pid: min(
+            r["time"] for r in records if r["pid"] == pid))
+        assert len(runs) == 2
+        preempted = [r for r in records if r["event"] == "preempted"]
+        assert len(preempted) == 1 and preempted[0]["pid"] == runs[0]
+        k = preempted[0]["step"]
+        steps = [(r["pid"], r["step"]) for r in records if r["event"] == "step"]
+        assert [s for pid, s in steps if pid == runs[0]] == list(range(1, k + 1))
+        assert [s for pid, s in steps if pid == runs[1]] == list(range(k + 1, TOTAL + 1))
+        obs = low.status["observation"]
+        assert obs["resumed_from"] == float(k) and obs["steps_done"] == float(TOTAL - k)
+        assert [p["step"] for p in low.status["metrics"]] == list(range(1, TOTAL + 1))
+        # One eviction, named by the preemptor's event; lm-high never evicted.
+        preempted_events = [e.spec["involvedObject"]["name"] for ns in ("team-a", "team-b")
+                            for e in api.list("Event", ns) if e.spec["reason"] == "Preempted"]
+        assert preempted_events == ["lm-low"]
+        lowered = [e.spec["message"] for e in api.list("Event", "team-b")
+                   if e.spec["reason"] == "PreemptedLowerPriority"]
+        assert len(lowered) == 1 and lowered[0].endswith(": team-a/lm-low")
+        assert len({uid for _, _, uid in plane.runner.evictions}) == 1
+        assert manager.stop(timeout=60) == 0
+
+
 def test_job_plane_modules_import_no_jax():
     modules = [
         "kubeflow_tpu_torch.api.tpujob", "kubeflow_tpu_torch.api.study",
@@ -122,6 +205,8 @@ def test_job_plane_modules_import_no_jax():
         "kubeflow_tpu_torch.runtime.local", "kubeflow_tpu_torch.launcher.launcher",
         "kubeflow_tpu_torch.utils.signals", "kubeflow_tpu_torch.testing.chaos",
         "kubeflow_tpu_torch.testing.job_plane",
+        "kubeflow_tpu_torch.controllers.leader", "kubeflow_tpu_torch.controllers.quota",
+        "kubeflow_tpu_torch.api.rbac", "kubeflow_tpu_torch.testing.workers.preempt_ha",
         "kubeflow_tpu_torch.testing.workers.lm_job",
         "kubeflow_tpu_torch.testing.workers.rl_trial",
     ]

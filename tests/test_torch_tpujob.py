@@ -15,9 +15,10 @@ only difference allowed between the two operators' pods:
   the port's does not.
 
 With Node objects, the port's placement gives JAX's nodeNames (JAX's
-operator is handed its `PyGangScheduler`). The port refuses what it
-cannot run yet (priority preemption, elastic resize) at admission and
-in reconcile, never ignoring it.
+operator is handed its `PyGangScheduler`). The port admits and runs a
+gang's priority (its preemption is held against JAX's in
+tests/test_torch_tpujob_priority.py) and refuses what it cannot run yet,
+elastic resize, at admission and in reconcile, never ignoring it.
 """
 
 import re
@@ -305,9 +306,8 @@ def test_gang_scheduler_equals_jax_twin(seed):
 
 
 @pytest.mark.parametrize("field, value, missing", [
-    ("priority", 5, "preemption"),
-    ("priority", -1, "preemption"),
     ("elasticMinReplicas", 1, "elastic gang resize"),
+    ("elasticMinReplicas", 2, "elastic gang resize"),
 ])
 def test_admission_refuses_unported_fields(field, value, missing):
     api = FakeApiServer()
@@ -325,7 +325,7 @@ def test_admission_refuses_unported_fields(field, value, missing):
             client.create(job)
         # A valid job passes admission, and an update that adds the
         # field is refused too.
-        client.create(t_make_tpujob("ok", replicas=1))
+        client.create(t_make_tpujob("ok", replicas=2))
         stored = client.get("TpuJob", "ok").thaw()
         stored.spec = {**stored.spec, field: value}
         with pytest.raises(Invalid, match=missing):
@@ -335,7 +335,33 @@ def test_admission_refuses_unported_fields(field, value, missing):
         server.shutdown()
 
 
-@pytest.mark.parametrize("field, value", [("priority", 3), ("elasticMinReplicas", 1)])
+@pytest.mark.parametrize("priority", [5, -1])
+def test_admission_admits_a_priority_and_the_operator_runs_it(priority):
+    """A priority is no longer refused: admitted at the store and through
+    the facade, then ganged by the operator like any job."""
+    api = FakeApiServer()
+    t_tpujob.register_admission(api)
+    ctl = t_tpujob.TpuJobController(api)
+    api.create(t_make_tpujob("j", replicas=2, priority=priority))
+    server, _ = serve(ApiServerApp(api), host="127.0.0.1", port=0)
+    client = HttpApiClient(f"http://127.0.0.1:{server.server_port}")
+    try:
+        client.create(t_make_tpujob("k", replicas=1, priority=priority))
+        stored = client.get("TpuJob", "k").thaw()
+        stored.spec = {**stored.spec, "priority": priority + 1}
+        client.update(stored)
+    finally:
+        client.close()
+        server.shutdown()
+    ctl.controller.run_until_idle()
+    assert api.get("TpuJob", "k").spec["priority"] == priority + 1
+    for name, replicas in (("j", 2), ("k", 1)):
+        assert api.get("TpuJob", name).status["phase"] == "Pending"
+        assert len(api.list("Pod", label_selector={t_tpujob.LABEL_JOB: name})) == replicas
+    assert not [e for e in api.list("Event") if e.spec["reason"] == "Unsupported"]
+
+
+@pytest.mark.parametrize("field, value", [("elasticMinReplicas", 1), ("elasticMinReplicas", 2)])
 def test_reconcile_fails_unported_fields_it_was_handed(field, value):
     """A store without the admission hook: the operator fails the job
     with an Unsupported event and creates no pod."""
@@ -355,7 +381,9 @@ def test_reconcile_fails_unported_fields_it_was_handed(field, value):
 def test_spec_parses_the_jax_fields_and_refuses_a_gpu_resource():
     spec = TpuJobSpec.from_dict({"priority": 2, "elasticMinReplicas": 1, "replicas": 2})
     assert spec.priority == 2 and spec.elastic_min_replicas == 1
-    assert len(spec.unported_fields()) == 2
+    assert len(spec.unported_fields()) == 1
+    assert "elasticMinReplicas" in spec.unported_fields()[0]
+    assert TpuJobSpec.from_dict({"priority": 7}).unported_fields() == []
     assert TpuJobSpec().unported_fields() == []
     with pytest.raises(ValueError, match="chipsPerWorker"):
         TpuJobSpec.from_dict({"resources": {"nvidia.com/gpu": 1}})
