@@ -57,7 +57,24 @@ JSON line; any failure raises and the exit code is non-zero:
    kernel path against the same step with attention through the plain
    versions, in bf16 and in f32, with the tolerances stated in
    `train_check_phase`.
-11. fit, main path 4: the same LM and stream through the training job's
+11. remat, main path 2a: the train step under every remat policy of the
+   JAX model: block policies none, full, mlp, dots, attn and flash, and
+   step_remat dots, attn and flash over block "none". Each: one step
+   whose loss and global gradient norm are held against "none"'s, then
+   timed steps with the counters zeroed just before and read just after
+   (16 flash_fwd a step where the backward runs no flash forward, 32
+   where it reruns it: full, dots, attn), step time and peak memory.
+12. moe_check: one step of the switch-MoE LM (the same widths, 8
+   experts, remat "flash") at 2 layers on the kernels against the same
+   step on the plain versions, with train_check's bf16 limits.
+13. moe_train, main path 2b: that MoE LM at 16 layers (1.17 B params)
+   trained with make_train_step at batch 8 x 2048: per step its time,
+   loss, load-balancing loss, dropped-token share and launches (16
+   flash_fwd, flash_delta and flash_bwd_fused); tokens/s, peak memory.
+14. moe_serve, main path 2c: the trained MoE module served over HTTP
+   (REQUESTS), each answer bitwise equal to the module's forward on the
+   padded batch the server ran, 16 flash_fwd launches a forward.
+15. fit, main path 4: the same LM and stream through the training job's
    entry point, `fit()`, with an AnomalyGuard and the two-pass backward
    pinned: an uninterrupted 6-step run; a run that saves every 2 steps
    into a temporary Checkpointer directory and gets a SIGTERM at step 3
@@ -69,7 +86,7 @@ JSON line; any failure raises and the exit code is non-zero:
    checkpoint's size, and fit()'s step time beside the bare steps'. The
    counters are zeroed before the three fit() runs and read after them
    (16 flash_fwd, flash_delta, flash_bwd_dq and flash_bwd_dkv a step).
-12. ring_train, main path 3: the same LM with sequence parallelism, its
+16. ring_train, main path 3: the same LM with sequence parallelism, its
    attention on ring flash over an in-process sp ring of 4 on the card,
    batch 1 at S=16384 (chunks of 4096), adamw lr 3e-4: one warm-up
    step, then timed steps with the counters zeroed just before and read
@@ -77,37 +94,37 @@ JSON line; any failure raises and the exit code is non-zero:
    flash_delta + 16 flash_bwd_fused + 48 flash_bwd_dq_rect + 48
    flash_bwd_dkv_rect), step time, tokens/s, MFU, a profile of one
    step, and the flat LM's step at the same S beside it.
-13. ring_check: one ring step's loss and gradients against the flat
+17. ring_check: one ring step's loss and gradients against the flat
    LM's in f32, and against the same ring on the plain versions in
    bf16, with the tolerances stated in `ring_check_phase`.
-14. ring_nccl: with two or more cards, the ring over an NCCL process
+18. ring_nccl: with two or more cards, the ring over an NCCL process
    group against the in-process ring; with one card it prints
    {"run": false} and counts as nothing.
-15. resnet_check: ResNet-50 at full width in f32 (batch 8 at 224, weights
+19. resnet_check: ResNet-50 at full width in f32 (batch 8 at 224, weights
    from seed 0 with every BatchNorm moved off its init), one training
    forward and backward on the card (TF32 off) and on the CPU in this
    process: logits, loss, every gradient and the updated running
    statistics within the limits stated in `resnet_check_phase`; also the
    bf16 forward's distance from the f32 one.
-16. resnet_train, main path 5: ResNet-50 as `bench.py`'s default run
+20. resnet_train, main path 5: ResNet-50 as `bench.py`'s default run
    trains it (batch 256 of bf16 SyntheticImages at 224, SGD-Nesterov lr
    0.4): 3 warm-up steps, 10 timed steps, step time, images/s, MFU,
    peak memory and a profile of one step by group (convs, batch norm,
    elementwise, optimizer). It launches none of the flash kernels.
-17. resnet_fit, main path 6: the same model through `fit()` at batch 256
+21. resnet_fit, main path 6: the same model through `fit()` at batch 256
    with an AnomalyGuard and a temporary Checkpointer (cuDNN
    deterministic): SIGTERM at step 1 → `Preempted` at 2, resume to 4
    bitwise equal to an uninterrupted run in parameters, momentum and
    running statistics; then a step whose input is NaN, skipped with all
    three bitwise unchanged; save and restore seconds, checkpoint size.
-18. resnet_serve, main path 7: the model-server binary's app on that
+22. resnet_serve, main path 7: the model-server binary's app on that
    checkpoint with batching (max_batch 64, 5 ms) over HTTP: the version
    is the checkpoint's step, every answer matches the restored model's
    eval forward (limit in `resnet_serve_phase`); single-instance
    p50/p99, batch-64 predictions/s on the device and host paths, and
    p50/p99 and predictions/s under 64 concurrent one-instance clients
    with batching on and off.
-19. controller, main path 9: the serving control plane (`controller_phase`):
+23. controller, main path 9: the serving control plane (`controller_phase`):
    a ServingDeployment CR on that checkpoint directory reconciled by
    the port's ServingDeploymentController into 2 ResNet-50 replicas
    (LocalReplicaRuntime): owned ServingReplica objects, readiness,
@@ -120,7 +137,7 @@ JSON line; any failure raises and the exit code is non-zero:
    facade (ProcessReplicaRuntime), one SIGKILLed under load and
    respawned, a self-roll on a modelVersion push, and the workers
    reaped when the CR is deleted.
-20. rl, main path 10: the actor–learner RL loop (`rl_phase`, `bench.py
+24. rl, main path 10: the actor–learner RL loop (`rl_phase`, `bench.py
    --workload rl` phase A at its configuration: an 8 -> 32 -> 4 policy,
    8 envs x horizon 4, 48 learner steps, a publish every 12, 2 actors):
    a CR "rl-policy" of 2 replicas reconciled through
@@ -133,7 +150,7 @@ JSON line; any failure raises and the exit code is non-zero:
    two arms, the policy fleet on the card (the path) and pinned to the
    CPU as the bench pins it; the card's loss and gradients against the
    CPU's, and the live tensors back after the fleets close.
-21. frontdoor, main path 8: the multi-model front door (FrontDoorApp →
+25. frontdoor, main path 8: the multi-model front door (FrontDoorApp →
    Router → 2 MultiModelReplicas, each a ServableRegistry paging at most
    5 models' weights on the card) over HTTP, serving 7 ResNet-50s, each
    restored from its own checkpoint at every page-in, and the LM: each
@@ -143,7 +160,7 @@ JSON line; any failure raises and the exit code is non-zero:
    p99, goodput and the device's idle share, the weights' memory given
    back after the fleet closes and across page cycles
    (`frontdoor_phase`).
-22. job, main path 11: the job plane (`job_plane_phases`): the apiserver
+26. job, main path 11: the job plane (`job_plane_phases`): the apiserver
    facade over this process's store, the controller-manager binary as
    its own process (``python -m kubeflow_tpu_torch.controllers
    --controllers tpujob,study``), the local pod runner. A TpuJob
@@ -156,7 +173,7 @@ JSON line; any failure raises and the exit code is non-zero:
    step); CR to Running, spawn to first step, kill to first resumed
    step, step ms beside the train phase's, wall time, peak memory
    (`job_phase`).
-23. rl_soak, main path 12: RL's study soak on the same plane
+27. rl_soak, main path 12: RL's study soak on the same plane
    (`rl_soak_phase`, bench.py's phase B at its configuration): a grid
    Study of 4 trial TpuJobs, 2 at a time, each a worker process with its
    learner and 2-replica policy fleet on the card, under the seeded
@@ -164,7 +181,7 @@ JSON line; any failure raises and the exit code is non-zero:
    fault class covered, each trial's restarts as planned;
    rl_studies_per_hour, each trial's seconds and return, the worst
    publish latency, the card's memory with two trials running.
-24. preempt, main path 13: the multi-tenant, highly available job plane
+28. preempt, main path 13: the multi-tenant, highly available job plane
    on the same facade and runner (`preempt_phase`): a one-GPU Node and
    two tenants with a ResourceQuota of one GPU each; two operator
    replicas on one Lease (a `testing/workers/preempt_ha.py` leader that
@@ -178,8 +195,8 @@ JSON line; any failure raises and the exit code is non-zero:
    card's memory at lm-high's first step; SIGTERM to the victim's exit,
    eviction to lm-high's first step, kill to the standby's first write,
    lm-high's end to lm-low's first resumed step.
-25. kernels: one line per ported kernel (launches, error, times, bound).
-26. the last line: {"ok": true, "device": {...}}.
+29. kernels: one line per ported kernel (launches, error, times, bound).
+30. the last line: {"ok": true, "device": {...}}.
 
 Without a GPU, or outside a checkout (copied alone, where
 `kubeflow_tpu_torch` does not import), it says why on stderr and exits
@@ -196,6 +213,7 @@ from.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import os
 import shutil
@@ -259,6 +277,22 @@ RING = dict(sp=4, batch=1, seq=16384, lr=3e-4, warmup_steps=1, timed_steps=3)
 # `chip_smoke.py --loss-seeds 8` over 8 seeds of weights and tokens
 # (PERF.md, section 6).
 LOSS_Z = 5.0
+# remat: the train phase's LM, batch and optimizer under every remat
+# policy of the JAX model (kubeflow_tpu/models/transformer.py:106-168):
+# each block policy with no step checkpoint, then each selective
+# step_remat over block "none" (kubeflow_tpu/train/trainer.py:443-449).
+# Each: a first step, held against "none"'s (loss and global gradient
+# norm), then `steps` timed steps.
+REMAT = dict(block=("none", "full", "mlp", "dots", "attn", "flash"),
+             step=("dots", "attn", "flash"), steps=5)
+# moe: the same widths with 8 switch experts, JAX's defaults for the
+# capacity factor and the load-balancing loss, remat "flash", batch
+# 8 x 2048 (groups of 4096 tokens, capacity 640): `steps` guarded train
+# steps (the first a warm-up), a check of one step at `check_layers` layers on
+# the kernels against the plain versions, and REQUESTS served from the
+# trained module at `max_batch`.
+MOE = dict(num_experts=8, capacity_factor=1.25, aux_loss_coef=0.01, remat="flash",
+           steps=6, check_layers=2, max_batch=4)
 # fit(): 6 steps of TRAIN's LM and stream, saving every 2 steps, with a
 # SIGTERM raised at step 3 in the preempted run.
 FIT = dict(steps=6, save_every=2, sigterm_at=3)
@@ -912,31 +946,21 @@ def post(url: str, body: bytes, content_type: str, accept: str):
         return resp.status, resp.headers.get("Content-Type"), resp.read()
 
 
-def serve_phase(torch):
-    """The main path: three :predict requests over HTTP at full width.
-    Returns (servable, the request batches, the predictions, the result)."""
-    from kubeflow_tpu_torch.models import TransformerConfig, TransformerLM
+def serve_requests(servable, batches):
+    """`REQUESTS` (one token batch each) as :predict calls over HTTP to a
+    ModelServerApp serving `servable`, with the launch counters zeroed
+    just before and read just after: (predictions, a row per request,
+    the launches)."""
     from kubeflow_tpu_torch.ops import _kernels
-    from kubeflow_tpu_torch.serving import ModelRepository, ModelServerApp, Servable
+    from kubeflow_tpu_torch.serving import ModelRepository, ModelServerApp
     from kubeflow_tpu_torch.serving import wire
     from kubeflow_tpu_torch.web import serve
 
-    cfg = TransformerConfig(**LM, dtype=torch.bfloat16)
-    t0 = time.perf_counter()
-    model = TransformerLM(cfg, device=DEVICE, seed=SEED)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    servable = Servable("lm", last_logits, model, max_batch=4, device=DEVICE)
-    rng = np.random.default_rng(SEED)
-    t0 = time.perf_counter()
-    servable.warmup_with(rng.integers(0, cfg.vocab_size, 2048))
-    warmup_s = time.perf_counter() - t0
-
-    batches = [rng.integers(0, cfg.vocab_size, (n, s)) for _, n, s in REQUESTS]
     server, thread = serve(
         ModelServerApp(ModelRepository([servable])), host="127.0.0.1", port=0
     )
-    url = f"http://127.0.0.1:{server.server_port}/v1/models/lm:predict"
+    url = f"http://127.0.0.1:{server.server_port}/v1/models/{servable.name}:predict"
+    vocab = servable.variables.config.vocab_size
     served, rows = [], []
     try:
         _kernels.launches.clear()
@@ -956,7 +980,7 @@ def serve_phase(torch):
             latency = time.perf_counter() - t0
             if status != 200:
                 raise AssertionError(f"{fmt} predict answered {status}: {raw[:500]!r}")
-            if pred.shape != (n, cfg.vocab_size) or not np.isfinite(pred).all():
+            if pred.shape != (n, vocab) or not np.isfinite(pred).all():
                 raise AssertionError(f"bad prediction: shape {pred.shape}")
             served.append(pred)
             rows.append({"format": fmt, "batch": n, "seq": s,
@@ -967,7 +991,28 @@ def serve_phase(torch):
         server.shutdown()
         server.server_close()
         thread.join(timeout=30)
+    return served, rows, launches
 
+
+def serve_phase(torch):
+    """The main path: three :predict requests over HTTP at full width.
+    Returns (servable, the request batches, the predictions, the result)."""
+    from kubeflow_tpu_torch.models import TransformerConfig, TransformerLM
+    from kubeflow_tpu_torch.serving import Servable
+
+    cfg = TransformerConfig(**LM, dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    model = TransformerLM(cfg, device=DEVICE, seed=SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    servable = Servable("lm", last_logits, model, max_batch=4, device=DEVICE)
+    rng = np.random.default_rng(SEED)
+    t0 = time.perf_counter()
+    servable.warmup_with(rng.integers(0, cfg.vocab_size, 2048))
+    warmup_s = time.perf_counter() - t0
+
+    batches = [rng.integers(0, cfg.vocab_size, (n, s)) for _, n, s in REQUESTS]
+    served, rows, launches = serve_requests(servable, batches)
     forwards = len(REQUESTS)  # each request fits one bucket: one forward
     want = cfg.n_layers * forwards
     if launches.get("flash_fwd", 0) != want:
@@ -1137,18 +1182,20 @@ def flops_per_token(seq: int) -> float:
     return 6 * (layer_params + head_params) + 6 * LM["n_layers"] * seq * d_attn
 
 
-def train_model(torch, dtype, seed: int = SEED, guard=None):
-    """The bench's LM (remat "none", bf16 or f32 compute over f32
-    params), random weights from `seed`, and its adamw trainer (with the
-    anomaly `guard`, if one is given)."""
+def train_model(torch, dtype, seed: int = SEED, guard=None, *, remat: str = "none",
+                step_remat=None, widths=None):
+    """The bench's LM (remat "none" unless `remat` names a policy, bf16
+    or f32 compute over f32 params; `widths` replaces `LM`), random
+    weights from `seed`, and its adamw trainer (with the anomaly `guard`,
+    if one is given, and the whole-step `step_remat` policy)."""
     from kubeflow_tpu_torch.models import TransformerConfig, TransformerLM
     from kubeflow_tpu_torch.train import TrainConfig, Trainer
 
-    cfg = TransformerConfig(**LM, dtype=dtype, remat_policy="none")
+    cfg = TransformerConfig(**(widths or LM), dtype=dtype, remat_policy=remat)
     config = TrainConfig(
         batch_size=TRAIN["batch"], learning_rate=TRAIN["lr"],
         total_steps=10_000, optimizer="adamw", label_smoothing=0.0,
-        fsdp_params=False, train_metrics="loss",
+        fsdp_params=False, train_metrics="loss", step_remat=step_remat,
     )
     model = TransformerLM(cfg, device=DEVICE, seed=seed)
     return Trainer(model, config, input_key="tokens", label_key="labels",
@@ -1485,14 +1532,21 @@ def rel(a, b) -> float:
 
 def step_grads(torch, model, batch):
     """One forward and backward of the train step's loss, the port's
-    `softmax_cross_entropy` as Trainer computes it: (loss, its [B, S]
-    float32 per-token terms, {name: gradient}), with the parameters left
-    as they were."""
+    `softmax_cross_entropy` (plus a MoE's load-balancing losses) as
+    Trainer computes it: (loss, its [B, S] float32 per-token cross
+    entropies, {name: gradient}), with the parameters left as they
+    were."""
     from kubeflow_tpu_torch.train import softmax_cross_entropy
 
     model.zero_grad(set_to_none=True)
-    logits = model(batch["tokens"])
+    aux_losses = []
+    if getattr(model, "sows_losses", False):  # a MoE's load balancing
+        logits, aux_losses = model(batch["tokens"], with_losses=True)
+    else:
+        logits = model(batch["tokens"])
     loss = softmax_cross_entropy(logits, batch["labels"])
+    for aux in aux_losses:
+        loss = loss + aux
     with torch.no_grad():
         logits = logits.float()
         nll = torch.logsumexp(logits, -1) - logits.gather(
@@ -1528,6 +1582,54 @@ def bf16_loss_ok(checked: dict, reference: dict) -> bool:
             and abs(checked["z"]) <= LOSS_Z)
 
 
+def bf16_path_check(torch, build, batch) -> tuple[bool, dict]:
+    """The bf16 half of train_check, for the model `build()` returns: its
+    loss and gradients on the kernel path, on the plain versions and on
+    dense attention, the first pair held to the second as
+    `train_check_phase` says. The row also gives the global gradient
+    norms' plain-vs-dense gap, which the remat phase holds its policies
+    to."""
+    from kubeflow_tpu_torch.train.trainer import global_norm
+
+    ok = True
+    model = build()
+
+    def run():
+        return step_grads(torch, model, batch)
+
+    loss_k, nll_k, g_k = run()
+    with plain_kernels():
+        loss_p, nll_p, g_p = run()
+    with attention_via(dense_attend):
+        loss_d, nll_d, g_d = run()
+    kp, pd = loss_gap(nll_k, nll_p), loss_gap(nll_p, nll_d)
+    ok &= bf16_loss_ok(kp, pd)
+    worst = {"name": None, "ratio": 0.0}
+    for name in g_k:
+        err, gap = rel(g_k[name], g_p[name]), rel(g_p[name], g_d[name])
+        ok &= err <= 2 * gap and bool(torch.isfinite(g_k[name]).all())
+        if err / max(gap, 1e-30) > worst["ratio"]:
+            worst = {"name": name, "ratio": err / max(gap, 1e-30),
+                     "rel_err_vs_plain": err, "plain_vs_dense_rel_gap": gap}
+    qkv = [n for n in g_k if n.endswith(("attn.wq", "attn.wk", "attn.wv"))]
+    norm_p, norm_d = float(global_norm(g_p.values())), float(global_norm(g_d.values()))
+    row = {
+        "dtype": "bfloat16", "loss_kernel": float(loss_k),
+        "loss_plain": float(loss_p), "loss_dense": float(loss_d),
+        "loss_kernel_vs_plain": kp, "loss_plain_vs_dense": pd,
+        "loss_tol": {"token_rel": 2 * pd["token_rel"], "abs_z": LOSS_Z},
+        "mean_loss_ratio_kp_over_pd": ratio(kp["mean_diff"], pd["mean_diff"]),
+        "params": len(g_k), "wq_wk_wv_with_grads": len(qkv),
+        "max_rel_err_vs_plain": max(rel(g_k[n], g_p[n]) for n in g_k),
+        "max_rel_err_param": max(g_k, key=lambda n: rel(g_k[n], g_p[n])),
+        "worst_param_vs_its_tol": worst,
+        "grad_norm_plain_vs_dense_rel": abs(norm_p - norm_d) / norm_d,
+    }
+    del model, g_k, g_p, g_d
+    torch.cuda.empty_cache()
+    return ok, row
+
+
 def train_check_phase(torch, seed: int = SEED, strict: bool = True):
     """The kernel path's loss and gradients against the same step with
     attention through the plain versions, on the same weights and batch.
@@ -1546,41 +1648,13 @@ def train_check_phase(torch, seed: int = SEED, strict: bool = True):
 
     batch = next(iter(SyntheticTokens(TRAIN["batch"], TRAIN["seq"], LM["vocab_size"],
                                       seed=seed, device=DEVICE)))
-    rows, ok = [], True
 
     def run():
         return step_grads(torch, trainer.model, batch)
 
-    trainer = train_model(torch, torch.bfloat16, seed)
-    loss_k, nll_k, g_k = run()
-    with plain_kernels():
-        loss_p, nll_p, g_p = run()
-    with attention_via(dense_attend):
-        loss_d, nll_d, g_d = run()
-    kp, pd = loss_gap(nll_k, nll_p), loss_gap(nll_p, nll_d)
-    ok &= bf16_loss_ok(kp, pd)
-    worst = {"name": None, "ratio": 0.0}
-    for name in g_k:
-        err, gap = rel(g_k[name], g_p[name]), rel(g_p[name], g_d[name])
-        ok &= err <= 2 * gap and bool(torch.isfinite(g_k[name]).all())
-        if err / max(gap, 1e-30) > worst["ratio"]:
-            worst = {"name": name, "ratio": err / max(gap, 1e-30),
-                     "rel_err_vs_plain": err, "plain_vs_dense_rel_gap": gap}
-    qkv = [n for n in g_k if n.endswith(("attn.wq", "attn.wk", "attn.wv"))]
-    rows.append({
-        "dtype": "bfloat16", "loss_kernel": float(loss_k),
-        "loss_plain": float(loss_p), "loss_dense": float(loss_d),
-        "loss_kernel_vs_plain": kp, "loss_plain_vs_dense": pd,
-        "loss_tol": {"token_rel": 2 * pd["token_rel"], "abs_z": LOSS_Z},
-        "mean_loss_ratio_kp_over_pd": ratio(kp["mean_diff"], pd["mean_diff"]),
-        "params": len(g_k), "wq_wk_wv_with_grads": len(qkv),
-        "max_rel_err_vs_plain": max(rel(g_k[n], g_p[n]) for n in g_k),
-        "max_rel_err_param": max(g_k, key=lambda n: rel(g_k[n], g_p[n])),
-        "worst_param_vs_its_tol": worst,
-    })
-    del trainer, g_k, g_p, g_d
-    torch.cuda.empty_cache()
-
+    ok, row = bf16_path_check(
+        torch, lambda: train_model(torch, torch.bfloat16, seed).model, batch)
+    rows = [row]
     trainer = train_model(torch, torch.float32, seed)
     loss_k, _, g_k = run()
     with plain_kernels():
@@ -1601,6 +1675,257 @@ def train_check_phase(torch, seed: int = SEED, strict: bool = True):
     if strict and not ok:
         raise AssertionError(f"train step off the plain path: {rows}")
     return ok, rows
+
+
+def remat_forwards(block: str, step_remat) -> int:
+    """flash_fwd launches in a train step under a block policy and a
+    step_remat: one a layer, and one more where the backward recomputes
+    the attention without its kept (o, lse) ("full", "dots", "attn")."""
+    policy = step_remat or block
+    return LM["n_layers"] * (2 if policy in ("full", "dots", "attn") else 1)
+
+
+def first_step_grad_norm(trainer, state) -> float:
+    """The global gradient norm of an adamw trainer's first step: its
+    second moment is then (1 - b2)·g², so the norm is
+    sqrt(Σ nu / (1 - b2))."""
+    total = sum(float(nu.double().sum()) for nu in state.opt_state["nu"].values())
+    return (total / (1 - trainer.tx.b2)) ** 0.5
+
+
+def release(torch) -> None:
+    """Give the card's cached memory back and restart the peak count."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def remat_phase(torch, card: str, check_row: dict) -> dict:
+    """Main path 2a: the train phase's step under every remat policy
+    (`REMAT`), each with its step ms, peak memory, flash launches, and
+    its first step's loss and global gradient norm.
+
+    The first step runs with the two-pass backward pinned, which adds in
+    a fixed order (the fused one adds dq with float atomics), so that
+    the policies, which compute one function, are compared without
+    run-to-run noise. Fails where a timed step's launches are not one
+    flash_delta and one flash_bwd_fused a layer and `remat_forwards`
+    flash_fwd, or where a policy's first step is off "none"'s: the loss
+    by more than `LOSS_Z` of train_check's bf16 standard errors, the
+    gradient norm by more than twice train_check's plain-vs-dense
+    relative gap. Returns the timed steps' launches."""
+    from kubeflow_tpu_torch.ops import _kernels
+    from kubeflow_tpu_torch.train import SyntheticTokens
+
+    data = iter(SyntheticTokens(TRAIN["batch"], TRAIN["seq"], LM["vocab_size"],
+                                seed=SEED, device=DEVICE))
+    batches = [next(data) for _ in range(1 + REMAT["steps"])]
+    runs = ([(block, None) for block in REMAT["block"]]
+            + [("none", step) for step in REMAT["step"]])
+    loss_tol = LOSS_Z * check_row["loss_kernel_vs_plain"]["se"]
+    norm_tol = 2 * check_row["grad_norm_plain_vs_dense_rel"]
+    layers, n = LM["n_layers"], REMAT["steps"]
+    rows, total, ok = [], {}, True
+    for block, step_remat in runs:
+        release(torch)
+        trainer = train_model(torch, torch.bfloat16, remat=block, step_remat=step_remat)
+        state = trainer.init_state()
+        step = trainer.make_train_step()
+        with two_pass_backward():
+            state, metrics = step(state, batches[0])
+        loss, grad_norm = float(metrics["loss"]), first_step_grad_norm(trainer, state)
+        torch.cuda.synchronize()
+        _kernels.launches.clear()
+        t0 = time.perf_counter()
+        for batch in batches[1:]:
+            state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / n
+        launches = dict(_kernels.launches)
+        want = {"flash_fwd": remat_forwards(block, step_remat) * n,
+                "flash_delta": layers * n, "flash_bwd_fused": layers * n}
+        row = {"remat": block, "step_remat": step_remat, "step_ms": step_s * 1e3,
+               "tokens_per_s": TRAIN["batch"] * TRAIN["seq"] / step_s,
+               "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "flash_fwd_per_step": launches.get("flash_fwd", 0) / n,
+               "launches_per_step": {k: v / n for k, v in launches.items()},
+               "loss": loss, "grad_norm": grad_norm, "launches_ok": launches == want}
+        if rows:
+            none = rows[0]
+            row["loss_diff_vs_none"] = abs(loss - none["loss"])
+            row["grad_norm_rel_vs_none"] = abs(grad_norm - none["grad_norm"]) / none["grad_norm"]
+            row["ok"] = (row["launches_ok"] and row["loss_diff_vs_none"] <= loss_tol
+                         and row["grad_norm_rel_vs_none"] <= norm_tol)
+        else:
+            row["ok"] = row["launches_ok"] and bool(np.isfinite([loss, grad_norm]).all())
+        ok &= row["ok"]
+        rows.append(row)
+        for name, count in launches.items():
+            total[name] = total.get(name, 0) + count
+        del trainer, state, step, metrics
+    release(torch)
+    emit({"phase": "remat", "model": {**LM, "dtype": "bfloat16"}, "batch": TRAIN["batch"],
+          "seq": TRAIN["seq"], "timed_steps": n, "rows": rows,
+          "tol": {"loss_abs": loss_tol, "grad_norm_rel": norm_tol}, "ok": ok,
+          "card": card})
+    if not ok:
+        raise AssertionError(f"remat policies off their launches or off 'none': {rows}")
+    return total
+
+
+def moe_widths(**changes) -> dict:
+    """`LM` with MOE's experts."""
+    moe = {k: MOE[k] for k in ("num_experts", "capacity_factor", "aux_loss_coef")}
+    return {**LM, **moe, **changes}
+
+
+def moe_routing(torch, model, tokens) -> dict:
+    """The MoE model's load-balancing loss (summed over layers) and the
+    share of tokens past their expert's capacity, on `tokens` with its
+    current weights: a forward without gradients, each layer's routing
+    read on the input it got."""
+    dropped, hooks = [], []
+    for layer in model.layers:
+        hooks.append(layer.moe.register_forward_pre_hook(
+            lambda mod, args: dropped.append((~mod.route(args[0]).keep).float().mean())))
+    try:
+        with torch.no_grad():
+            _, losses = model(tokens, with_losses=True)
+    finally:
+        for hook in hooks:
+            hook.remove()
+    shares = [float(d) for d in dropped]
+    return {"aux_loss": float(sum(losses)), "dropped_share": sum(shares) / len(shares),
+            "dropped_share_max_layer": max(shares)}
+
+
+def moe_check_phase(torch) -> None:
+    """One step of the MoE model at `MOE["check_layers"]` layers (the same
+    widths, remat "flash") on the kernels against the same step on the
+    plain versions, held to train_check's bf16 limits (`bf16_path_check`,
+    against the plain-vs-dense pair: the routing of a token near a tie
+    moves with the rounding in both pairs)."""
+    from kubeflow_tpu_torch.train import SyntheticTokens
+
+    batch = next(iter(SyntheticTokens(TRAIN["batch"], TRAIN["seq"], LM["vocab_size"],
+                                      seed=SEED, device=DEVICE)))
+    widths = moe_widths(n_layers=MOE["check_layers"])
+    ok, row = bf16_path_check(torch, lambda: train_model(
+        torch, torch.bfloat16, remat=MOE["remat"], widths=widths).model, batch)
+    emit({"phase": "moe_check", "model": {**widths, "dtype": "bfloat16"},
+          "remat": MOE["remat"], "rows": [row], "ok": ok})
+    if not ok:
+        raise AssertionError(f"MoE train step off the plain path: {row}")
+
+
+def moe_train_phase(torch, card: str):
+    """Main path 2b: the switch-MoE LM (`MOE`) trained with
+    make_train_step under an AnomalyGuard, as fit() trains (its copies of
+    the parameters and the optimizer state count in the peak). Each step
+    is timed alone; before it, a forward without gradients on its batch
+    reads the load-balancing loss and the dropped share the step sees.
+    Then a profile of one step. Fails on a non-finite loss, a step the
+    guard skips, or a step whose launches are not one flash_fwd,
+    flash_delta and flash_bwd_fused a layer (remat "flash": the backward
+    runs no flash forward). Returns (the trained model, the timed
+    steps' launches)."""
+    from kubeflow_tpu_torch.ops import _kernels
+    from kubeflow_tpu_torch.train import AnomalyGuard, SyntheticTokens
+
+    release(torch)
+    t0 = time.perf_counter()
+    trainer = train_model(torch, torch.bfloat16, guard=AnomalyGuard(), remat=MOE["remat"],
+                          widths=moe_widths())
+    state = trainer.init_state()
+    step = trainer.make_train_step()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    params = sum(p.numel() for p in trainer.model.parameters())
+    data = iter(SyntheticTokens(TRAIN["batch"], TRAIN["seq"], LM["vocab_size"],
+                                seed=SEED, device=DEVICE))
+    layers, rows, total, ok = LM["n_layers"], [], {}, True
+    want = {"flash_fwd": layers, "flash_delta": layers, "flash_bwd_fused": layers}
+    for i in range(MOE["steps"]):
+        batch = next(data)
+        routing = moe_routing(torch, trainer.model, batch["tokens"])
+        torch.cuda.synchronize()
+        _kernels.launches.clear()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        launches = dict(_kernels.launches)
+        loss = float(metrics["loss"])
+        rows.append({"step": i, "step_ms": step_s * 1e3, "loss": loss,
+                     "cross_entropy": loss - routing["aux_loss"], **routing,
+                     "grad_norm": float(metrics["grad_norm"]),
+                     "guard_ok": int(metrics["guard_ok"]), "launches": launches})
+        ok &= (launches == want and rows[-1]["guard_ok"] == 1
+               and bool(np.isfinite([loss, routing["aux_loss"]]).all()))
+        if i:  # the first step is the warm-up
+            for name, count in launches.items():
+                total[name] = total.get(name, 0) + count
+    timed = [r["step_ms"] for r in rows[1:]]
+    step_ms = sum(timed) / len(timed)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    profile = profile_device(torch, lambda: step(state, next(data)))
+    emit({"phase": "moe_train", "model": {**moe_widths(), "dtype": "bfloat16"},
+          "params": params, "remat": MOE["remat"], "batch": TRAIN["batch"],
+          "seq": TRAIN["seq"], "optimizer": "adamw", "guard": True, "init_s": init_s,
+          "steps": rows, "step_ms": step_ms,
+          "tokens_per_s": TRAIN["batch"] * TRAIN["seq"] / step_ms * 1e3,
+          "peak_memory_gib": peak_gib, "profile_one_step": profile, "ok": ok,
+          "card": card})
+    if not ok:
+        raise AssertionError(f"MoE train steps off their launches or not finite: {rows}")
+    model = trainer.model
+    del trainer, state, step, metrics
+    return model, total
+
+
+def moe_serve_phase(torch, card: str, model) -> dict:
+    """Main path 2c: the trained MoE module behind Servable ->
+    ModelRepository -> ModelServerApp -> HTTP, REQUESTS with the counters
+    zeroed just before and read just after (16 flash_fwd a forward).
+    Routing groups and capacity span every token of the batch the server
+    runs, so each answer is held, bitwise, to the module's own forward on
+    that batch: the request padded with zero rows to its bucket. Returns
+    the launches."""
+    from kubeflow_tpu_torch.serving import Servable
+
+    release(torch)
+    servable = Servable("lm-moe", last_logits, model, max_batch=MOE["max_batch"],
+                        device=DEVICE)
+    rng = np.random.default_rng(SEED + 1)
+    servable.warmup_with(rng.integers(0, LM["vocab_size"], TRAIN["seq"]))
+    batches = [rng.integers(0, LM["vocab_size"], (n, s)) for _, n, s in REQUESTS]
+    served, rows, launches = serve_requests(servable, batches)
+    ok = launches == {"flash_fwd": LM["n_layers"] * len(REQUESTS)}
+    with torch.inference_mode():
+        for row, tokens, pred in zip(rows, batches, served):
+            padded = np.zeros((servable._bucket_for(len(tokens)), tokens.shape[1]),
+                              tokens.dtype)
+            padded[:len(tokens)] = tokens
+            direct = last_logits(model, torch.tensor(padded, device=DEVICE))
+            err = float(np.abs(pred - direct[:len(tokens)].float().cpu().numpy()).max())
+            row.update({"bucket": len(padded), "max_abs_diff_vs_module": err})
+            ok &= err == 0.0
+    emit({"phase": "moe_serve", "requests": rows, "launches": launches, "ok": ok,
+          "card": card})
+    if not ok:
+        raise AssertionError(f"MoE answers off the module's forward or its launches: {rows}")
+    return launches
+
+
+def moe_phases(torch, card: str) -> dict:
+    """moe_check, moe_train and moe_serve; the paths' launches."""
+    moe_check_phase(torch)
+    model, train_launches = moe_train_phase(torch, card)
+    serve_launches = moe_serve_phase(torch, card, model)
+    del model
+    release(torch)
+    return {"moe": train_launches, "moe_serve": serve_launches}
 
 
 def ring_model(torch, dtype, *, mesh=True, remat="none", seed: int = SEED):
@@ -2928,7 +3253,6 @@ def frontdoor_phase(torch, card: str) -> dict:
     the first. Last, every model paged in twice through one registry at
     max_resident=2: the live tensors after the second cycle within 64
     MiB of the first's. Returns the probes' kernel launches."""
-    import gc
     import threading
 
     from kubeflow_tpu_torch.serving import FrontDoorApp, LocalReplicaRuntime, Router
@@ -3343,8 +3667,6 @@ def controller_phase(torch, card: str, ckpt_dir: str, step: int) -> None:
     (`card_used_mib`). Startup seconds per worker; on a failure, each
     worker's exit code and its ServingReplica's last status go to
     stderr."""
-    import gc
-
     from kubeflow_tpu_torch.api import serving as serving_api
     from kubeflow_tpu_torch.controllers import ControllerManager, ServingDeploymentController
     from kubeflow_tpu_torch.ops import _kernels
@@ -4182,8 +4504,6 @@ def rl_phase(torch, card: str) -> None:
     the allocator); and the live tensors within RL["memory_slack_mib"] of
     the phase's start (cuBLAS's workspaces released first). No flash
     kernel runs."""
-    import gc
-
     from kubeflow_tpu_torch.ops import _kernels
 
     t_phase = time.perf_counter()
@@ -4697,8 +5017,6 @@ def job_plane_phases(torch, card: str, bare_step_ms: float, loss_se: float) -> d
     leadership timeline and the pod logs are printed. `bare_step_ms` is
     the train phase's step, `loss_se` train_check's bf16 standard error
     of the mean loss. Returns paths A's and C's launch counts."""
-    import gc
-
     from kubeflow_tpu_torch.testing.job_plane import JobPlane
 
     gc.collect()
@@ -4761,6 +5079,8 @@ def main() -> int:
     train_launches, train_step_ms = train_phase(torch, card)
     by_path = {"serve": result["launches"], **train_launches}
     _, check_rows = train_check_phase(torch)
+    by_path["remat"] = remat_phase(torch, card, check_rows[0])
+    by_path.update(moe_phases(torch, card))
     by_path["fit"] = fit_phase(torch, card)
     entries.update(rect_entries)
     by_path["ring_train"] = ring_train_phase(torch, card)

@@ -1,8 +1,9 @@
 """Weights for the port's models: converted or freshly drawn.
 
 `from_flax` renames a JAX `TransformerLM`'s ``variables["params"]``
-tree into this package's state-dict keys. The layouts already agree,
-so no array is transposed. `resnet_from_flax` does the same for a JAX
+tree (a switch-MoE model's ``moe/{router/kernel, w_in, w_out}`` too)
+into this package's state-dict keys. The layouts already agree, so no
+array is transposed. `resnet_from_flax` does the same for a JAX
 `ResNet`'s ``params`` and ``batch_stats``: the module names are flax's,
 conv kernels go from HWIO to OIHW and the Dense kernel from (in, out)
 to (out, in). `tinymlp_from_flax` and `policy_from_flax` convert a JAX
@@ -45,8 +46,6 @@ def _torch_key(path: tuple) -> str:
         parts.pop()
     if parts[0].startswith("layer_"):
         parts[0:1] = ["layers", parts[0][len("layer_"):]]
-    if "moe" in parts:
-        raise NotImplementedError("switch-MoE parameters are not ported yet")
     return ".".join(parts)
 
 
@@ -88,6 +87,7 @@ def resnet_from_flax(params: Mapping, batch_stats: Mapping | None = None
 def param_shapes(cfg) -> dict[str, tuple[int, ...]]:
     """State-dict key → shape, for a `TransformerConfig`."""
     dm, h, d, ff = cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.d_ff
+    e = cfg.num_experts
     shapes = {"embedding": (cfg.vocab_size, dm)}
     for i in range(cfg.n_layers):
         p = f"layers.{i}."
@@ -98,18 +98,30 @@ def param_shapes(cfg) -> dict[str, tuple[int, ...]]:
             p + "attn.wv": (dm, h, d),
             p + "attn.wo": (h, d, dm),
             p + "ln_mlp.scale": (dm,),
-            p + "mlp.wi_gate": (dm, ff),
-            p + "mlp.wi_up": (dm, ff),
-            p + "mlp.wo": (ff, dm),
         })
+        if e > 0:
+            shapes.update({
+                p + "moe.router": (dm, e),
+                p + "moe.w_in": (e, dm, ff),
+                p + "moe.w_out": (e, ff, dm),
+            })
+        else:
+            shapes.update({
+                p + "mlp.wi_gate": (dm, ff),
+                p + "mlp.wi_up": (dm, ff),
+                p + "mlp.wo": (ff, dm),
+            })
     shapes["ln_final.scale"] = (dm,)
     return shapes
 
 
 def _fan_in(key: str, shape: tuple[int, ...]) -> int:
     # flax's DenseGeneral contracts the input axes: one for the
-    # projections into heads and the MLP, (h, d) for attn.wo.
-    if key.endswith("attn.wo"):
+    # projections into heads, the MLP and the router, (h, d) for attn.wo.
+    # The experts' (E, in, out) weights are plain params, whose fan-in
+    # flax's variance scaling takes as in × E (the leading axis is a
+    # receptive field).
+    if key.endswith("attn.wo") or key.endswith(("moe.w_in", "moe.w_out")):
         return shape[0] * shape[1]
     return shape[0]
 

@@ -1,37 +1,54 @@
-"""Decoder-only Transformer LM: the flat model, and its sequence-parallel
-(sp ring) form.
+"""Decoder-only Transformer LM: the flat model, its switch-MoE form, and
+its sequence-parallel (sp ring) form.
 
 Counterpart of `kubeflow_tpu/models/transformer.py` without the tensor-
-parallel, pipeline and mixture-of-experts paths. Given a mesh with an sp
+parallel, pipeline and expert-parallel paths. Given a mesh with an sp
 ring (`parallel/mesh.build_mesh`), attention runs around the ring
 (`ring_flash_attention`, or `ring_attention` for "dense"); every other
 layer works per token and is unchanged, and so are the parameters.
 Parameters keep the flax
 layouts — ``wq|wk|wv`` (d_model, h, d), ``attn.wo`` (h, d, d_model),
 ``wi_gate|wi_up`` (d_model, d_ff), ``mlp.wo`` (d_ff, d_model),
-``embedding`` (V, d_model), norm scales (d,) — and are float32, cast to
-the compute dtype at use as flax's ``DenseGeneral(dtype=bf16,
-param_dtype=f32)`` does, so carrying weights across is a renaming
-(`models/convert.py`).
+``moe.router`` (d_model, E), ``moe.w_in`` (E, d_model, d_ff),
+``moe.w_out`` (E, d_ff, d_model), ``embedding`` (V, d_model), norm
+scales (d,) — and are float32, cast to the compute dtype at use as
+flax's ``DenseGeneral(dtype=bf16, param_dtype=f32)`` does, so carrying
+weights across is a renaming (`models/convert.py`).
 
 Training runs through autograd: flash attention's backward is its own
-kernels (`ops/flash.py`), and the remat policies "none", "full" and
-"mlp" are `torch.utils.checkpoint` regions as the JAX model's
-`nn.remat` wraps are.
+kernels (`ops/flash.py`), and every remat policy of the JAX model is a
+`torch.utils.checkpoint` region: "full" and "mlp" as its `nn.remat`
+wraps are, "dots", "attn" and "flash" as selective checkpoints whose
+policy keeps what JAX's `checkpoint_policy` saves (`checkpoint_policy`).
+
+A switch-MoE model's load-balancing losses are returned, not sown:
+``model(tokens, with_losses=True)`` gives (logits, per-layer losses),
+which the trainer adds to the objective once per (micro)batch. A
+checkpointed region that runs again in the backward recomputes them
+and throws them away, so none is counted twice.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
+from typing import NamedTuple
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+    noop_context_fn,
+)
 
 from kubeflow_tpu_torch._device import resolve_device
 from kubeflow_tpu_torch.models.convert import init_params
 from kubeflow_tpu_torch.ops.attention import dense_attention, ring_attention
 from kubeflow_tpu_torch.ops.flash import (
+    FLASH_FWD_OP,
     flash_attention,
     flash_kernels_take,
     ring_flash_attention,
@@ -48,11 +65,13 @@ class TransformerConfig:
 
     Remat (`remat`, `remat_policy`) applies when gradients are taken:
     "none" (or ``remat=False``) saves every activation, "full"
-    recomputes each block in the backward, "mlp" only each block's MLP.
-    "dots", "attn" and "flash" name what the JAX checkpoint policies
-    save; they are not ported (ROADMAP Queue 1 item 4) and raise when a
-    model with them is differentiated. ``num_experts > 0`` (switch MoE)
-    is not ported."""
+    recomputes each block in the backward, "mlp" only each block's MLP
+    (or MoE); "dots" keeps the outputs of matrix products with no batch
+    dimension, "attn" each attention's output, "flash" each flash
+    forward's (o, lse), and recomputes the rest of the block. Under
+    ``attention_impl="dense"`` nothing is a flash forward, and "flash"
+    recomputes as "full" does. ``num_experts > 0`` replaces each block's
+    MLP with a top-1 switch MoE (`SwitchMoE`)."""
 
     vocab_size: int = 32_000
     d_model: int = 512
@@ -78,11 +97,6 @@ class TransformerConfig:
     aux_loss_coef: float = 0.01
 
     def __post_init__(self):
-        if self.num_experts > 0:
-            raise NotImplementedError(
-                "switch MoE (num_experts > 0) is not ported yet (ROADMAP "
-                "Queue 1)"
-            )
         if self.remat_policy not in _REMAT_POLICIES:
             raise ValueError(
                 f"unknown remat_policy {self.remat_policy!r}; expected one "
@@ -93,6 +107,90 @@ class TransformerConfig:
                 f"unknown attention_impl {self.attention_impl!r}; expected "
                 "'auto', 'flash', or 'dense'"
             )
+
+
+# -- remat policies ---------------------------------------------------------------
+
+# The names the active selective checkpoint keeps (`checkpoint_name`).
+_KEPT_NAMES: contextvars.ContextVar[frozenset] = contextvars.ContextVar(
+    "kftpu_kept_names", default=frozenset())
+
+
+@torch.library.custom_op("kftpu::checkpoint_name", mutates_args=())
+def _name_op(x: torch.Tensor, name: str) -> torch.Tensor:
+    # An op may not return its input, so the named value is a copy.
+    return x.clone()
+
+
+@_name_op.register_fake
+def _(x, name):
+    return torch.empty_like(x)
+
+
+_name_op.register_autograd(lambda ctx, grad: (grad, None))
+_NAME_OP = torch.ops.kftpu.checkpoint_name.default
+
+
+def checkpoint_name(x, name: str):
+    """`jax.ad_checkpoint.checkpoint_name`: `x`, tagged `name` for a
+    policy that keeps it. Inside a selective checkpoint that keeps
+    `name`, the value passes through an op the policy can see (a copy);
+    everywhere else it is `x` itself."""
+    if name in _KEPT_NAMES.get():
+        return _NAME_OP(x, name)
+    return x
+
+
+@contextlib.contextmanager
+def _keeping(names: frozenset, mode):
+    token = _KEPT_NAMES.set(names)
+    try:
+        with mode:
+            yield
+    finally:
+        _KEPT_NAMES.reset(token)
+
+
+def checkpoint_policy(name: str):
+    """The ``context_fn`` of `torch.utils.checkpoint` for a named remat
+    policy: JAX's `checkpoint_policy` (kubeflow_tpu/models/
+    transformer.py:106-128). The per-block checkpoint and the trainer's
+    ``step_remat`` both take it, so the two cannot drift.
+
+    "full" keeps nothing inside the region (the plain checkpoint).
+    "dots" keeps the outputs of ``aten.mm``, the 2-D matrix products:
+    `dots_with_no_batch_dims_saveable`, since this model writes its
+    projections, SwiGLU, router and head as 2-D products and its batched
+    contractions (attention, the experts) as ``bmm``. "attn" keeps the
+    value named ``attn_out``; "flash" keeps what `FLASH_FWD_OP` returns,
+    so the backward runs no flash forward. Everything else is
+    recomputed."""
+    if name == "full":
+        return noop_context_fn
+    names = frozenset()
+    if name == "dots":
+        keep = lambda op, args: op is torch.ops.aten.mm.default
+    elif name == "attn":
+        names = frozenset({"attn_out"})
+        keep = lambda op, args: op is _NAME_OP and args[1] in names
+    elif name == "flash":
+        keep = lambda op, args: op is FLASH_FWD_OP
+    else:
+        raise ValueError(
+            f"no checkpoint policy for remat_policy {name!r}; expected "
+            "'full', 'dots', 'attn', or 'flash'"
+        )
+
+    def policy(ctx, op, *args, **kwargs):
+        if keep(op, args):
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+
+    def context_fn():
+        forward, recompute = create_selective_checkpoint_contexts(policy)
+        return _keeping(names, forward), _keeping(names, recompute)
+
+    return context_fn
 
 
 def lm_head(x, embed, *, dtype):
@@ -193,12 +291,17 @@ class Attention(nn.Module):
         self.wo = _param(h, d, dm, device=device)
 
     def forward(self, x, positions):
-        dt = self.cfg.dtype
-        proj = lambda w: torch.einsum("bsm,mhd->bshd", x.to(dt), w.to(dt))
-        q = rope(proj(self.wq), positions, self.cfg.rope_theta)
-        k = rope(proj(self.wk), positions, self.cfg.rope_theta)
-        out = _attend(q, k, proj(self.wv), self.mesh, self.cfg)
-        return torch.einsum("bshd,hdm->bsm", out.to(dt), self.wo.to(dt))
+        cfg, dt = self.cfg, self.cfg.dtype
+        b, s, _ = x.shape
+        h, d = cfg.n_heads, cfg.head_dim
+        x = x.to(dt)
+        # Each projection is one 2-D product, as "dots" needs (an einsum
+        # would lower to a bmm).
+        proj = lambda w: (x @ w.to(dt).flatten(1)).view(b, s, h, d)
+        q = rope(proj(self.wq), positions, cfg.rope_theta)
+        k = rope(proj(self.wk), positions, cfg.rope_theta)
+        out = checkpoint_name(_attend(q, k, proj(self.wv), self.mesh, cfg), "attn_out")
+        return out.to(dt).reshape(b, s, h * d) @ self.wo.to(dt).flatten(0, 1)
 
 
 class SwiGLU(nn.Module):
@@ -217,8 +320,101 @@ class SwiGLU(nn.Module):
         return (nn.functional.silu(gate) * up) @ self.wo.to(dt)
 
 
+def group_size(n_tok: int, target: int = 4096) -> int:
+    """The largest divisor of `n_tok` that is at most `target`: the
+    routing group (`SwitchMoE._group_size`)."""
+    for g in range(min(target, n_tok), 0, -1):
+        if n_tok % g == 0:
+            return g
+    return n_tok
+
+
+class Routing(NamedTuple):
+    """One `SwitchMoE` call's routing, over G groups of g tokens."""
+
+    probs: torch.Tensor  # [G, g, E] float32 router probabilities
+    expert: torch.Tensor  # [G, g] the chosen expert (first argmax)
+    gate: torch.Tensor  # [G, g] float32, its probability
+    slot: torch.Tensor  # [G, g] the token's place in its expert's queue
+    keep: torch.Tensor  # [G, g] slot < capacity; the rest are dropped
+    capacity: int
+    aux: torch.Tensor  # the load-balancing loss, a float32 scalar
+
+
+class SwitchMoE(nn.Module):
+    """Top-1 (switch) MoE with capacity: JAX's `SwitchMoE`
+    (kubeflow_tpu/models/transformer.py:368-442), on one device.
+
+    The tokens route in groups of `group_size` (n_tok) with a capacity of
+    ``max(1, int(capacity_factor · g / E))`` per expert and group; a
+    token past its expert's capacity is dropped (its output is 0, so
+    the block passes it on by the residual). JAX moves tokens to and
+    from the experts by one-hot einsums; here an index copy and an
+    index gather do: each one-hot row holds at most one 1, so the
+    function is the same, without the [G, g, E, cap] one-hots. forward(x)
+    → (output, load-balancing loss)."""
+
+    def __init__(self, cfg: TransformerConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        e, dm, ff = cfg.num_experts, cfg.d_model, cfg.d_ff
+        self.router = _param(dm, e, device=device)
+        self.w_in = _param(e, dm, ff, device=device)
+        self.w_out = _param(e, ff, dm, device=device)
+
+    def route(self, x) -> Routing:
+        """The router in float32 on the float32 input: softmax, the first
+        argmax and its probability, each token's slot in its expert's
+        queue in token order, and the Switch Transformer's loss
+        E · mean over groups of Σ_E (token share · mean probability),
+        times ``aux_loss_coef``."""
+        cfg = self.cfg
+        dm, e = x.shape[-1], cfg.num_experts
+        n_tok = x.numel() // dm
+        g = group_size(n_tok)
+        cap = max(1, int(cfg.capacity_factor * g / e))
+        logits = x.reshape(n_tok, dm).float() @ self.router
+        probs = torch.softmax(logits, dim=-1).view(n_tok // g, g, e)
+        expert = probs.argmax(-1)
+        gate = probs.gather(-1, expert[..., None])[..., 0]
+        onehot = nn.functional.one_hot(expert, e)
+        # Running counts per expert along the group's tokens, scanned on
+        # the innermost dimension of [G, E, g] (a scan along the middle
+        # one of [G, g, E] runs a thread per column on CUDA).
+        queue = onehot.transpose(1, 2).cumsum(-1)
+        slot = queue.gather(1, expert[:, None, :])[:, 0] - 1
+        frac_tokens = onehot.float().mean(1)
+        frac_probs = probs.mean(1)
+        aux = e * (frac_tokens * frac_probs).sum(-1).mean() * cfg.aux_loss_coef
+        return Routing(probs, expert, gate, slot, slot < cap, cap, aux)
+
+    def forward(self, x):
+        dt = self.cfg.dtype
+        b, s, dm = x.shape
+        r = self.route(x)
+        n_groups, e = r.probs.shape[0], r.probs.shape[-1]
+        # Expert e's queue of group G holds rows (e·n_groups + G)·cap ..;
+        # a dropped token goes to one row past them all, which is cut off.
+        group = torch.arange(n_groups, device=x.device)[:, None]
+        rows = e * n_groups * r.capacity
+        row = torch.where(r.keep, (r.expert * n_groups + group) * r.capacity + r.slot,
+                          rows).flatten()
+        tokens = x.reshape(b * s, dm).to(dt)
+        xin = tokens.new_zeros(rows + 1, dm).index_copy(0, row, tokens)
+        xin = xin[:rows].view(e, n_groups * r.capacity, dm)
+        hidden = nn.functional.silu(torch.bmm(xin, self.w_in.to(dt)))
+        xout = torch.bmm(hidden, self.w_out.to(dt)).view(rows, dm)
+        xout = torch.cat([xout, xout.new_zeros(1, dm)])
+        # The gate is rounded to the compute dtype before the product, as
+        # JAX's combine one-hot is.
+        out = xout.index_select(0, row) * r.gate.flatten()[:, None].to(dt)
+        return out.view(b, s, dm), r.aux
+
+
 class Block(nn.Module):
-    """Pre-norm block: x + attn(norm(x)), then x + mlp(norm(x))."""
+    """Pre-norm block: x + attn(norm(x)), then x + mlp(norm(x)), the MLP
+    a SwiGLU or, with experts, a `SwitchMoE`. forward → (x, the MoE's
+    load-balancing loss or None)."""
 
     def __init__(self, cfg: TransformerConfig, mesh=None, device=None):
         super().__init__()
@@ -228,29 +424,47 @@ class Block(nn.Module):
         self.ln_attn = RMSNorm(cfg.d_model, dtype=cfg.dtype, device=device)
         self.attn = Attention(cfg, mesh, device)
         self.ln_mlp = RMSNorm(cfg.d_model, dtype=cfg.dtype, device=device)
-        self.mlp = SwiGLU(cfg, device)
+        self.is_moe = cfg.num_experts > 0
+        if self.is_moe:
+            self.moe = SwitchMoE(cfg, device)
+        else:
+            self.mlp = SwiGLU(cfg, device)
 
     def forward(self, x, positions):
         x = x + self.attn(self.ln_attn(x), positions)
-        mlp = lambda x: self.mlp(self.ln_mlp(x))
+        ffn = self.moe if self.is_moe else self.mlp
+        mlp = lambda x: ffn(self.ln_mlp(x))
         if self.remat_mlp and torch.is_grad_enabled():
-            return x + checkpoint(mlp, x, use_reentrant=False)
-        return x + mlp(x)
+            out = checkpoint(mlp, x, use_reentrant=False)
+        else:
+            out = mlp(x)
+        out, aux = out if self.is_moe else (out, None)
+        return x + out, aux
 
 
 class TransformerLM(nn.Module):
     """Embed → N blocks → norm → tied logits. forward(tokens) → [B, S, V]
-    float32 logits. Weights come from `init_params(config, seed)`; load
-    others (e.g. `convert.from_flax`) with `load_state_dict`.
+    float32 logits; forward(tokens, with_losses=True) → (logits, the
+    blocks' load-balancing losses in layer order, empty without
+    experts). Weights come from `init_params(config, seed)`; load others
+    (e.g. `convert.from_flax`) with `load_state_dict`.
 
     With a `mesh` whose sp axis is more than 1, attention runs around its
     sp ring. On an in-process ring the tokens are the whole sequence; on
     a `torch.distributed` ring each rank passes its own chunk of it (rank
-    r: positions r·C .. r·C + C - 1) and gets that chunk's logits."""
+    r: positions r·C .. r·C + C - 1) and gets that chunk's logits. A MoE
+    model routes over all the batch's tokens, which no rank of a process
+    ring holds, so it takes no process ring."""
 
     def __init__(self, config: TransformerConfig, *, mesh=None, device=None,
                  seed: int = 0):
         super().__init__()
+        if config.num_experts > 0 and mesh is not None and mesh.multiprocess:
+            raise NotImplementedError(
+                "a switch-MoE model on a torch.distributed ring would route "
+                "each rank's chunk apart from the rest of the batch; MoE "
+                "across processes (ep, sp) is ROADMAP Queue 1 item 12"
+            )
         device = resolve_device(device)
         self.config, self.mesh = config, mesh
         self.embedding = _param(config.vocab_size, config.d_model, device=device)
@@ -260,15 +474,22 @@ class TransformerLM(nn.Module):
         self.ln_final = RMSNorm(config.d_model, dtype=config.dtype, device=device)
         self.load_state_dict(init_params(config, seed, device=device))
 
+    @property
+    def sows_losses(self) -> bool:
+        """Whether the model has losses of its own for the objective
+        (JAX's "losses" collection): the MoE's load balancing."""
+        return self.config.num_experts > 0
+
     def reset_parameters(self, seed: int | torch.Generator) -> None:
         """Draw every weight anew from `seed` (an int or a generator), as
         `init_params` does; the parameters stay the same tensors."""
         device = self.embedding.device
         self.load_state_dict(init_params(self.config, seed, device=device))
 
-    def features(self, tokens):
+    def features(self, tokens, losses: list | None = None):
         """The final-normed hidden states [B, S, d_model] (compute dtype):
-        everything before the output head."""
+        everything before the output head. Each block's load-balancing
+        loss is appended to `losses`, if one is given."""
         # Gather, then cast: the same values as flax's cast-then-gather,
         # without casting the whole table.
         x = nn.functional.embedding(tokens, self.embedding).to(self.config.dtype)
@@ -280,29 +501,32 @@ class TransformerLM(nn.Module):
         positions = torch.arange(start, start + tokens.shape[1],
                                  device=tokens.device)
         positions = positions.expand(tokens.shape)
-        remat = self._block_remat()
+        policy = self._block_policy()
+        context_fn = checkpoint_policy(policy) if policy else None
         for layer in self.layers:
-            if remat:
-                x = checkpoint(layer, x, positions, use_reentrant=False)
+            if context_fn is not None:
+                x, aux = checkpoint(layer, x, positions, use_reentrant=False,
+                                    context_fn=context_fn)
             else:
-                x = layer(x, positions)
+                x, aux = layer(x, positions)
+            if aux is not None and losses is not None:
+                losses.append(aux)
         return self.ln_final(x)
 
-    def _block_remat(self) -> bool:
-        """Whether each block recomputes in the backward (`_block_cls`,
-        kubeflow_tpu/models/transformer.py:131-168): only under autograd,
-        and only for the "full" policy."""
+    def _block_policy(self) -> str | None:
+        """The policy of each block's checkpoint, or None for no block
+        checkpoint (`_block_cls`, kubeflow_tpu/models/transformer.py:
+        131-168): only under autograd, and not for "none" or "mlp" (whose
+        checkpoint is the MLP's, inside `Block`)."""
         cfg = self.config
         if not (cfg.remat and torch.is_grad_enabled()):
-            return False
-        if cfg.remat_policy in ("dots", "attn", "flash"):
-            raise NotImplementedError(
-                f"remat_policy {cfg.remat_policy!r} needs selective "
-                "checkpointing of the flash Function's saved o and lse; it "
-                "is not ported yet (ROADMAP Queue 1 item 4). Use 'none', "
-                "'full' or 'mlp'."
-            )
-        return cfg.remat_policy == "full"
+            return None
+        if cfg.remat_policy in ("none", "mlp"):
+            return None
+        return cfg.remat_policy
 
-    def forward(self, tokens):
-        return lm_head(self.features(tokens), self.embedding, dtype=self.config.dtype)
+    def forward(self, tokens, *, with_losses: bool = False):
+        losses = [] if with_losses else None
+        logits = lm_head(self.features(tokens, losses), self.embedding,
+                         dtype=self.config.dtype)
+        return (logits, losses) if with_losses else logits

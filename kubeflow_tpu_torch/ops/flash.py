@@ -460,6 +460,29 @@ def flash_fwd(
     return _flash_fwd_rect_cuda(q, k, v, causal)
 
 
+# The forward as an op of PyTorch's dispatcher, for the counterpart of
+# JAX's checkpoint_name tags on (o, lse) (kubeflow_tpu/ops/flash.py:98-102,
+# 1165-1166). A kernel launched through ctypes is invisible to a
+# TorchDispatchMode, so a selective checkpoint (`torch.utils.checkpoint`
+# with a ``context_fn``) could neither keep the wrapper's outputs nor
+# skip it when its region recomputes. As an op it is seen like any aten
+# op: the "flash" remat policy (`models/transformer.checkpoint_policy`)
+# keeps what `FLASH_FWD_OP` returns, and the recompute takes the kept
+# (o, lse) instead of calling it again.
+@torch.library.custom_op("kftpu::flash_fwd", mutates_args=())
+def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+                  block_q: int, block_k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    return flash_fwd(q, k, v, causal=causal, block_q=block_q, block_k=block_k)
+
+
+@_flash_fwd_op.register_fake
+def _(q, k, v, causal, block_q, block_k):
+    return torch.empty_like(q), q.new_empty(q.shape[:2], dtype=torch.float32)
+
+
+FLASH_FWD_OP = torch.ops.kftpu.flash_fwd.default
+
+
 # -- the backward dispatch ------------------------------------------------------
 
 # KFTPU_FLASH_FUSED_BWD=0 pins the two-pass backward everywhere, as in the
@@ -614,12 +637,12 @@ class FlashAttentionFunction(torch.autograd.Function):
     (q, k, v, o, lse). The lse output carries no gradient: its cotangent
     is dropped. The backward runs with its own blocks (JAX's
     ``bwd_block_q``/``bwd_block_k``), which shape the plain versions'
-    schedule only."""
+    schedule only. The forward goes through `FLASH_FWD_OP`, so a
+    selective checkpoint can keep its (o, lse)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, block_q, block_k, bwd_block_q, bwd_block_k):
-        o, lse = flash_fwd(q, k, v, causal=causal, block_q=block_q,
-                           block_k=block_k)
+        o, lse = FLASH_FWD_OP(q, k, v, causal, block_q, block_k)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.schedule = dict(causal=causal, block_q=bwd_block_q,
                             block_k=bwd_block_k)

@@ -61,6 +61,11 @@ class LocalPodRunner:
         self.extra_env = dict(extra_env or {})
         self.capture_dir = capture_dir
         self._procs: dict[tuple[str, str], subprocess.Popen] = {}
+        # The uid of the pod each tracked process runs. Watch events
+        # arrive on the store's dispatcher thread, late: a pod deleted
+        # and created again under its name (a gang restart) may have its
+        # new process started before the old pod's DELETED event lands.
+        self._uids: dict[tuple[str, str], str] = {}
         self._job_ports: dict[str, int] = {}
         self._lock = threading.Lock()
         # Processes of deleted pods until they exit, and each deletion's
@@ -73,10 +78,12 @@ class LocalPodRunner:
     def _on_pod(self, event: str, pod: Resource) -> None:
         if event == "DELETED":
             with self._lock:
-                proc = self._procs.pop(
-                    (pod.metadata.namespace, pod.metadata.name), None
-                )
-                if proc is None or proc.poll() is not None:
+                slot = (pod.metadata.namespace, pod.metadata.name)
+                if self._uids.get(slot) != pod.metadata.uid:
+                    return  # not this pod's process (or none)
+                proc = self._procs.pop(slot)
+                del self._uids[slot]
+                if proc.poll() is not None:
                     return
                 key = (pod.metadata.namespace, pod.metadata.name, pod.metadata.uid)
                 self._terminating[key] = proc
@@ -118,6 +125,10 @@ class LocalPodRunner:
             phase = pod.status.get("phase")
             with self._lock:
                 proc = self._procs.get(key)
+                if proc is not None and self._uids[key] != pod.metadata.uid:
+                    # A deleted predecessor's process, until its DELETED
+                    # event untracks it.
+                    continue
             if proc is None and phase is None:
                 self._start(pod, key)
             elif proc is not None and proc.poll() is not None:
@@ -130,6 +141,7 @@ class LocalPodRunner:
                 )
                 with self._lock:
                     self._procs.pop(key, None)
+                    self._uids.pop(key, None)
 
     def _start(self, pod: Resource, key: tuple[str, str]) -> None:
         c = pod.spec["containers"][0]
@@ -172,6 +184,7 @@ class LocalPodRunner:
                 stdout.close()
         with self._lock:
             self._procs[key] = proc
+            self._uids[key] = pod.metadata.uid
         # One status write: Running phase plus (when capturing) where the
         # pod's stdout lands, so the apiserver facade can serve `kubectl
         # logs` (`/apis/Pod/<ns>/<name>/log`, the kubelet log-endpoint
@@ -212,6 +225,7 @@ class LocalPodRunner:
         with self._lock:
             procs = list(self._procs.values()) + list(self._terminating.values())
             self._procs.clear()
+            self._uids.clear()
             self._terminating.clear()
         for p in procs:
             if p.poll() is None:

@@ -49,6 +49,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from kubeflow_tpu_torch._device import resolve_device
+from kubeflow_tpu_torch.models.transformer import checkpoint_policy
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,7 +71,9 @@ class TrainConfig:
     # reports the objective only.
     train_metrics: str = "full"
     adam_mu_dtype: str = "bfloat16"
-    # None, or "full": recompute the whole forward in the backward.
+    # None, or a remat policy ("full", "dots", "attn", "flash") for one
+    # checkpoint around the whole forward (`models.transformer.
+    # checkpoint_policy`): the backward recomputes what it does not keep.
     step_remat: str | None = None
     accum_steps: int = 1
     loss_in_model: bool = False
@@ -116,12 +119,6 @@ class TrainConfig:
                     "model; TrainConfig.label_smoothing would be "
                     "silently ignored — set it to 0.0"
                 )
-        if self.step_remat in ("dots", "attn", "flash"):
-            raise NotImplementedError(
-                f"step_remat {self.step_remat!r} needs selective "
-                "checkpointing, which is not ported yet (ROADMAP Queue 1 "
-                "item 4); use None or 'full'"
-            )
 
 
 def decay_mask(params: dict[str, torch.Tensor]) -> dict[str, bool]:
@@ -476,7 +473,10 @@ class Trainer:
         optimizer update. With ``accum_steps`` > 1 the batch is split into
         that many microbatches, run and differentiated one after another,
         and the loss is the mean of their means, as in JAX. With
-        ``loss_in_model`` the model's output is the loss."""
+        ``loss_in_model`` the model's output is the loss. A model's own
+        losses (``sows_losses``: a MoE LM's load balancing) are added to
+        each (micro)batch's loss, as JAX's trainer adds its "losses"
+        collection."""
         cfg = self.config
         has_acc = cfg.train_metrics == "full"
         input_key, label_key = self.input_key, self.label_key
@@ -485,19 +485,31 @@ class Trainer:
         def forward_loss(model, mb):
             inputs = mb[input_key]
             kwargs = {"labels": mb[label_key]} if cfg.loss_in_model else {}
-            if cfg.step_remat == "full":
+            # A model with losses of its own (the MoE's load balancing,
+            # JAX's "losses" collection) returns them beside its output.
+            sows = getattr(model, "sows_losses", False)
+            if sows:
+                kwargs["with_losses"] = True
+            if cfg.step_remat is not None:
                 out = checkpoint(_remat_forward(model), inputs, use_reentrant=False,
+                                 context_fn=checkpoint_policy(cfg.step_remat),
                                  **kwargs)
             else:
                 out = model(inputs, **kwargs)
-            if cfg.loss_in_model:
-                return out, None
-            logits = out
-            loss = softmax_cross_entropy(logits, mb[label_key], cfg.label_smoothing)
+            aux_losses = ()
+            if sows:
+                out, aux_losses = out
             acc = None
-            if has_acc:
-                with torch.no_grad():
-                    acc = (logits.argmax(-1) == mb[label_key]).float().mean()
+            if cfg.loss_in_model:
+                loss = out
+            else:
+                logits = out
+                loss = softmax_cross_entropy(logits, mb[label_key], cfg.label_smoothing)
+                if has_acc:
+                    with torch.no_grad():
+                        acc = (logits.argmax(-1) == mb[label_key]).float().mean()
+            for aux in aux_losses:
+                loss = loss + aux
             return loss, acc
 
         def train_step(state: TrainState, batch):

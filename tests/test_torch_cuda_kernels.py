@@ -746,6 +746,42 @@ def test_guarded_full_width_lm_step_makes_no_host_sync(cuda):
 
 
 @pytest.mark.cuda
+def test_guarded_switch_moe_step_under_flash_remat_makes_no_host_sync(cuda):
+    """The switch-MoE LM at full width (8 experts; 2 layers), remat
+    "flash", adamw with an AnomalyGuard: after a warm-up step, a step runs
+    under `torch.cuda.set_sync_debug_mode("error")`. Routing, capacity,
+    the index dispatch and combine and the selective checkpoint stay on
+    the card; the backward runs no flash forward (one a layer)."""
+    from kubeflow_tpu_torch.models import TransformerConfig, TransformerLM
+    from kubeflow_tpu_torch.ops import _kernels
+    from kubeflow_tpu_torch.train import AnomalyGuard, SyntheticTokens, TrainConfig, Trainer
+
+    cfg = TransformerConfig(vocab_size=32000, d_model=1024, n_layers=2, n_heads=8,
+                            head_dim=128, d_ff=4096, num_experts=8,
+                            dtype=torch.bfloat16, remat_policy="flash")
+    config = TrainConfig(batch_size=2, learning_rate=3e-4, total_steps=100,
+                         optimizer="adamw", label_smoothing=0.0, fsdp_params=False,
+                         train_metrics="loss")
+    trainer = Trainer(TransformerLM(cfg, device=cuda, seed=0), config,
+                      input_key="tokens", label_key="labels", device=cuda,
+                      guard=AnomalyGuard())
+    state, step = trainer.init_state(), trainer.make_train_step()
+    data = iter(SyntheticTokens(2, 2048, 32000, vary_per_step=True, device=cuda))
+    state, _ = step(state, next(data))
+    batch = next(data)
+    torch.cuda.synchronize()
+    _kernels.launches.clear()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, metrics = step(state, batch)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert int(metrics["guard_ok"]) == 1 and bool(torch.isfinite(metrics["loss"]))
+    assert dict(_kernels.launches) == {"flash_fwd": 2, "flash_delta": 2,
+                                       "flash_bwd_fused": 2}
+
+
+@pytest.mark.cuda
 def test_resnet50_channels_last_bf16_guarded_step_makes_no_host_sync(cuda):
     """ResNet-50 built on the card keeps its conv weights, and the
     stem's input, channels_last; one bf16 SGD step of the bench's

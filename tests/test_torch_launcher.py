@@ -192,6 +192,32 @@ def test_runner_mirrors_exit_codes_and_rewrites_the_coordinator(tmp_path):
         api.close()
 
 
+def test_runner_ignores_a_late_delete_of_a_pod_created_again():
+    """A gang restart deletes a pod and creates it again under its name,
+    and the store's watch events arrive late: the old pod's DELETED can
+    land after the new pod's process has started. It must leave that
+    process alone (terminated and untracked, the new pod would read
+    Running for ever)."""
+    api = FakeApiServer()
+    runner = LocalPodRunner(api)
+    try:
+        api.create(_pod("w", [sys.executable, "-c", "pass"]))
+        _step_until(runner, api, "w", ("Succeeded",))
+        old = api.get("Pod", "w")
+        api.delete("Pod", "w")
+        api.flush()
+        api.create(_pod("w", [sys.executable, "-c", "import time; time.sleep(60)"]))
+        _step_until(runner, api, "w", ("Running",))
+        runner._on_pod("DELETED", old)  # the old pod's event, delivered late
+        assert runner.running_count() == 1 and not runner.evictions
+        api.delete("Pod", "w")
+        api.flush()
+        assert runner.running_count() == 0 and len(runner.evictions) == 1
+    finally:
+        runner.shutdown()
+        api.close()
+
+
 def test_runner_terminates_a_deleted_pods_process():
     api = FakeApiServer()
     runner = LocalPodRunner(api)

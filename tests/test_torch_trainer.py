@@ -99,8 +99,9 @@ def test_schedule_matches_optax():
         (dict(batch_size=6, accum_steps=4), ValueError),
         (dict(loss_in_model=True), ValueError),
         (dict(loss_in_model=True, train_metrics="loss", label_smoothing=0.1), ValueError),
-        (dict(step_remat="dots"), NotImplementedError),
-        (dict(step_remat="flash"), NotImplementedError),
+        # "none" and "mlp" are block policies, not checkpoint policies.
+        (dict(step_remat="none"), ValueError),
+        (dict(step_remat="mlp"), ValueError),
     ],
 )
 def test_train_config_refuses(kwargs, error):

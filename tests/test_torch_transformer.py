@@ -9,6 +9,7 @@ the test measures (the two frameworks round bf16 at other places).
 """
 
 import dataclasses
+import types
 
 import flax.linen as fnn
 import jax
@@ -20,6 +21,7 @@ import torch
 from kubeflow_tpu.models import transformer as jtf
 from kubeflow_tpu_torch.models import convert
 from kubeflow_tpu_torch.models import transformer as ttf
+from kubeflow_tpu_torch.parallel.mesh import MeshSpec, build_mesh
 
 TINY = dict(vocab_size=256, d_model=64, n_layers=2, n_heads=4, head_dim=16,
             d_ff=128, flash_block_q=64, flash_block_k=64)
@@ -181,8 +183,14 @@ def test_lm_head_is_f32_accumulation_of_bf16_operands():
 
 
 def test_config_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        ttf.TransformerConfig(num_experts=4)
+    # Switch MoE is ported on one device; experts across devices (ep) and
+    # a MoE model on a process ring are not.
+    moe = ttf.TransformerConfig(**TINY, num_experts=4, dtype=torch.float32)
+    with pytest.raises(NotImplementedError, match="item 12"):
+        build_mesh(MeshSpec(ep=2))
+    process_ring = types.SimpleNamespace(multiprocess=True, shape={"sp": 2})
+    with pytest.raises(NotImplementedError, match="item 12"):
+        ttf.TransformerLM(moe, mesh=process_ring, device="cpu")
     with pytest.raises(ValueError):
         ttf.TransformerConfig(attention_impl="ring")
     # The remat fields are accepted (and unused at inference).
@@ -220,14 +228,22 @@ def test_remat_policies_give_equal_grads(jax_params):
 
 
 @pytest.mark.parametrize("policy", ["dots", "attn", "flash"])
-def test_unported_remat_policies_raise_when_differentiated(jax_params, policy):
+def test_selective_remat_policies_differentiate(jax_params, policy):
+    """The selective policies serve as every model does and, under
+    autograd, give the gradients of "none"."""
+    tokens = _tokens(1, 2, 64)
     cfg = dataclasses.replace(_torch_cfg(torch.float32), remat_policy=policy)
     model = ttf.TransformerLM(cfg, device="cpu")
-    tokens = torch.from_numpy(_tokens(1, 1, 16))
+    model.load_state_dict(convert.from_flax(_numpy_params(jax_params)))
     with torch.inference_mode():  # serving is unaffected
-        assert model(tokens).shape == (1, 16, TINY["vocab_size"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model(tokens)
+        assert model(torch.from_numpy(tokens)).shape == (2, 64, TINY["vocab_size"])
+    plain = dataclasses.replace(cfg, remat_policy="none")
+    ref = ttf.TransformerLM(plain, device="cpu")
+    ref.load_state_dict(model.state_dict())
+    want = _grads(ref, tokens)
+    for name, g in _grads(model, tokens).items():
+        np.testing.assert_allclose(g.numpy(), want[name].numpy(), atol=1e-6,
+                                   rtol=1e-5, err_msg=(policy, name))
     with pytest.raises(ValueError):
         ttf.TransformerConfig(remat_policy="everything")
 
