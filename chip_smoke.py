@@ -163,8 +163,9 @@ JSON line; any failure raises and the exit code is non-zero:
 26. job, main path 11: the job plane (`job_plane_phases`): the apiserver
    facade over this process's store, the controller-manager binary as
    its own process (``python -m kubeflow_tpu_torch.controllers
-   --controllers tpujob,study``), the local pod runner. A TpuJob
-   "lm-train" (1 worker, 1 GPU, maxRestarts 1) runs the same LM through
+   --controllers tpujob,study,workflow,cronworkflow``), the local pod
+   runner. A TpuJob "lm-train" (1 worker, 1 GPU, maxRestarts 1) runs the
+   same LM through
    the launcher and fit() in a worker process on the default dispatch,
    SIGKILLs itself after step 6 once step 4 is committed, is restarted
    by the operator and resumes from step 4 to 8: Succeeded, restarts 1,
@@ -181,7 +182,23 @@ JSON line; any failure raises and the exit code is non-zero:
    fault class covered, each trial's restarts as planned;
    rl_studies_per_hour, each trial's seconds and return, the worst
    publish latency, the card's memory with two trials running.
-28. preempt, main path 13: the multi-tenant, highly available job plane
+28. pipeline, main path 14: the nightly pipeline on the same plane, the
+   binary now running ``--controllers tpujob,study,workflow,cronworkflow``
+   (`pipeline_phase`): a CronWorkflow "lm-nightly" (``* * * * *``,
+   Forbid) spawns one Workflow at the next minute boundary and is
+   suspended at once; its DAG trains the same LM as a TpuJob slice step
+   (8 steps, SIGKILLed after step 4 once it is saved, restarted by the
+   operator and resumed from 4: the DAG reads Restarting as in flight),
+   evaluates step 8 read-only in a pod (held-out loss against ln(vocab) +
+   1: promote), serves it from a pod over HTTP (REQUESTS, bitwise equal
+   to the restored module's forward, version 8) and tears the
+   checkpoint directory down in its exit handler: one Workflow, one train
+   attempt, each pod's process gone before the next starts, Succeeded;
+   the cron wait, each step's seconds, kill to first resumed step, the
+   eval loss beside the fresh init's, serve latencies, each pod's peak
+   memory, the card's memory.used at each pod's start, the Workflow's
+   seconds; the launches of train, eval and serve.
+29. preempt, main path 13: the multi-tenant, highly available job plane
    on the same facade and runner (`preempt_phase`): a one-GPU Node and
    two tenants with a ResourceQuota of one GPU each; two operator
    replicas on one Lease (a `testing/workers/preempt_ha.py` leader that
@@ -195,8 +212,8 @@ JSON line; any failure raises and the exit code is non-zero:
    card's memory at lm-high's first step; SIGTERM to the victim's exit,
    eviction to lm-high's first step, kill to the standby's first write,
    lm-high's end to lm-low's first resumed step.
-29. kernels: one line per ported kernel (launches, error, times, bound).
-30. the last line: {"ok": true, "device": {...}}.
+30. kernels: one line per ported kernel (launches, error, times, bound).
+31. the last line: {"ok": true, "device": {...}}.
 
 Without a GPU, or outside a checkout (copied alone, where
 `kubeflow_tpu_torch` does not import), it says why on stderr and exits
@@ -215,6 +232,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import math
 import os
 import shutil
 import statistics
@@ -393,6 +411,14 @@ PREEMPT = dict(low_steps=16, high_steps=6, save_every=4, submit_at=6, lease_s=2.
 # (tests/e2e/test_rl_soak_e2e.py:158-171): seed 7, 4 grid trials over lr
 # in [0.02, 0.08], 18 learner steps, a publish every 6.
 RL_SOAK = dict(seed=7, trials=4, steps=18, publish_every=6, deadline_s=420)
+# The nightly pipeline (path D): a CronWorkflow ("* * * * *", Forbid)
+# whose Workflow trains TRAIN's LM as a TpuJob slice step for `steps`,
+# SIGKILLed after step `kill_at` once that save is committed, evaluates
+# the newest step and serves it when its held-out loss is at most
+# ln(vocab) + 1 (uniform tokens: a trained loss stays near ln(vocab)).
+# The first fire comes at the minute boundary after the anchor.
+PIPELINE = dict(steps=8, save_every=4, kill_at=4, max_eval_loss=math.log(32000) + 1.0,
+                cron_wait_s=61.0, spawn_timeout_s=75, timeout_s=480)
 REQUESTS = [  # (wire format, batch, sequence length)
     ("json", 1, 2048),
     ("json", 3, 2048),  # padded to bucket 4
@@ -4759,6 +4785,227 @@ def lm_job_spec(name: str, namespace: str, priority: int, steps: int, root: str)
         env=tuple(env.items()))
 
 
+def set_suspend(api, kind: str, name: str, namespace: str = "default") -> None:
+    """`spec.suspend = True` on a CR, retried over the controller's own
+    status writes."""
+    from kubeflow_tpu_torch.testing.fake_apiserver import Conflict
+
+    for _ in range(50):
+        obj = api.get(kind, name, namespace).thaw()
+        obj.spec = {**obj.spec, "suspend": True}
+        try:
+            api.update(obj)
+            return
+        except Conflict:
+            time.sleep(0.01)
+    raise AssertionError(f"could not suspend {kind} {name}")
+
+
+def pipeline_phase(torch, card: str, plane, root: str) -> dict:
+    """Path D, the nightly pipeline: the Workflow and CronWorkflow
+    controllers in the same controller-manager binary as paths A and B
+    (``--controllers tpujob,study,workflow,cronworkflow``). A
+    CronWorkflow "lm-nightly" (``* * * * *``, concurrencyPolicy Forbid)
+    spawns a Workflow (`testing/workers/lm_pipeline.pipeline_spec`):
+    ``train``, a TpuJob slice step running `lm_job_spec`'s worker (TRAIN's
+    LM through fit(), PIPELINE["steps"] steps, a save every
+    PIPELINE["save_every"], SIGKILLed after PIPELINE["kill_at"]); ``eval``,
+    a pod that restores the newest step read-only and gates on the
+    held-out loss (``promote`` or ``hold``); ``serve``, when eval read
+    promote, a pod that serves the checkpoint over HTTP (REQUESTS) and
+    holds each answer bitwise to the restored module's forward; and the
+    exit handler ``teardown``, which removes the checkpoint directory. As
+    soon as the Workflow is spawned the CronWorkflow is suspended, so no
+    second run starts.
+
+    Gates: one Workflow spawned, owned by the CronWorkflow, within
+    PIPELINE["cron_wait_s"] of its creation; the train TpuJob Succeeded
+    with restarts 1, resumed_from 4, attempt label 0 and the only TpuJob
+    of its step (the DAG read Restarting as in flight); 16 launches a
+    step of flash_fwd, flash_delta and flash_bwd_fused in its
+    observation; eval ``promote`` at step PIPELINE["steps"] with 16
+    flash_fwd a forward; serve answering REQUESTS at that version; the
+    teardown pod run once, output ``clean``, the directory gone; the
+    Workflow Succeeded with each step's state, attempts and output; each
+    pod's process gone before the next pod started; deleting the
+    CronWorkflow removes the Workflow, its pods and its TpuJob (the
+    owner cascade). Numbers: the cron wait, each step's seconds from
+    creation to Succeeded, the kill to the first resumed step, the eval
+    loss beside the fresh init's, the serve latencies, each pod's peak
+    device memory, the card's memory.used at each step's start, the
+    Workflow's seconds. Returns the launches of train (its resumed run),
+    eval and serve."""
+    from kubeflow_tpu_torch.api import CronWorkflowSpec, new_resource
+    from kubeflow_tpu_torch.controllers.cronworkflow import LABEL_CRON
+    from kubeflow_tpu_torch.controllers.tpujob import LABEL_INCARNATION
+    from kubeflow_tpu_torch.controllers.workflow import LABEL_ATTEMPT, LABEL_WORKFLOW
+    from kubeflow_tpu_torch.testing.workers.lm_pipeline import pipeline_spec
+
+    t_phase = time.perf_counter()
+    ckpt_dir = os.path.join(root, "pipeline-ckpt")
+    lm_size = {**LM, "batch": TRAIN["batch"], "seq": TRAIN["seq"], "dtype": "bfloat16",
+               "lr": TRAIN["lr"]}
+    job = lm_job_spec("lm-nightly-train", "default", 0, PIPELINE["steps"], root).spec
+    spec = CronWorkflowSpec(
+        schedule="* * * * *", concurrency_policy="Forbid",
+        workflow_spec=pipeline_spec(
+            job, steps=PIPELINE["steps"], max_eval_loss=PIPELINE["max_eval_loss"],
+            ckpt_dir=ckpt_dir, save_every=PIPELINE["save_every"],
+            kill_at=PIPELINE["kill_at"], lm_size=lm_size, requests=REQUESTS))
+    spec.validate()
+    spawned = lambda: plane.api.list("Workflow", "default",
+                                     label_selector={LABEL_CRON: "lm-nightly"})
+    cron = plane.api.create(new_resource("CronWorkflow", "lm-nightly", "default",
+                                         spec=spec.to_dict()))
+    plane.run_until(lambda: spawned(), PIPELINE["spawn_timeout_s"],
+                    "the CronWorkflow to spawn its Workflow")
+    set_suspend(plane.api, "CronWorkflow", "lm-nightly")
+    [wf] = spawned()
+    name = wf.metadata.name
+    cron_wait_s = wf.metadata.creation_timestamp - cron.metadata.creation_timestamp
+
+    seen = {"running": set(), "succeeded": {}, "memory_at_start_mib": {},
+            "train_phases": []}
+
+    def on_job(event, obj):
+        # Every committed write of the step's TpuJob, so a Restarting
+        # that lasts one write is seen too.
+        if obj.metadata.labels.get(LABEL_WORKFLOW) == name:
+            phase = obj.status.get("phase")
+            if not seen["train_phases"] or seen["train_phases"][-1] != phase:
+                seen["train_phases"].append(phase)
+
+    plane.api.watch(on_job, "TpuJob")
+
+    def tick():
+        now = time.time()
+        for pod in plane.api.list("Pod", "default"):
+            pname, phase = pod.metadata.name, pod.status.get("phase")
+            if not pname.startswith(name):
+                continue
+            inc = pod.metadata.labels.get(LABEL_INCARNATION)
+            key = pname if inc is None else f"{pname} incarnation {inc}"
+            if phase == "Running" and key not in seen["running"]:
+                seen["running"].add(key)
+                seen["memory_at_start_mib"][key] = float(
+                    nvidia_smi("--query-gpu=memory.used")[0])
+            if phase == "Succeeded":
+                seen["succeeded"].setdefault(pname, now)
+
+    plane.run_until(
+        lambda: plane.api.get("Workflow", name).status.get("phase") in ("Succeeded", "Failed"),
+        PIPELINE["timeout_s"], f"Workflow {name} to finish", tick=tick)
+    tick()
+    wf = plane.api.get("Workflow", name)
+    wf_s = time.time() - wf.metadata.creation_timestamp
+    steps_status = wf.status.get("steps", {})
+    jobs = plane.api.list("TpuJob", "default", label_selector={LABEL_WORKFLOW: name})
+    pods = {p.metadata.name: p for p in plane.api.list(
+        "Pod", "default", label_selector={LABEL_WORKFLOW: name})}
+    train = jobs[0] if len(jobs) == 1 else None
+    obs = (train.status.get("observation") or {}) if train else {}
+    logs = plane.pod_logs()
+    records = {stem: log_records(logs.get(f"{name}-{stem}.log", ""))
+               for stem in ("train-0-worker-0", "eval-0", "serve-0", "teardown-0")}
+    event = lambda stem, kind: [r for r in records[stem] if r["event"] == kind]
+    train_steps = event("train-0-worker-0", "step")
+    kills = event("train-0-worker-0", "kill")
+    resumed = [r for r in train_steps if r["incarnation"] == 1]
+    evals, serves = event("eval-0", "eval"), event("serve-0", "serve")
+    ev = evals[0] if evals else {}
+    sv = serves[0] if serves else {}
+    done = int(obs.get("steps_done", 0))
+    train_launches = {k[len("launches_"):]: int(v) for k, v in obs.items()
+                      if k.startswith("launches_")}
+    want_train = {k: LM["n_layers"] * done
+                  for k in ("flash_fwd", "flash_delta", "flash_bwd_fused")}
+    # The creation of each step's resource to its Succeeded (the step
+    # pods' status; the train step's TpuJob as its worker pod).
+    order = [f"{name}-train-0-worker-0", f"{name}-eval-0", f"{name}-serve-0",
+             f"{name}-teardown-0"]
+    starts = {f"{name}-{stem}": (event(stem, "start") or [{}])[-1].get("time")
+              for stem in ("eval-0", "serve-0", "teardown-0")}
+    sequential = all(
+        seen["succeeded"].get(a) is not None and starts.get(b) is not None
+        and seen["succeeded"][a] < starts[b] for a, b in zip(order, order[1:]))
+    created = {"train": train.metadata.creation_timestamp if train else None,
+               **{stem: pods[f"{name}-{stem}-0"].metadata.creation_timestamp
+                  for stem in ("eval", "serve", "teardown") if f"{name}-{stem}-0" in pods}}
+    step_s = {stem: seen["succeeded"].get(pod) - created[stem]
+              for stem, pod in zip(("train", "eval", "serve", "teardown"), order)
+              if created.get(stem) and seen["succeeded"].get(pod)}
+    teardown_pod = pods.get(f"{name}-teardown-0")
+    serve_out = json.loads(steps_status.get("serve", {}).get("output") or "{}")
+    checks = {
+        "one_workflow": len(spawned()) == 1,
+        "owned_by_cron": [r.get("uid") for r in wf.metadata.owner_references]
+        == [cron.metadata.uid],
+        "cron_wait": 0.0 <= cron_wait_s <= PIPELINE["cron_wait_s"],
+        "train_succeeded": train is not None and train.status.get("phase") == "Succeeded",
+        "train_restarts_1": train is not None and train.status.get("restarts") == 1,
+        "train_resumed_from_4": obs.get("resumed_from") == float(PIPELINE["kill_at"]),
+        "train_one_attempt": train is not None
+        and train.metadata.labels.get(LABEL_ATTEMPT) == "0"
+        and steps_status.get("train", {}).get("attempts") == 1
+        and steps_status.get("train", {}).get("failedAttempts") == [],
+        "train_read_restarting": "Restarting" in seen["train_phases"],
+        "killed_once": [k["step"] for k in kills] == [PIPELINE["kill_at"]],
+        "train_launches": train_launches == want_train,
+        "eval_promote": steps_status.get("eval", {}).get("output") == "promote",
+        "eval_step": ev.get("step") == PIPELINE["steps"],
+        "eval_launches": ev.get("launches") == {"flash_fwd": 2 * LM["n_layers"]},
+        "serve": serve_out == {"version": PIPELINE["steps"], "answered": len(REQUESTS)}
+        and all(sv.get("checks", {}).values()) and bool(sv.get("checks")),
+        "teardown_once": steps_status.get("teardown", {}).get("attempts") == 1
+        and len(event("teardown-0", "done")) == 1 and teardown_pod is not None
+        and teardown_pod.status.get("output") == "clean",
+        "checkpoint_gone": not os.path.exists(ckpt_dir),
+        "workflow_succeeded": wf.status.get("phase") == "Succeeded",
+        "steps_status": all(
+            steps_status.get(stem, {}).get("state") == "Succeeded"
+            and steps_status[stem].get("attempts") == 1 and "output" in steps_status[stem]
+            for stem in ("train", "eval", "serve"))
+        and steps_status.get("teardown", {}).get("state") == "Succeeded",
+        "pods_one_at_a_time": sequential,
+    }
+    # The owner cascade: the CronWorkflow takes its run with it.
+    plane.api.delete("CronWorkflow", "lm-nightly", "default")
+    checks["cascade"] = (not spawned() and not plane.api.list(
+        "Pod", "default", label_selector={LABEL_WORKFLOW: name}) and not plane.api.list(
+        "TpuJob", "default", label_selector={LABEL_WORKFLOW: name}))
+    out = {
+        "phase": "pipeline", "card": card, "cron": {"schedule": spec.schedule,
+                                                     "concurrencyPolicy": "Forbid"},
+        "workflow": name, "model": {**LM, "dtype": "bfloat16", "remat": "none"},
+        "batch": TRAIN["batch"], "seq": TRAIN["seq"], "steps": PIPELINE["steps"],
+        "save_every": PIPELINE["save_every"], "kill_at": PIPELINE["kill_at"],
+        "max_eval_loss": PIPELINE["max_eval_loss"],
+        "cron_wait_s": cron_wait_s, "step_created_to_succeeded_s": step_s,
+        "kill_to_first_resumed_step_s": (resumed[0]["time"] - kills[0]["time"]
+                                         if kills and resumed else None),
+        "train_phases_seen": seen["train_phases"], "train_observation": obs,
+        "eval": {k: ev.get(k) for k in ("step", "loss", "fresh_init_loss", "decision",
+                                        "restore_s", "eval_forward_s", "launches")},
+        "serve": {k: sv.get(k) for k in ("version", "load_s", "requests", "launches")},
+        "serve_latency_s": [r["latency_s"] for r in sv.get("requests", [])],
+        "peak_memory_gib": {"train": obs.get("peak_memory_gib"),
+                            "eval": ev.get("peak_memory_gib"),
+                            "serve": sv.get("peak_memory_gib")},
+        "card_memory_used_at_pod_start_mib": seen["memory_at_start_mib"],
+        "steps_status": steps_status, "workflow_s": wf_s, "checks": checks,
+        "seconds": time.perf_counter() - t_phase,
+    }
+    emit(out)
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"pipeline phase checks failed: {failed}")
+    launches = dict(train_launches)
+    for part in (ev.get("launches") or {}, sv.get("launches") or {}):
+        for k, v in part.items():
+            launches[k] = launches.get(k, 0) + v
+    return launches
+
+
 def preempt_phase(torch, card: str, plane, root: str, bare_step_ms: float,
                   worker_mib: float) -> dict:
     """Path C, the multi-tenant, highly available job plane: priority
@@ -5005,18 +5252,19 @@ def preempt_phase(torch, card: str, plane, root: str, bare_step_ms: float,
 
 
 def job_plane_phases(torch, card: str, bare_step_ms: float, loss_se: float) -> dict:
-    """Paths A, B and C on one job plane (`testing/job_plane.JobPlane`):
+    """Paths A, B, D and C on one job plane (`testing/job_plane.JobPlane`):
     the apiserver facade over this process's store (with the TpuJob and
     ResourceQuota admission), the controller-manager binary as its own
-    process (``--controllers tpujob,study``) and the local pod runner
-    stepped here. This process gives back its cached card memory before
-    anything is spawned. The manager must exit 0 on SIGTERM after paths
-    A and B; path C then starts its two leader-elected replicas on the
-    same facade. The pods, the managers and the facade are reaped on
-    every exit path, and on a failure the managers' output, the
-    leadership timeline and the pod logs are printed. `bare_step_ms` is
-    the train phase's step, `loss_se` train_check's bf16 standard error
-    of the mean loss. Returns paths A's and C's launch counts."""
+    process (``--controllers tpujob,study,workflow,cronworkflow``) and the
+    local pod runner stepped here. This process gives back its cached
+    card memory before anything is spawned. The manager must exit 0 on
+    SIGTERM after paths A, B and D; path C then starts its two
+    leader-elected replicas on the same facade. The pods, the managers
+    and the facade are reaped on every exit path, and on a failure the
+    managers' output, the leadership timeline and the pod logs are
+    printed. `bare_step_ms` is the train phase's step, `loss_se`
+    train_check's bf16 standard error of the mean loss. Returns paths
+    A's, D's and C's launch counts."""
     from kubeflow_tpu_torch.testing.job_plane import JobPlane
 
     gc.collect()
@@ -5025,12 +5273,13 @@ def job_plane_phases(torch, card: str, bare_step_ms: float, loss_se: float) -> d
     root = tempfile.mkdtemp(prefix="kftpu_jobs_")
     plane = None
     try:
-        plane = JobPlane(controllers=("tpujob", "study"),
+        plane = JobPlane(controllers=("tpujob", "study", "workflow", "cronworkflow"),
                          capture_dir=os.path.join(root, "logs"),
                          ready_timeout=JOB["manager_ready_s"])
         launches, worker_mib = job_phase(torch, card, plane, root, bare_step_ms,
                                          LOSS_Z * loss_se)
         rl_soak_phase(torch, card, plane, root)
+        pipeline_launches = pipeline_phase(torch, card, plane, root)
         code = plane.stop_manager()
         if code != 0:
             raise AssertionError(f"the controller manager exited {code} on SIGTERM")
@@ -5043,7 +5292,7 @@ def job_plane_phases(torch, card: str, bare_step_ms: float, loss_se: float) -> d
         if plane is not None:
             plane.close()
         shutil.rmtree(root, ignore_errors=True)
-    return {"job": launches, "preempt": preempt_launches}
+    return {"job": launches, "pipeline": pipeline_launches, "preempt": preempt_launches}
 
 
 def main() -> int:

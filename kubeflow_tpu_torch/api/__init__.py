@@ -1,8 +1,11 @@
 """The API object model the control planes speak: K8s-style resources
 (`api/objects.py`), the ServingDeployment CRD (`api/serving.py`), the
-TpuJob training-job CRD (`api/tpujob.py`) and the Study
-hyperparameter-search CRD (`api/study.py`)."""
+TpuJob training-job CRD (`api/tpujob.py`), the Study
+hyperparameter-search CRD (`api/study.py`), and the pipeline CRDs: the
+Workflow DAG of steps (`api/workflow.py`) and the CronWorkflow that
+spawns one on a schedule (`api/cron.py`)."""
 
+from kubeflow_tpu_torch.api.cron import CronSchedule, CronWorkflowSpec
 from kubeflow_tpu_torch.api.objects import (
     GROUP,
     ObjectMeta,
@@ -11,6 +14,7 @@ from kubeflow_tpu_torch.api.objects import (
     owner_ref,
 )
 from kubeflow_tpu_torch.api.tpujob import TpuJobSpec, make_tpujob
+from kubeflow_tpu_torch.api.workflow import StepSpec, WorkflowSpec
 
-__all__ = ["GROUP", "ObjectMeta", "Resource", "TpuJobSpec", "make_tpujob", "new_resource",
-           "owner_ref"]
+__all__ = ["GROUP", "CronSchedule", "CronWorkflowSpec", "ObjectMeta", "Resource", "StepSpec",
+           "TpuJobSpec", "WorkflowSpec", "make_tpujob", "new_resource", "owner_ref"]

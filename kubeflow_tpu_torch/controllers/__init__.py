@@ -2,11 +2,15 @@
 serving controller (`controllers/serving.py`, a ServingDeployment into a
 replica fleet), the TpuJob operator (`controllers/tpujob.py`, a job into
 a gang of worker pods, placed by `controllers/gang.py`), the Study
-controller (`controllers/study.py`, a search into trial TpuJobs),
+controller (`controllers/study.py`, a search into trial TpuJobs), the
+pipeline controllers (`controllers/workflow.py`, a DAG into step pods and
+TpuJob slice steps; `controllers/cronworkflow.py`, Workflows spawned on a
+schedule),
 ResourceQuota admission (`controllers/quota.py`), leader election over a
 Lease with write fencing (`controllers/leader.py`) and the
 controller-manager binary (``python -m kubeflow_tpu_torch.controllers``)."""
 
+from kubeflow_tpu_torch.controllers.cronworkflow import CronWorkflowController
 from kubeflow_tpu_torch.controllers.runtime import (
     Controller,
     ControllerManager,
@@ -15,6 +19,8 @@ from kubeflow_tpu_torch.controllers.runtime import (
 from kubeflow_tpu_torch.controllers.serving import ServingDeploymentController
 from kubeflow_tpu_torch.controllers.study import StudyController
 from kubeflow_tpu_torch.controllers.tpujob import TpuJobController
+from kubeflow_tpu_torch.controllers.workflow import WorkflowController
 
-__all__ = ["Controller", "ControllerManager", "Result", "ServingDeploymentController",
-           "StudyController", "TpuJobController"]
+__all__ = ["Controller", "ControllerManager", "CronWorkflowController", "Result",
+           "ServingDeploymentController", "StudyController", "TpuJobController",
+           "WorkflowController"]

@@ -4,7 +4,8 @@ against the apiserver facade.
 Counterpart of `kubeflow_tpu/controllers/__main__.py`:
 
     python -m kubeflow_tpu_torch.controllers \
-        --apiserver http://<facade> [--controllers tpujob,study,serving] \
+        --apiserver http://<facade> \
+        [--controllers tpujob,study,serving,workflow,cronworkflow] \
         [--leader-elect [--lease-name N] [--identity I]]
 
 builds each named controller on one `HttpApiClient` (its streaming
@@ -22,10 +23,15 @@ on losing the Lease it prints ``deposed <identity>`` and exits 2, since a
 deposed manager's in-flight state belongs to a dead term and its
 supervisor starts a fresh standby.
 
-`CONTROLLERS` holds the ported controllers. A controller the JAX binary
-runs and the port has not ported yet is refused as "not yet ported";
-any other name as unknown. Not ported yet: TLS and tokens, endpoint
-failover and the client's fault-tolerance flags (ROADMAP).
+`CONTROLLERS` holds the ported controllers: the TpuJob operator, the
+Study controller, the ServingDeployment controller, and the pipeline
+controllers, Workflow (a DAG of step pods and TpuJob slice steps) and
+CronWorkflow (Workflows spawned on a schedule, on the wall clock). A
+controller the JAX binary runs and the port has not ported yet
+(profile, notebook, tensorboard, nodehealth) is refused as "not yet
+ported"; any other name as unknown. Not ported yet either: TLS and
+tokens, endpoint failover and the client's fault-tolerance flags
+(ROADMAP).
 """
 
 from __future__ import annotations
@@ -35,19 +41,22 @@ import logging
 import os
 import sys
 
+from kubeflow_tpu_torch.controllers.cronworkflow import CronWorkflowController
 from kubeflow_tpu_torch.controllers.runtime import ControllerManager
 from kubeflow_tpu_torch.controllers.serving import ServingDeploymentController
 from kubeflow_tpu_torch.controllers.study import StudyController
 from kubeflow_tpu_torch.controllers.tpujob import TpuJobController
+from kubeflow_tpu_torch.controllers.workflow import WorkflowController
 
 CONTROLLERS = {
     "tpujob": TpuJobController,
     "study": StudyController,
     "serving": ServingDeploymentController,
+    "workflow": WorkflowController,
+    "cronworkflow": CronWorkflowController,
 }
 # The JAX binary's other controllers, not ported yet.
-NOT_YET_PORTED = ("profile", "notebook", "tensorboard", "nodehealth", "workflow",
-                  "cronworkflow")
+NOT_YET_PORTED = ("profile", "notebook", "tensorboard", "nodehealth")
 
 
 def main(argv: list[str] | None = None) -> int:

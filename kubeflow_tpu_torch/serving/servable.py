@@ -13,7 +13,9 @@ running statistics, as JAX's serves with ``train=False``).
 
 `from_checkpoint` restores the parameters and batch statistics that
 `train.fit` saved (the port's `Checkpointer`; orbax checkpoints of the
-JAX package are not read) and serves them as the checkpoint's step.
+JAX package are not read) and serves them as the checkpoint's step;
+`restore_module` is that restore alone, for a reader that evaluates the
+step rather than serving it.
 """
 
 from __future__ import annotations
@@ -36,6 +38,34 @@ def _buckets(max_batch: int) -> list[int]:
         b *= 2
     out.append(max_batch)
     return out
+
+
+def restore_module(module: torch.nn.Module, ckpt_dir, *, step: int | None = None) -> int:
+    """Restore `module`'s parameters and batch statistics, in place, from
+    the newest valid step of a checkpoint directory that the training
+    loop (`train.fit`) wrote, opened read-only (the optimizer's file is
+    not loaded and no step is ever renamed); with `step`, from that step
+    while the directory holds it valid. Returns the step restored;
+    raises FileNotFoundError when the directory holds no valid step."""
+    template = {"params": dict(module.named_parameters())}
+    stats = batch_stats(module)
+    if stats:
+        template["batch_stats"] = stats
+    live = template
+    template = map_tensors(
+        lambda t: TensorSpec(tuple(t.shape), t.dtype, t.device), template)
+    ckpt = Checkpointer(ckpt_dir, read_only=True)
+    try:
+        restored = ckpt.restore_latest(template, prefer_step=step)
+    finally:
+        ckpt.close()
+    if restored is None:
+        raise FileNotFoundError(f"no checkpoint under {ckpt_dir}")
+    with torch.no_grad():
+        for key, tensors in live.items():
+            for tname, t in tensors.items():
+                t.copy_(restored.state[key][tname])
+    return restored.step
 
 
 def _place(variables, device: torch.device):
@@ -76,14 +106,16 @@ class Servable:
         max_batch: int = 64,
         warmup_example=None,
         device=None,
+        apply_fn: Callable[[Any, torch.Tensor], torch.Tensor] | None = None,
     ) -> "Servable":
-        """Wrap a module (``module(batch)``) as a servable, in eval mode;
-        the module carries its own weights. Pass ``warmup_example`` (one
-        instance, no batch dim) to run every bucket before traffic."""
+        """Wrap a module as a servable, in eval mode; the module carries
+        its own weights. It serves ``apply_fn(module, batch)``, by
+        default ``module(batch)``. Pass ``warmup_example`` (one instance,
+        no batch dim) to run every bucket before traffic."""
         module.eval()
         servable = cls(
-            name, lambda module, batch: module(batch), module, version=version,
-            max_batch=max_batch, device=device,
+            name, apply_fn or (lambda module, batch: module(batch)), module,
+            version=version, max_batch=max_batch, device=device,
         )
         if warmup_example is not None:
             servable.warmup_with(warmup_example)
@@ -100,36 +132,18 @@ class Servable:
         max_batch: int = 64,
         device=None,
         step: int | None = None,
+        apply_fn: Callable[[Any, torch.Tensor], torch.Tensor] | None = None,
     ) -> "Servable":
-        """Restore `module`'s parameters and batch statistics from the
-        newest valid step of a checkpoint directory that the training
-        loop (`train.fit`) wrote, opened read-only (the optimizer's file
-        is not loaded); with `step`, from that step while the directory
-        holds it valid. The version is the checkpoint's step (at least
-        1), so clients see which step is live; every bucket is warmed
-        with ``example_input[0]`` before this returns."""
-        template = {"params": dict(module.named_parameters())}
-        stats = batch_stats(module)
-        if stats:
-            template["batch_stats"] = stats
-        live = template
-        template = map_tensors(
-            lambda t: TensorSpec(tuple(t.shape), t.dtype, t.device), template)
-        # read_only: serving never renames a training run's steps.
-        ckpt = Checkpointer(ckpt_dir, read_only=True)
-        try:
-            restored = ckpt.restore_latest(template, prefer_step=step)
-        finally:
-            ckpt.close()
-        if restored is None:
-            raise FileNotFoundError(f"no checkpoint under {ckpt_dir}")
-        with torch.no_grad():
-            for key, tensors in live.items():
-                for tname, t in tensors.items():
-                    t.copy_(restored.state[key][tname])
+        """Serve `module` restored by `restore_module` from `ckpt_dir`
+        (the newest valid step, or `step` while the directory holds it
+        valid). The version is the checkpoint's step (at least 1), so
+        clients see which step is live; every bucket is warmed with
+        ``example_input[0]`` before this returns. `apply_fn` as in
+        `from_module`."""
+        restored_step = restore_module(module, ckpt_dir, step=step)
         return cls.from_module(
-            name, module, version=max(restored.step, 1), max_batch=max_batch,
-            warmup_example=np.asarray(example_input)[0], device=device,
+            name, module, version=max(restored_step, 1), max_batch=max_batch,
+            warmup_example=np.asarray(example_input)[0], device=device, apply_fn=apply_fn,
         )
 
     def _bucket_for(self, n: int) -> int:

@@ -1,5 +1,7 @@
 """Worker entry points: the LM training job (`lm_job.py`, through the
 launcher's ``--module``) and the RL study's trial (`rl_trial.py`,
-``python -m``), which TpuJob pods run, and a leader-elected TpuJob
-operator replica that can stall mid-preemption (`preempt_ha.py`,
-``python -m``), which `testing/job_plane.JobPlane` runs as a manager."""
+``python -m``), which TpuJob pods run; the nightly LM pipeline's pod
+steps, eval, serve and teardown (`lm_pipeline.py`, ``python -m``), which
+a Workflow's step pods run; and a leader-elected TpuJob operator replica
+that can stall mid-preemption (`preempt_ha.py`, ``python -m``), which
+`testing/job_plane.JobPlane` runs as a manager."""

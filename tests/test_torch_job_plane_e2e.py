@@ -61,7 +61,7 @@ def test_binary_reconciles_over_http_and_exits_on_sigterm(tmp_path):
 
 @pytest.mark.parametrize("names, message", [
     ("tpujob,notebook", "not yet ported"),
-    ("tpujob,workflow,cronworkflow", "not yet ported"),
+    ("tpujob,profile,nodehealth", "not yet ported"),
     ("tpujob,bogus", "unknown controllers"),
 ])
 def test_binary_refuses_unported_and_unknown_controllers(names, message):
