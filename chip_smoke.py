@@ -117,6 +117,18 @@ JSON line; any failure raises and the exit code is non-zero:
    bitwise equal to an uninterrupted run in parameters, momentum and
    running statistics; then a step whose input is NaN, skipped with all
    three bitwise unchanged; save and restore seconds, checkpoint size.
+21a. records_fit, main path 6a: the same model trained from record files
+   on disk (`records_fit_phase`): 2560 records (uint8 224x224x3 image,
+   int32 label) written from seed 0 by the port's writer, read by its
+   compiled loader through `RecordDataset.device_iter()` (pinned host
+   buffers, one non-blocking copy a batch, fields split on the card):
+   the loader alone (batches/s, MB/s), one batch's pinned copy (ms by
+   CUDA events), fit() with an AnomalyGuard and cuDNN deterministic:
+   16 straight steps across an epoch, SIGTERM at 10 → `Preempted` at 11,
+   a resume whose fast-forward crosses the epoch, bitwise equal to the
+   straight run, the position equal to the step at every step, no flash
+   launch; then resnet_train's loop on the records beside its synthetic
+   step, and a profile of three steps (device time by group, idle share).
 22. resnet_serve, main path 7: the model-server binary's app on that
    checkpoint with batching (max_batch 64, 5 ms) over HTTP: the version
    is the checkpoint's step, every answer matches the restored model's
@@ -163,8 +175,8 @@ JSON line; any failure raises and the exit code is non-zero:
 26. job, main path 11: the job plane (`job_plane_phases`): the apiserver
    facade over this process's store, the controller-manager binary as
    its own process (``python -m kubeflow_tpu_torch.controllers
-   --controllers tpujob,study,workflow,cronworkflow``), the local pod
-   runner. A TpuJob "lm-train" (1 worker, 1 GPU, maxRestarts 1) runs the
+   --controllers tpujob,study,workflow,cronworkflow,nodehealth``), the
+   local pod runner. A TpuJob "lm-train" (1 worker, 1 GPU, maxRestarts 1) runs the
    same LM through
    the launcher and fit() in a worker process on the default dispatch,
    SIGKILLs itself after step 6 once step 4 is committed, is restarted
@@ -183,7 +195,7 @@ JSON line; any failure raises and the exit code is non-zero:
    rl_studies_per_hour, each trial's seconds and return, the worst
    publish latency, the card's memory with two trials running.
 28. pipeline, main path 14: the nightly pipeline on the same plane, the
-   binary now running ``--controllers tpujob,study,workflow,cronworkflow``
+   binary running the workflow and cronworkflow controllers too
    (`pipeline_phase`): a CronWorkflow "lm-nightly" (``* * * * *``,
    Forbid) spawns one Workflow at the next minute boundary and is
    suspended at once; its DAG trains the same LM as a TpuJob slice step
@@ -198,6 +210,19 @@ JSON line; any failure raises and the exit code is non-zero:
    eval loss beside the fresh init's, serve latencies, each pod's peak
    memory, the card's memory.used at each pod's start, the Workflow's
    seconds; the launches of train, eval and serve.
+28a. node_lost, main path 15: a lost Node on the same plane, the binary
+   now also running nodehealth (`node_lost_phase`): two one-GPU Nodes;
+   ResNet-50 from records_fit's records (written anew) as a TpuJob
+   (`testing/workers/resnet_records_job.py`, 12 steps, saving every 4,
+   paced at 0.5 s a step) gated by the port's sidecar CLI; once step 6
+   is logged and step 4 committed, the worker is SIGKILLed and its Node
+   deleted: the pod Failed with reason NodeLost and one event, one
+   restart on the surviving Node, resumed from 4 with steps 5 and 6
+   bitwise, the position equal to the step on every line, the sidecar's
+   SIGCONT before the first step, its pid never on the card, SIGTERM,
+   the upload, exit 0; seconds from the loss to the NodeLost write, the
+   new pod, the worker's start and its first resumed step; each step's
+   loss against records_fit's straight run.
 29. preempt, main path 13: the multi-tenant, highly available job plane
    on the same facade and runner (`preempt_phase`): a one-GPU Node and
    two tenants with a ResourceQuota of one GPU each; two operator
@@ -341,6 +366,23 @@ RESNET = dict(batch=256, image=224, classes=1000, lr=0.4, warmup_steps=3,
 RESNET_CHECK = dict(batch=8)
 # resnet_fit: fit() at batch 256, 4 steps, saving every 2, SIGTERM at 1.
 RESNET_FIT = dict(batch=256, steps=4, save_every=2, sigterm_at=1)
+# Training from record files (records_fit; node_lost reads the same file):
+# `records` records of a uint8 RESNET["image"]^2 x 3 image and an int32
+# label, written from SEED (10 batches of 256, 385 MB), read with a
+# buffered shuffle over the whole file and no epoch limit. records_fit:
+# the loader alone over `loader_batches`, fit() for `steps` (SIGTERM at
+# `sigterm_at`, saves every `save_every`; the resume's fast-forward
+# crosses the first epoch's end), then resnet_train's timed loop on the
+# records and a profile of `profiled_steps` steps.
+RECORDS = dict(records=2560, batch=256, shuffle_buffer=2560, loader_batches=20, steps=16,
+               save_every=4, sigterm_at=10, warmup_steps=3, timed_steps=10,
+               profiled_steps=3)
+# node_lost (path E): ResNet-50 from those records as a TpuJob on two
+# one-GPU Nodes, its host lost once step `lose_after` is logged and the
+# step-`save_every` save is committed; steps paced by `step_sleep_s`; the
+# sidecar polls every `poll_s`. Waits in seconds.
+NODE_LOST = dict(model="resnet50", steps=12, save_every=4, lose_after=6, max_restarts=1,
+                 step_sleep_s=0.5, poll_s=0.5, timeout_s=300, sidecar_exit_s=60)
 # resnet_serve: bench.py --workload serving's max_batch and repetitions
 # (bench.py:419-450), the binary's batching at 5 ms, 64 concurrent
 # one-instance clients over 64 distinct instances, each posting in a loop
@@ -2500,13 +2542,14 @@ def resnet_check_phase(torch, card: str) -> None:
         raise AssertionError(f"resnet_check failed: {failed}")
 
 
-def resnet_train_phase(torch, card: str) -> None:
+def resnet_train_phase(torch, card: str) -> float:
     """ResNet-50 trained as `bench.py`'s default run trains it: batch
     RESNET["batch"] of bf16 SyntheticImages (one batch, as the bench),
     SGD; RESNET["warmup_steps"] warm-up steps, then RESNET["timed_steps"]
     timed steps ending in a sync; step time, images/s, peak memory and a
     profile of one step with device time by group (`resnet_groups`). The
-    flash kernels' counters are read too: the ResNet path launches none."""
+    flash kernels' counters are read too: the ResNet path launches none.
+    Returns the step's ms."""
     from kubeflow_tpu_torch.ops import _kernels
 
     torch.cuda.reset_peak_memory_stats()
@@ -2556,6 +2599,7 @@ def resnet_train_phase(torch, card: str) -> None:
         raise AssertionError(f"non-finite ResNet loss: {losses}")
     if launches:
         raise AssertionError(f"the ResNet path launched flash kernels: {launches}")
+    return step_s * 1e3
 
 
 def resnet_fit_phase(torch, card: str, root: str) -> int:
@@ -2663,6 +2707,206 @@ def resnet_fit_phase(torch, card: str, root: str) -> int:
     if failed:
         raise AssertionError(f"resnet_fit checks failed: {failed}")
     return newest
+
+
+def record_spec():
+    from kubeflow_tpu_torch.train.records import RecordSpec
+
+    side = RESNET["image"]
+    return RecordSpec.of(image=("uint8", (side, side, 3)), label=("int32", ()))
+
+
+def write_record_file(path: str) -> dict:
+    """RECORDS["records"] records of `record_spec()` from SEED (uniform
+    uint8 pixels, labels in [0, RESNET["classes"])) through the port's
+    writer; returns the seconds and the file's size."""
+    from kubeflow_tpu_torch.native.dataloader import RecordWriter
+
+    spec, side, chunk = record_spec(), RESNET["image"], RECORDS["batch"]
+    rng = np.random.default_rng(SEED)
+    t0 = time.perf_counter()
+    with RecordWriter(path, spec.record_bytes) as writer:
+        for start in range(0, RECORDS["records"], chunk):
+            n = min(chunk, RECORDS["records"] - start)
+            images = rng.integers(0, 256, (n, side, side, 3), dtype=np.uint8)
+            labels = rng.integers(0, RESNET["classes"], n).astype(np.int32)
+            for i in range(n):
+                writer.append(spec.encode({"image": images[i], "label": labels[i]}))
+    return {"write_s": time.perf_counter() - t0, "file_mb": os.path.getsize(path) / 1e6}
+
+
+def records_dataset(path: str):
+    from kubeflow_tpu_torch.train.records import RecordDataset
+
+    return RecordDataset(path, record_spec(), RECORDS["batch"],
+                         shuffle_buffer=RECORDS["shuffle_buffer"], seed=SEED, epochs=0)
+
+
+def records_iter(path: str):
+    """The records' batches on DEVICE."""
+    return records_dataset(path).device_iter(DEVICE)
+
+
+def records_fit_phase(torch, card: str, root: str, synthetic_step_ms: float) -> tuple:
+    """ResNet-50 trained from record files on disk (main path 6a): the
+    file written from SEED into `root`, read by the port's compiled
+    loader through `RecordDataset.device_iter()` (pinned host buffers,
+    one non-blocking copy a batch, the fields split on the card).
+
+    The loader alone drains RECORDS["loader_batches"] batches into one
+    host buffer (batches/s, MB/s); the pinned copy of one batch to the
+    card is timed by CUDA events. Then `fit()` at batch 256 with an
+    AnomalyGuard, cuDNN deterministic as in resnet_fit: a straight
+    RECORDS["steps"]-step run (it crosses an epoch and reshuffles); a
+    run that saves every RECORDS["save_every"] steps and gets a SIGTERM
+    at RECORDS["sigterm_at"] (`Preempted` at the next step after its
+    save); a run resumed from that save, whose fast-forward crosses the
+    first epoch's end, bitwise equal to the straight run in parameters,
+    momentum and running statistics. The dataset's position equals the
+    step at every step of the three runs, and no flash kernel launches.
+    Then resnet_train's loop on the records (no guard, cuDNN as
+    resnet_train runs it): step ms beside resnet_train's synthetic step
+    (`synthetic_step_ms`), and a profile of RECORDS["profiled_steps"]
+    steps by group with the device's idle share. Returns the straight
+    run's losses and the launch counts."""
+    import signal
+
+    from kubeflow_tpu_torch.native.dataloader import RecordLoader
+    from kubeflow_tpu_torch.ops import _kernels
+    from kubeflow_tpu_torch.train import AnomalyGuard, Preempted, fit
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    batch, steps, save_every, sigterm_at = (RECORDS[k] for k in (
+        "batch", "steps", "save_every", "sigterm_at"))
+    path = os.path.join(root, "train.rec")
+    written = write_record_file(path)
+    record_bytes = record_spec().record_bytes
+    batch_mb = batch * record_bytes / 1e6
+
+    loader = RecordLoader(path, batch, shuffle_buffer=RECORDS["shuffle_buffer"], seed=SEED)
+    host = np.empty((batch, record_bytes), np.uint8)
+    loader.next(out=host)  # the first batch carries the loader's start
+    t0 = time.perf_counter()
+    for _ in range(RECORDS["loader_batches"]):
+        loader.next(out=host)
+    loader_s = time.perf_counter() - t0
+    del loader
+    pinned = torch.empty((batch, record_bytes), dtype=torch.uint8, pin_memory=True)
+    pinned.numpy()[:] = host
+    on_card = torch.empty((batch, record_bytes), dtype=torch.uint8, device=DEVICE)
+    h2d_ms = cuda_ms(torch, lambda: on_card.copy_(pinned, non_blocking=True), iters=20)
+    del pinned, on_card, host
+
+    checks, positions = {}, []
+
+    def track(it, sigterm_at=None):
+        def on_metrics(step, rec):
+            positions.append((step, it.state_dict()["batches_delivered"]))
+            if step == sigterm_at:
+                os.kill(os.getpid(), signal.SIGTERM)
+        return on_metrics
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        _kernels.launches.clear()
+        trainer = resnet_trainer(torch, batch, guard=AnomalyGuard())
+        it = records_iter(path)
+        straight = fit(trainer, it, steps, rng=SEED, log_every=1, on_metrics=track(it))
+        want = resnet_state(torch, trainer.model, straight.state.opt_state)
+        losses = [rec["loss"] for rec in straight.history]
+        fit_step_ms = [batch / rec["examples_per_sec"] * 1e3 for rec in straight.history[1:]]
+        del straight, it
+
+        ckpt_dir = os.path.join(root, "records-ckpt")
+        ckpt = timed_checkpointer(ckpt_dir, save_interval_steps=save_every, max_to_keep=2)
+        it = records_iter(path)
+        first = fit(trainer, it, steps, rng=SEED, checkpointer=ckpt, log_every=1,
+                    on_metrics=track(it, sigterm_at))
+        checks["preempted"] = (isinstance(first, Preempted)
+                               and first.signum == signal.SIGTERM
+                               and int(first.state.step) == sigterm_at + 1
+                               and ckpt.all_steps()[-1] == sigterm_at + 1)
+        del first, it
+        ckpt2 = timed_checkpointer(ckpt_dir, save_interval_steps=save_every, max_to_keep=2)
+        it = records_iter(path)
+        reposition, fast_forward = it.load_state_dict, {}
+
+        def timed_reposition(state):
+            t0 = time.perf_counter()
+            reposition(state)
+            fast_forward[int(state["batches_delivered"])] = time.perf_counter() - t0
+
+        it.load_state_dict = timed_reposition
+        resumed = fit(trainer, it, steps, rng=SEED + 1, checkpointer=ckpt2, log_every=1,
+                      on_metrics=track(it))
+        got = resnet_state(torch, trainer.model, resumed.state.opt_state)
+        epoch_batches = RECORDS["records"] // batch
+        checks["resumed"] = (resumed.resumed_from == sigterm_at + 1
+                             and int(resumed.state.step) == steps
+                             and list(fast_forward) == [sigterm_at + 1])
+        checks["fast_forward_crosses_an_epoch"] = sigterm_at + 1 > epoch_batches
+        checks["straight_run_crosses_an_epoch"] = steps > epoch_batches
+        checks["resume_bitwise"] = same_state(got, want)
+        checks["position_is_the_step"] = (
+            len(positions) == steps + (sigterm_at + 1) + (steps - sigterm_at - 1)
+            and all(step == delivered for step, delivered in positions))
+        del resumed, got, want, trainer, it
+        launches = dict(_kernels.launches)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    checks["finite_losses"] = all(np.isfinite(losses))
+    checks["no_flash_launches"] = not launches
+    torch.cuda.empty_cache()
+
+    # resnet_train's loop, on the records.
+    trainer = resnet_trainer(torch, batch)
+    state, step = trainer.init_state(), trainer.make_train_step()
+    data = iter(records_iter(path))
+    for _ in range(RECORDS["warmup_steps"]):
+        state, _ = step(state, next(data))
+    torch.cuda.synchronize()
+    n = RECORDS["timed_steps"]
+    t0 = time.perf_counter()
+    for _ in range(n):
+        state, metrics = step(state, next(data))
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / n * 1e3
+    profile = profile_device(
+        torch, lambda: [step(state, next(data)) for _ in range(RECORDS["profiled_steps"])],
+        resnet_groups, RESNET_GROUPS)
+    checks["timed_loss_finite"] = bool(torch.isfinite(metrics["loss"]))
+    del trainer, state, step, data
+    torch.cuda.empty_cache()
+    os.remove(path)
+    seconds = {key: ckpt.seconds[key] + ckpt2.seconds[key] for key in ckpt.seconds}
+    out = {
+        "phase": "records_fit", "model": "resnet50", "dtype": "bfloat16", "batch": batch,
+        "records": RECORDS["records"], "record_bytes": record_bytes,
+        "shuffle_buffer": RECORDS["shuffle_buffer"], "file": written,
+        "loader_batches": RECORDS["loader_batches"],
+        "loader_batches_per_s": RECORDS["loader_batches"] / loader_s,
+        "loader_mb_per_s": RECORDS["loader_batches"] * batch_mb / loader_s,
+        "batch_mb": batch_mb, "h2d_ms": h2d_ms, "h2d_gb_per_s": batch_mb / h2d_ms,
+        "steps": steps, "save_every": save_every, "sigterm_at": sigterm_at,
+        "cudnn_deterministic_fit": True, "checks": checks, "losses": losses,
+        "fit_step_ms": fit_step_ms, "fast_forward_s": fast_forward,
+        "save_block_s": seconds["save_block"], "save_write_s": seconds["save_write"],
+        "restore_s": seconds["restore"],
+        "records_step_ms": step_ms, "synthetic_step_ms": synthetic_step_ms,
+        "records_vs_synthetic_step": step_ms / synthetic_step_ms,
+        "images_per_s": batch / step_ms * 1e3,
+        "profile_steps": RECORDS["profiled_steps"], "profile": profile,
+        "flash_launches": launches,
+        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "seconds": time.perf_counter() - t_phase, "card": card,
+    }
+    emit(out)
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"records_fit checks failed: {failed}")
+    return losses, launches
 
 
 def percentiles(seconds: list) -> dict:
@@ -3594,6 +3838,12 @@ def compute_apps() -> dict:
         if pid.strip().isdigit():
             apps[int(pid)] = used.strip()
     return apps
+
+
+def compute_app_rows() -> int:
+    """How many compute processes nvidia-smi lists on the card (rows, not
+    pids: a container may show its processes under one host pid)."""
+    return len(nvidia_smi("--query-compute-apps=pid,used_memory"))
 
 
 def card_used_mib(torch) -> float:
@@ -4804,7 +5054,7 @@ def set_suspend(api, kind: str, name: str, namespace: str = "default") -> None:
 def pipeline_phase(torch, card: str, plane, root: str) -> dict:
     """Path D, the nightly pipeline: the Workflow and CronWorkflow
     controllers in the same controller-manager binary as paths A and B
-    (``--controllers tpujob,study,workflow,cronworkflow``). A
+    (``--controllers tpujob,study,workflow,cronworkflow,nodehealth``). A
     CronWorkflow "lm-nightly" (``* * * * *``, concurrencyPolicy Forbid)
     spawns a Workflow (`testing/workers/lm_pipeline.pipeline_spec`):
     ``train``, a TpuJob slice step running `lm_job_spec`'s worker (TRAIN's
@@ -5251,20 +5501,271 @@ def preempt_phase(torch, card: str, plane, root: str, bare_step_ms: float,
     return launches
 
 
-def job_plane_phases(torch, card: str, bare_step_ms: float, loss_se: float) -> dict:
-    """Paths A, B, D and C on one job plane (`testing/job_plane.JobPlane`):
+def node_lost_phase(torch, card: str, plane, root: str, straight_losses: list) -> dict:
+    """Path E, a lost Node: ResNet-50 trained from record files as a
+    TpuJob ("rn-records": 1 worker, 1 GPU, maxRestarts 1) on a cluster
+    model of two one-GPU Nodes, the binary running the nodehealth
+    controller beside the operator. The worker
+    (`testing/workers/resnet_records_job.py`) reads records_fit's file
+    (written anew here from SEED) through `device_iter()` and trains
+    through fit() with an AnomalyGuard and a Checkpointer, cuDNN
+    deterministic, NODE_LOST["step_sleep_s"] slept after each step. The
+    port's sidecar CLI runs beside it as its own process: its CUDA
+    probe, the SIGCONT the worker waits for, the job watch, SIGTERM, the
+    upload of the worker's results.
+
+    Once step NODE_LOST["lose_after"] is logged and the step-4 save is
+    committed, `plane.lose_node` SIGKILLs the worker and deletes its
+    Node. Gates: the pod Failed with reason NodeLost and one NodeLost
+    event; one restart, on the surviving Node; Succeeded with
+    resumed_from 4; steps 5 and 6 repeated bitwise; the dataset's
+    position equal to the step on every line; no flash launch; the
+    sidecar's SIGCONT before the first step, its pid never among
+    nvidia-smi's compute apps, SIGTERM written, the results uploaded,
+    exit 0 on Succeeded. Before the job, the sidecar's CUDA probe runs
+    alone in a process kept alive after it answers True: nvidia-smi's
+    compute processes and memory.used (under 64 MiB more) must not move,
+    since a machine may list every container process under one host pid.
+    Numbers: the Node's loss to the NodeLost write, to the new pod, to
+    the worker's start and to its first resumed step; each incarnation's
+    start line, gate, restore, fast-forward and first step from its
+    spawn; restore and fast-forward seconds; the job's step ms; each
+    step's loss against records_fit's straight run (`straight_losses`,
+    the same file, seed and setup). The surviving Node is deleted at the
+    end. Returns the worker's launch counts."""
+    from kubeflow_tpu_torch.api import make_tpujob
+    from kubeflow_tpu_torch.controllers.nodehealth import REASON_NODE_LOST
+    from kubeflow_tpu_torch.controllers.tpujob import LABEL_INCARNATION, LABEL_JOB
+
+    t_phase = time.perf_counter()
+    cfg, name = NODE_LOST, "rn-records"
+    pod_name = f"{name}-worker-0"
+    path = os.path.join(root, "node-lost.rec")
+    written = write_record_file(path)
+    ckpt_dir, sig, results, store = (os.path.join(root, f"node-lost-{d}")
+                                     for d in ("ckpt", "sig", "results", "store"))
+    nodes = ("h100-a", "h100-b")
+    # The sidecar's CUDA probe, alone in a process that stays alive after
+    # it answered: no CUDA context means no new compute process on the
+    # card and no memory (a context holds ~500 MiB).
+    before = {"rows": compute_app_rows(), "mib": card_used_mib(torch)}
+    probe = subprocess.Popen(
+        [sys.executable, "-c", "import sys; from kubeflow_tpu_torch.sidecar.controller import "
+         "default_device_probe; print(default_device_probe(), flush=True); sys.stdin.read()"],
+        cwd=ROOT, stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True,
+        env={**os.environ, "PYTHONPATH": ROOT})
+    try:
+        probed = probe.stdout.readline().strip()
+        during = {"rows": compute_app_rows(),
+                  "mib": float(nvidia_smi("--query-gpu=memory.used")[0])}
+    finally:
+        probe.stdin.close()
+        probe.wait(timeout=30)
+    pods = []
+
+    def on_pod(event, pod):
+        if pod.metadata.labels.get(LABEL_JOB) == name:
+            pods.append((time.time(), event, pod.metadata.labels.get(LABEL_INCARNATION),
+                         pod.spec.get("nodeName"), pod.status.get("phase"),
+                         pod.status.get("reason")))
+
+    plane.api.watch(on_pod, "Pod")
+    for node in nodes:
+        plane.add_node(node, chips=1)
+    env = {
+        "KFTPU_RECORDS": path, "KFTPU_SHUFFLE_BUFFER": str(RECORDS["shuffle_buffer"]),
+        "KFTPU_DATA_SEED": str(SEED), "KFTPU_CKPT_DIR": ckpt_dir,
+        "KFTPU_TOTAL_STEPS": str(cfg["steps"]), "KFTPU_SAVE_EVERY": str(cfg["save_every"]),
+        "KFTPU_STEP_SLEEP_S": str(cfg["step_sleep_s"]), "KFTPU_SIGNAL_DIR": sig,
+        "KFTPU_RESULTS_DIR": results,
+        "KFTPU_RESNET_SIZE": json.dumps({"model": cfg["model"], "classes": RESNET["classes"],
+                                         "image": RESNET["image"], "batch": RECORDS["batch"],
+                                         "lr": RESNET["lr"]}),
+    }
+    plane.api.create(make_tpujob(
+        name, replicas=1, tpu_chips_per_worker=1, max_restarts=cfg["max_restarts"],
+        command=(sys.executable, "-m", "kubeflow_tpu_torch.launcher", "--module",
+                 "kubeflow_tpu_torch.testing.workers.resnet_records_job:main"),
+        env=tuple(env.items())))
+    t_created = time.time()
+    # After the create: a sidecar whose first poll finds no job reads it
+    # as Failed.
+    sidecar = subprocess.Popen(
+        [sys.executable, "-m", "kubeflow_tpu_torch.sidecar", "--workdir", sig, "--job", name,
+         "--apiserver", plane.url, "--poll-seconds", str(cfg["poll_s"]),
+         "--timeout-seconds", str(cfg["timeout_s"]), "--results", results,
+         "--artifacts", store],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env={**os.environ, "PYTHONPATH": ROOT})
+    apps = {"sidecar_seen": False, "pids_seen": set(), "max_rows": 0, "t": 0.0}
+
+    def tick():
+        now = time.time()
+        if now - apps["t"] >= 1.0:
+            apps["t"] = now
+            rows = nvidia_smi("--query-compute-apps=pid,used_memory")
+            seen = {int(r.partition(",")[0]) for r in rows if r.partition(",")[0].isdigit()}
+            apps["max_rows"] = max(apps["max_rows"], len(rows))
+            apps["pids_seen"] |= seen
+            apps["sidecar_seen"] |= sidecar.pid in seen
+
+    def log():
+        return log_records(plane.pod_logs().get(f"{pod_name}.log", ""))
+
+    def logged(inc: int, step: int) -> bool:
+        return any(r["event"] == "step" and r["incarnation"] == inc and r["step"] == step
+                   for r in log())
+
+    committed_manifest = os.path.join(ckpt_dir, str(cfg["save_every"]), "kftpu_manifest.json")
+    survivor = None
+    try:
+        plane.run_until(lambda: logged(0, cfg["lose_after"]) and
+                        os.path.exists(committed_manifest), cfg["timeout_s"],
+                        f"{name}: step {cfg['lose_after']} and the step-{cfg['save_every']} "
+                        "save", tick=tick)
+        committed = max(int(d) for d in os.listdir(ckpt_dir) if d.isdigit() and
+                        os.path.exists(os.path.join(ckpt_dir, d, "kftpu_manifest.json")))
+        host = plane.api.get("Pod", pod_name).spec["nodeName"]
+        t_lost = time.time()
+        killed = plane.lose_node(host)
+        plane.run_until(lambda: plane.api.get("TpuJob", name).status.get("phase")
+                        in ("Succeeded", "Failed"), cfg["timeout_s"], f"{name} to finish",
+                        tick=tick)
+        t_done = time.time()
+        job = plane.api.get("TpuJob", name)
+        survivor = plane.api.get("Pod", pod_name).spec.get("nodeName")
+        sidecar_out, _ = sidecar.communicate(timeout=cfg["sidecar_exit_s"])
+        t_sidecar = time.time()
+        events = [e for e in plane.api.list("Event", "default")
+                  if e.spec["reason"] == REASON_NODE_LOST
+                  and e.spec["involvedObject"]["name"] == pod_name]
+        records = log()
+    finally:
+        if sidecar.poll() is None:
+            sidecar.kill()
+            print(f"node_lost: the sidecar was killed; its output:\n{sidecar.communicate()[0]}",
+                  file=sys.stderr, flush=True)
+        for node in nodes:
+            if any(n.metadata.name == node for n in plane.api.list("Node")):
+                plane.api.delete("Node", node, "")
+    obs = job.status.get("observation") or {}
+    steps = {(r["incarnation"], r["step"]): r for r in records if r["event"] == "step"}
+    starts = {r["incarnation"]: r for r in records if r["event"] == "start"}
+    gates = {r["incarnation"]: r for r in records if r["event"] == "gate"}
+    restored = [r for r in records if r["event"] == "restored"]
+    forwarded = [r for r in records if r["event"] == "fast_forward"]
+    lost = [p for p in pods if p[4] == "Failed"]
+    new_pod = min((p[0] for p in pods if p[1] == "ADDED" and p[2] == "1"), default=None)
+    running = {}
+    for t, _, inc, _, phase, _ in pods:
+        if phase == "Running":
+            running.setdefault(int(inc), t)
+    # Each incarnation from the runner's spawn (the pod's Running): its
+    # start line (torch imported, the job read), the gate, the restore
+    # and fast-forward, the first step.
+    timeline = {}
+    for inc, spawned in running.items():
+        marks = {"start": starts.get(inc), "gate": gates.get(inc),
+                 "restored": next((r for r in restored if r["incarnation"] == inc), None),
+                 "fast_forward": next((r for r in forwarded if r["incarnation"] == inc), None),
+                 "first_step": min((r for (i, _), r in steps.items() if i == inc),
+                                   key=lambda r: r["step"], default=None)}
+        timeline[inc] = {k: r["time"] - spawned for k, r in marks.items() if r}
+    first_resumed = min((r for (i, _), r in steps.items() if i == 1),
+                        key=lambda r: r["step"], default=None)
+    first_step = min((r["time"] for (i, _), r in steps.items() if i == 0), default=None)
+    repeated = [s for i, s in steps if i == 0 and s > committed]
+    loss = lambda inc, step: steps.get((inc, step), {}).get("loss")
+    vs_records_fit = {f"{i}:{s}": abs(r["loss"] - straight_losses[s - 1])
+                      for (i, s), r in sorted(steps.items()) if s <= len(straight_losses)}
+    launches = {k[len("launches_"):]: int(v) for k, v in obs.items()
+                if k.startswith("launches_")}
+    sigcont = os.path.join(sig, "SIGCONT")
+    checks = {
+        "killed_the_worker": killed == [pod_name],
+        "pod_failed_node_lost": bool(lost) and {p[5] for p in lost} == {REASON_NODE_LOST}
+        and {(p[2], p[3]) for p in lost} == {("0", host)},
+        "one_node_lost_event": len(events) == 1 and events[0].spec["type"] == "Warning",
+        "restarted_once_on_the_survivor": job.status.get("restarts") == 1
+        and survivor not in (None, host),
+        "succeeded": job.status.get("phase") == "Succeeded",
+        "resumed_from_4": committed == cfg["save_every"]
+        and obs.get("resumed_from") == float(cfg["save_every"]),
+        "resumed_curve": sorted(s for i, s in steps if i == 1)
+        == list(range(cfg["save_every"] + 1, cfg["steps"] + 1)),
+        "restored_position": [(r["incarnation"], r["data_state"]) for r in restored]
+        == [(1, {"batches_delivered": cfg["save_every"]})],
+        "repeated_steps_bitwise": repeated[:2] == [cfg["save_every"] + 1, cfg["save_every"] + 2]
+        and all(loss(0, s) == loss(1, s) for s in repeated),
+        "position_is_the_step": all(r["batches_delivered"] == r["step"]
+                                    for r in steps.values()),
+        "no_flash_launches": not launches,
+        "sidecar_gate_before_first_step": os.path.exists(sigcont) and first_step is not None
+        and os.path.getmtime(sigcont) <= first_step and set(gates) == {0, 1},
+        "probe_creates_no_context": probed == "True" and during["rows"] == before["rows"]
+        and during["mib"] - before["mib"] < 64,
+        "sidecar_pid_never_on_the_card": not apps["sidecar_seen"],
+        "sidecar_sigterm": os.path.exists(os.path.join(sig, "SIGTERM")),
+        "sidecar_uploaded": os.path.exists(os.path.join(store, "observation.json")),
+        "sidecar_exit_0_succeeded": sidecar.returncode == 0
+        and "terminal phase: Succeeded" in sidecar_out,
+    }
+    out = {
+        "phase": "node_lost", "card": card, "job": name, "nodes": list(nodes),
+        "worker_command": "python -m kubeflow_tpu_torch.launcher --module "
+        "kubeflow_tpu_torch.testing.workers.resnet_records_job:main",
+        "model": cfg["model"], "batch": RECORDS["batch"], "records_file": written,
+        "steps": cfg["steps"], "save_every": cfg["save_every"],
+        "lose_after": cfg["lose_after"], "step_sleep_s": cfg["step_sleep_s"],
+        "lost_node": host, "survivor": survivor, "committed_at_loss": committed,
+        "phase_final": job.status.get("phase"), "restarts": job.status.get("restarts"),
+        "observation": obs,
+        "loss_to_node_lost_write_s": lost[0][0] - t_lost if lost else None,
+        "loss_to_new_pod_s": new_pod - t_lost if new_pod else None,
+        "loss_to_worker_start_s": starts[1]["time"] - t_lost if 1 in starts else None,
+        "loss_to_first_resumed_step_s": (first_resumed["time"] - t_lost
+                                         if first_resumed else None),
+        "create_to_first_step_s": first_step - t_created if first_step else None,
+        "from_spawn_s": timeline,
+        "restore_s": restored[0]["restore_s"] if restored else None,
+        "fast_forward_s": [r["seconds"] for r in forwarded],
+        "job_step_ms": obs.get("step_ms"),
+        "step_ms_by_step": {f"{i}:{s}": r["step_ms"] for (i, s), r in sorted(steps.items())},
+        "losses": {f"{i}:{s}": r["loss"] for (i, s), r in sorted(steps.items())},
+        "abs_diff_vs_records_fit": vs_records_fit,
+        "max_abs_diff_vs_records_fit": max(vs_records_fit.values(), default=None),
+        "sidecar": {"pid": sidecar.pid, "returncode": sidecar.returncode,
+                    "exit_after_job_s": t_sidecar - t_done,
+                    "last_line": sidecar_out.strip().splitlines()[-1:]},
+        "probe": {"answered": probed, "before": before, "during": during},
+        "compute_apps_pids_seen": sorted(apps["pids_seen"]),
+        "compute_apps_max_rows": apps["max_rows"],
+        "worker_pids": sorted({r["pid"] for r in starts.values()}),
+        "launches": launches, "checks": checks, "seconds": time.perf_counter() - t_phase,
+    }
+    emit(out)
+    failed = [key for key, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"node_lost checks failed: {failed}")
+    return launches
+
+
+def job_plane_phases(torch, card: str, bare_step_ms: float, loss_se: float,
+                     records_losses: list) -> dict:
+    """Paths A, B, D, E and C on one job plane (`testing/job_plane.JobPlane`):
     the apiserver facade over this process's store (with the TpuJob and
     ResourceQuota admission), the controller-manager binary as its own
-    process (``--controllers tpujob,study,workflow,cronworkflow``) and the
-    local pod runner stepped here. This process gives back its cached
-    card memory before anything is spawned. The manager must exit 0 on
-    SIGTERM after paths A, B and D; path C then starts its two
+    process (``--controllers tpujob,study,workflow,cronworkflow,nodehealth``)
+    and the local pod runner stepped here. This process gives back its
+    cached card memory before anything is spawned. The manager must exit
+    0 on SIGTERM after paths A, B, D and E; path C then starts its two
     leader-elected replicas on the same facade. The pods, the managers
     and the facade are reaped on every exit path, and on a failure the
     managers' output, the leadership timeline and the pod logs are
     printed. `bare_step_ms` is the train phase's step, `loss_se`
-    train_check's bf16 standard error of the mean loss. Returns paths
-    A's, D's and C's launch counts."""
+    train_check's bf16 standard error of the mean loss, `records_losses`
+    records_fit's straight run. Returns paths A's, D's, E's and C's
+    launch counts."""
     from kubeflow_tpu_torch.testing.job_plane import JobPlane
 
     gc.collect()
@@ -5273,13 +5774,15 @@ def job_plane_phases(torch, card: str, bare_step_ms: float, loss_se: float) -> d
     root = tempfile.mkdtemp(prefix="kftpu_jobs_")
     plane = None
     try:
-        plane = JobPlane(controllers=("tpujob", "study", "workflow", "cronworkflow"),
+        plane = JobPlane(controllers=("tpujob", "study", "workflow", "cronworkflow",
+                                      "nodehealth"),
                          capture_dir=os.path.join(root, "logs"),
                          ready_timeout=JOB["manager_ready_s"])
         launches, worker_mib = job_phase(torch, card, plane, root, bare_step_ms,
                                          LOSS_Z * loss_se)
         rl_soak_phase(torch, card, plane, root)
         pipeline_launches = pipeline_phase(torch, card, plane, root)
+        node_lost_launches = node_lost_phase(torch, card, plane, root, records_losses)
         code = plane.stop_manager()
         if code != 0:
             raise AssertionError(f"the controller manager exited {code} on SIGTERM")
@@ -5292,7 +5795,8 @@ def job_plane_phases(torch, card: str, bare_step_ms: float, loss_se: float) -> d
         if plane is not None:
             plane.close()
         shutil.rmtree(root, ignore_errors=True)
-    return {"job": launches, "pipeline": pipeline_launches, "preempt": preempt_launches}
+    return {"job": launches, "pipeline": pipeline_launches, "node_lost": node_lost_launches,
+            "preempt": preempt_launches}
 
 
 def main() -> int:
@@ -5336,10 +5840,12 @@ def main() -> int:
     ring_check_phase(torch)
     ring_nccl_phase(torch)
     resnet_check_phase(torch, card)
-    resnet_train_phase(torch, card)
+    resnet_step_ms = resnet_train_phase(torch, card)
     resnet_root = tempfile.mkdtemp(prefix="kftpu_resnet_")
     try:
         step = resnet_fit_phase(torch, card, resnet_root)
+        records_losses, by_path["records_fit"] = records_fit_phase(
+            torch, card, resnet_root, resnet_step_ms)
         resnet_serve_phase(torch, card, os.path.join(resnet_root, "ckpt"), step)
         controller_phase(torch, card, os.path.join(resnet_root, "ckpt"), step)
     finally:
@@ -5347,7 +5853,8 @@ def main() -> int:
     rl_phase(torch, card)
     by_path["frontdoor"] = frontdoor_phase(torch, card)
     by_path.update(job_plane_phases(torch, card, train_step_ms,
-                                    check_rows[0]["loss_kernel_vs_plain"]["se"]))
+                                    check_rows[0]["loss_kernel_vs_plain"]["se"],
+                                    records_losses))
     for name, entry in entries.items():
         counts = {path: launches.get(name, 0) for path, launches in by_path.items()}
         entry["launches"] = sum(counts.values())

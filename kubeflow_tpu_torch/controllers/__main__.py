@@ -5,7 +5,7 @@ Counterpart of `kubeflow_tpu/controllers/__main__.py`:
 
     python -m kubeflow_tpu_torch.controllers \
         --apiserver http://<facade> \
-        [--controllers tpujob,study,serving,workflow,cronworkflow] \
+        [--controllers tpujob,study,serving,workflow,cronworkflow,nodehealth] \
         [--leader-elect [--lease-name N] [--identity I]]
 
 builds each named controller on one `HttpApiClient` (its streaming
@@ -24,12 +24,13 @@ deposed manager's in-flight state belongs to a dead term and its
 supervisor starts a fresh standby.
 
 `CONTROLLERS` holds the ported controllers: the TpuJob operator, the
-Study controller, the ServingDeployment controller, and the pipeline
+Study controller, the ServingDeployment controller, the pipeline
 controllers, Workflow (a DAG of step pods and TpuJob slice steps) and
-CronWorkflow (Workflows spawned on a schedule, on the wall clock). A
-controller the JAX binary runs and the port has not ported yet
-(profile, notebook, tensorboard, nodehealth) is refused as "not yet
-ported"; any other name as unknown. Not ported yet either: TLS and
+CronWorkflow (Workflows spawned on a schedule, on the wall clock), and
+the node-health watchdog (pods on a lost Node fail with reason
+NodeLost, so their gang restarts). A controller the JAX binary runs
+and the port has not ported yet (profile, notebook, tensorboard) is
+refused as "not yet ported"; any other name as unknown. Not ported yet either: TLS and
 tokens, endpoint failover and the client's fault-tolerance flags
 (ROADMAP).
 """
@@ -42,6 +43,7 @@ import os
 import sys
 
 from kubeflow_tpu_torch.controllers.cronworkflow import CronWorkflowController
+from kubeflow_tpu_torch.controllers.nodehealth import NodeHealthController
 from kubeflow_tpu_torch.controllers.runtime import ControllerManager
 from kubeflow_tpu_torch.controllers.serving import ServingDeploymentController
 from kubeflow_tpu_torch.controllers.study import StudyController
@@ -54,9 +56,10 @@ CONTROLLERS = {
     "serving": ServingDeploymentController,
     "workflow": WorkflowController,
     "cronworkflow": CronWorkflowController,
+    "nodehealth": NodeHealthController,
 }
 # The JAX binary's other controllers, not ported yet.
-NOT_YET_PORTED = ("profile", "notebook", "tensorboard", "nodehealth")
+NOT_YET_PORTED = ("profile", "notebook", "tensorboard")
 
 
 def main(argv: list[str] | None = None) -> int:

@@ -217,6 +217,21 @@ class LocalPodRunner:
             fresh.status["phase"] = phase
             self.api.update_status(fresh)
 
+    def kill(self, namespace: str, name: str) -> bool:
+        """SIGKILL the process of pod (namespace, name), wait for it, and
+        stop tracking it without writing any phase: the death of its host.
+        A dead host runs nothing and reports nothing, so the pod's phase
+        is left to whoever notices the host is gone (the nodehealth
+        controller). Returns whether a live process was killed."""
+        with self._lock:
+            proc = self._procs.pop((namespace, name), None)
+            self._uids.pop((namespace, name), None)
+        if proc is None or proc.poll() is not None:
+            return False
+        proc.kill()
+        proc.wait()
+        return True
+
     def running_count(self) -> int:
         with self._lock:
             return sum(1 for p in self._procs.values() if p.poll() is None)

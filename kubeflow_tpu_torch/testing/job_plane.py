@@ -17,7 +17,7 @@ on one machine, as the JAX package's e2e soaks do:
   each pod (every pod gets ``KFTPU_APISERVER``, the facade's URL);
   `run_pods=False` leaves pods unrun, as the JAX HA tests do;
 - `add_node` and `set_quota`, the cluster model's Nodes and a tenant's
-  ResourceQuota.
+  ResourceQuota, and `lose_node`, a host's failure.
 
 Every wait has a deadline and fails loudly with `diagnostics()`: each
 manager's output stamped with seconds since the plane started, the
@@ -246,6 +246,28 @@ class JobPlane:
                                                     "y": y})
         node.status = {"ready": True}
         self.api.create(node)
+
+    def lose_node(self, name: str) -> list[str]:
+        """A host failure: SIGKILL the runner's processes of the pods bound
+        to Node `name`, then delete the Node; returns the killed pods'
+        names. Call it between two `run_until` calls (between two runner
+        steps), so that the runner never mirrors the kills' exits: the
+        pods stay Running until the nodehealth controller fails them with
+        reason NodeLost.
+
+        The kill is what a lost host does to its processes. Without it the
+        runner would SIGTERM a pod's process only once the operator
+        deletes the pod, and the process's preemption save would race the
+        restarted gang's restore: an artefact of running the cluster on
+        one machine, not a host failure."""
+        killed = []
+        if self.runner is not None:
+            for pod in self.api.list("Pod"):
+                if pod.spec.get("nodeName") == name and self.runner.kill(
+                        pod.metadata.namespace, pod.metadata.name):
+                    killed.append(pod.metadata.name)
+        self.api.delete("Node", name, "")
+        return killed
 
     def set_quota(self, namespace: str, hard: dict) -> None:
         """The namespace's ResourceQuota (`quota.QUOTA_NAME`) with `hard` caps."""

@@ -32,11 +32,17 @@ Env (besides the operator's TPUJOB_*):
 - ``KFTPU_DEVICE``: ``cpu`` runs it on the CPU (the tests); unset, CUDA,
   and without a GPU it raises. On CUDA a run that launched none of the
   flash kernels fails.
+- ``KFTPU_DIGESTS`` (0): 1 logs sha256 digests of the state each save
+  writes and each restore reads (parameters and optimizer state apart)
+  and of every step's batch, so two incarnations' logs show which of
+  them moved when a resumed step differs. Off by default: at full width
+  a state digest copies 3 GB to the host.
 
 Every step prints one JSON line (``{"event": "step", ...}``, with the
 incarnation, the process id, the loss and the wall-clock time), as do
-the start (once torch is imported and the job read) and the kill, so the
-pod log holds each incarnation's curve. A preemption spends no restart,
+the start (once torch is imported and the job read, with
+``torch.get_num_threads()``) and the kill, so the pod log holds each
+incarnation's curve. A preemption spends no restart,
 so two runs of one incarnation are told apart by their process ids.
 
 Preemption: the operator deletes the pod and the runner sends SIGTERM;
@@ -68,6 +74,88 @@ def say(event: str, **fields) -> None:
     print(json.dumps({"event": event, "pid": os.getpid(), **fields}), flush=True)
 
 
+def tree_digest(tree) -> str:
+    """sha256 over every tensor of a tree of dicts (None stays), by path
+    in sorted order: dtype, shape and bytes."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+
+    def walk(node, path: str) -> None:
+        if isinstance(node, dict):
+            for key in sorted(node):
+                walk(node[key], f"{path}/{key}")
+        elif isinstance(node, torch.Tensor):
+            t = node.detach().to("cpu").contiguous()
+            h.update(f"{path}:{t.dtype}:{tuple(t.shape)}".encode())
+            h.update(t.reshape(-1).view(torch.uint8).numpy().tobytes())
+        elif node is not None:
+            h.update(f"{path}={node!r}".encode())
+
+    walk(tree, "")
+    return h.hexdigest()[:16]
+
+
+def state_digests(tree: dict) -> dict:
+    """Digests of a `TrainState.state_dict()` tree: the parameters (with
+    the batch statistics, where the model has them), the optimizer
+    state, and the rest."""
+    return {
+        "params": tree_digest({k: tree.get(k) for k in ("params", "batch_stats")}),
+        "opt_state": tree_digest(tree["opt_state"]),
+        "rest": tree_digest({k: tree.get(k) for k in ("step", "guard")}),
+    }
+
+
+class DigestedStream:
+    """A resumable stream that remembers the digest of each batch it
+    yields (`last`); the protocol (state_dict, load_state_dict,
+    perturb) goes to the stream it wraps."""
+
+    def __init__(self, data):
+        self.data = data
+        self.last: str | None = None
+        if getattr(data, "perturb", None) is None:
+            self.perturb = None
+
+    def state_dict(self) -> dict:
+        return self.data.state_dict()
+
+    def load_state_dict(self, state: dict) -> None:
+        self.data.load_state_dict(state)
+
+    def perturb(self, salt: int) -> None:
+        self.data.perturb(salt)
+
+    def __iter__(self):
+        for batch in self.data:
+            self.last = tree_digest(batch)
+            yield batch
+
+
+def log_digests(ckpt, incarnation: int) -> None:
+    """Log the digests of what each of `ckpt`'s saves and restores hold."""
+    save, restore = ckpt.save, ckpt.restore_latest
+
+    def logged_save(step, state, **kwargs):
+        saved = save(step, state, **kwargs)
+        if saved:
+            say("saved", incarnation=incarnation, step=step,
+                **state_digests(state.state_dict() if hasattr(state, "state_dict") else state))
+        return saved
+
+    def logged_restore(template, **kwargs):
+        restored = restore(template, **kwargs)
+        if restored is not None:
+            say("restored", incarnation=incarnation, step=restored.step,
+                data_state=restored.data_state, **state_digests(restored.state))
+        return restored
+
+    ckpt.save, ckpt.restore_latest = logged_save, logged_restore
+
+
 def main() -> int:
     import torch
 
@@ -88,7 +176,9 @@ def main() -> int:
     kill_at = int(os.environ.get("KFTPU_KILL_AT_STEP", "0"))
     step_sleep = float(os.environ.get("KFTPU_STEP_SLEEP_S", "0"))
     size = {**FULL_WIDTH, **json.loads(os.environ.get("KFTPU_LM_SIZE", "{}"))}
-    say("start", incarnation=incarnation, time=time.time(), device=str(device))
+    digests = os.environ.get("KFTPU_DIGESTS", "0") == "1"
+    say("start", incarnation=incarnation, time=time.time(), device=str(device),
+        num_threads=torch.get_num_threads())
 
     widths = {k: size[k] for k in ("vocab_size", "d_model", "n_layers", "n_heads",
                                    "head_dim", "d_ff")}
@@ -103,13 +193,17 @@ def main() -> int:
     data = SyntheticTokens(size["batch"], size["seq"], size["vocab_size"], seed=0,
                            vary_per_step=True, device=device)
     ckpt = Checkpointer(os.environ["KFTPU_CKPT_DIR"], save_interval_steps=save_every)
+    if digests:
+        data = DigestedStream(data)
+        log_digests(ckpt, incarnation)
     _kernels.launches.clear()
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
 
     def on_metrics(step: int, rec: dict) -> None:
         say("step", incarnation=incarnation, step=step, loss=rec["loss"],
-            step_ms=size["batch"] / rec["examples_per_sec"] * 1e3, time=time.time())
+            step_ms=size["batch"] / rec["examples_per_sec"] * 1e3, time=time.time(),
+            **({"batch": data.last} if digests else {}))
         report_metrics(api, name, ns, step, {"loss": rec["loss"]})
         if step_sleep:
             time.sleep(step_sleep)
