@@ -327,7 +327,7 @@ LOSS_Z = 5.0
 # Each: a first step, held against "none"'s (loss and global gradient
 # norm), then `steps` timed steps.
 REMAT = dict(block=("none", "full", "mlp", "dots", "attn", "flash"),
-             step=("dots", "attn", "flash"), steps=5)
+             step=("dots", "attn", "flash"), steps=3)
 # moe: the same widths with 8 switch experts, JAX's defaults for the
 # capacity factor and the load-balancing loss, remat "flash", batch
 # 8 x 2048 (groups of 4096 tokens, capacity 640): `steps` guarded train
@@ -388,7 +388,7 @@ NODE_LOST = dict(model="resnet50", steps=12, save_every=4, lose_after=6, max_res
 # one-instance clients over 64 distinct instances, each posting in a loop
 # through a warm-up, a measured window and a profiled window (seconds).
 RESNET_SERVE = dict(max_batch=64, timeout_ms=5.0, single=60, device_reps=30,
-                    host_reps=5, clients=64, distinct=64, warmup_s=2.0, window_s=8.0,
+                    host_reps=5, clients=64, distinct=64, warmup_s=2.0, window_s=4.0,
                     profile_s=3.0)
 # frontdoor: bench.py's multiplex phase (bench.py:1057-1240) on the card:
 # 7 ResNet-50s and the LM behind 2 replicas of at most 5 resident models
@@ -407,16 +407,16 @@ FRONTDOOR = dict(resnets=7, hot=4, replicas=2, max_resident=5, max_batch=64,
 # controller: bench.py's serving data plane (bench.py:727-1050) through
 # the control plane at full width: a ServingDeployment on resnet_fit's
 # checkpoint directory, 2 replicas, batching 64 / 5 ms; 64 closed-loop
-# one-instance clients over 64 distinct instances (a 2 s warm-up, an 8 s
+# one-instance clients over 64 distinct instances (a 2 s warm-up, a 4 s
 # measured window, 3 s of it profiled); a roll under the same load that
 # must converge within 120 s; 10 reconciles after a third step; scale
 # 2 -> 3 -> 1; then 2 worker processes behind the facade, each serving
-# within 120 s, 16 closed-loop clients for 8 s with one worker SIGKILLed;
+# within 120 s, 16 closed-loop clients for 4 s with one worker SIGKILLed;
 # memory held within 64 MiB.
 CONTROLLER = dict(replicas=2, max_batch=64, timeout_ms=5.0, clients=64, distinct=64,
-                  warmup_s=2.0, window_s=8.0, profile_s=3.0, roll_timeout_s=120.0,
+                  warmup_s=2.0, window_s=4.0, profile_s=3.0, roll_timeout_s=120.0,
                   fault_reconciles=10, scale=(3, 1), workers=2, worker_start_s=120.0,
-                  process_clients=16, process_load_s=8.0, process_compare_s=4.0,
+                  process_clients=16, process_load_s=4.0, process_compare_s=4.0,
                   memory_slack_mib=64)
 # rl: bench.py --workload rl's phase A (bench.py:2137-2146, :2186-2190,
 # :244-249): an 8 -> 32 -> 4 policy, 8 envs x horizon 4, 48 learner steps
@@ -461,6 +461,17 @@ RL_SOAK = dict(seed=7, trials=4, steps=18, publish_every=6, deadline_s=420)
 # The first fire comes at the minute boundary after the anchor.
 PIPELINE = dict(steps=8, save_every=4, kill_at=4, max_eval_loss=math.log(32000) + 1.0,
                 cron_wait_s=61.0, spawn_timeout_s=75, timeout_s=480)
+# The durable, highly available control plane (path F): TpuJob "lm-ha" of
+# one worker running TRAIN's LM through fit() for `steps` on an HA job
+# plane (two facade processes over one WAL-backed store, https, the
+# apiserver lease 3 s with a 2 s renew deadline); the binary runs
+# the tpujob controller leader-elected (its Lease renewals, every
+# `manager_retry_s`, are its steady writes); the active facade is
+# SIGKILLed once the worker's step `kill_after` is acked. Waits in
+# seconds.
+HA_JOB = dict(steps=10, kill_after=4, manager_lease_s=15.0,
+              manager_renew_s=10.0, manager_retry_s=0.5, probe_every_s=0.2, timeout_s=300,
+              manager_ready_s=120)
 REQUESTS = [  # (wire format, batch, sequence length)
     ("json", 1, 2048),
     ("json", 3, 2048),  # padded to bucket 4
@@ -4967,7 +4978,11 @@ def job_phase(torch, card: str, plane, root: str, bare_step_ms: float,
     failed = [name for name, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"job phase checks failed: {failed}")
-    return launches, used["max"] - used_before
+    # Path A's curve: the killed run's steps, then the resumed run's.
+    curve = {s: loss(0, s) for s in range(1, JOB["kill_at"] + 1)}
+    curve.update({s: loss(1, s) for s in range(JOB["kill_at"] + 1, JOB["steps"] + 1)})
+    path_a = {"losses": curve, "loss_limit": loss_limit, "step_ms": obs.get("step_ms")}
+    return launches, used["max"] - used_before, path_a
 
 
 def rl_soak_phase(torch, card: str, plane, root: str) -> None:
@@ -5778,8 +5793,8 @@ def job_plane_phases(torch, card: str, bare_step_ms: float, loss_se: float,
                                       "nodehealth"),
                          capture_dir=os.path.join(root, "logs"),
                          ready_timeout=JOB["manager_ready_s"])
-        launches, worker_mib = job_phase(torch, card, plane, root, bare_step_ms,
-                                         LOSS_Z * loss_se)
+        launches, worker_mib, path_a = job_phase(torch, card, plane, root, bare_step_ms,
+                                                 LOSS_Z * loss_se)
         rl_soak_phase(torch, card, plane, root)
         pipeline_launches = pipeline_phase(torch, card, plane, root)
         node_lost_launches = node_lost_phase(torch, card, plane, root, records_losses)
@@ -5796,7 +5811,250 @@ def job_plane_phases(torch, card: str, bare_step_ms: float, loss_se: float,
             plane.close()
         shutil.rmtree(root, ignore_errors=True)
     return {"job": launches, "pipeline": pipeline_launches, "node_lost": node_lost_launches,
-            "preempt": preempt_launches}
+            "preempt": preempt_launches}, path_a
+
+
+def port_refuses(port: int) -> bool:
+    """Whether nothing accepts a connection on localhost:`port`."""
+    import socket
+
+    try:
+        socket.create_connection(("127.0.0.1", port), timeout=2).close()
+    except OSError:
+        return True
+    return False
+
+
+def ha_job_phase(torch, card: str, path_a: dict) -> dict:
+    """Path F, the durable, highly available control plane: an HA
+    `JobPlane` (two processes of `testing/workers/apiserver.py`,
+    "facade-a" active and "facade-b" standby, over one WAL-backed store,
+    https with a CA minted for the pair; the apiserver lease 3 s), the
+    binary on ``--apiserver https://a,https://b --ca``
+    running the tpujob controller leader-elected, and the pod runner on
+    an `HttpApiClient` over the same list. The full-width LM trains as
+    TpuJob "lm-ha" (1 worker, 1 GPU, HA_JOB["steps"] steps through fit()
+    on the default dispatch). Once the worker's step HA_JOB["kill_after"]
+    is acked the active facade is SIGKILLed; the standby takes the lease
+    over, replays the WAL and serves.
+
+    Gates: Succeeded with status.restarts 0 and one worker process;
+    every step the worker saw acked in the final status.metrics, and in
+    a fresh store booted over a copy of the state directory once the
+    plane is down (the WAL diff), which also holds the final status;
+    exactly one pod for the one replica; each step's loss against path
+    A's (`path_a`: bitwise, or within its loss limit, the line says
+    which; steps past path A's 8 are not compared); 16 launches a step
+    of flash_fwd, flash_delta and flash_bwd_fused in the worker; the
+    killed facade exited by SIGKILL and its port refuses connections to
+    the end. Numbers: kill to standby serving; kill to the first acked
+    write through the new active from the worker (its step reports),
+    the binary (its Lease renewals) and the runner's client (a probe
+    write every HA_JOB["probe_every_s"]); the worker's step ms across the
+    failover beside path A's; each client's failovers and connections
+    dialed (refused dials included), and the TLS handshakes the surviving
+    facade completed and the requests it served; the WAL's bytes and
+    `open_active_store`'s seconds at takeover; whether TLS was used and
+    which tool made the certs. Returns the worker's launch counts."""
+    import signal
+
+    from kubeflow_tpu_torch.api import make_tpujob
+    from kubeflow_tpu_torch.api.objects import new_resource
+    from kubeflow_tpu_torch.controllers.tpujob import LABEL_JOB
+    from kubeflow_tpu_torch.testing.fake_apiserver import FakeApiServer, NotFound
+    from kubeflow_tpu_torch.testing.job_plane import JobPlane
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="kftpu_ha_")
+    state = os.path.join(root, "state")
+    steps = HA_JOB["steps"]
+    env = {
+        "KFTPU_CKPT_DIR": os.path.join(root, "lm-ckpt"),
+        "KFTPU_TOTAL_STEPS": str(steps),
+        "KFTPU_SAVE_EVERY": str(steps),
+        "KFTPU_LM_SIZE": json.dumps({**LM, "batch": TRAIN["batch"], "seq": TRAIN["seq"],
+                                     "dtype": "bfloat16", "lr": TRAIN["lr"]}),
+    }
+    plane = None
+    try:
+        plane = JobPlane(controllers=(), capture_dir=os.path.join(root, "logs"),
+                         ha_state_dir=state, ready_timeout=HA_JOB["manager_ready_s"])
+        facades_ready_s = time.time() - plane.started
+        manager = plane.start_manager(
+            ("tpujob",), leader_elect=True, identity="manager",
+            lease_duration=HA_JOB["manager_lease_s"], renew_deadline=HA_JOB["manager_renew_s"],
+            retry_period=HA_JOB["manager_retry_s"], wait_for="manager ready tpujob",
+            timeout=HA_JOB["manager_ready_s"])
+        api = plane.api
+        probe = {"last": 0.0, "acked": []}
+
+        def tick():
+            now = time.time()
+            if now - probe["last"] >= HA_JOB["probe_every_s"]:
+                probe["last"] = now
+                try:
+                    cm = api.get("ConfigMap", "ha-probe").thaw()
+                    cm.spec = {"t": now}
+                    api.update(cm)
+                except NotFound:
+                    api.create(new_resource("ConfigMap", "ha-probe", spec={"t": now}))
+                probe["acked"].append(time.time())
+
+        def curve():
+            return {p["step"]: p["loss"] for p in
+                    api.get("TpuJob", "lm-ha").status.get("metrics", [])}
+
+        t_create = time.time()
+        api.create(make_tpujob(
+            "lm-ha", replicas=1, tpu_chips_per_worker=1, max_restarts=1,
+            command=(sys.executable, "-m", "kubeflow_tpu_torch.launcher", "--module",
+                     "kubeflow_tpu_torch.testing.workers.lm_job:main"),
+            env=tuple(env.items())))
+        plane.run_until(lambda: HA_JOB["kill_after"] in curve(), HA_JOB["timeout_s"],
+                        f"lm-ha's step {HA_JOB['kill_after']} acked", tick=tick)
+        killed = plane.active_facade()
+        killed_port = int(plane.endpoints[plane.facades.index(killed)].rsplit(":", 1)[1])
+        acked_before_kill = sorted(curve())
+        t_kill = plane.kill_active_facade()
+        refused_after_kill = port_refuses(killed_port)
+        lease = {}
+
+        def watch_lease():
+            tick()
+            if "renewed" not in lease:
+                spec = api.get("Lease", "controller-manager", "").spec
+                if float(spec.get("renewTime", 0.0)) > t_kill:
+                    lease["renewed"] = float(spec["renewTime"])
+                    lease["seen"] = time.time()
+
+        plane.run_until(lambda: api.get("TpuJob", "lm-ha").status.get("phase")
+                        in ("Succeeded", "Failed"), HA_JOB["timeout_s"],
+                        "TpuJob lm-ha to finish", tick=watch_lease)
+        plane.run_until(lambda: "renewed" in lease, 30, "the binary's first renewal",
+                        tick=watch_lease)
+        wall_s = time.time() - t_create
+        job = api.get("TpuJob", "lm-ha")
+        pods = api.list("Pod", "default", label_selector={LABEL_JOB: "lm-ha"})
+        survivor = plane.active_facade()
+        records = log_records(plane.pod_logs().get("lm-ha-worker-0.log", ""))
+        runner_client = {"failovers": api.failovers, "handshakes": api.handshakes}
+        if manager.stop() != 0:
+            raise AssertionError("the leader-elected binary did not exit 0 on SIGTERM")
+        binary_client = json.loads(next(
+            line for _, line in reversed(manager.lines)
+            if line.startswith("client "))[len("client "):])
+        takeover = json.loads(next(line for _, line in survivor.lines
+                                   if line.startswith("takeover "))[len("takeover "):])
+        standby_serving_s = survivor.line_time("apiserver ready ") - t_kill
+        tls_used, tls_tool = all(e.startswith("https://") for e in plane.endpoints), \
+            plane.tls_tool
+        killed_exit = killed.proc.returncode
+        plane.close()
+        diagnostics = plane.diagnostics()
+        served = json.loads(next(line for _, line in survivor.lines
+                                 if line.startswith("served "))[len("served "):])
+        plane = None
+        still_refused = port_refuses(killed_port)
+
+        # The WAL diff: a fresh store over a copy of the state directory.
+        copy = os.path.join(root, "readback")
+        shutil.copytree(os.path.join(state, "store"), copy)
+        fresh = FakeApiServer(persist_dir=copy)
+        durable = fresh.get("TpuJob", "lm-ha")
+        durable_pods = fresh.list("Pod", "default", label_selector={LABEL_JOB: "lm-ha"})
+        fresh.close()
+    except BaseException:
+        if plane is not None:
+            print(plane.diagnostics(), file=sys.stderr, flush=True)
+        raise
+    finally:
+        if plane is not None:
+            plane.close()
+
+    try:
+        step_recs = {r["step"]: r for r in records if r["event"] == "step"}
+        acked = {r["step"]: r for r in records if r["event"] == "acked"}
+        done = next((r for r in records if r["event"] == "done"), {})
+        losses = {s: r["loss"] for s, r in step_recs.items()}
+        status_curve = {p["step"]: p["loss"] for p in job.status.get("metrics", [])}
+        durable_curve = {p["step"]: p["loss"] for p in durable.status.get("metrics", [])}
+        vs_a = {}
+        for step in range(1, steps + 1):
+            a, b = path_a["losses"].get(step), losses.get(step)
+            if a is None:
+                vs_a[step] = {"path_a": None, "ha_job": b, "holds": "no path A step"}
+                continue
+            diff = abs(a - b) if b is not None else float("nan")
+            vs_a[step] = {"path_a": a, "ha_job": b, "abs_diff": diff,
+                          "holds": "bitwise" if diff == 0.0 else "within path A's limit"
+                          if diff <= path_a["loss_limit"] else "no"}
+        obs = job.status.get("observation") or {}
+        launches = {k[len("launches_"):]: int(v) for k, v in obs.items()
+                    if k.startswith("launches_")}
+        want_launches = {name: LM["n_layers"] * steps
+                         for name in ("flash_fwd", "flash_delta", "flash_bwd_fused")}
+        after_kill = lambda times: min((t for t in times if t > t_kill), default=None)  # noqa: E731
+        first_worker = after_kill([r["time"] for r in acked.values()])
+        first_probe = after_kill(probe["acked"])
+        checks = {
+            "succeeded": job.status.get("phase") == "Succeeded",
+            "restarts_0": job.status.get("restarts", 0) == 0,
+            "one_worker_process": len({r["pid"] for r in records}) == 1,
+            "every_step_acked": sorted(acked) == list(range(1, steps + 1)),
+            "acked_steps_in_status": all(status_curve.get(s) == losses.get(s) for s in acked),
+            "acked_steps_durable": all(durable_curve.get(s) == losses.get(s) for s in acked),
+            "durable_final_status": durable.status.get("phase") == "Succeeded"
+            and durable.status.get("observation") == obs,
+            "one_pod": len(pods) == 1 and len(durable_pods) == 1,
+            "losses_vs_path_a": all(v["holds"] != "no" for v in vs_a.values()),
+            "worker_launches": launches == want_launches,
+            "writes_after_kill": None not in (first_worker, first_probe)
+            and "renewed" in lease,
+            "worker_failed_over": done.get("failovers", 0) >= 1,
+            "killed_by_sigkill": killed_exit == -signal.SIGKILL,
+            "deposed_never_serves": refused_after_kill and still_refused,
+            "standby_took_over": survivor is not None and survivor is not killed,
+            "tls": tls_used,
+        }
+        out = {
+            "phase": "ha_job", "card": card, "job": "lm-ha", "worker_command": "python -m "
+            "kubeflow_tpu_torch.launcher --module kubeflow_tpu_torch.testing.workers.lm_job:main",
+            "model": {**LM, "dtype": "bfloat16", "remat": "none"}, "batch": TRAIN["batch"],
+            "seq": TRAIN["seq"], "steps": steps, "kill_after_step": HA_JOB["kill_after"],
+            "config": HA_JOB, "tls": tls_used, "tls_tool": tls_tool,
+            "facades": [f.name for f in (killed, survivor)], "killed": killed.name,
+            "phase_final": job.status.get("phase"), "restarts": job.status.get("restarts", 0),
+            "facades_ready_s": facades_ready_s,
+            "acked_before_kill": acked_before_kill,
+            "kill_to_standby_serving_s": standby_serving_s,
+            "kill_to_first_acked_write_s": {
+                "worker": first_worker - t_kill if first_worker else None,
+                "binary_lease_renewal": lease.get("renewed", t_kill) - t_kill,
+                "binary_renewal_seen_by_plane": lease.get("seen", t_kill) - t_kill,
+                "runner_client_probe": first_probe - t_kill if first_probe else None},
+            "takeover": takeover,
+            "step_ms": {s: r["step_ms"] for s, r in sorted(step_recs.items())},
+            "acked_at_s_after_kill": {s: r["time"] - t_kill for s, r in sorted(acked.items())},
+            "worker_median_step_ms": obs.get("step_ms"), "path_a_step_ms": path_a["step_ms"],
+            "clients": {"worker": {k: done.get(k) for k in ("failovers", "handshakes")},
+                        "binary": binary_client, "runner": runner_client},
+            "survivor_served": served,
+            "losses_vs_path_a": vs_a, "loss_limit": path_a["loss_limit"],
+            "launches": launches, "want_launches": want_launches,
+            "job_wall_s": wall_s, "checks": checks,
+            "seconds": time.perf_counter() - t_phase,
+        }
+        emit(out)
+        failed = [name for name, ok in checks.items() if not ok]
+        if failed:
+            print(diagnostics, file=sys.stderr, flush=True)
+            raise AssertionError(f"ha_job phase checks failed: {failed}")
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def main() -> int:
@@ -5852,9 +6110,11 @@ def main() -> int:
         shutil.rmtree(resnet_root, ignore_errors=True)
     rl_phase(torch, card)
     by_path["frontdoor"] = frontdoor_phase(torch, card)
-    by_path.update(job_plane_phases(torch, card, train_step_ms,
-                                    check_rows[0]["loss_kernel_vs_plain"]["se"],
-                                    records_losses))
+    job_paths, path_a = job_plane_phases(torch, card, train_step_ms,
+                                         check_rows[0]["loss_kernel_vs_plain"]["se"],
+                                         records_losses)
+    by_path.update(job_paths)
+    by_path["ha_job"] = ha_job_phase(torch, card, path_a)
     for name, entry in entries.items():
         counts = {path: launches.get(name, 0) for path, launches in by_path.items()}
         entry["launches"] = sum(counts.values())

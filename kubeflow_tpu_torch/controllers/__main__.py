@@ -4,14 +4,17 @@ against the apiserver facade.
 Counterpart of `kubeflow_tpu/controllers/__main__.py`:
 
     python -m kubeflow_tpu_torch.controllers \
-        --apiserver http://<facade> \
+        --apiserver https://<facade-a>,https://<facade-b> --ca <ca.crt> \
         [--controllers tpujob,study,serving,workflow,cronworkflow,nodehealth] \
         [--leader-elect [--lease-name N] [--identity I]]
 
 builds each named controller on one `HttpApiClient` (its streaming
 watch feeds every controller's queue), starts them, prints ``manager
 ready <names>`` and reconciles until SIGTERM or SIGINT, then stops the
-controllers and exits 0.
+controllers, prints ``client {"failovers": N, "handshakes": M}`` and
+exits 0. `--apiserver` is one URL or an endpoint list (an active-passive
+facade pair, `testing/failover.py`): the client fails over between them.
+An https endpoint needs the platform CA, `--ca` (default ``KFTPU_CA``).
 
 With ``--leader-elect``, N replicas run with one active (the Lease and
 write fencing, `controllers/leader.py`): a replica prints ``standby
@@ -30,14 +33,14 @@ CronWorkflow (Workflows spawned on a schedule, on the wall clock), and
 the node-health watchdog (pods on a lost Node fail with reason
 NodeLost, so their gang restarts). A controller the JAX binary runs
 and the port has not ported yet (profile, notebook, tensorboard) is
-refused as "not yet ported"; any other name as unknown. Not ported yet either: TLS and
-tokens, endpoint failover and the client's fault-tolerance flags
-(ROADMAP).
+refused as "not yet ported"; any other name as unknown. Not ported yet
+either: tokens and the client's fault-tolerance flags (ROADMAP).
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import logging
 import os
 import sys
@@ -64,12 +67,16 @@ NOT_YET_PORTED = ("profile", "notebook", "tensorboard")
 
 def main(argv: list[str] | None = None) -> int:
     from kubeflow_tpu_torch.controllers.leader import LeaderElector
-    from kubeflow_tpu_torch.testing.apiserver_http import HttpApiClient
+    from kubeflow_tpu_torch.testing.apiserver_http import HttpApiClient, endpoints_from_env
     from kubeflow_tpu_torch.utils import signals as sigutil
 
     parser = argparse.ArgumentParser(prog="kubeflow-tpu-torch-controllers")
     parser.add_argument("--apiserver", required=True,
-                        help="the facade's URL (one http:// endpoint)")
+                        help="the facade's URL, or a comma-separated endpoint list "
+                        "(http:// or https://)")
+    parser.add_argument("--ca", default=None,
+                        help="the platform CA that https endpoints are verified against "
+                        "(default: KFTPU_CA)")
     parser.add_argument("--controllers", default=",".join(CONTROLLERS),
                         help="comma-separated subset to run (default: all ported)")
     parser.add_argument(
@@ -93,8 +100,15 @@ def main(argv: list[str] | None = None) -> int:
     if unknown:
         parser.error(f"unknown controllers {unknown}; valid: {sorted(CONTROLLERS)}")
 
-    client = HttpApiClient(args.apiserver)
+    try:
+        client = HttpApiClient(endpoints_from_env(args.apiserver), ca=args.ca)
+    except ValueError as e:
+        parser.error(str(e))
     shutdown = sigutil.install_shutdown_handlers()
+
+    def report_client() -> None:
+        print("client " + json.dumps({"failovers": client.failovers,
+                                      "handshakes": client.handshakes}), flush=True)
 
     def start_manager() -> ControllerManager:
         # Built only once this replica is active: construction registers
@@ -110,6 +124,7 @@ def main(argv: list[str] | None = None) -> int:
         manager = start_manager()
         sigutil.wait_for_shutdown(shutdown)
         manager.stop()
+        report_client()
         client.close()
         return 0
 
@@ -129,6 +144,7 @@ def main(argv: list[str] | None = None) -> int:
     lost = elector.run(shutdown, on_lead)
     if manager is not None:
         manager.stop()
+    report_client()
     if lost:
         print(f"deposed {elector.identity}", flush=True)
         return 2

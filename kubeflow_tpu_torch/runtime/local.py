@@ -19,6 +19,13 @@ port per gang incarnation. With `capture_dir`, a pod's output goes to
 predecessor's log, after a header line naming its incarnation (the JAX
 runner truncates it), so the killed incarnation's output survives.
 
+`api` is the store itself or an `HttpApiClient` on its facade. Over a
+client, every pod's env carries the client's endpoint list as
+``KFTPU_APISERVER`` and its pinned CA as ``KFTPU_CA`` (unless
+`extra_env` names them), so a worker builds its own client on the same
+active-passive pair (`testing/apiserver_http.endpoints_from_env`) and
+fails over with it.
+
 A process whose pod is deleted (a teardown, or a preemption's eviction)
 gets SIGTERM and is untracked at once: its exit never becomes a pod
 phase, since the pod is gone. The runner keeps each such process until
@@ -59,6 +66,11 @@ class LocalPodRunner:
         self.api = api
         self.cwd = cwd
         self.extra_env = dict(extra_env or {})
+        endpoints = getattr(api, "endpoints", None)
+        if endpoints:
+            self.extra_env.setdefault("KFTPU_APISERVER", ",".join(endpoints))
+            if api.ca:
+                self.extra_env.setdefault("KFTPU_CA", api.ca)
         self.capture_dir = capture_dir
         self._procs: dict[tuple[str, str], subprocess.Popen] = {}
         # The uid of the pod each tracked process runs. Watch events

@@ -2,16 +2,17 @@
 
     python -m kubeflow_tpu_torch.sidecar \
         --workdir /kubeflow-tpu/data --job myjob --namespace team \
-        [--apiserver http://host:port] [--coordinator host:port] \
-        [--results /out --artifacts /store]
+        [--apiserver https://a:port,https://b:port --ca ca.crt] \
+        [--coordinator host:port] [--results /out --artifacts /store]
 
 Main-container entrypoints block on the SIGCONT file in --workdir before
 they start, and exit when SIGTERM appears. The sidecar exits 0 when the
 job ended Succeeded, else 1.
 
-`--apiserver` takes one http:// endpoint: the port's client refuses an
-endpoint list (active-passive failover and TLS are not ported), and so
-does this flag, with an error.
+`--apiserver` takes one URL or an endpoint list (an active-passive
+facade pair), http:// or https://; an https endpoint needs the platform
+CA, `--ca` (default ``KFTPU_CA``), or the CLI exits 2 before it touches
+the work directory.
 """
 
 from __future__ import annotations
@@ -37,9 +38,12 @@ def main(argv: list[str] | None = None) -> int:
     parser.add_argument(
         "--apiserver",
         default=None,
-        help="API server base URL (one http:// endpoint) to watch the TpuJob "
-        "phase (e.g. http://apiserver:8001)",
+        help="API server URL, or a comma-separated endpoint list, to watch the "
+        "TpuJob phase (e.g. https://apiserver-a:8001,https://apiserver-b:8001)",
     )
+    parser.add_argument("--ca", default=None,
+                        help="the platform CA that https endpoints are verified against "
+                        "(default: KFTPU_CA)")
     parser.add_argument("--results", default=None)
     parser.add_argument("--artifacts", default=None)
     parser.add_argument("--poll-seconds", type=float, default=10.0)
@@ -50,18 +54,15 @@ def main(argv: list[str] | None = None) -> int:
         help="don't wait for a CUDA device (CPU smoke tests)",
     )
     args = parser.parse_args(argv)
-    if args.apiserver and "," in args.apiserver:
-        parser.error(
-            f"--apiserver takes one endpoint, got {args.apiserver!r}: endpoint "
-            "lists (active-passive failover) are not ported"
-        )
-    logging.basicConfig(level=logging.INFO)
-
     api = None
     if args.apiserver:
-        from kubeflow_tpu_torch.testing.apiserver_http import HttpApiClient
+        from kubeflow_tpu_torch.testing.apiserver_http import HttpApiClient, endpoints_from_env
 
-        api = HttpApiClient(args.apiserver.strip())
+        try:
+            api = HttpApiClient(endpoints_from_env(args.apiserver), ca=args.ca)
+        except ValueError as e:
+            parser.error(str(e))
+    logging.basicConfig(level=logging.INFO)
 
     controller = SidecarController(
         workdir=args.workdir,

@@ -2,8 +2,10 @@
 harness (`testing/loadgen.py`), the fault plans of the serving chaos run
 and of RL's study soak (`testing/chaos.py`), the tiny models of the
 resilience suites (`testing/tinymodels.py`), the control plane's
-in-process API server (`testing/fake_apiserver.py`) with its HTTP facade
-and client (`testing/apiserver_http.py`), the one-host job plane
+in-process API server (`testing/fake_apiserver.py`) with its durable
+WAL (`testing/persist.py`), its active-passive fencing
+(`testing/failover.py`) and its HTTP facade and endpoint-list client
+(`testing/apiserver_http.py`), the one-host job plane
 (`testing/job_plane.py`: the facade, controller-manager processes and
 the local pod runner), RL's study soak (`testing/rl_soak.py`) and the
 workers its TpuJobs run (`testing/workers/`).

@@ -32,11 +32,24 @@ resourceVersion), and an informer watch loop that lists every watched
 kind, then follows the stream from the list's resourceVersion,
 reconnects after a dropped stream and re-lists on Gone.
 
+`base_url` may be an endpoint list (`endpoints_from_env`: an
+active-passive pair over one durable store, `testing/failover.py`), of
+``http`` or ``https`` URLs; an https endpoint is verified against the
+pinned platform CA (`ca=` or ``KFTPU_CA``, `web/tls.py`), never the
+system trust store, and without one the client refuses to start. The
+client talks to one endpoint at a time and fails over, stickily (one
+takeover costs one rotation), when a dial is refused (a write too:
+nothing was sent) or when that endpoint's circuit is open (per-endpoint
+`CircuitBreaker`s: repeated transport failures or 5xx shed to the next
+endpoint). Once bytes are on the wire the ambiguous-failure rules above
+apply unchanged. A watch that dies with its endpoint resumes on the
+next one from its bookmark; a bookmark the new active cannot serve gets
+410 and the informer relists. `failovers` counts rotations and
+`handshakes` the connections dialed, refused dials included.
+
 Not copied: bearer tokens and RBAC (the facade is open, for localhost
-rigs), TLS (an ``https`` endpoint is refused until it is ported, never
-downgraded), active-passive endpoint failover (one endpoint), circuit
-breakers, the long-poll watch, server-side apply, conversion, pod logs
-and the trace drain.
+rigs), the long-poll watch, server-side apply, conversion, pod logs and
+the trace drain.
 """
 
 from __future__ import annotations
@@ -44,6 +57,7 @@ from __future__ import annotations
 import http.client
 import json
 import logging
+import os
 import random
 import threading
 import time
@@ -237,9 +251,54 @@ class ApiServerApp(App):
         return json_response({"deleted": True})
 
 
+class CircuitBreaker:
+    """Per-endpoint circuit breaker: `threshold` consecutive
+    transport-class failures open the circuit for `cooldown` seconds, in
+    which calls shed at once instead of hammering the endpoint; after the
+    cooldown one probe a window goes through (half-open) and one success
+    closes it. A functional error status (404, 409, 422) is a success
+    here: the endpoint answered."""
+
+    def __init__(self, threshold: int = 5, cooldown: float = 2.0):
+        self.threshold = threshold
+        self.cooldown = cooldown
+        self.failures = 0
+        self.trips = 0  # times the circuit opened
+        self._probe_at = 0.0
+        self._lock = threading.Lock()
+
+    def allow(self) -> bool:
+        with self._lock:
+            if self.failures < self.threshold:
+                return True
+            now = time.monotonic()
+            if now >= self._probe_at:
+                self._probe_at = now + self.cooldown  # this window's one probe
+                return True
+            return False
+
+    def success(self) -> None:
+        with self._lock:
+            self.failures = 0
+
+    def failure(self) -> None:
+        with self._lock:
+            self.failures += 1
+            if self.failures >= self.threshold:
+                # A failed half-open probe re-trips and restarts the
+                # cooldown, so `trips` shows a flapping endpoint's history.
+                self.trips += 1
+                self._probe_at = time.monotonic() + self.cooldown
+
+    @property
+    def open(self) -> bool:
+        with self._lock:
+            return self.failures >= self.threshold and time.monotonic() < self._probe_at
+
+
 def endpoints_from_env(value: str) -> list[str]:
-    """The apiserver address of the launcher's env contract: one URL or
-    a comma-separated endpoint list."""
+    """The apiserver address of the launcher's env contract
+    (``KFTPU_APISERVER``): one URL or a comma-separated endpoint list."""
     urls = [u.strip() for u in value.split(",") if u.strip()]
     if not urls:
         raise ValueError(f"no apiserver endpoints in {value!r}")
@@ -256,15 +315,45 @@ def _subsumes(stored, sent) -> bool:
     return stored == sent
 
 
+class _Endpoint:
+    """One apiserver address: its parsed location, its own keep-alive
+    pool and the connections dialed to it."""
+
+    def __init__(self, url: str):
+        self.url = url.rstrip("/")
+        parts = urllib.parse.urlsplit(self.url)
+        if parts.scheme not in ("http", "https"):
+            raise ValueError(f"{self.url!r}: an apiserver endpoint is http:// or https://")
+        self.host = parts.hostname or "127.0.0.1"
+        self.https = parts.scheme == "https"
+        self.port = parts.port or (443 if self.https else 80)
+        self.pool: list = []
+        self.handshakes = 0
+
+    def __repr__(self) -> str:
+        return f"_Endpoint({self.url!r})"
+
+
+class _ConnectFailed(Exception):
+    """The dial failed before any request byte was sent: the one
+    transport failure that is unambiguous for every method, so the
+    client may replay even a write on the next endpoint."""
+
+    def __init__(self, cause: OSError):
+        super().__init__(str(cause))
+        self.cause = cause
+
+
 class HttpApiClient:
     """Remote twin of FakeApiServer's CRUD and watch surface.
 
-    `base_url` is one endpoint (a string, or `endpoints_from_env`'s list
-    of one): more than one raises, since failover is not ported, and an
-    ``https`` endpoint raises until TLS is ported."""
+    `base_url` is one URL or a list of them (see the module docstring).
+    Keyword arguments override the class's timing constants for this
+    client; `ca` pins the platform CA for https endpoints (default
+    ``KFTPU_CA``)."""
 
-    # Idle connections kept (a worker runs one watch stream and a few
-    # concurrent calls).
+    # Idle connections kept per endpoint (a worker runs one watch stream
+    # and a few concurrent calls).
     POOL_SIZE = 4
     # Pooled connections idle longer than this are discarded: below the
     # server's 75 s keep-alive reap, so a write almost never races a
@@ -280,26 +369,50 @@ class HttpApiClient:
     RETRY_BASE = 0.05
     RETRY_CAP = 1.0
 
-    def __init__(self, base_url):
+    def __init__(
+        self,
+        base_url,
+        *,
+        ca: str | None = None,
+        timeout: float | None = None,
+        watch_retry: float | None = None,
+        retry_base: float | None = None,
+        breaker_threshold: int = 5,
+        breaker_cooldown: float = 2.0,
+    ):
         urls = [base_url] if isinstance(base_url, str) else list(base_url)
-        if len(urls) != 1:
-            raise ValueError(
-                f"HttpApiClient takes one endpoint, got {urls!r}: active-passive "
-                "failover is not ported"
-            )
-        self.base_url = urls[0].rstrip("/")
-        parts = urllib.parse.urlsplit(self.base_url)
-        if parts.scheme != "http":
-            raise ValueError(
-                f"{self.base_url!r}: only http:// endpoints are served here; TLS is "
-                "not ported, and an https endpoint is never downgraded to http"
-            )
-        self._host = parts.hostname or "127.0.0.1"
-        self._port = parts.port or 80
+        if not urls:
+            raise ValueError("HttpApiClient needs at least one endpoint")
+        self._endpoints = [_Endpoint(u) for u in urls]
+        # The endpoint requests go to first; a rotation moves every later
+        # request (and the watch stream) until that endpoint fails in turn.
+        self._active = 0
+        self._endpoint_lock = threading.Lock()
+        self.failovers = 0  # endpoint rotations
+        for attr, value in (("TIMEOUT", timeout), ("WATCH_RETRY", watch_retry),
+                            ("RETRY_BASE", retry_base)):
+            if value is not None:
+                setattr(self, attr, value)
+        # The pinned CA (a path or inline PEM), passed on to the pods a
+        # runner on this client starts.
+        self.ca = ca = ca if ca is not None else os.environ.get("KFTPU_CA")
+        self._ssl = None
+        if any(ep.https for ep in self._endpoints):
+            if not ca:
+                # The platform CA is self-signed: without the pin every
+                # request would die later with CERTIFICATE_VERIFY_FAILED.
+                raise ValueError(
+                    f"https endpoint {self._endpoints[0].url!r} needs the platform CA "
+                    "pinned (ca=, --ca or KFTPU_CA)")
+            from kubeflow_tpu_torch.web import tls as tlsmod
+
+            self._ssl = tlsmod.client_context(ca)
         self.retries_total = 0  # write attempts beyond the first
-        self.handshakes = 0  # connections dialed
-        self._pool: list = []
         self._pool_lock = threading.Lock()
+        self.breaker_threshold = breaker_threshold
+        self.breaker_cooldown = breaker_cooldown
+        self._breakers: dict[str, CircuitBreaker] = {}
+        self._breakers_lock = threading.Lock()
         self._watchers: list[tuple[str | None, WatchHandler]] = []
         self._watch_lock = threading.Lock()
         self._watch_thread: threading.Thread | None = None
@@ -316,45 +429,98 @@ class HttpApiClient:
         term."""
         self.lease_guard = guard
 
+    # -- endpoints ------------------------------------------------------------
+
+    def _endpoint(self) -> _Endpoint:
+        with self._endpoint_lock:
+            return self._endpoints[self._active]
+
+    @property
+    def base_url(self) -> str:
+        """The endpoint serving this client now."""
+        return self._endpoint().url
+
+    @property
+    def endpoints(self) -> tuple[str, ...]:
+        return tuple(ep.url for ep in self._endpoints)
+
+    @property
+    def handshakes(self) -> int:
+        """Connections dialed over all endpoints, refused dials included
+        (a served https connection is one TLS handshake)."""
+        return sum(ep.handshakes for ep in self._endpoints)
+
+    def _set_active(self, ep: _Endpoint) -> None:
+        with self._endpoint_lock:
+            idx = self._endpoints.index(ep)
+            if idx != self._active:
+                self._active = idx
+                self.failovers += 1
+                log.info("apiserver failover: now talking to %s", ep.url)
+
+    def _breaker_for(self, ep: _Endpoint, method: str, path: str) -> CircuitBreaker:
+        """One breaker per endpoint, method and endpoint class (the first
+        two path segments): a sick watch does not open the circuit for
+        writes, and a dead active's open circuits never gate its standby."""
+        bare = path.partition("?")[0]
+        key = f"{ep.url} {method} /" + "/".join(bare.split("/")[1:3])
+        with self._breakers_lock:
+            breaker = self._breakers.get(key)
+            if breaker is None:
+                breaker = self._breakers[key] = CircuitBreaker(
+                    threshold=self.breaker_threshold, cooldown=self.breaker_cooldown)
+            return breaker
+
     # -- transport ----------------------------------------------------------
 
-    def _get_conn(self) -> http.client.HTTPConnection:
+    def _new_conn(self, ep: _Endpoint) -> http.client.HTTPConnection:
+        if ep.https:
+            conn = http.client.HTTPSConnection(ep.host, ep.port, timeout=self.TIMEOUT,
+                                               context=self._ssl)
+        else:
+            conn = http.client.HTTPConnection(ep.host, ep.port, timeout=self.TIMEOUT)
+        conn._kftpu_reused = False
+        conn._kftpu_ep = ep
+        with self._pool_lock:
+            ep.handshakes += 1
+        return conn
+
+    def _get_conn(self, ep: _Endpoint) -> http.client.HTTPConnection:
         now = time.monotonic()
         with self._pool_lock:
-            while self._pool:
-                conn = self._pool.pop()
+            while ep.pool:
+                conn = ep.pool.pop()
                 if now - conn._kftpu_idle_since <= self.POOL_IDLE_MAX:
                     return conn
                 conn.close()
-            self.handshakes += 1
-        conn = http.client.HTTPConnection(self._host, self._port, timeout=self.TIMEOUT)
-        conn._kftpu_reused = False
-        return conn
+        return self._new_conn(ep)
 
     def _put_conn(self, conn) -> None:
         conn._kftpu_reused = True
         conn._kftpu_idle_since = time.monotonic()
         if conn.sock is not None:
             conn.sock.settimeout(self.TIMEOUT)  # a stream may have raised it
+        ep = conn._kftpu_ep
         with self._pool_lock:
-            if len(self._pool) < self.POOL_SIZE and not self._closed.is_set():
-                self._pool.append(conn)
+            if len(ep.pool) < self.POOL_SIZE and not self._closed.is_set():
+                ep.pool.append(conn)
                 return
         conn.close()
 
-    def _request_raw(self, method: str, path: str, body: dict | None = None):
-        """One round trip on a pooled connection; returns (conn, resp)
-        with the response unread. Only a GET retries (once, on a fresh
-        connection) when a reused connection dies: for a write the
-        failure is ambiguous (the server may have committed), so it
-        propagates to `_write_with_retry`."""
-        data = json.dumps(body).encode() if body is not None else None
-        headers = {"Content-Type": "application/json"}
-        guard = self.lease_guard
-        if guard is not None and method in ("POST", "PUT", "DELETE"):
-            headers["X-Kftpu-Lease-Guard"] = json.dumps(list(guard))
+    def _attempt(self, ep: _Endpoint, method: str, path: str, data, headers):
+        """One round trip against one endpoint. A failed dial (nothing
+        sent) raises `_ConnectFailed`; after bytes hit the wire only a
+        GET retries, once, on a fresh connection when a reused one died:
+        for a write the failure is ambiguous (the server may have
+        committed), so it propagates to `_write_with_retry`."""
         while True:
-            conn = self._get_conn()
+            conn = self._get_conn(ep)
+            if conn.sock is None:
+                try:
+                    conn.connect()
+                except OSError as e:
+                    conn.close()
+                    raise _ConnectFailed(e) from e
             try:
                 conn.request(method, path, body=data, headers=headers)
                 return conn, conn.getresponse()
@@ -364,6 +530,42 @@ class HttpApiClient:
                 if reused and method == "GET":
                     continue  # a stale keep-alive connection: one fresh retry
                 raise
+
+    def _request_raw(self, method: str, path: str, body: dict | None = None):
+        """One round trip; returns (conn, resp) with the response unread.
+        Starting at the active endpoint, it skips endpoints whose circuit
+        is open and rotates past those that refuse the dial; the one that
+        answers becomes active. With one endpoint an open circuit raises
+        Unavailable and a refused dial its OSError."""
+        data = json.dumps(body).encode() if body is not None else None
+        headers = {"Content-Type": "application/json"}
+        guard = self.lease_guard
+        if guard is not None and method in ("POST", "PUT", "DELETE"):
+            headers["X-Kftpu-Lease-Guard"] = json.dumps(list(guard))
+        eps = self._endpoints
+        with self._endpoint_lock:
+            start = self._active
+        last_exc: Exception | None = None
+        for k in range(len(eps)):
+            ep = eps[(start + k) % len(eps)]
+            breaker = self._breaker_for(ep, method, path)
+            if not breaker.allow():
+                last_exc = Unavailable(
+                    f"circuit open for {method} {path.partition('?')[0]} at {ep.url} "
+                    "(failing fast after repeated endpoint failures)")
+                continue
+            try:
+                conn, resp = self._attempt(ep, method, path, data, headers)
+            except _ConnectFailed as e:
+                breaker.failure()
+                last_exc = e.cause
+                continue  # the dial failed and nothing was sent: rotate
+            except Exception:
+                breaker.failure()
+                raise  # ambiguous once bytes were sent: never rotate
+            self._set_active(ep)
+            return conn, resp
+        raise last_exc
 
     def _finish(self, conn, resp) -> bytes:
         """Read the body and recycle (or retire) the connection."""
@@ -398,7 +600,18 @@ class HttpApiClient:
     def _call(self, method: str, path: str, body: dict | None = None) -> dict:
         conn, resp = self._request_raw(method, path, body)
         status = resp.status
-        data = self._finish(conn, resp)
+        breaker = self._breaker_for(conn._kftpu_ep, method, path)
+        try:
+            data = self._finish(conn, resp)
+        except Exception:
+            breaker.failure()
+            raise
+        # A 5xx counts against the endpoint; any other status, 404, 409
+        # and 422 included, shows that it answers.
+        if status >= 500:
+            breaker.failure()
+        else:
+            breaker.success()
         if status >= 400:
             self._raise_for_status(status, data.decode(errors="replace"))
         return json.loads(data)
@@ -530,7 +743,9 @@ class HttpApiClient:
     def close(self) -> None:
         self._closed.set()
         with self._pool_lock:
-            conns, self._pool = self._pool, []
+            conns = [c for ep in self._endpoints for c in ep.pool]
+            for ep in self._endpoints:
+                ep.pool = []
         for conn in conns:
             conn.close()
 

@@ -21,20 +21,34 @@ with no JAX in it), holding what the serving control plane uses:
   a `lease_guard` lands only while the Lease it names still shows that
   holder and generation, checked under the commit lock
 
+- durability (`persist_dir=`): every committed write is appended to a
+  fsync'd WAL (`testing/persist.py`) before its event is journaled or
+  delivered, the WAL folds into a snapshot every `snapshot_every`
+  writes and on `checkpoint()`/`close()`, and a store built over the
+  same directory restores the objects and the resourceVersion
+  (`_restore_locked`: snapshot plus WAL tail, a torn tail repaired, the
+  watch floor re-seeded at the durable rv so an older bookmark gets
+  Gone and relists). After a failed or fenced durable write the store
+  fail-stops: every operation raises Unavailable (`_fail_stop_locked`).
+  `wal_wrap=` wraps the opened WAL, as `testing/failover.term_fence`
+  does for an active-passive pair.
+
 Storage is copy-on-write: each commit deep-copies the incoming object
 once, freezes it and shares that snapshot with the object map, the
 journal, every watch handler and get/list results. `.thaw()` gives a
 private mutable copy.
 
-Not copied (no ported caller needs them): persistence (WAL and
-snapshots), admission webhooks, multi-version conversion, finalizers
-and the Namespace drain. A deleted object is removed at once.
+Not copied (no ported caller needs them yet): admission webhooks,
+multi-version conversion, finalizers and the Namespace drain. A deleted
+object is removed at once; `finalizers` and `deletionTimestamp` are
+stored and restored as data only.
 """
 
 from __future__ import annotations
 
 import bisect
 import hashlib
+import json
 import logging
 import threading
 import time
@@ -75,7 +89,10 @@ class Gone(ApiError):
 
 
 class Unavailable(ApiError):
-    """The store refused the operation (HTTP 503)."""
+    """The store refused the operation (HTTP 503): it fail-stopped after
+    a WAL write failed or was fenced, so its memory may have run ahead
+    of the durable log, and it serves nothing until a process restarts
+    over the intact log."""
 
 
 def _matches(labels: dict[str, str], selector: dict[str, str]) -> bool:
@@ -153,9 +170,19 @@ def check_lease_guard(get_lease_spec, guard, kind: str) -> None:
 
 
 class FakeApiServer:
-    def __init__(self, *, journal_size: int = 10_000):
+    def __init__(
+        self,
+        *,
+        journal_size: int = 10_000,
+        persist_dir: str | None = None,
+        snapshot_every: int = 1_000,
+        wal_wrap=None,
+    ):
         self._objects: dict[tuple[str, str, str], Resource] = {}
         self._rv = 0
+        # Bookmarks below the floor are history this process never held
+        # (before a restore): Gone, and the watcher relists.
+        self._floor = 0
         self._lock = threading.RLock()
         self._watchers: list[tuple[str | None, WatchHandler]] = []
         # Resumable event journal, rv-ordered: (resourceVersion, event,
@@ -173,6 +200,125 @@ class FakeApiServer:
         self._dispatcher: threading.Thread | None = None
         self._closed = False
         self._admission: list[tuple[str | None, Callable[[Resource], Resource]]] = []
+        self._wal = None
+        self._snapshot_every = max(1, snapshot_every)
+        self._appends_since_snapshot = 0
+        # The first durable-write failure; every operation then raises
+        # Unavailable (`_fail_stop_locked`).
+        self._broken: BaseException | None = None
+        if persist_dir is not None:
+            from kubeflow_tpu_torch.testing import persist
+
+            self._wal = persist.open_wal(persist_dir)
+            if wal_wrap is not None:
+                self._wal = wal_wrap(self._wal)
+            with self._lock:  # a torn-tail repair checkpoints under the lock
+                self._restore_locked()
+
+    # -- persistence --------------------------------------------------------
+
+    def _install(self, obj: Resource) -> None:
+        obj.freeze()
+        self._objects[obj.key] = obj
+
+    def _restore_locked(self) -> None:
+        """Load the snapshot, then replay the WAL past its rv. Replay
+        stops at the first record that does not decode (a crash mid-append
+        loses only that unacked record) and repairs the log at once, since
+        the next append would otherwise glue onto the partial line and be
+        dropped by the restart after. Records at or below the snapshot's
+        rv are skipped (a crash between a snapshot and its truncate
+        leaves them)."""
+        from kubeflow_tpu_torch.testing.persist import FORMAT
+
+        snap_text = self._wal.read_snapshot()
+        if snap_text:
+            try:
+                snap = json.loads(snap_text)
+            except ValueError as e:
+                raise Invalid(f"corrupt snapshot: {e}") from e
+            if snap.get("format") != FORMAT:
+                raise Invalid(f"snapshot format {snap.get('format')!r} is not {FORMAT}: "
+                              "refusing to guess at a migration")
+            for d in snap.get("objects", []):
+                self._install(Resource.from_dict(d))
+            self._rv = int(snap.get("rv", 0))
+        torn = False
+        for line in self._wal.read_journal().splitlines():
+            try:
+                rec = json.loads(line)
+                rv, event = int(rec["rv"]), rec["event"]
+                obj = Resource.from_dict(rec["object"])
+            except (ValueError, KeyError, TypeError):
+                log.warning("WAL replay stopped at a torn or corrupt record")
+                torn = True
+                break
+            if rv <= self._rv:
+                continue  # a pre-snapshot leftover
+            if event == "DELETED":
+                self._objects.pop(obj.key, None)
+            else:
+                self._install(obj)
+            self._rv = rv
+        if torn:
+            self._checkpoint_locked()
+        self._floor = self._rv
+
+    def _fail_stop_locked(self, cause: BaseException) -> None:
+        """A durable write failed (an IO error, or a term fence): the
+        mutation is in the object map but in no journal and no watcher,
+        so rather than roll it back at every mutation site the store
+        stops serving. Dropping the WAL handle keeps `close` and
+        `checkpoint` from snapshotting the unlogged state."""
+        self._broken = cause
+        wal, self._wal = self._wal, None
+        if wal is not None:
+            try:
+                wal.close()
+            except Exception:
+                pass
+        log.error("store fail-stopped after a persistence failure: %s", cause)
+        raise Unavailable(f"store fail-stopped after a persistence failure: {cause}") from cause
+
+    def _check_available(self) -> None:
+        if self._broken is not None:
+            raise Unavailable(
+                f"store fail-stopped after a persistence failure: {self._broken}")
+
+    def _persist_locked(self, event: str, obj: Resource) -> None:
+        """Append one committed write to the WAL (the caller holds the
+        lock), before the journal and the watchers see it: an event a
+        watcher saw is never missing after a crash."""
+        try:
+            self._wal.append(json.dumps(
+                {"rv": obj.metadata.resource_version, "event": event,
+                 "object": obj.to_dict()}, separators=(",", ":")))
+            self._appends_since_snapshot += 1
+            if self._appends_since_snapshot >= self._snapshot_every:
+                self._checkpoint_locked()
+        except ApiError:
+            raise
+        except Exception as e:
+            self._fail_stop_locked(e)
+
+    def _checkpoint_locked(self) -> None:
+        from kubeflow_tpu_torch.testing.persist import FORMAT
+
+        try:
+            self._wal.snapshot(json.dumps(
+                {"format": FORMAT, "rv": self._rv,
+                 "objects": [o.to_dict() for _, o in sorted(self._objects.items())]},
+                separators=(",", ":")))
+        except Exception as e:
+            self._fail_stop_locked(e)
+        self._appends_since_snapshot = 0
+
+    def checkpoint(self) -> None:
+        """Fold the WAL into a fresh snapshot now. No-op without
+        persistence."""
+        with self._lock:
+            if self._wal is not None:
+                self._checkpoint_locked()
 
     # -- watch ------------------------------------------------------------
 
@@ -192,13 +338,19 @@ class FakeApiServer:
                 self._dispatcher.start()
 
     def close(self) -> None:
-        """End watch delivery: drop every handler and stop the dispatcher
-        thread. The thread otherwise lives as long as the process and
-        keeps every handler alive, with what it holds (a controller, its
-        runtime, the fleet). Reads, writes and the journal go on
-        working; a later `watch` raises. The JAX store's `close` only
-        checkpoints its WAL, so its dispatcher never ends."""
+        """Checkpoint a durable store and release its WAL, then end watch
+        delivery: drop every handler and stop the dispatcher thread. The
+        thread otherwise lives as long as the process and keeps every
+        handler alive, with what it holds (a controller, its runtime, the
+        fleet). Reads, writes (in memory only, once the WAL is released)
+        and the journal go on working; a later `watch` raises. The JAX
+        store's `close` only checkpoints its WAL, so its dispatcher never
+        ends."""
         with self._lock:
+            if self._wal is not None:
+                self._checkpoint_locked()
+                self._wal.close()
+                self._wal = None
             self._closed = True
             self._watchers.clear()
         with self._dispatch_cv:
@@ -215,8 +367,14 @@ class FakeApiServer:
         return self._closed
 
     def _emit(self, event: str, obj: Resource) -> None:
-        """Journal and queue one committed snapshot (caller holds the
-        lock, so journal order is rv order)."""
+        """Persist, journal and queue one committed snapshot (caller holds
+        the lock, so journal order is rv order). The availability check
+        here is the authoritative one: a writer past an unlocked check
+        while another thread fail-stopped must not journal an event that
+        was never logged."""
+        self._check_available()
+        if self._wal is not None:
+            self._persist_locked(event, obj)
         with self._journal_cv:
             self._journal.append((obj.metadata.resource_version, event, obj))
             if len(self._journal) > self._journal_size:
@@ -279,6 +437,10 @@ class FakeApiServer:
         server's current rv (the resume point even when nothing matched).
         Raises Gone when the bookmark predates the journal."""
         with self._lock:
+            self._check_available()
+            if resource_version < self._floor:
+                raise Gone(f"resourceVersion {resource_version} predates this server's "
+                           f"history (floor {self._floor}): relist")
             journal = self._journal
             if journal and resource_version < journal[0][0] - 1:
                 raise Gone(
@@ -357,6 +519,7 @@ class FakeApiServer:
 
     def create(self, obj: Resource, *, lease_guard=None) -> Resource:
         with self._lock:
+            self._check_available()
             self._check_lease_guard(lease_guard, obj.kind)
             if obj.key in self._objects:
                 raise AlreadyExists(f"{obj.key} already exists")
@@ -368,6 +531,7 @@ class FakeApiServer:
 
     def get(self, kind: str, name: str, namespace: str = "default") -> Resource:
         with self._lock:
+            self._check_available()
             obj = self._objects.get((kind, namespace, name))
             if obj is None:
                 raise NotFound(f"{kind} {namespace}/{name} not found")
@@ -377,6 +541,7 @@ class FakeApiServer:
         """The distinct kinds with live objects (quota's count/<resource>
         inverse: `resource_for_kind` is lossy for CamelCase kinds)."""
         with self._lock:
+            self._check_available()
             return sorted({k[0] for k in self._objects})
 
     def list(
@@ -387,6 +552,7 @@ class FakeApiServer:
     ) -> list[Resource]:
         """Frozen shared snapshots, (namespace, name)-ordered."""
         with self._lock:
+            self._check_available()
             return [
                 obj for key, obj in sorted(self._objects.items())
                 if key[0] == kind
@@ -396,6 +562,7 @@ class FakeApiServer:
 
     def _update(self, obj: Resource, *, status_only: bool, lease_guard=None) -> Resource:
         with self._lock:
+            self._check_available()
             self._check_lease_guard(lease_guard, obj.kind)
             current = self._objects.get(obj.key)
             if current is None:
@@ -421,6 +588,7 @@ class FakeApiServer:
 
     def update(self, obj: Resource, *, lease_guard=None) -> Resource:
         with self._lock:  # admission atomic with the write
+            self._check_available()
             return self._update(self._admit(obj), status_only=False, lease_guard=lease_guard)
 
     def update_status(self, obj: Resource, *, lease_guard=None) -> Resource:
@@ -430,6 +598,7 @@ class FakeApiServer:
         self, kind: str, name: str, namespace: str = "default", *, lease_guard=None
     ) -> None:
         with self._lock:
+            self._check_available()
             self._check_lease_guard(lease_guard, kind)
             obj = self._objects.pop((kind, namespace, name), None)
             if obj is None:

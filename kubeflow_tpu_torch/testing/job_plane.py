@@ -19,17 +19,36 @@ on one machine, as the JAX package's e2e soaks do:
 - `add_node` and `set_quota`, the cluster model's Nodes and a tenant's
   ResourceQuota, and `lose_node`, a host's failure.
 
+With `ha_state_dir` the control plane is an active-passive pair
+instead (`testing/failover.py`): two facade processes
+(`testing/workers/apiserver.py`, "facade-a" and "facade-b", started
+together; the first to take the lease serves) over one durable store
+in that directory, each on its own localhost port, over
+https with a CA minted into ``<ha_state_dir>/tls``, the apiserver lease
+3 s (renew deadline 2 s) as in the JAX package's facade worker.
+`api` is then an `HttpApiClient` on the endpoint list (the active's
+first), which the pod runner, the managers (``--apiserver a,b --ca``)
+and, through the pod env, every worker use as well; `url` is the
+comma-joined list and `endpoints` the facades' URLs in their order.
+`kill_active_facade()` SIGKILLs the facade serving now and returns when
+the signal went out; `active_facade()` names it. While no facade serves,
+`run_until` treats a refused or failed call as a tick that saw nothing.
+
 Every wait has a deadline and fails loudly with `diagnostics()`: each
-manager's output stamped with seconds since the plane started, the
-leadership timeline (which replica led, stood by, evicted and was
-deposed, when) and the pod logs. `close` reaps the pods, the managers
-and the facade on every exit path (use it as a context manager).
+manager's and facade's output stamped with seconds since the plane
+started, the leadership timeline (which replica led, stood by, evicted
+and was deposed, and which facade took the apiserver lease over, when)
+and the pod logs. `close` reaps the pods, the managers and the facades
+on every exit path (use it as a context manager); a facade pair stops
+gracefully, so the active checkpoints its store and releases the lease.
 """
 
 from __future__ import annotations
 
+import http.client
 import os
 import signal
+import socket
 import subprocess
 import sys
 import threading
@@ -40,13 +59,23 @@ from kubeflow_tpu_torch.api.objects import new_resource
 from kubeflow_tpu_torch.controllers import quota
 from kubeflow_tpu_torch.controllers.tpujob import register_admission
 from kubeflow_tpu_torch.runtime.local import LocalPodRunner
-from kubeflow_tpu_torch.testing.apiserver_http import ApiServerApp
-from kubeflow_tpu_torch.testing.fake_apiserver import FakeApiServer
+from kubeflow_tpu_torch.testing.apiserver_http import ApiServerApp, HttpApiClient
+from kubeflow_tpu_torch.testing.fake_apiserver import FakeApiServer, Unavailable
 from kubeflow_tpu_torch.web.wsgi import serve
 
 ROOT = Path(__file__).resolve().parents[2]
 # The markers a leader-elected replica prints, in the timeline.
 LEADERSHIP_MARKERS = ("standby ", "leading ", "evicted ", "deposed ")
+# A facade's takeover lines, in the timeline too.
+FACADE_MARKERS = LEADERSHIP_MARKERS + ("takeover ", "apiserver ready ")
+# What a call meets while no facade of a pair serves.
+OUTAGE_ERRORS = (Unavailable, http.client.HTTPException, OSError)
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
 
 
 class Manager:
@@ -128,31 +157,100 @@ class JobPlane:
         capture_dir: str | None = None,
         ready_timeout: float = 120.0,
         run_pods: bool = True,
+        ha_state_dir: str | None = None,
     ):
         self.started = time.time()
-        self.api = FakeApiServer()
-        register_admission(self.api)
-        quota.register(self.api)
-        self.server, _ = serve(ApiServerApp(self.api), host="127.0.0.1", port=0)
-        self.url = f"http://127.0.0.1:{self.server.server_port}"
         self.managers: list[Manager] = []
+        self.facades: list[Manager] = []
         self.manager_ready_s: float | None = None
         self.runner: LocalPodRunner | None = None
         self.capture_dir = capture_dir
+        self.ha_state_dir = ha_state_dir
+        self.server = None
+        self.ca: str | None = None
+        self.tls_tool: str | None = None
+        self._outage_errors: tuple = ()
+        pod_env = dict(extra_env or {})
         try:
+            if ha_state_dir is None:
+                self.api = FakeApiServer()
+                register_admission(self.api)
+                quota.register(self.api)
+                self.server, _ = serve(ApiServerApp(self.api), host="127.0.0.1", port=0)
+                self.url = f"http://127.0.0.1:{self.server.server_port}"
+                pod_env.setdefault("KFTPU_APISERVER", self.url)
+            else:
+                self._start_facades(ready_timeout)
             if controllers:
                 t0 = time.monotonic()
                 self.start_manager(controllers, timeout=ready_timeout)
                 # Process start to "manager ready".
                 self.manager_ready_s = time.monotonic() - t0
             if run_pods:
-                self.runner = LocalPodRunner(
-                    self.api, cwd=str(ROOT),
-                    extra_env={"KFTPU_APISERVER": self.url, **(extra_env or {})},
-                    capture_dir=capture_dir)
+                self.runner = LocalPodRunner(self.api, cwd=str(ROOT), extra_env=pod_env,
+                                             capture_dir=capture_dir)
         except BaseException:
             self.close()
             raise
+
+    # -- the facade pair ----------------------------------------------------
+
+    def _start_facades(self, timeout: float) -> None:
+        from kubeflow_tpu_torch.web import tls
+
+        # Minted here, before either facade boots: the clients pin it and
+        # both facades serve it.
+        self.tls_tool = tls.mint_tool()
+        self.ca = tls.ensure_tls_dir(os.path.join(self.ha_state_dir, "tls")).ca_cert
+        env = {"KFTPU_STATE_DIR": self.ha_state_dir}
+        self.endpoints = []
+        # Both start at once (each takes seconds to import); the first to
+        # take the lease is the active.
+        argv = [sys.executable, "-m", "kubeflow_tpu_torch.testing.workers.apiserver"]
+        for identity in ("facade-a", "facade-b"):
+            port = _free_port()
+            self.endpoints.append(f"https://127.0.0.1:{port}")
+            self.facades.append(Manager(identity, argv, self._env(
+                {**env, "KFTPU_PORT": str(port), "KFTPU_HA_IDENTITY": identity})))
+        deadline = time.monotonic() + timeout
+        try:
+            for facade in self.facades:
+                facade.wait_for(f"standby {facade.name}", deadline - time.monotonic())
+            while self.active_facade() is None:
+                dead = [f for f in self.facades if f.proc.poll() is not None]
+                if dead:
+                    raise RuntimeError(f"facade {dead[0].name} exited {dead[0].proc.returncode}")
+                if time.monotonic() > deadline:
+                    raise TimeoutError(f"no facade took the apiserver lease in {timeout} s")
+                time.sleep(0.05)
+        except (RuntimeError, TimeoutError) as e:
+            raise RuntimeError(f"{e}\n{self.diagnostics()}") from None
+        # Clients start at the first endpoint of their list: name the
+        # active first, so a client's one failover is the takeover's.
+        active = self.active_facade()
+        listed = sorted(self.endpoints,
+                        key=lambda url: self.facades[self.endpoints.index(url)] is not active)
+        self.url = ",".join(listed)
+        self.api = HttpApiClient(listed, ca=self.ca)
+        self._outage_errors = OUTAGE_ERRORS
+
+    def active_facade(self) -> Manager | None:
+        """The live facade whose last lease line is ``leading``, if any."""
+        latest = None
+        for facade in self.facades:
+            if facade.proc.poll() is not None:
+                continue
+            t = facade.line_time(f"leading {facade.name}")
+            if t is not None and (latest is None or t > latest[0]):
+                latest = (t, facade)
+        return latest[1] if latest else None
+
+    def kill_active_facade(self) -> float:
+        """SIGKILL the facade serving now; returns when the signal went out."""
+        facade = self.active_facade()
+        if facade is None:
+            raise RuntimeError(f"no facade is serving\n{self.diagnostics()}")
+        return facade.kill()
 
     # -- managers ---------------------------------------------------------
 
@@ -191,6 +289,8 @@ class JobPlane:
         `leader_elect`)."""
         argv = [sys.executable, "-m", "kubeflow_tpu_torch.controllers", "--apiserver",
                 self.url, "--controllers", ",".join(controllers)]
+        if self.ca:
+            argv += ["--ca", self.ca]
         name = identity or f"manager-{len(self.managers)}"
         if leader_elect:
             argv += ["--leader-elect", "--identity", name, "--lease-name", lease_name,
@@ -216,6 +316,7 @@ class JobPlane:
         evictions) and wait for `wait_for` (default ``standby
         <identity>``)."""
         env = self._env({
+            **({"KFTPU_CA": self.ca} if self.ca else {}),
             "KFTPU_APISERVER": self.url, "KFTPU_IDENTITY": identity,
             "KFTPU_LEASE_NAME": lease_name, "KFTPU_LEASE_DURATION": str(lease_duration),
             "KFTPU_RENEW_DEADLINE": str(renew_deadline), "KFTPU_PREEMPT_STALL": str(stall),
@@ -283,16 +384,20 @@ class JobPlane:
         not stopped or killed exited."""
         t0 = time.monotonic()
         while True:
-            if self.runner is not None:
-                self.runner.step()
-            if tick is not None:
-                tick()
-            if predicate():
-                return time.monotonic() - t0
-            dead = [m for m in self.managers if not m.expect_exit and m.proc.poll() is not None]
+            try:
+                if self.runner is not None:
+                    self.runner.step()
+                if tick is not None:
+                    tick()
+                if predicate():
+                    return time.monotonic() - t0
+            except self._outage_errors:
+                pass  # a pair between actives: the next tick asks again
+            dead = [m for m in self.managers + self.facades
+                    if not m.expect_exit and m.proc.poll() is not None]
             if dead:
                 raise RuntimeError(
-                    f"manager {dead[0].name} exited ({dead[0].proc.returncode}) while "
+                    f"{dead[0].name} exited ({dead[0].proc.returncode}) while "
                     f"waiting for {what}\n{self.diagnostics()}")
             if time.monotonic() - t0 > timeout:
                 raise TimeoutError(f"timed out after {timeout} s waiting for {what}\n"
@@ -308,17 +413,22 @@ class JobPlane:
         return out
 
     def leadership(self) -> list[tuple[float, str]]:
-        """Every manager's standby/leading/evicted/deposed line, in time
-        order, each with its seconds since the plane started."""
-        return sorted((t - self.started, line) for m in self.managers for t, line in m.lines
-                      if line.startswith(LEADERSHIP_MARKERS))
+        """Every manager's standby/leading/evicted/deposed line and every
+        facade's lease and takeover lines, in time order, each with its
+        seconds since the plane started."""
+        return sorted(
+            [(t - self.started, line) for m in self.managers for t, line in m.lines
+             if line.startswith(LEADERSHIP_MARKERS)]
+            + [(t - self.started, line) for f in self.facades for t, line in f.lines
+               if line.startswith(FACADE_MARKERS)])
 
     def diagnostics(self, tail: int = 60) -> str:
         parts = ["--- leadership (s since the plane started) ---",
                  *(f"{t:9.3f} {line}" for t, line in self.leadership())]
-        for m in self.managers:
-            parts.append(f"--- manager {m.name} (exit {m.proc.poll()}) ---")
-            parts += [f"{t - self.started:9.3f} {line}" for t, line in m.lines[-tail:]]
+        for kind, procs in (("facade", self.facades), ("manager", self.managers)):
+            for m in procs:
+                parts.append(f"--- {kind} {m.name} (exit {m.proc.poll()}) ---")
+                parts += [f"{t - self.started:9.3f} {line}" for t, line in m.lines[-tail:]]
         for name, text in self.pod_logs().items():
             parts += [f"--- {name} ---", *text.splitlines()[-tail:]]
         return "\n".join(parts)
@@ -328,9 +438,18 @@ class JobPlane:
             self.runner.shutdown()
         for m in self.managers:
             m.stop()
-        self.server.shutdown()
-        self.server.server_close()
-        self.api.close()
+        if self.server is not None:
+            self.server.shutdown()
+            self.server.server_close()
+        # Standbys first (they leave their acquire loop), then the active,
+        # whose graceful stop checkpoints the store under the term it
+        # still holds and releases the lease with nobody left to take it.
+        active = self.active_facade()
+        for facade in sorted(self.facades, key=lambda f: f is active):
+            facade.stop()
+        api = getattr(self, "api", None)
+        if api is not None:
+            api.close()
 
     def __enter__(self) -> "JobPlane":
         return self

@@ -15,11 +15,15 @@ forward, delta and fused backward kernels.
 
 Env (besides the operator's TPUJOB_*):
 
-- ``KFTPU_APISERVER``: the apiserver facade; every step's loss goes to
+- ``KFTPU_APISERVER``: the apiserver facade, one URL or an endpoint list
+  (``KFTPU_CA`` pins the CA of https ones); every step's loss goes to
   the TpuJob's ``status.metrics`` (`report_metrics`), and the run that
   finishes reports its observation (`report_observation`): the final
   loss, ``resumed_from``, ``steps_done``, the median step ms, the peak
-  device memory and each kernel's launches (``launches_<kernel>``).
+  device memory and each kernel's launches (``launches_<kernel>``). A
+  call the control plane cannot answer (no endpoint serving, as while a
+  standby takes over) is retried every 0.2 s for up to
+  ``API_OUTAGE_S``; each acked step report prints an ``acked`` line.
 - ``KFTPU_CKPT_DIR``, ``KFTPU_TOTAL_STEPS`` (8), ``KFTPU_SAVE_EVERY`` (4),
   ``KFTPU_KILL_AT_STEP`` (0 = never): the first incarnation (the job's
   ``status.restarts`` is 0) SIGKILLs itself after that step, once the
@@ -68,10 +72,30 @@ FULL_WIDTH = dict(vocab_size=32000, d_model=1024, n_layers=16, n_heads=8, head_d
                   d_ff=4096, batch=8, seq=2048, dtype="bfloat16", lr=3e-4)
 # The kernels the default dispatch runs in a train step on CUDA.
 STEP_KERNELS = ("flash_fwd", "flash_delta", "flash_bwd_fused")
+# How long a call rides out a control plane that answers nothing.
+API_OUTAGE_S = 60.0
 
 
 def say(event: str, **fields) -> None:
     print(json.dumps({"event": event, "pid": os.getpid(), **fields}), flush=True)
+
+
+def until_acked(call):
+    """`call()`, retried while the control plane cannot answer it (every
+    endpoint refusing, or 503 while a store fail-stops), as a CLI writer
+    rides out a failover; raises once API_OUTAGE_S has passed."""
+    import http.client
+
+    from kubeflow_tpu_torch.testing.fake_apiserver import Unavailable
+
+    deadline = time.monotonic() + API_OUTAGE_S
+    while True:
+        try:
+            return call()
+        except (Unavailable, http.client.HTTPException, OSError):
+            if time.monotonic() > deadline:
+                raise
+            time.sleep(0.2)
 
 
 def tree_digest(tree) -> str:
@@ -163,14 +187,15 @@ def main() -> int:
     from kubeflow_tpu_torch.launcher import report_metrics, report_observation
     from kubeflow_tpu_torch.models import TransformerConfig, TransformerLM
     from kubeflow_tpu_torch.ops import _kernels
-    from kubeflow_tpu_torch.testing.apiserver_http import HttpApiClient
+    from kubeflow_tpu_torch.testing.apiserver_http import HttpApiClient, endpoints_from_env
     from kubeflow_tpu_torch.train import (
         AnomalyGuard, Checkpointer, Preempted, SyntheticTokens, TrainConfig, Trainer, fit)
 
     device = resolve_device(os.environ.get("KFTPU_DEVICE") or None)
-    api = HttpApiClient(os.environ["KFTPU_APISERVER"])
+    api = HttpApiClient(endpoints_from_env(os.environ["KFTPU_APISERVER"]))
     name, ns = os.environ["TPUJOB_NAME"], os.environ["TPUJOB_NAMESPACE"]
-    incarnation = int(api.get("TpuJob", name, ns).status.get("restarts", 0) or 0)
+    incarnation = int(until_acked(lambda: api.get("TpuJob", name, ns)).status.get(
+        "restarts", 0) or 0)
     total = int(os.environ.get("KFTPU_TOTAL_STEPS", "8"))
     save_every = int(os.environ.get("KFTPU_SAVE_EVERY", "4"))
     kill_at = int(os.environ.get("KFTPU_KILL_AT_STEP", "0"))
@@ -204,7 +229,9 @@ def main() -> int:
         say("step", incarnation=incarnation, step=step, loss=rec["loss"],
             step_ms=size["batch"] / rec["examples_per_sec"] * 1e3, time=time.time(),
             **({"batch": data.last} if digests else {}))
-        report_metrics(api, name, ns, step, {"loss": rec["loss"]})
+        until_acked(lambda: report_metrics(api, name, ns, step, {"loss": rec["loss"]}))
+        say("acked", incarnation=incarnation, step=step, time=time.time(),
+            failovers=api.failovers)
         if step_sleep:
             time.sleep(step_sleep)
         if incarnation == 0 and step == kill_at:
@@ -246,8 +273,9 @@ def main() -> int:
                             if device.type == "cuda" else 0.0),
         **{f"launches_{k}": float(v) for k, v in sorted(launches.items())},
     }
-    report_observation(api, name, ns, observation)
-    say("done", incarnation=incarnation, time=time.time(), **observation)
+    until_acked(lambda: report_observation(api, name, ns, observation))
+    say("done", incarnation=incarnation, time=time.time(), failovers=api.failovers,
+        handshakes=api.handshakes, **observation)
     api.close()
     return 0
 

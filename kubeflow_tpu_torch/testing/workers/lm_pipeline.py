@@ -128,9 +128,9 @@ def last_logits(model, tokens):
 
 def _report(output: str) -> None:
     from kubeflow_tpu_torch.controllers.workflow import report_step_output
-    from kubeflow_tpu_torch.testing.apiserver_http import HttpApiClient
+    from kubeflow_tpu_torch.testing.apiserver_http import HttpApiClient, endpoints_from_env
 
-    api = HttpApiClient(os.environ["KFTPU_APISERVER"])
+    api = HttpApiClient(endpoints_from_env(os.environ["KFTPU_APISERVER"]))
     try:
         report_step_output(api, os.environ["POD_NAME"], os.environ["POD_NAMESPACE"], output)
     finally:

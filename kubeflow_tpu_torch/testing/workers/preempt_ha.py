@@ -16,7 +16,7 @@ binary.
 
     python -m kubeflow_tpu_torch.testing.workers.preempt_ha
 
-Env: ``KFTPU_APISERVER`` (the facade's URL), ``KFTPU_IDENTITY``,
+Env: ``KFTPU_APISERVER`` (the facade's URL or endpoint list), ``KFTPU_IDENTITY``,
 ``KFTPU_LEASE_NAME`` (default ``tpujob-controller``),
 ``KFTPU_LEASE_DURATION`` (3), ``KFTPU_RENEW_DEADLINE`` (2),
 ``KFTPU_PREEMPT_STALL`` (0). It prints ``standby <identity>``, then
@@ -37,7 +37,7 @@ import time
 def main() -> int:
     from kubeflow_tpu_torch.controllers.leader import LeaderElector
     from kubeflow_tpu_torch.controllers.tpujob import TpuJobController
-    from kubeflow_tpu_torch.testing.apiserver_http import HttpApiClient
+    from kubeflow_tpu_torch.testing.apiserver_http import HttpApiClient, endpoints_from_env
     from kubeflow_tpu_torch.testing.fake_apiserver import Conflict
 
     identity = os.environ["KFTPU_IDENTITY"]
@@ -50,7 +50,7 @@ def main() -> int:
         if stall:
             time.sleep(stall)
 
-    client = HttpApiClient(os.environ["KFTPU_APISERVER"])
+    client = HttpApiClient(endpoints_from_env(os.environ["KFTPU_APISERVER"]))
     stop = threading.Event()
     signal.signal(signal.SIGTERM, lambda *_: stop.set())
     signal.signal(signal.SIGINT, lambda *_: stop.set())

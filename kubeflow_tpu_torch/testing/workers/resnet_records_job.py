@@ -16,7 +16,8 @@ repeated from a restored checkpoint repeats bitwise.
 
 Env (besides the operator's TPUJOB_*):
 
-- ``KFTPU_APISERVER``: the apiserver facade; every step's loss goes to
+- ``KFTPU_APISERVER``: the apiserver facade (one URL or an endpoint list;
+  ``KFTPU_CA`` pins the CA of https ones); every step's loss goes to
   the TpuJob's ``status.metrics``, and the run that finishes reports
   its observation: the final loss, ``resumed_from``, ``steps_done``, the
   median step ms, the peak device memory, the restore and fast-forward
@@ -77,11 +78,11 @@ def main() -> int:
     from kubeflow_tpu_torch.launcher import report_metrics, report_observation
     from kubeflow_tpu_torch.models import resnet
     from kubeflow_tpu_torch.ops import _kernels
-    from kubeflow_tpu_torch.testing.apiserver_http import HttpApiClient
+    from kubeflow_tpu_torch.testing.apiserver_http import HttpApiClient, endpoints_from_env
     from kubeflow_tpu_torch.train import AnomalyGuard, Checkpointer, Preempted, TrainConfig, Trainer, fit
     from kubeflow_tpu_torch.train.records import RecordDataset, RecordSpec
 
-    api = HttpApiClient(os.environ["KFTPU_APISERVER"])
+    api = HttpApiClient(endpoints_from_env(os.environ["KFTPU_APISERVER"]))
     name, ns = os.environ["TPUJOB_NAME"], os.environ["TPUJOB_NAMESPACE"]
     incarnation = int(api.get("TpuJob", name, ns).status.get("restarts", 0) or 0)
     total = int(os.environ.get("KFTPU_TOTAL_STEPS", "12"))

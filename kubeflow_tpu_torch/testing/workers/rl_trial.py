@@ -32,7 +32,8 @@ and looks up its own trial index (its TpuJob's trial label):
 
 Evidence rides the observation (``fault_*`` fields): the soak counts
 only what a worker reported happening. Other env: KFTPU_APISERVER (the
-facade), KFTPU_RL_TRIALS, KFTPU_RL_STEPS (18), KFTPU_RL_PUBLISH_EVERY
+facade: one URL or an endpoint list, KFTPU_CA pinning https ones),
+KFTPU_RL_TRIALS, KFTPU_RL_STEPS (18), KFTPU_RL_PUBLISH_EVERY
 (6), KFTPU_RL_WORKDIR (each trial's checkpoints under
 ``trial-<index>``).
 """
@@ -62,7 +63,7 @@ def main(argv: list[str] | None = None) -> int:
         run_actor_learner)
     from kubeflow_tpu_torch.serving.replica import LocalReplicaRuntime
     from kubeflow_tpu_torch.serving.router import Router
-    from kubeflow_tpu_torch.testing.apiserver_http import HttpApiClient
+    from kubeflow_tpu_torch.testing.apiserver_http import HttpApiClient, endpoints_from_env
     from kubeflow_tpu_torch.testing.chaos import (
         ACTOR_KILL, LEARNER_KILL, TRIAL_KILL, RLFaultSchedule)
     from kubeflow_tpu_torch.testing.fake_apiserver import FakeApiServer
@@ -74,7 +75,7 @@ def main(argv: list[str] | None = None) -> int:
 
     t_start = time.time()
     device = resolve_device(os.environ.get("KFTPU_DEVICE") or None)
-    study_api = HttpApiClient(os.environ["KFTPU_APISERVER"])
+    study_api = HttpApiClient(endpoints_from_env(os.environ["KFTPU_APISERVER"]))
     job_name, namespace = os.environ["TPUJOB_NAME"], os.environ["TPUJOB_NAMESPACE"]
     job = study_api.get("TpuJob", job_name, namespace)
     trial = int(job.metadata.labels[LABEL_TRIAL])

@@ -1,5 +1,6 @@
 """Web core: the WSGI app, request/response types and server
-(`web/wsgi.py`)."""
+(`web/wsgi.py`), and the control plane's TLS certs and contexts
+(`web/tls.py`)."""
 
 from kubeflow_tpu_torch.web.wsgi import (
     App,

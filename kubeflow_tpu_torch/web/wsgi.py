@@ -8,9 +8,12 @@ mapped onto statuses (NotFound 404, AlreadyExists and Conflict 409,
 Invalid 422, Unavailable 503), a catch-all 500, `serve()` (GET, POST,
 PUT, PATCH, DELETE) on an HTTP/1.1 threading server with persistent
 connections and chunked `StreamResponse`s (the watch stream's
-transport), and `TestClient`, which calls the app in-process with a
-WSGI-style environ. Not copied yet (ROADMAP Queue 1): the tracing span
-per request, TLS, static mounts and the WSGI ``__call__`` shim.
+transport), over HTTPS with `tls=` (a `web.tls.TlsPaths`: each accepted
+connection is wrapped server-side, its handshake in the connection's
+thread; the server counts `tls_handshakes` and `requests_served`), and
+`TestClient`, which calls the app in-process with a WSGI-style environ.
+Not copied yet (ROADMAP Queue 1): the tracing span per request, static
+mounts and the WSGI ``__call__`` shim.
 """
 
 from __future__ import annotations
@@ -268,7 +271,10 @@ class _Http11Handler(http.server.BaseHTTPRequestHandler):
             self.end_headers()
             self.close_connection = True
             return
-        resp = self.server.app.handle(Request(self._environ()))
+        server = self.server
+        with server.counter_lock:
+            server.requests_served += 1
+        resp = server.app.handle(Request(self._environ()))
         try:
             if isinstance(resp, StreamResponse):
                 self._send_stream(resp)
@@ -328,14 +334,47 @@ class _HttpServer(socketserver.ThreadingMixIn, http.server.HTTPServer):
 
     def __init__(self, addr, handler, app: App):
         self.app = app
+        # A keep-alive client pays one handshake for its request train:
+        # tls_handshakes stays flat while requests_served grows.
+        self.tls_handshakes = 0
+        self.requests_served = 0
+        self.counter_lock = threading.Lock()
         super().__init__(addr, handler)
 
 
-def serve(app: App, host: str = "0.0.0.0", port: int = 8080):
+class _TlsHttpServer(_HttpServer):
+    """TLS server whose handshake runs in the connection's thread, not
+    the accept loop (do_handshake_on_connect=False: it happens on the
+    handler's first read), so one stalled client cannot park accept()."""
+
+    ssl_context = None
+
+    def get_request(self):
+        conn, addr = super().get_request()
+        conn = self.ssl_context.wrap_socket(conn, server_side=True,
+                                            do_handshake_on_connect=False)
+        with self.counter_lock:
+            self.tls_handshakes += 1
+        return conn, addr
+
+    def handle_error(self, request, client_address):
+        # Failed handshakes (a plaintext probe, a client pinning another
+        # CA) are expected at a TLS port, not tracebacks for stderr.
+        log.debug("error handling request from %s", client_address, exc_info=True)
+
+
+def serve(app: App, host: str = "0.0.0.0", port: int = 8080, tls=None):
     """Serve on a background thread; returns (server, thread). Stop with
     ``server.shutdown(); server.server_close()``. `server.server_port`
-    is the bound port (pass port=0 to pick a free one)."""
-    server = _HttpServer((host, port), _Http11Handler, app)
+    is the bound port (pass port=0 to pick a free one). With `tls` (a
+    `web.tls.TlsPaths`) it serves HTTPS only: a plaintext client gets a
+    failed handshake, never a served request."""
+    server_class = _HttpServer if tls is None else _TlsHttpServer
+    server = server_class((host, port), _Http11Handler, app)
+    if tls is not None:
+        from kubeflow_tpu_torch.web import tls as tlsmod
+
+        server.ssl_context = tlsmod.server_context(tls)
     # Bounded accept(): a connection reset between select() and accept()
     # must not park the serve loop, or shutdown() never returns.
     server.socket.settimeout(5.0)

@@ -9,7 +9,8 @@ error classes by the client (NotFound 404, AlreadyExists and Conflict
 ambiguous failure claiming its own object, the streaming watch
 delivering events, resuming from its bookmark after a dropped stream and
 re-listing when the journal's horizon has passed it, and endpoints the
-port does not serve (https, more than one) refused. The store's frozen
+port does not serve (no endpoint, another scheme, https without a
+pinned CA) refused. The store's frozen
 snapshots, owner cascade and journal are checked here too.
 """
 
@@ -223,14 +224,23 @@ def test_record_event_over_http_collapses_repeats(facade):
     assert len(api.list("Event")) == 1
 
 
-def test_endpoints_the_port_does_not_serve_are_refused():
+def test_endpoints_the_port_does_not_serve_are_refused(monkeypatch):
+    """An empty list, a scheme other than http/https, and an https
+    endpoint without a pinned CA are refused; an endpoint list is
+    served (failover, test_torch_endpoint_failover.py)."""
+    monkeypatch.delenv("KFTPU_CA", raising=False)
     assert endpoints_from_env(" http://a:1 ,http://b:2,") == ["http://a:1", "http://b:2"]
     with pytest.raises(ValueError, match="no apiserver endpoints"):
         endpoints_from_env(" , ")
-    with pytest.raises(ValueError, match="TLS is not ported"):
+    with pytest.raises(ValueError, match="at least one endpoint"):
+        HttpApiClient([])
+    with pytest.raises(ValueError, match="http:// or https://"):
+        HttpApiClient("ftp://127.0.0.1:21")
+    with pytest.raises(ValueError, match="KFTPU_CA"):
         HttpApiClient("https://127.0.0.1:6443")
-    with pytest.raises(ValueError, match="failover is not ported"):
-        HttpApiClient(["http://a:1", "http://b:2"])
+    with pytest.raises(ValueError, match="KFTPU_CA"):
+        HttpApiClient(["http://a:1", "https://b:2"])
+    assert HttpApiClient(["http://a:1", "http://b:2"]).endpoints == ("http://a:1", "http://b:2")
     assert HttpApiClient(["http://a:1/"]).base_url == "http://a:1"
 
 

@@ -22,6 +22,12 @@ launcher and the LM job worker (`testing/workers/lm_job.py`).
   ``status.observation``; the preemptor runs to Succeeded; the victim is
   placed again, resumes from the step its SIGTERM was honoured at, with
   ``status.restarts`` 0, and each of its steps is logged exactly once.
+- The tiny LM job on an HA plane (two facade processes over one durable
+  store, https, `JobPlane(ha_state_dir=...)`): the active facade is
+  SIGKILLed mid-job, the standby takes over, and the job succeeds with
+  ``restarts`` 0, one pod, and every step the worker saw acked in the
+  final ``status.metrics``, in the live store and in a fresh store
+  booted over the state directory once the plane is down.
 - No module of the port's job plane imports JAX or the JAX package.
 
 Every wait has a deadline (`JobPlane.run_until`) and every process is
@@ -30,6 +36,7 @@ reaped on every exit path.
 
 import json
 import os
+import socket
 import subprocess
 import sys
 from pathlib import Path
@@ -72,6 +79,92 @@ def test_binary_refuses_unported_and_unknown_controllers(names, message):
         cwd=REPO, capture_output=True, text=True, timeout=120)
     assert out.returncode == 2
     assert message in out.stderr
+
+
+def test_binary_takes_an_endpoint_list_and_a_ca(tmp_path):
+    """``--apiserver https://dead,https://live --ca``: the binary's client
+    pins the CA, fails over past the dead endpoint, reconciles a TpuJob
+    over TLS, and on SIGTERM reports one failover."""
+    import signal
+
+    from kubeflow_tpu_torch.controllers.tpujob import register_admission
+    from kubeflow_tpu_torch.testing.apiserver_http import ApiServerApp
+    from kubeflow_tpu_torch.testing.fake_apiserver import FakeApiServer
+    from kubeflow_tpu_torch.web import tls
+    from kubeflow_tpu_torch.web.wsgi import serve
+
+    paths = tls.ensure_tls_dir(str(tmp_path / "tls"))
+    api = FakeApiServer()
+    register_admission(api)
+    server, _ = serve(ApiServerApp(api), host="127.0.0.1", port=0, tls=paths)
+    with socket.socket() as s:  # a port nothing listens on
+        s.bind(("127.0.0.1", 0))
+        dead = s.getsockname()[1]
+    endpoints = f"https://127.0.0.1:{dead},https://127.0.0.1:{server.server_port}"
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "kubeflow_tpu_torch.controllers", "--apiserver", endpoints,
+         "--ca", paths.ca_cert, "--controllers", "tpujob"],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        assert proc.stdout.readline().strip() == "manager ready tpujob"
+        api.create(make_tpujob("over-tls", replicas=1, tpu_chips_per_worker=0,
+                               command=(sys.executable, "-c", "pass")))
+        import time
+        deadline = time.monotonic() + 60
+        while not api.list("Pod", label_selector={LABEL_JOB: "over-tls"}):
+            assert time.monotonic() < deadline, "the binary never made the gang"
+            time.sleep(0.05)
+        proc.send_signal(signal.SIGTERM)
+        out = proc.communicate(timeout=60)[0]
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+        server.shutdown()
+        server.server_close()
+    assert proc.returncode == 0, out
+    client = json.loads(out.strip().splitlines()[-1].removeprefix("client "))
+    assert client["failovers"] == 1 and client["handshakes"] >= 2
+    assert server.tls_handshakes >= 1
+
+
+def test_binary_refuses_https_without_a_ca():
+    env = {k: v for k, v in os.environ.items() if k != "KFTPU_CA"}
+    out = subprocess.run(
+        [sys.executable, "-m", "kubeflow_tpu_torch.controllers", "--apiserver",
+         "https://127.0.0.1:9,https://127.0.0.1:10", "--controllers", "tpujob"],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 2
+    assert "KFTPU_CA" in out.stderr
+
+
+def test_binary_builds_its_client_from_the_flags(monkeypatch, capsys):
+    import threading
+
+    from kubeflow_tpu_torch.controllers import __main__ as binary
+    from kubeflow_tpu_torch.testing import apiserver_http
+    from kubeflow_tpu_torch.utils import signals as sigutil
+
+    built = []
+
+    class Recorder(apiserver_http.HttpApiClient):
+        def __init__(self, base_url, **kw):
+            built.append((list(base_url), kw))
+            super().__init__(base_url, **kw)
+
+    stop = threading.Event()
+    stop.set()  # a SIGTERM already delivered: start, then shut down
+    monkeypatch.setattr(apiserver_http, "HttpApiClient", Recorder)
+    monkeypatch.setattr(sigutil, "install_shutdown_handlers", lambda: stop)
+    monkeypatch.setattr(binary, "CONTROLLERS", {"noop": lambda client: type(
+        "C", (), {"controller": None})()})
+    monkeypatch.setattr("kubeflow_tpu_torch.controllers.runtime.ControllerManager.add",
+                        lambda self, c: None)
+    assert binary.main(["--apiserver", "http://127.0.0.1:1, http://127.0.0.1:2",
+                        "--ca", "ca.pem", "--controllers", "noop"]) == 0
+    assert built == [(["http://127.0.0.1:1", "http://127.0.0.1:2"], {"ca": "ca.pem"})]
+    out = capsys.readouterr().out.splitlines()
+    assert out == ["manager ready noop", 'client {"failovers": 0, "handshakes": 0}']
 
 
 def _steps(log: str) -> list[dict]:
@@ -202,6 +295,55 @@ def test_lm_job_preempted_by_higher_priority_resumes_with_no_lost_step(tmp_path)
         assert len(lowered) == 1 and lowered[0].endswith(": team-a/lm-low")
         assert len({uid for _, _, uid in plane.runner.evictions}) == 1
         assert manager.stop(timeout=60) == 0
+
+
+def test_lm_job_rides_out_a_killed_active_facade(tmp_path):
+    """The worker's step reports, the binary's watch and status writes
+    and the runner's pod writes all fail over to the standby."""
+    from kubeflow_tpu_torch.testing.fake_apiserver import FakeApiServer
+
+    steps = 8
+    env = {"KFTPU_CKPT_DIR": str(tmp_path / "ckpt"), "KFTPU_TOTAL_STEPS": str(steps),
+           "KFTPU_SAVE_EVERY": str(steps), "KFTPU_LM_SIZE": json.dumps(TINY),
+           "KFTPU_STEP_SLEEP_S": "0.3"}
+    state = tmp_path / "state"
+    with JobPlane(controllers=("tpujob",), capture_dir=str(tmp_path / "logs"),
+                  ha_state_dir=str(state),
+                  extra_env={"KFTPU_DEVICE": "cpu", "OMP_NUM_THREADS": "1",
+                             "MKL_NUM_THREADS": "1"}) as plane:
+        assert plane.url.count("https://") == 2 and plane.ca
+        plane.api.create(make_tpujob(
+            "lm-ha", replicas=1, tpu_chips_per_worker=1, max_restarts=1,
+            command=(sys.executable, "-m", "kubeflow_tpu_torch.launcher", "--module",
+                     "kubeflow_tpu_torch.testing.workers.lm_job:main"),
+            env=tuple(env.items())))
+        plane.run_until(lambda: len(plane.api.get("TpuJob", "lm-ha").status.get(
+            "metrics", [])) >= 3, 120, "lm-ha's step 3 acked")
+        killed = plane.active_facade()
+        t_kill = plane.kill_active_facade()
+        plane.run_until(
+            lambda: plane.api.get("TpuJob", "lm-ha").status.get("phase")
+            in ("Succeeded", "Failed"), 120, "lm-ha to finish")
+        job = plane.api.get("TpuJob", "lm-ha")
+        assert job.status["phase"] == "Succeeded", plane.diagnostics()
+        assert job.status.get("restarts", 0) == 0
+        assert len(plane.api.list("Pod", label_selector={LABEL_JOB: "lm-ha"})) == 1
+        assert plane.active_facade() is not killed and killed.proc.returncode == -9
+        records = _records(plane.pod_logs()["lm-ha-worker-0.log"])
+        acked = {r["step"]: r for r in records if r["event"] == "acked"}
+        losses = {r["step"]: r["loss"] for r in records if r["event"] == "step"}
+        assert sorted(acked) == list(range(1, steps + 1))
+        assert any(r["time"] > t_kill and r["failovers"] >= 1 for r in acked.values())
+        assert {p["step"]: p["loss"] for p in job.status["metrics"]} == losses
+        assert len({r["pid"] for r in records}) == 1
+    # The WAL diff: every acked step is durable.
+    restored = FakeApiServer(persist_dir=str(state / "store"))
+    try:
+        final = restored.get("TpuJob", "lm-ha")
+        assert final.status["phase"] == "Succeeded"
+        assert {p["step"]: p["loss"] for p in final.status["metrics"]} == losses
+    finally:
+        restored.close()
 
 
 def test_job_plane_modules_import_no_jax():

@@ -8,9 +8,12 @@ sequence of probe readings and job phases goes through both packages'
 `SidecarController` on one fake clock: the same signal files at the
 same times and the same return values. Then what the port changes: the
 device probe asks the CUDA driver without torch and without a context,
-and the CLI refuses an endpoint list.
+and the CLI refuses an https endpoint list without a pinned CA, and
+takes one with `--ca` through to its client, failing over past a dead
+first endpoint.
 """
 
+import os
 import re
 import subprocess
 import sys
@@ -174,14 +177,68 @@ def test_device_probe_asks_the_driver_without_torch_or_a_context():
 
 
 def test_cli_refuses_an_endpoint_list(tmp_path):
+    """An https endpoint list with no CA to pin (no --ca, no KFTPU_CA) is
+    refused before the work directory is touched."""
+    env = {k: v for k, v in os.environ.items() if k != "KFTPU_CA"}
     out = subprocess.run(
         [sys.executable, "-m", "kubeflow_tpu_torch.sidecar", "--workdir", str(tmp_path),
-         "--job", "j", "--apiserver", "http://127.0.0.1:1,http://127.0.0.1:2",
+         "--job", "j", "--apiserver", "https://127.0.0.1:1,https://127.0.0.1:2",
          "--skip-device-probe"],
-        cwd=REPO, capture_output=True, text=True, timeout=60)
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=60)
     assert out.returncode == 2
-    assert "takes one endpoint" in out.stderr
+    assert "KFTPU_CA" in out.stderr
     assert not (tmp_path / "SIGCONT").exists()
+
+
+def test_cli_passes_an_endpoint_list_and_ca_to_its_client(tmp_path):
+    """`--apiserver dead,live --ca`: the sidecar's client pins the CA,
+    fails over past the dead endpoint, and reads the job's terminal
+    phase from the live one."""
+    import socket
+
+    from kubeflow_tpu_torch.web import tls
+
+    paths = tls.ensure_tls_dir(str(tmp_path / "tls"))
+    api = FakeApiServer()
+    job = api.create(t_new_resource("TpuJob", "j", "team", spec={})).thaw()
+    job.status["phase"] = "Succeeded"
+    api.update_status(job)
+    server, _ = serve(ApiServerApp(api), host="127.0.0.1", port=0, tls=paths)
+    with socket.socket() as s:  # a port nothing listens on
+        s.bind(("127.0.0.1", 0))
+        dead = s.getsockname()[1]
+    endpoints = f"https://127.0.0.1:{dead},https://127.0.0.1:{server.server_port}"
+    try:
+        out = subprocess.run(
+            [sys.executable, "-m", "kubeflow_tpu_torch.sidecar", "--workdir",
+             str(tmp_path / "sig"), "--job", "j", "--namespace", "team", "--apiserver",
+             endpoints, "--ca", paths.ca_cert, "--skip-device-probe", "--poll-seconds", "0.1"],
+            cwd=REPO, capture_output=True, text=True, timeout=60)
+    finally:
+        server.shutdown()
+        server.server_close()
+    assert out.returncode == 0, out.stderr
+    assert "terminal phase: Succeeded" in out.stdout
+    assert server.tls_handshakes >= 1
+
+
+def test_cli_builds_its_client_from_the_flags(tmp_path, monkeypatch):
+    from kubeflow_tpu_torch.sidecar import __main__ as cli
+    from kubeflow_tpu_torch.testing import apiserver_http
+
+    built = []
+
+    class Recorder(HttpApiClient):
+        def __init__(self, base_url, **kw):
+            built.append((list(base_url), kw))
+            super().__init__(base_url, **kw)
+
+    monkeypatch.setattr(apiserver_http, "HttpApiClient", Recorder)
+    monkeypatch.setattr(cli.SidecarController, "run", lambda self, results_dir=None: "Succeeded")
+    assert cli.main(["--workdir", str(tmp_path), "--job", "j", "--apiserver",
+                     " http://127.0.0.1:1 , http://127.0.0.1:2", "--ca", "ca.pem",
+                     "--skip-device-probe"]) == 0
+    assert built == [(["http://127.0.0.1:1", "http://127.0.0.1:2"], {"ca": "ca.pem"})]
 
 
 def test_cli_start_gate_only_without_an_apiserver(tmp_path):
