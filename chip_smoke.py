@@ -213,7 +213,7 @@ JSON line; any failure raises and the exit code is non-zero:
 28a. node_lost, main path 15: a lost Node on the same plane, the binary
    now also running nodehealth (`node_lost_phase`): two one-GPU Nodes;
    ResNet-50 from records_fit's records (written anew) as a TpuJob
-   (`testing/workers/resnet_records_job.py`, 12 steps, saving every 4,
+   (`testing/workers/resnet_records_job.py`, 8 steps, saving every 4,
    paced at 0.5 s a step) gated by the port's sidecar CLI; once step 6
    is logged and step 4 committed, the worker is SIGKILLed and its Node
    deleted: the pod Failed with reason NodeLost and one event, one
@@ -237,8 +237,25 @@ JSON line; any failure raises and the exit code is non-zero:
    card's memory at lm-high's first step; SIGTERM to the victim's exit,
    eviction to lm-high's first step, kill to the standby's first write,
    lm-high's end to lm-low's first resumed step.
-30. kernels: one line per ported kernel (launches, error, times, bound).
-31. the last line: {"ok": true, "device": {...}}.
+30. ha_job, main path 16: the durable, highly available control plane
+   (`ha_job_phase`): the LM as a TpuJob on an active-passive facade pair
+   over one WAL-backed store, over https, the binary leader-elected on
+   the endpoint list; the active facade SIGKILLed after step 4's ack;
+   no restart, every acked step in a fresh store over the state
+   directory, the losses against path A's.
+31. tenant, main path 17: tenants (`tenant_phase`): a job plane on a
+   durable store, the binary running the profile, notebook, tensorboard
+   and tpujob controllers, the workload materializer beside the pod
+   runner; Profile team-c provisioned (its Namespace, ServiceAccounts,
+   RoleBinding, AuthorizationPolicy, a one-GPU ResourceQuota, the
+   finalizer), Profile team-x refused a namespace it does not own; the
+   LM as TpuJob lm-tenant in team-c (two steps traced), a Notebook
+   started and stopped and a Tensorboard on the trace directory's claim;
+   the Profile deleted after step 3's ack: team-c drained in memory and
+   on disk, the worker SIGTERMed to its exit, the card's memory back,
+   no pod back in 10 s; seconds for each.
+32. kernels: one line per ported kernel (launches, error, times, bound).
+33. the last line: {"ok": true, "device": {...}}.
 
 Without a GPU, or outside a checkout (copied alone, where
 `kubeflow_tpu_torch` does not import), it says why on stderr and exits
@@ -327,7 +344,7 @@ LOSS_Z = 5.0
 # Each: a first step, held against "none"'s (loss and global gradient
 # norm), then `steps` timed steps.
 REMAT = dict(block=("none", "full", "mlp", "dots", "attn", "flash"),
-             step=("dots", "attn", "flash"), steps=3)
+             step=("dots", "attn", "flash"), steps=2)
 # moe: the same widths with 8 switch experts, JAX's defaults for the
 # capacity factor and the load-balancing loss, remat "flash", batch
 # 8 x 2048 (groups of 4096 tokens, capacity 640): `steps` guarded train
@@ -381,15 +398,15 @@ RECORDS = dict(records=2560, batch=256, shuffle_buffer=2560, loader_batches=20, 
 # one-GPU Nodes, its host lost once step `lose_after` is logged and the
 # step-`save_every` save is committed; steps paced by `step_sleep_s`; the
 # sidecar polls every `poll_s`. Waits in seconds.
-NODE_LOST = dict(model="resnet50", steps=12, save_every=4, lose_after=6, max_restarts=1,
+NODE_LOST = dict(model="resnet50", steps=8, save_every=4, lose_after=6, max_restarts=1,
                  step_sleep_s=0.5, poll_s=0.5, timeout_s=300, sidecar_exit_s=60)
 # resnet_serve: bench.py --workload serving's max_batch and repetitions
 # (bench.py:419-450), the binary's batching at 5 ms, 64 concurrent
 # one-instance clients over 64 distinct instances, each posting in a loop
 # through a warm-up, a measured window and a profiled window (seconds).
 RESNET_SERVE = dict(max_batch=64, timeout_ms=5.0, single=60, device_reps=30,
-                    host_reps=5, clients=64, distinct=64, warmup_s=2.0, window_s=4.0,
-                    profile_s=3.0)
+                    host_reps=5, clients=64, distinct=64, warmup_s=1.0, window_s=4.0,
+                    profile_s=2.0)
 # frontdoor: bench.py's multiplex phase (bench.py:1057-1240) on the card:
 # 7 ResNet-50s and the LM behind 2 replicas of at most 5 resident models
 # each, batching 64 / 5 ms as the binary; open-loop load at 150
@@ -407,14 +424,14 @@ FRONTDOOR = dict(resnets=7, hot=4, replicas=2, max_resident=5, max_batch=64,
 # controller: bench.py's serving data plane (bench.py:727-1050) through
 # the control plane at full width: a ServingDeployment on resnet_fit's
 # checkpoint directory, 2 replicas, batching 64 / 5 ms; 64 closed-loop
-# one-instance clients over 64 distinct instances (a 2 s warm-up, a 4 s
+# one-instance clients over 64 distinct instances (a 1 s warm-up, a 4 s
 # measured window, 3 s of it profiled); a roll under the same load that
 # must converge within 120 s; 10 reconciles after a third step; scale
 # 2 -> 3 -> 1; then 2 worker processes behind the facade, each serving
 # within 120 s, 16 closed-loop clients for 4 s with one worker SIGKILLed;
 # memory held within 64 MiB.
 CONTROLLER = dict(replicas=2, max_batch=64, timeout_ms=5.0, clients=64, distinct=64,
-                  warmup_s=2.0, window_s=4.0, profile_s=3.0, roll_timeout_s=120.0,
+                  warmup_s=1.0, window_s=4.0, profile_s=3.0, roll_timeout_s=120.0,
                   fault_reconciles=10, scale=(3, 1), workers=2, worker_start_s=120.0,
                   process_clients=16, process_load_s=4.0, process_compare_s=4.0,
                   memory_slack_mib=64)
@@ -472,6 +489,19 @@ PIPELINE = dict(steps=8, save_every=4, kill_at=4, max_eval_loss=math.log(32000) 
 HA_JOB = dict(steps=10, kill_after=4, manager_lease_s=15.0,
               manager_renew_s=10.0, manager_retry_s=0.5, probe_every_s=0.2, timeout_s=300,
               manager_ready_s=120)
+# The tenant lifecycle (path G): Profile "team-c" (owner c@example.com,
+# `hard` as its ResourceQuota) provisions its namespace; Profile "team-x"
+# meets a namespace of that name it does not own; TpuJob "lm-tenant"
+# trains TRAIN's LM in team-c for `steps` (a save every `save_every`,
+# the second and third steps traced under the checkpoint root's
+# traces/), beside Notebook "nb" (stopped once ready) and Tensorboard
+# "tb" on claim lm-ckpt's traces/; once step `drain_after` is acked the
+# Profile is deleted and team-c drained; then `quiet_s` of watching that
+# nothing comes back. Waits in seconds; the memory slack in MiB.
+TENANT = dict(steps=8, save_every=4, drain_after=3, owner="c@example.com",
+              hard={"nvidia.com/gpu": 1, "pods": 8, "persistentvolumeclaims": 2},
+              quiet_s=10.0, memory_slack_mib=64, ready_timeout_s=60, timeout_s=300,
+              drain_timeout_s=120, manager_ready_s=120)
 REQUESTS = [  # (wire format, batch, sequence length)
     ("json", 1, 2048),
     ("json", 3, 2048),  # padded to bucket 4
@@ -6057,6 +6087,381 @@ def ha_job_phase(torch, card: str, path_a: dict) -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
+def tenant_phase(torch, card: str, path_a: dict) -> dict:
+    """Path G, tenants: a `JobPlane` whose store is durable (``persist_dir``,
+    `testing/persist.py`), the binary running
+    ``--controllers profile,notebook,tensorboard,tpujob`` and the pod runner
+    with the workload materializer (`runtime/workloads.py`) beside it.
+
+    1. Provision: Profile team-c (owner TENANT["owner"], its
+       resourceQuotaSpec TENANT["hard"]) to condition Ready: the Namespace
+       with the owner annotation and an ownerReference to the Profile,
+       both ServiceAccounts, the RoleBinding, the AuthorizationPolicy, the
+       ResourceQuota and the finalizer.
+    2. No takeover: a Namespace team-x with no owner, then Profile
+       team-x: one NamespaceConflict Warning, condition Failed, the
+       namespace unchanged.
+    3. Train: PVC lm-ckpt and TpuJob lm-tenant in team-c (1 worker, 1
+       GPU), TRAIN's LM through fit() for TENANT["steps"] with a trace of
+       two steps (``KFTPU_TRACE_DIR``); status.used of the quota reads
+       one GPU while the pod runs; 16 launches a step of flash_fwd,
+       flash_delta and flash_bwd_fused in the worker; every step's loss
+       finite and against path A's (`path_a`: bitwise, or within its loss
+       limit).
+    4. While it trains: Notebook nb (no accelerator) to readyReplicas 1
+       and containerState Running through the materializer, then the stop
+       annotation to 0 pods and Terminated; Tensorboard tb on
+       ``lm-ckpt/traces``: its Deployment mounting claim lm-ckpt at
+       subPath traces, its Service and VirtualService, readyReplicas 1;
+       the worker's trace on disk (its ``trace`` line and the files).
+    5. Drain: once step TENANT["drain_after"] is acked, Profile team-c is
+       deleted. Seconds from the delete to the Profile gone (the
+       finalizer cleared), the Namespace gone, the worker's SIGTERM and
+       its exit, and memory.used back within TENANT["memory_slack_mib"]
+       of its reading before the pod started. From the Namespace gone
+       until the worker has exited and at least TENANT["quiet_s"] later,
+       no pod in team-c and no process started. Then: nothing of any
+       kind left in team-c; a fresh store over a copy of the state directory
+       with no Profile team-c, no Namespace team-c and nothing in team-c;
+       team-x's Profile and Namespace untouched; the binary exits 0 on
+       SIGTERM.
+
+    Returns the worker's launch counts."""
+    from kubeflow_tpu_torch.api import make_tpujob
+    from kubeflow_tpu_torch.api.objects import new_resource
+    from kubeflow_tpu_torch.controllers.notebook import STOP_ANNOTATION
+    from kubeflow_tpu_torch.controllers.profile import EDITOR_SA, FINALIZER, VIEWER_SA
+    from kubeflow_tpu_torch.controllers.tpujob import LABEL_JOB
+    from kubeflow_tpu_torch.testing.fake_apiserver import FakeApiServer, NotFound
+    from kubeflow_tpu_torch.testing.job_plane import JobPlane
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="kftpu_tenant_")
+    state = os.path.join(root, "state")
+    claim = os.path.join(root, "lm-ckpt")  # what claim lm-ckpt holds
+    trace_dir = os.path.join(claim, "traces")
+    steps = TENANT["steps"]
+    env = {
+        "KFTPU_CKPT_DIR": os.path.join(claim, "ckpt"),
+        "KFTPU_TRACE_DIR": trace_dir,
+        "KFTPU_TOTAL_STEPS": str(steps),
+        "KFTPU_SAVE_EVERY": str(TENANT["save_every"]),
+        "KFTPU_LM_SIZE": json.dumps({**LM, "batch": TRAIN["batch"], "seq": TRAIN["seq"],
+                                     "dtype": "bfloat16", "lr": TRAIN["lr"]}),
+    }
+    ns = "team-c"
+    worker = "lm-tenant-worker-0"
+    plane = None
+    try:
+        plane = JobPlane(controllers=("profile", "notebook", "tensorboard", "tpujob"),
+                         capture_dir=os.path.join(root, "logs"), persist_dir=state,
+                         ready_timeout=TENANT["manager_ready_s"])
+        api = plane.api
+        manager_ready_s = plane.manager_ready_s
+
+        def condition(name: str):
+            return api.get("Profile", name, "default").status.get("condition")
+
+        def gone(kind: str, name: str, namespace: str) -> bool:
+            try:
+                api.get(kind, name, namespace)
+            except NotFound:
+                return True
+            return False
+
+        # 1. Provision.
+        api.create(new_resource("Profile", ns, "default", spec={
+            "owner": {"kind": "User", "name": TENANT["owner"]},
+            "resourceQuotaSpec": {"hard": dict(TENANT["hard"])}}))
+        provision_s = plane.run_until(lambda: condition(ns) == "Ready",
+                                      TENANT["ready_timeout_s"], "Profile team-c Ready")
+        profile = api.get("Profile", ns, "default")
+        namespace = api.get("Namespace", ns, "")
+        quota = api.get("ResourceQuota", "kf-resource-quota", ns)
+        children = {
+            "namespace_owner_annotation": namespace.metadata.annotations.get("owner")
+            == TENANT["owner"],
+            "namespace_owned_by_profile": [
+                (r.get("kind"), r.get("uid")) for r in namespace.metadata.owner_references]
+            == [("Profile", profile.metadata.uid)],
+            "service_accounts": not gone("ServiceAccount", EDITOR_SA, ns)
+            and not gone("ServiceAccount", VIEWER_SA, ns),
+            "role_binding": not gone("RoleBinding", "namespaceAdmin", ns),
+            "authorization_policy": not gone("AuthorizationPolicy", "ns-owner", ns),
+            "resource_quota": quota.spec.get("hard") == TENANT["hard"],
+            "finalizer": FINALIZER in profile.metadata.finalizers,
+        }
+
+        # 2. No takeover.
+        api.create(new_resource("Namespace", "team-x", ""))
+        team_x_before = api.get("Namespace", "team-x", "")
+        api.create(new_resource("Profile", "team-x", "default", spec={
+            "owner": {"kind": "User", "name": "x@example.com"}}))
+        conflict_s = plane.run_until(lambda: condition("team-x") == "Failed",
+                                     TENANT["ready_timeout_s"], "Profile team-x Failed")
+        takeover_refused = gone("ServiceAccount", EDITOR_SA, "team-x") and gone(
+            "ResourceQuota", "kf-resource-quota", "team-x")
+
+        def conflicts() -> int:
+            return sum(1 for e in api.list("Event", "default")
+                       if e.spec["reason"] == "NamespaceConflict"
+                       and e.spec["involvedObject"]["name"] == "team-x")
+
+        # 3 and 4. Train, with a Notebook and a Tensorboard beside it.
+        api.create(new_resource("PersistentVolumeClaim", "lm-ckpt", ns, spec={
+            "resources": {"requests": {"storage": "10Gi"}}}))
+        used_before = card_used_mib(torch)
+        seen = {"gpu_used": set()}
+
+        def tick():
+            now = time.time()
+            for pod in api.list("Pod", ns, label_selector={LABEL_JOB: "lm-tenant"}):
+                if pod.status.get("phase") == "Running":
+                    seen.setdefault("running", now)
+                    used = api.get("ResourceQuota", "kf-resource-quota", ns).status.get(
+                        "used", {}).get("nvidia.com/gpu")
+                    seen["gpu_used"].add(used)
+
+        def acked() -> dict:
+            return {p["step"]: p["loss"] for p in
+                    api.get("TpuJob", "lm-tenant", ns).status.get("metrics", [])}
+
+        t_create = time.time()
+        api.create(make_tpujob(
+            "lm-tenant", ns, replicas=1, tpu_chips_per_worker=1, max_restarts=0,
+            command=(sys.executable, "-m", "kubeflow_tpu_torch.launcher", "--module",
+                     "kubeflow_tpu_torch.testing.workers.lm_job:main"),
+            env=tuple(env.items())))
+        api.create(new_resource("Notebook", "nb", ns, spec={"image": "kubeflow-tpu/nb:1"}))
+        api.create(new_resource("Tensorboard", "tb", ns, spec={"logspath": "lm-ckpt/traces"}))
+
+        def ready(kind: str, name: str, **want) -> bool:
+            status = api.get(kind, name, ns).status
+            return all(status.get(k) == v for k, v in want.items())
+
+        notebook_ready_s = plane.run_until(
+            lambda: ready("Notebook", "nb", readyReplicas=1, containerState="Running"),
+            TENANT["ready_timeout_s"], "Notebook nb ready", tick=tick)
+        tensorboard_ready_s = plane.run_until(
+            lambda: ready("Tensorboard", "tb", readyReplicas=1),
+            TENANT["ready_timeout_s"], "Tensorboard tb ready", tick=tick) + notebook_ready_s
+        nb_pods_ready = [p.metadata.name for p in api.list("Pod", ns,
+                                                           label_selector={"notebook": "nb"})]
+        tb_pods = [p.metadata.name for p in api.list("Pod", ns,
+                                                     label_selector={"tensorboard": "tb"})]
+        nb = api.get("Notebook", "nb", ns).thaw()
+        nb.metadata.annotations[STOP_ANNOTATION] = "chip_smoke"
+        api.update(nb)
+        notebook_stop_s = plane.run_until(
+            lambda: ready("Notebook", "nb", readyReplicas=0, containerState="Terminated")
+            and not api.list("Pod", ns, label_selector={"notebook": "nb"}),
+            TENANT["ready_timeout_s"], "Notebook nb stopped", tick=tick)
+        deployment = api.get("Deployment", "tb", ns)
+        tb_spec = deployment.spec["template"]["spec"]
+        vs = api.get("VirtualService", "tensorboard-team-c-tb", ns)
+        tensorboard = {
+            "claim": [v.get("persistentVolumeClaim", {}).get("claimName")
+                      for v in tb_spec.get("volumes", [])] == ["lm-ckpt"],
+            "sub_path": [m.get("subPath") for m in tb_spec["containers"][0]
+                         .get("volumeMounts", [])] == ["traces"],
+            "service": not gone("Service", "tb", ns),
+            "route": vs.spec["http"][0]["match"][0]["uri"]["prefix"]
+            == "/tensorboard/team-c/tb/",
+        }
+        plane.run_until(lambda: TENANT["drain_after"] in acked(), TENANT["timeout_s"],
+                        f"lm-tenant's step {TENANT['drain_after']} acked", tick=tick)
+        # From the CRs' creates (beside the TpuJob's) to ready, and from
+        # the stop annotation to stopped.
+        workloads_s = {"notebook_ready_s": notebook_ready_s,
+                       "tensorboard_ready_s": tensorboard_ready_s,
+                       "notebook_stop_s": notebook_stop_s}
+
+        # 5. Drain mid-run.
+        acked_before_drain = sorted(acked())
+        used_at_drain = float(nvidia_smi("--query-gpu=memory.used")[0])
+        logs_before = set(os.listdir(os.path.join(root, "logs")))
+        drain = {}
+        memory = {"t": 0.0, "last": used_at_drain}
+
+        def drain_tick():
+            now = time.time()
+            if "profile_gone" not in drain and gone("Profile", ns, "default"):
+                drain["profile_gone"] = now
+            if "namespace_gone" not in drain and gone("Namespace", ns, ""):
+                drain["namespace_gone"] = now
+            for (pod_ns, name, _), ev in plane.runner.evictions.items():
+                if (pod_ns, name) == (ns, worker):
+                    drain["sigterm"] = ev["sigterm"]
+                    if ev["exit"] is not None:
+                        drain["exit"], drain["returncode"] = ev["exit"], ev["returncode"]
+            if "memory_back" not in drain and now - memory["t"] >= 0.25:
+                memory["t"] = now
+                memory["last"] = float(nvidia_smi("--query-gpu=memory.used")[0])
+                if "exit" in drain and abs(memory["last"] - used_before) \
+                        <= TENANT["memory_slack_mib"]:
+                    drain["memory_back"] = now
+
+        # The quiet window opens once the Namespace is gone and runs
+        # while the worker saves and exits, for at least `quiet_s`.
+        quiet = {"pods": set(), "running": 0}
+
+        def drained_and_quiet() -> bool:
+            drain_tick()
+            if "namespace_gone" in drain:
+                quiet["pods"] |= {p.metadata.name for p in api.list("Pod", ns)}
+                quiet["running"] = max(quiet["running"], plane.runner.running_count())
+            return {"profile_gone", "namespace_gone", "exit", "memory_back"} <= set(drain) \
+                and time.time() - drain["namespace_gone"] >= TENANT["quiet_s"]
+
+        t_delete = time.time()
+        api.delete("Profile", ns, "default")
+        plane.run_until(drained_and_quiet, TENANT["drain_timeout_s"],
+                        "team-c drained, its worker gone, the card released and the "
+                        "quiet window over")
+        quiet_s = time.time() - drain["namespace_gone"]
+        new_logs = sorted(set(os.listdir(os.path.join(root, "logs"))) - logs_before)
+        left = {kind: [o.metadata.name for o in api.list(kind, ns)] for kind in api.kinds()}
+        left = {kind: names for kind, names in left.items() if names}
+        listed = {kind: len(api.list(kind, ns)) for kind in (
+            "TpuJob", "Pod", "Service", "StatefulSet", "Deployment", "VirtualService",
+            "Notebook", "Tensorboard", "PersistentVolumeClaim", "ResourceQuota",
+            "ServiceAccount", "RoleBinding", "AuthorizationPolicy")}
+        team_x = api.get("Namespace", "team-x", "")
+        team_x_kept = (
+            condition("team-x") == "Failed"
+            and team_x.metadata.uid == team_x_before.metadata.uid
+            and dict(team_x.metadata.annotations) == dict(team_x_before.metadata.annotations)
+            and dict(team_x.metadata.labels) == dict(team_x_before.metadata.labels)
+            and not team_x.metadata.owner_references)
+        conflict_events = conflicts()
+        records = log_records(plane.pod_logs().get(f"{worker}.log", ""))
+        binary_exit = plane.stop_manager()
+        plane.close()
+        diagnostics = plane.diagnostics()
+        plane = None
+
+        # A fresh store over a copy of the state directory.
+        copy = os.path.join(root, "readback")
+        shutil.copytree(state, copy)
+        fresh = FakeApiServer(persist_dir=copy)
+        durable = {
+            "profile_gone": not any(p.metadata.name == ns for p in fresh.list("Profile")),
+            "namespace_gone": not any(n.metadata.name == ns for n in fresh.list("Namespace")),
+            "nothing_in_namespace": not any(fresh.list(kind, ns) for kind in fresh.kinds()),
+            "team_x_kept": any(p.metadata.name == "team-x" for p in fresh.list("Profile"))
+            and any(n.metadata.name == "team-x" for n in fresh.list("Namespace")),
+        }
+        fresh.close()
+    except BaseException:
+        if plane is not None:
+            print(plane.diagnostics(), file=sys.stderr, flush=True)
+        raise
+    finally:
+        if plane is not None:
+            plane.close()
+
+    try:
+        step_recs = {r["step"]: r for r in records if r["event"] == "step"}
+        start = next((r for r in records if r["event"] == "start"), {})
+        trace = next((r for r in records if r["event"] == "trace"), {})
+        gone_rec = next((r for r in records if r["event"] == "job_gone"), None)
+        preempted = next((r for r in records if r["event"] == "preempted"), {})
+        trace_files = sorted(f for f in (os.listdir(trace_dir) if os.path.isdir(trace_dir)
+                                         else []) if f.endswith(".pt.trace.json"))
+        launches = {k[len("launches_"):]: int(v) for k, v in preempted.items()
+                    if k.startswith("launches_")}
+        done = int(preempted.get("steps_done", 0))
+        want_launches = {name: LM["n_layers"] * done
+                         for name in ("flash_fwd", "flash_delta", "flash_bwd_fused")}
+        losses = {s: r["loss"] for s, r in step_recs.items()}
+        vs_a = {}
+        for step, b in sorted(losses.items()):
+            a = path_a["losses"].get(step)
+            if a is None:
+                vs_a[step] = {"path_a": None, "tenant": b, "holds": "no path A step"}
+                continue
+            diff = abs(a - b)
+            vs_a[step] = {"path_a": a, "tenant": b, "abs_diff": diff,
+                          "holds": "bitwise" if diff == 0.0 else "within path A's limit"
+                          if diff <= path_a["loss_limit"] else "no"}
+        first = min(step_recs.values(), key=lambda r: r["step"], default=None)
+        checks = {
+            **{f"provisioned_{k}": v for k, v in children.items()},
+            "no_takeover": takeover_refused,
+            "one_namespace_conflict": conflict_events == 1,
+            "team_x_untouched": team_x_kept,
+            # status.used is published asynchronously: a reading taken
+            # before the first publish shows no usage yet.
+            "quota_used_one_gpu": seen["gpu_used"] - {None, 0} == {1},
+            "notebook_ready_pod": len(nb_pods_ready) == 1,
+            "tensorboard_ready_pod": len(tb_pods) == 1,
+            **{f"tensorboard_{k}": v for k, v in tensorboard.items()},
+            "trace_on_disk": trace.get("written") is True and bool(trace_files),
+            "losses_finite": bool(losses) and all(math.isfinite(v) for v in losses.values()),
+            "losses_vs_path_a": all(v["holds"] != "no" for v in vs_a.values()),
+            "drained_mid_run": acked_before_drain[-1] < steps and done < steps,
+            "worker_launches": bool(launches) and launches == want_launches,
+            "worker_exited": drain.get("returncode") is not None,
+            "memory_released": "memory_back" in drain,
+            "nothing_left_in_namespace": not left and not any(listed.values()),
+            "no_pod_reappeared": not quiet["pods"] and quiet["running"] == 0
+            and not new_logs,
+            "durable_drain": all(durable.values()),
+            "binary_exit_0": binary_exit == 0,
+        }
+        out = {
+            "phase": "tenant", "card": card, "profile": ns, "job": "lm-tenant",
+            "controllers": "profile,notebook,tensorboard,tpujob",
+            "model": {**LM, "dtype": "bfloat16", "remat": "none"}, "batch": TRAIN["batch"],
+            "seq": TRAIN["seq"], "config": TENANT,
+            "provision_s": provision_s, "conflict_s": conflict_s,
+            "manager_ready_s": manager_ready_s,
+            "cr_to_running_s": seen["running"] - t_create if "running" in seen else None,
+            "spawn_to_first_step_s": (first["time"] - seen["running"]
+                                      if first and "running" in seen else None),
+            "spawn_to_worker_start_s": (start["time"] - seen["running"]
+                                        if start and "running" in seen else None),
+            "workloads": workloads_s,
+            "step_ms": {s: r["step_ms"] for s, r in sorted(step_recs.items())},
+            "path_a_step_ms": path_a["step_ms"],
+            "acked_before_drain": acked_before_drain,
+            "delete_to_s": {
+                "profile_gone": drain.get("profile_gone", t_delete) - t_delete,
+                "namespace_gone": drain.get("namespace_gone", t_delete) - t_delete,
+                "worker_sigterm": drain.get("sigterm", t_delete) - t_delete,
+                "worker_job_gone_line": gone_rec["time"] - t_delete if gone_rec else None,
+                "worker_fit_returned": (preempted["fit_returned"] - t_delete
+                                        if "fit_returned" in preempted else None),
+                "worker_exit": drain.get("exit", t_delete) - t_delete,
+                "memory_back": drain.get("memory_back", t_delete) - t_delete,
+            },
+            "worker_returncode": drain.get("returncode"),
+            "worker_steps_done": done, "preempted_at_step": preempted.get("step"),
+            "card_memory_used_mib": {"before_pod": used_before, "at_drain": used_at_drain,
+                                     "last_read": memory["last"]},
+            "quota_used_gpu_seen": sorted(seen["gpu_used"], key=str),
+            "trace": {"line": trace, "files": trace_files},
+            "quiet_window": {"seconds": quiet_s, "pods": sorted(quiet["pods"]),
+                             "max_running": quiet["running"], "new_logs": new_logs},
+            "left_in_namespace": left, "listed": listed, "durable": durable,
+            "namespace_conflict_events": conflict_events, "binary_exit": binary_exit,
+            "losses_vs_path_a": vs_a, "loss_limit": path_a["loss_limit"],
+            "launches": launches, "want_launches": want_launches, "checks": checks,
+            "seconds": time.perf_counter() - t_phase,
+        }
+        emit(out)
+        failed = [name for name, ok in checks.items() if not ok]
+        if failed:
+            print(diagnostics, file=sys.stderr, flush=True)
+            raise AssertionError(f"tenant phase checks failed: {failed}")
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -6115,6 +6520,7 @@ def main() -> int:
                                          records_losses)
     by_path.update(job_paths)
     by_path["ha_job"] = ha_job_phase(torch, card, path_a)
+    by_path["tenant"] = tenant_phase(torch, card, path_a)
     for name, entry in entries.items():
         counts = {path: launches.get(name, 0) for path, launches in by_path.items()}
         entry["launches"] = sum(counts.values())

@@ -5,12 +5,16 @@ a gang of worker pods, placed by `controllers/gang.py`), the Study
 controller (`controllers/study.py`, a search into trial TpuJobs), the
 pipeline controllers (`controllers/workflow.py`, a DAG into step pods and
 TpuJob slice steps; `controllers/cronworkflow.py`, Workflows spawned on a
-schedule),
+schedule), the tenant controllers (`controllers/profile.py`, a user's
+namespace; `controllers/notebook.py` and `controllers/tensorboard.py`,
+a Notebook or a Tensorboard into its workload, Service and route),
 ResourceQuota admission (`controllers/quota.py`), leader election over a
 Lease with write fencing (`controllers/leader.py`) and the
 controller-manager binary (``python -m kubeflow_tpu_torch.controllers``)."""
 
 from kubeflow_tpu_torch.controllers.cronworkflow import CronWorkflowController
+from kubeflow_tpu_torch.controllers.notebook import NotebookController
+from kubeflow_tpu_torch.controllers.profile import ProfileController
 from kubeflow_tpu_torch.controllers.runtime import (
     Controller,
     ControllerManager,
@@ -18,9 +22,10 @@ from kubeflow_tpu_torch.controllers.runtime import (
 )
 from kubeflow_tpu_torch.controllers.serving import ServingDeploymentController
 from kubeflow_tpu_torch.controllers.study import StudyController
+from kubeflow_tpu_torch.controllers.tensorboard import TensorboardController
 from kubeflow_tpu_torch.controllers.tpujob import TpuJobController
 from kubeflow_tpu_torch.controllers.workflow import WorkflowController
 
-__all__ = ["Controller", "ControllerManager", "CronWorkflowController", "Result",
-           "ServingDeploymentController", "StudyController", "TpuJobController",
-           "WorkflowController"]
+__all__ = ["Controller", "ControllerManager", "CronWorkflowController", "NotebookController",
+           "ProfileController", "Result", "ServingDeploymentController", "StudyController",
+           "TensorboardController", "TpuJobController", "WorkflowController"]

@@ -5,7 +5,7 @@ Counterpart of `kubeflow_tpu/controllers/__main__.py`:
 
     python -m kubeflow_tpu_torch.controllers \
         --apiserver https://<facade-a>,https://<facade-b> --ca <ca.crt> \
-        [--controllers tpujob,study,serving,workflow,cronworkflow,nodehealth] \
+        [--controllers profile,notebook,tensorboard,tpujob,nodehealth,study,...] \
         [--leader-elect [--lease-name N] [--identity I]]
 
 builds each named controller on one `HttpApiClient` (its streaming
@@ -26,15 +26,18 @@ on losing the Lease it prints ``deposed <identity>`` and exits 2, since a
 deposed manager's in-flight state belongs to a dead term and its
 supervisor starts a fresh standby.
 
-`CONTROLLERS` holds the ported controllers: the TpuJob operator, the
-Study controller, the ServingDeployment controller, the pipeline
-controllers, Workflow (a DAG of step pods and TpuJob slice steps) and
-CronWorkflow (Workflows spawned on a schedule, on the wall clock), and
-the node-health watchdog (pods on a lost Node fail with reason
-NodeLost, so their gang restarts). A controller the JAX binary runs
-and the port has not ported yet (profile, notebook, tensorboard) is
-refused as "not yet ported"; any other name as unknown. Not ported yet
-either: tokens and the client's fault-tolerance flags (ROADMAP).
+`CONTROLLERS` holds every controller the JAX binary runs, in its
+order, and `--controllers` defaults to all of them: the tenant
+controllers, Profile (a user's namespace, its RBAC and quota, with a
+finalizer), Notebook (a StatefulSet, Service and VirtualService, with
+the culler off) and Tensorboard (a Deployment, Service and
+VirtualService), the TpuJob operator, the node-health watchdog (pods on
+a lost Node fail with reason NodeLost, so their gang restarts), the
+Study controller, the pipeline controllers, Workflow (a DAG of step
+pods and TpuJob slice steps) and CronWorkflow (Workflows spawned on a
+schedule, on the wall clock), and the ServingDeployment controller. An
+unknown name is refused. Not ported: tokens and the client's
+fault-tolerance flags.
 """
 
 from __future__ import annotations
@@ -47,22 +50,26 @@ import sys
 
 from kubeflow_tpu_torch.controllers.cronworkflow import CronWorkflowController
 from kubeflow_tpu_torch.controllers.nodehealth import NodeHealthController
+from kubeflow_tpu_torch.controllers.notebook import NotebookController
+from kubeflow_tpu_torch.controllers.profile import ProfileController
 from kubeflow_tpu_torch.controllers.runtime import ControllerManager
 from kubeflow_tpu_torch.controllers.serving import ServingDeploymentController
 from kubeflow_tpu_torch.controllers.study import StudyController
+from kubeflow_tpu_torch.controllers.tensorboard import TensorboardController
 from kubeflow_tpu_torch.controllers.tpujob import TpuJobController
 from kubeflow_tpu_torch.controllers.workflow import WorkflowController
 
 CONTROLLERS = {
+    "profile": ProfileController,
+    "notebook": NotebookController,
+    "tensorboard": TensorboardController,
     "tpujob": TpuJobController,
+    "nodehealth": NodeHealthController,
     "study": StudyController,
-    "serving": ServingDeploymentController,
     "workflow": WorkflowController,
     "cronworkflow": CronWorkflowController,
-    "nodehealth": NodeHealthController,
+    "serving": ServingDeploymentController,
 }
-# The JAX binary's other controllers, not ported yet.
-NOT_YET_PORTED = ("profile", "notebook", "tensorboard")
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -78,7 +85,7 @@ def main(argv: list[str] | None = None) -> int:
                         help="the platform CA that https endpoints are verified against "
                         "(default: KFTPU_CA)")
     parser.add_argument("--controllers", default=",".join(CONTROLLERS),
-                        help="comma-separated subset to run (default: all ported)")
+                        help="comma-separated subset to run (default: all)")
     parser.add_argument(
         "--leader-elect", action="store_true",
         help="N replicas, one active: stand by until the Lease is held, arm "
@@ -92,10 +99,6 @@ def main(argv: list[str] | None = None) -> int:
     args = parser.parse_args(argv)
 
     names = [n.strip() for n in args.controllers.split(",") if n.strip()]
-    unported = [n for n in names if n in NOT_YET_PORTED]
-    if unported:
-        parser.error(f"controllers {unported} are not yet ported to the PyTorch "
-                     f"package; ported: {sorted(CONTROLLERS)}")
     unknown = [n for n in names if n not in CONTROLLERS]
     if unknown:
         parser.error(f"unknown controllers {unknown}; valid: {sorted(CONTROLLERS)}")

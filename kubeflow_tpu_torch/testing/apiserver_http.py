@@ -8,7 +8,7 @@ process`` fleet) share the control plane's store:
     GET    /apis/<kind>                  ?namespace=&labelSelector=k=v
     GET    /apis/<kind>?watch=true&stream=true&resourceVersion=N
     GET    /apis/<kind>/<ns>/<name>      ('_' namespace = cluster scope)
-    POST   /apis/<kind>
+    POST   /apis/<kind>                  (?apply=true: create-or-update)
     PUT    /apis/<kind>/<ns>/<name>[/status]
     DELETE /apis/<kind>/<ns>/<name>
 
@@ -23,7 +23,7 @@ lock and a fenced write is a 409, as a Conflict is; a malformed header
 is a 400.
 
 `HttpApiClient` mirrors the FakeApiServer surface (get, list, create,
-update, update_status, delete, record_event, watch), so controller-side
+update, update_status, delete, apply, record_event, watch), so controller-side
 code runs the same in-process or against the facade: keep-alive
 connections from a pool, bounded write retries that never double-apply
 (a create claims an AlreadyExists only when the stored object holds
@@ -48,8 +48,7 @@ next one from its bookmark; a bookmark the new active cannot serve gets
 `handshakes` the connections dialed, refused dials included.
 
 Not copied: bearer tokens and RBAC (the facade is open, for localhost
-rigs), the long-poll watch, server-side apply, conversion, pod logs and
-the trace drain.
+rigs), the long-poll watch, conversion, pod logs and the trace drain.
 """
 
 from __future__ import annotations
@@ -220,6 +219,12 @@ class ApiServerApp(App):
         obj = Resource.from_dict(req.json())
         if obj.kind != req.path_params["kind"]:
             raise HttpError(400, "kind mismatch between path and body")
+        if req.query.get("apply") in ("true", "1"):
+            # Server-side apply: the store's create-or-update, so a remote
+            # reconciler's apply is a no-op exactly when an in-process
+            # one's is and does not re-trigger its own watches.
+            return json_response(
+                self.api.apply(obj, lease_guard=self._lease_guard(req)).to_dict())
         return json_response(
             self.api.create(obj, lease_guard=self._lease_guard(req)).to_dict(), status=201)
 
@@ -704,6 +709,12 @@ class HttpApiClient:
             # which is all a delete promises.
             recover_committed=lambda e: {"deleted": True} if isinstance(e, NotFound) else None,
         )
+
+    def apply(self, obj: Resource) -> Resource:
+        """Create-or-update, evaluated by the store behind the facade.
+        Declarative, so the transient-failure retry needs no recovery."""
+        return self._write_with_retry(lambda: Resource.from_dict(
+            self._call("POST", f"/apis/{obj.kind}?apply=true", obj.to_dict())))
 
     def record_event(
         self, about: Resource, reason: str, message: str, *, type_: str = "Normal"

@@ -11,7 +11,20 @@ with no JAX in it), holding what the serving control plane uses:
   deterministic tests drain on, and `close()` ends the thread
 - the resumable event journal (`events_since`, `wait_events`) that the
   HTTP facade's watch stream serves, with `Gone` past its horizon
-- owner references: deleting an object deletes its dependents
+- finalizers: deleting an object that still lists finalizers only
+  stamps its deletionTimestamp (a commit of its own, a MODIFIED event);
+  the update that clears its last finalizer removes it
+- owner references: removing an object deletes its dependents, and
+  removing a Namespace drains every object in it (the real apiserver's
+  namespace deletion); a dependent that is itself held by finalizers
+  stays until it is finalized
+- a create into a namespace this store drained is refused (NotFound, as
+  the real apiserver's namespace lifecycle admission answers for a
+  namespace that is gone) until a Namespace of that name is created
+  again. The JAX store accepts it: a reconcile or a materializer step
+  that read its object before a drain and creates after it would leave
+  a pod nothing owns in a namespace that no longer exists, and a pod
+  runner would start it. The set is kept in memory only.
 - `apply` (create-or-update, a no-op when nothing changed) and
   `record_event`
 - in-process admission hooks (`register_admission`), run on create and
@@ -38,10 +51,8 @@ once, freezes it and shares that snapshot with the object map, the
 journal, every watch handler and get/list results. `.thaw()` gives a
 private mutable copy.
 
-Not copied (no ported caller needs them yet): admission webhooks,
-multi-version conversion, finalizers and the Namespace drain. A deleted
-object is removed at once; `finalizers` and `deletionTimestamp` are
-stored and restored as data only.
+Not copied (no ported caller needs them yet): admission webhooks and
+multi-version conversion.
 """
 
 from __future__ import annotations
@@ -206,6 +217,8 @@ class FakeApiServer:
         # The first durable-write failure; every operation then raises
         # Unavailable (`_fail_stop_locked`).
         self._broken: BaseException | None = None
+        # Namespaces drained since this store started, until created again.
+        self._drained: set[str] = set()
         if persist_dir is not None:
             from kubeflow_tpu_torch.testing import persist
 
@@ -523,6 +536,11 @@ class FakeApiServer:
             self._check_lease_guard(lease_guard, obj.kind)
             if obj.key in self._objects:
                 raise AlreadyExists(f"{obj.key} already exists")
+            if obj.metadata.namespace in self._drained:
+                raise NotFound(f"namespace {obj.metadata.namespace!r} is gone: "
+                               f"{obj.kind} {obj.metadata.name} not created")
+            if obj.kind == "Namespace":
+                self._drained.discard(obj.metadata.name)
             stored = self._admit(obj).deepcopy()
             stored.metadata.uid = fresh_uid()
             stored.metadata.generation = 1
@@ -583,7 +601,10 @@ class FakeApiServer:
                 stored.spec = incoming.spec
                 stored.metadata.labels = incoming.metadata.labels
                 stored.metadata.annotations = incoming.metadata.annotations
+                stored.metadata.finalizers = incoming.metadata.finalizers
                 stored.metadata.owner_references = incoming.metadata.owner_references
+            if self._maybe_finalize(stored):
+                return stored
             return self._commit(stored, "MODIFIED")
 
     def update(self, obj: Resource, *, lease_guard=None) -> Resource:
@@ -600,19 +621,63 @@ class FakeApiServer:
         with self._lock:
             self._check_available()
             self._check_lease_guard(lease_guard, kind)
-            obj = self._objects.pop((kind, namespace, name), None)
+            key = (kind, namespace, name)
+            obj = self._objects.get(key)
             if obj is None:
-                raise NotFound(f"{(kind, namespace, name)} not found")
+                raise NotFound(f"{key} not found")
+            if obj.metadata.finalizers:
+                if obj.metadata.deletion_timestamp is None:
+                    # Marking the deletion is a commit of its own.
+                    stored = obj.thaw()
+                    stored.metadata.deletion_timestamp = now()
+                    self._commit(stored, "MODIFIED")
+                return
+            self._remove_locked(key)
+
+    def _maybe_finalize(self, stored: Resource) -> bool:
+        """Remove an object whose deletion was pending and whose last
+        finalizer was just cleared, emitting its DELETED; True if it
+        was removed. The DELETED is journaled before the cascade runs:
+        the cascaded dependents get later rvs, so the journal stays
+        rv-sorted, which the bisect in `events_since` relies on."""
+        if stored.metadata.deletion_timestamp is None or stored.metadata.finalizers:
+            return False
+        self._commit(stored, "DELETED")
+        self._remove_locked(stored.key, emit_delete=False)
+        return True
+
+    def _remove_locked(self, key: tuple[str, str, str], *, emit_delete: bool = True) -> None:
+        obj = self._objects.pop(key)
+        if emit_delete:
             # The DELETED event gets a fresh rv of its own, so a watcher
             # resuming from the object's last-seen version still sees it.
             self._commit(obj.thaw(), "DELETED")
-            uid = obj.metadata.uid
-            for key in [
-                k for k, o in self._objects.items()
-                if any(ref.get("uid") == uid for ref in o.metadata.owner_references)
-            ]:
-                if key in self._objects:
+        self._cascade(obj)
+        if obj.kind == "Namespace":
+            self._drain_namespace(obj.metadata.name)
+
+    def _drain_namespace(self, namespace: str) -> None:
+        """Deleting a Namespace deletes every object inside it, not only
+        its owner-reference dependents, and closes it to creates."""
+        self._drained.add(namespace)
+        for kind, ns, name in [k for k in self._objects if k[1] == namespace]:
+            try:
+                self.delete(kind, name, ns)
+            except NotFound:
+                pass
+
+    def _cascade(self, owner: Resource) -> None:
+        """Delete the dependents whose ownerReference names `owner`."""
+        uid = owner.metadata.uid
+        for key in [
+            o.key for o in list(self._objects.values())
+            if any(ref.get("uid") == uid for ref in o.metadata.owner_references)
+        ]:
+            if key in self._objects:
+                try:
                     self.delete(key[0], key[2], key[1])
+                except NotFound:
+                    pass
 
     # -- conveniences ------------------------------------------------------
 

@@ -5,8 +5,10 @@ on one machine, as the JAX package's e2e soaks do:
 
 - an in-process `FakeApiServer` with the TpuJob admission hook and
   ResourceQuota admission (`controllers/quota.register`; a namespace
-  without a ResourceQuota is unmetered), served over HTTP by
-  `ApiServerApp` on a free localhost port;
+  without a ResourceQuota is unmetered), durable in `persist_dir` when
+  one is given (its WAL and snapshot, `testing/persist.py`; `close`
+  checkpoints it), served over HTTP by `ApiServerApp` on a free
+  localhost port;
 - controller-manager processes (`Manager`), each waited on until it
   prints its marker: the binary (``python -m kubeflow_tpu_torch.controllers
   --apiserver <facade> --controllers ...``, with ``--leader-elect`` or
@@ -14,8 +16,12 @@ on one machine, as the JAX package's e2e soaks do:
   stall mid-preemption; the first is started by the constructor unless
   `controllers` is empty;
 - a `LocalPodRunner` in this process, stepped by `run_until`, that execs
-  each pod (every pod gets ``KFTPU_APISERVER``, the facade's URL);
-  `run_pods=False` leaves pods unrun, as the JAX HA tests do;
+  each pod (every pod gets ``KFTPU_APISERVER``, the facade's URL), and
+  beside it the `WorkloadMaterializer` (`runtime/workloads.py`), which
+  turns StatefulSets and Deployments (a Notebook's, a Tensorboard's)
+  into pods born Running, which the runner never execs;
+  `run_pods=False` leaves pods unrun and workloads unmaterialized, as
+  the JAX HA tests do;
 - `add_node` and `set_quota`, the cluster model's Nodes and a tenant's
   ResourceQuota, and `lose_node`, a host's failure.
 
@@ -59,6 +65,7 @@ from kubeflow_tpu_torch.api.objects import new_resource
 from kubeflow_tpu_torch.controllers import quota
 from kubeflow_tpu_torch.controllers.tpujob import register_admission
 from kubeflow_tpu_torch.runtime.local import LocalPodRunner
+from kubeflow_tpu_torch.runtime.workloads import WorkloadMaterializer
 from kubeflow_tpu_torch.testing.apiserver_http import ApiServerApp, HttpApiClient
 from kubeflow_tpu_torch.testing.fake_apiserver import FakeApiServer, Unavailable
 from kubeflow_tpu_torch.web.wsgi import serve
@@ -158,12 +165,14 @@ class JobPlane:
         ready_timeout: float = 120.0,
         run_pods: bool = True,
         ha_state_dir: str | None = None,
+        persist_dir: str | None = None,
     ):
         self.started = time.time()
         self.managers: list[Manager] = []
         self.facades: list[Manager] = []
         self.manager_ready_s: float | None = None
         self.runner: LocalPodRunner | None = None
+        self.materializer: WorkloadMaterializer | None = None
         self.capture_dir = capture_dir
         self.ha_state_dir = ha_state_dir
         self.server = None
@@ -173,7 +182,7 @@ class JobPlane:
         pod_env = dict(extra_env or {})
         try:
             if ha_state_dir is None:
-                self.api = FakeApiServer()
+                self.api = FakeApiServer(persist_dir=persist_dir)
                 register_admission(self.api)
                 quota.register(self.api)
                 self.server, _ = serve(ApiServerApp(self.api), host="127.0.0.1", port=0)
@@ -189,6 +198,7 @@ class JobPlane:
             if run_pods:
                 self.runner = LocalPodRunner(self.api, cwd=str(ROOT), extra_env=pod_env,
                                              capture_dir=capture_dir)
+                self.materializer = WorkloadMaterializer(self.api)
         except BaseException:
             self.close()
             raise
@@ -378,15 +388,16 @@ class JobPlane:
     # -- driving ------------------------------------------------------------
 
     def run_until(self, predicate, timeout: float, what: str, tick=None) -> float:
-        """Step the pod runner every 50 ms (calling `tick` too) until
-        `predicate()` holds; returns the seconds it took. Raises with
-        `diagnostics()` after `timeout`, or at once if a manager that was
-        not stopped or killed exited."""
+        """Step the pod runner and the materializer every 50 ms (calling
+        `tick` too) until `predicate()` holds; returns the seconds it
+        took. Raises with `diagnostics()` after `timeout`, or at once if a
+        manager that was not stopped or killed exited."""
         t0 = time.monotonic()
         while True:
             try:
                 if self.runner is not None:
                     self.runner.step()
+                    self.materializer.step()
                 if tick is not None:
                     tick()
                 if predicate():

@@ -36,6 +36,11 @@ Env (besides the operator's TPUJOB_*):
 - ``KFTPU_DEVICE``: ``cpu`` runs it on the CPU (the tests); unset, CUDA,
   and without a GPU it raises. On CUDA a run that launched none of the
   flash kernels fails.
+- ``KFTPU_TRACE_DIR`` (unset): a `train/profiling.Profiler` traces two
+  steps of the run (the second and third of this process) into that
+  directory, where TensorBoard's PyTorch profiler plugin reads it (a
+  Tensorboard CR's `logspath`), and the worker prints one ``trace``
+  line (``written``, the files) once the trace is on disk.
 - ``KFTPU_DIGESTS`` (0): 1 logs sha256 digests of the state each save
   writes and each restore reads (parameters and optimizer state apart)
   and of every step's batch, so two incarnations' logs show which of
@@ -57,6 +62,11 @@ returned) and exits 0 WITHOUT reporting an observation: the run is not finished,
 job's status must not read a victim's half-run as its result. The pod
 was deleted, so no runner reads that exit as the job's success; the
 next placement resumes from the preemption's save.
+
+A drain (the job's namespace deleted, a Profile's teardown) removes the
+TpuJob with its pod: a step report that finds the job gone prints one
+``job_gone`` line and is dropped, so `fit()` runs on to the SIGTERM's
+step boundary, saves and returns `Preempted` as above.
 """
 
 from __future__ import annotations
@@ -188,8 +198,10 @@ def main() -> int:
     from kubeflow_tpu_torch.models import TransformerConfig, TransformerLM
     from kubeflow_tpu_torch.ops import _kernels
     from kubeflow_tpu_torch.testing.apiserver_http import HttpApiClient, endpoints_from_env
+    from kubeflow_tpu_torch.testing.fake_apiserver import NotFound
     from kubeflow_tpu_torch.train import (
         AnomalyGuard, Checkpointer, Preempted, SyntheticTokens, TrainConfig, Trainer, fit)
+    from kubeflow_tpu_torch.train.profiling import Profiler, ProfileSchedule
 
     device = resolve_device(os.environ.get("KFTPU_DEVICE") or None)
     api = HttpApiClient(endpoints_from_env(os.environ["KFTPU_APISERVER"]))
@@ -202,6 +214,10 @@ def main() -> int:
     step_sleep = float(os.environ.get("KFTPU_STEP_SLEEP_S", "0"))
     size = {**FULL_WIDTH, **json.loads(os.environ.get("KFTPU_LM_SIZE", "{}"))}
     digests = os.environ.get("KFTPU_DIGESTS", "0") == "1"
+    trace_dir = os.environ.get("KFTPU_TRACE_DIR")
+    profiler = (Profiler(trace_dir, ProfileSchedule(start_step=1, num_steps=2))
+                if trace_dir else None)
+    seen: dict = {}  # the trace line printed; the step that found the job gone
     say("start", incarnation=incarnation, time=time.time(), device=str(device),
         num_threads=torch.get_num_threads())
 
@@ -229,7 +245,19 @@ def main() -> int:
         say("step", incarnation=incarnation, step=step, loss=rec["loss"],
             step_ms=size["batch"] / rec["examples_per_sec"] * 1e3, time=time.time(),
             **({"batch": data.last} if digests else {}))
-        until_acked(lambda: report_metrics(api, name, ns, step, {"loss": rec["loss"]}))
+        if profiler is not None and profiler.trace_written and "trace" not in seen:
+            seen["trace"] = step
+            say("trace", step=step, written=True, dir=trace_dir,
+                files=sorted(os.listdir(trace_dir)), time=time.time())
+        if "gone" in seen:
+            return
+        try:
+            until_acked(lambda: report_metrics(api, name, ns, step, {"loss": rec["loss"]}))
+        except NotFound:
+            # Drained with its namespace: the SIGTERM for its pod follows.
+            seen["gone"] = step
+            say("job_gone", incarnation=incarnation, step=step, time=time.time())
+            return
         say("acked", incarnation=incarnation, step=step, time=time.time(),
             failovers=api.failovers)
         if step_sleep:
@@ -247,7 +275,7 @@ def main() -> int:
 
     try:
         result = fit(trainer, data, total, rng=0, checkpointer=ckpt, log_every=1,
-                     on_metrics=on_metrics)
+                     on_metrics=on_metrics, profiler=profiler)
         fit_returned = time.time()
     finally:
         ckpt.close()

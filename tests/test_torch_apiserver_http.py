@@ -6,7 +6,8 @@ and the web core pieces under them (`web/wsgi.py`).
 store errors mapped onto statuses by the facade and back onto the same
 error classes by the client (NotFound 404, AlreadyExists and Conflict
 409, Invalid 422, Unavailable 503, Gone 410), a create retried after an
-ambiguous failure claiming its own object, the streaming watch
+ambiguous failure claiming its own object, server-side apply (create,
+update, no-op), the streaming watch
 delivering events, resuming from its bookmark after a dropped stream and
 re-listing when the journal's horizon has passed it, and endpoints the
 port does not serve (no endpoint, another scheme, https without a
@@ -222,6 +223,26 @@ def test_record_event_over_http_collapses_repeats(facade):
     again = c.record_event(about, "Rolled", "a -> 2")
     assert first.metadata.name == again.metadata.name
     assert len(api.list("Event")) == 1
+
+
+def test_apply_over_http_creates_then_updates_and_noops(facade):
+    """Server-side apply: a create, an update when the desired fields
+    differ, and no write (no new resourceVersion, no event) when they
+    match; a drained namespace refuses it as a create."""
+    api, _, client = facade
+    c = client()
+    first = c.apply(new_resource("ServiceAccount", "sa", "team", labels={"a": "1"}))
+    assert api.get("ServiceAccount", "sa", "team").metadata.labels == {"a": "1"}
+    rv = api.current_rv
+    same = c.apply(new_resource("ServiceAccount", "sa", "team", labels={"a": "1"}))
+    assert api.current_rv == rv and same.metadata.resource_version == first.metadata.resource_version
+    changed = c.apply(new_resource("ServiceAccount", "sa", "team", labels={"a": "2"}))
+    assert changed.metadata.labels == {"a": "2"} and changed.metadata.uid == first.metadata.uid
+    api.create(new_resource("Namespace", "team", ""))
+    api.delete("Namespace", "team", "")
+    assert api.list("ServiceAccount", "team") == []
+    with pytest.raises(NotFound, match="is gone"):
+        c.apply(new_resource("ServiceAccount", "sa", "team"))
 
 
 def test_endpoints_the_port_does_not_serve_are_refused(monkeypatch):

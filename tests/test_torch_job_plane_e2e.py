@@ -5,8 +5,8 @@ launcher and the LM job worker (`testing/workers/lm_job.py`).
 
 - The binary comes up against `ApiServerApp`, prints ``manager ready``,
   reconciles a TpuJob over HTTP into its gang, exits 0 on SIGTERM, and
-  refuses a controller the JAX binary runs but the port has not ported
-  ("not yet ported") as it refuses an unknown one.
+  refuses an unknown controller, also beside the tenant controllers it
+  now runs (profile, notebook, tensorboard).
 - A TpuJob runs `lm_job` at a tiny LM (2 layers, d_model 64) on the CPU,
   one thread a worker, with the state and batch digests logged:
   SIGKILLed after step 3, once its step-2 checkpoint is committed; the
@@ -68,8 +68,8 @@ def test_binary_reconciles_over_http_and_exits_on_sigterm(tmp_path):
 
 
 @pytest.mark.parametrize("names, message", [
-    ("tpujob,notebook", "not yet ported"),
-    ("tpujob,profile,nodehealth", "not yet ported"),
+    ("tpujob,notebook,jupyter", "unknown controllers"),
+    ("tpujob,profile,nodehealth,kfam", "unknown controllers"),
     ("tpujob,bogus", "unknown controllers"),
 ])
 def test_binary_refuses_unported_and_unknown_controllers(names, message):

@@ -7,8 +7,8 @@ First the cases of JAX's tests/test_persistence.py, on the port's store
 objects, uids, generations and resourceVersions; a bookmark from before
 it gets Gone; compaction, a torn tail and its repair, a stale
 pre-snapshot record, a snapshot of another format, the fail-stop after a
-failed WAL write. Finalizers are not ported, so their case holds the
-fields as data. Then the same writes through both packages restore to
+failed WAL write, and a pending deletion parked by a finalizer and
+finalized after the restart. Then the same writes through both packages restore to
 equal objects and rv, a directory written by either restores in the
 other, and the fence: `FileLeaseStore` answers a CAS sequence as JAX's
 does, a store fenced to a moved term fail-stops on its next write, and
@@ -87,9 +87,9 @@ def test_restart_restores_objects_and_rv(tmp_path):
 
 
 def test_restart_preserves_finalizers_and_deletion_timestamp(tmp_path):
-    """The port's store does not act on finalizers yet (a delete removes
-    at once), but it stores and restores them, with deletionTimestamp,
-    labels, annotations and owner references, as data."""
+    """finalizers and deletionTimestamp are restored with labels,
+    annotations and owner references, and a pending deletion restored
+    from the WAL is finalized once its last finalizer is cleared."""
     api = _server(tmp_path)
     owner = api.create(new_resource("Profile", "team", "", spec={}))
     obj = new_resource("ConfigMap", "cm", "team", spec={"k": 1})
@@ -107,8 +107,14 @@ def test_restart_preserves_finalizers_and_deletion_timestamp(tmp_path):
     assert got.to_dict() == stored.to_dict()
     assert got.metadata.finalizers == ["profile-finalizer"]
     assert got.metadata.deletion_timestamp == 1234.5
-    # The cascade still works off the restored owner reference.
+    # The cascade reaches the dependent through its restored owner
+    # reference; held by its finalizer, it stays until that is cleared.
     api2.delete("Profile", "team", "")
+    held = api2.get("ConfigMap", "cm", "team")
+    assert held.metadata.deletion_timestamp == 1234.5
+    held = held.thaw()
+    held.metadata.finalizers = []
+    api2.update(held)
     with pytest.raises(NotFound):
         api2.get("ConfigMap", "cm", "team")
 

@@ -19,8 +19,10 @@ tiny LM (2 layers, d_model 64):
   ``serve`` is Skipped and ``teardown`` still runs, once; Succeeded.
 
 The binary also accepts ``workflow,cronworkflow`` beside every other
-ported controller, and still refuses ``profile`` as not yet ported. No
-module of the pipeline imports JAX or the JAX package.
+ported controller, and, with every controller of the JAX binary ported,
+refuses none of them as unported: ``profile`` alone, and ``tensorboard``
+beside the pipeline controllers, start. No module of the pipeline
+imports JAX or the JAX package.
 """
 
 import json
@@ -140,13 +142,12 @@ def test_binary_runs_the_pipeline_controllers_beside_the_rest():
 @pytest.mark.parametrize("names", ["profile",
                                    "workflow,cronworkflow,tensorboard,nodehealth"])
 def test_binary_still_refuses_the_unported_controllers(names):
-    out = subprocess.run(
-        [sys.executable, "-m", "kubeflow_tpu_torch.controllers", "--apiserver",
-         "http://127.0.0.1:9", "--controllers", names],
-        cwd=REPO, capture_output=True, text=True, timeout=120,
-        env={**os.environ, "PYTHONPATH": str(REPO)})
-    assert out.returncode == 2
-    assert "not yet ported" in out.stderr
+    """No controller is left unported: the sets the binary refused
+    before the tenant controllers were ported now start and exit 0."""
+    with JobPlane(controllers=tuple(names.split(",")), run_pods=False) as plane:
+        assert f"manager ready {names}" in plane.manager_output
+        assert not any("not yet ported" in line for line in plane.manager_output)
+        assert plane.stop_manager() == 0
 
 
 def test_pipeline_modules_import_no_jax():

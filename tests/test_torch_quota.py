@@ -8,9 +8,9 @@ quota.py`, with `api/rbac.resource_for_kind` and
   translation: compute requests and limits in milli-units, object
   counts, storage, status.used, updates that do not count themselves,
   and the TpuJob operator's QuotaExceeded episode for a gang over its
-  accelerator cap and over its memory cap. One is left out:
-  `test_materializer_contains_quota_rejection` drives the JAX runtime's
-  `WorkloadMaterializer`, which the port does not have.
+  accelerator cap and over its memory cap, and the workload
+  materializer's containment of a quota rejection (one PodRejected
+  Warning, the other workload still materialized).
 - One seeded sequence of pod and PVC creates, updates, phase changes and
   deletes under mixed caps goes through both packages' stores with quota
   registered: the same admissions, the same refusals (messages equal
@@ -39,7 +39,6 @@ from kubeflow_tpu_torch.controllers.tpujob import LABEL_JOB, TpuJobController
 from kubeflow_tpu_torch.testing.fake_apiserver import FakeApiServer
 
 REPO = Path(__file__).resolve().parents[1]
-NOT_PORTED = ("test_materializer_contains_quota_rejection",)
 
 
 def _jax_tests_on_the_port(path: Path) -> dict:
@@ -54,7 +53,7 @@ def _jax_tests_on_the_port(path: Path) -> dict:
     exec(compile(src, str(path), "exec"), namespace)
     cases = {}
     for name, fn in namespace.items():
-        if not name.startswith("test_") or not callable(fn) or name in NOT_PORTED:
+        if not name.startswith("test_") or not callable(fn):
             continue
         marks = [m for m in getattr(fn, "pytestmark", []) if m.name == "parametrize"]
         if not marks:
@@ -73,8 +72,8 @@ JAX_CASES = _jax_tests_on_the_port(REPO / "tests" / "test_quota.py")
 
 def test_all_of_jax_quota_tests_are_collected():
     functions = {case.split("[")[0] for case in JAX_CASES}
-    assert len(functions) == 26 - len(NOT_PORTED)
-    assert len(JAX_CASES) == 25 + 15 + 7 - 2
+    assert len(functions) == 26
+    assert len(JAX_CASES) == 25 + 15 + 7 - 1
 
 
 @pytest.mark.parametrize("case", sorted(JAX_CASES))
