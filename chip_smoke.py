@@ -73,7 +73,10 @@ JSON line; any failure raises and the exit code is non-zero:
    flash_fwd, flash_delta and flash_bwd_fused); tokens/s, peak memory.
 14. moe_serve, main path 2c: the trained MoE module served over HTTP
    (REQUESTS), each answer bitwise equal to the module's forward on the
-   padded batch the server ran, 16 flash_fwd launches a forward.
+   padded batch the server ran, 16 flash_fwd launches a forward; on an
+   earlier line (moe_serve_diagnostic) that forward's distance from the
+   served answers four ways: on this thread and a second one, each
+   under inference_mode (the server's) and no_grad.
 15. fit, main path 4: the same LM and stream through the training job's
    entry point, `fit()`, with an AnomalyGuard and the two-pass backward
    pinned: an uninterrupted 6-step run; a run that saves every 2 steps
@@ -254,8 +257,17 @@ JSON line; any failure raises and the exit code is non-zero:
    the Profile deleted after step 3's ack: team-c drained in memory and
    on disk, the worker SIGTERMed to its exit, the card's memory back,
    no pod back in 10 s; seconds for each.
-32. kernels: one line per ported kernel (launches, error, times, bound).
-33. the last line: {"ok": true, "device": {...}}.
+32. platform, main path 18: the platform in a box (`platform_phase`):
+   ``python -m kubeflow_tpu_torch.apps`` as its own process, driven only
+   through the dashboard, kfam, the Jupyter app, the https facade and
+   the `kftpu` CLI: a workgroup registered, a PodDefault with the
+   facade's env and a team service-account token, a notebook spawned
+   and stopped, the LM as TpuJob lm-platform (4 steps) applied and
+   watched to Succeeded, described, its logs and `top`, the dashboard's
+   tables, the trace drain, a durable restart, nuke-self with the
+   token revoked (401); seconds for each.
+33. kernels: one line per ported kernel (launches, error, times, bound).
+34. the last line: {"ok": true, "device": {...}}.
 
 Without a GPU, or outside a checkout (copied alone, where
 `kubeflow_tpu_torch` does not import), it says why on stderr and exits
@@ -281,6 +293,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import urllib.request
 import weakref
@@ -457,13 +470,13 @@ RL = dict(obs_dim=8, n_actions=4, n_envs=8, horizon=4, hidden=32, steps=48,
 JOB = dict(steps=8, save_every=4, kill_at=6, max_restarts=1, timeout_s=600,
            manager_ready_s=120)
 # Priority preemption under leader election (path C): lm-low (team-a,
-# priority 1, 16 steps) runs until step 6, then lm-high (team-b, priority
+# priority 1, 10 steps) runs until step 6, then lm-high (team-b, priority
 # 10, 6 steps) evicts it on the one-GPU cluster model; the leader, a
 # preempt_ha replica, stalls 6 s after the eviction and is SIGKILLed in
 # it; the standby binary takes the Lease (2 s, renew deadline 1.2 s,
 # polls every 0.25 s as the JAX e2e's) and places lm-high; lm-low resumes
 # after it. Waits in seconds; the memory slack is this gate's 2 GiB.
-PREEMPT = dict(low_steps=16, high_steps=6, save_every=4, submit_at=6, lease_s=2.0,
+PREEMPT = dict(low_steps=10, high_steps=6, save_every=4, submit_at=6, lease_s=2.0,
                renew_s=1.2, retry_s=0.25, stall_s=6.0, timeout_s=480, manager_ready_s=120,
                memory_slack_mib=2048)
 # RL's study soak (path B): bench.py's nightly configuration
@@ -486,22 +499,25 @@ PIPELINE = dict(steps=8, save_every=4, kill_at=4, max_eval_loss=math.log(32000) 
 # `manager_retry_s`, are its steady writes); the active facade is
 # SIGKILLed once the worker's step `kill_after` is acked. Waits in
 # seconds.
-HA_JOB = dict(steps=10, kill_after=4, manager_lease_s=15.0,
+HA_JOB = dict(steps=6, kill_after=4, manager_lease_s=15.0,
               manager_renew_s=10.0, manager_retry_s=0.5, probe_every_s=0.2, timeout_s=300,
               manager_ready_s=120)
 # The tenant lifecycle (path G): Profile "team-c" (owner c@example.com,
 # `hard` as its ResourceQuota) provisions its namespace; Profile "team-x"
 # meets a namespace of that name it does not own; TpuJob "lm-tenant"
-# trains TRAIN's LM in team-c for `steps` (a save every `save_every`,
+# trains TRAIN's LM in team-c for `steps` (a save every `save_every`:
+# none before the drain, whose SIGTERM saves at the next step boundary;
 # the second and third steps traced under the checkpoint root's
 # traces/), beside Notebook "nb" (stopped once ready) and Tensorboard
 # "tb" on claim lm-ckpt's traces/; once step `drain_after` is acked the
 # Profile is deleted and team-c drained; then `quiet_s` of watching that
 # nothing comes back. Waits in seconds; the memory slack in MiB.
-TENANT = dict(steps=8, save_every=4, drain_after=3, owner="c@example.com",
+TENANT = dict(steps=8, save_every=8, drain_after=3, owner="c@example.com",
               hard={"nvidia.com/gpu": 1, "pods": 8, "persistentvolumeclaims": 2},
               quiet_s=10.0, memory_slack_mib=64, ready_timeout_s=60, timeout_s=300,
               drain_timeout_s=120, manager_ready_s=120)
+PLATFORM = dict(steps=4, user="p@example.com", namespace="team-p", job="lm-platform",
+                timeout_s=300)
 REQUESTS = [  # (wire format, batch, sequence length)
     ("json", 1, 2048),
     ("json", 3, 2048),  # padded to bucket 4
@@ -1993,6 +2009,44 @@ def moe_train_phase(torch, card: str):
     return model, total
 
 
+def moe_forward_diagnostic(torch, model, servable, batches, served) -> dict:
+    """The module's forward on each served request's padded batch, four
+    ways: on this thread and on a second one (cuBLAS keeps a handle and
+    a workspace per thread), each under `torch.inference_mode` (as the
+    server runs it) and under `torch.no_grad`. Emits each way's largest
+    difference from the served answers, per request; decides nothing
+    (moe_serve's bitwise check is the gate)."""
+    padded = []
+    for tokens in batches:
+        batch = np.zeros((servable._bucket_for(len(tokens)), tokens.shape[1]), tokens.dtype)
+        batch[:len(tokens)] = tokens
+        padded.append(batch)
+
+    def forward(mode: str) -> list:
+        ctx = torch.inference_mode if mode == "inference_mode" else torch.no_grad
+        with ctx():
+            return [last_logits(model, torch.tensor(b, device=DEVICE)).float().cpu().numpy()
+                    for b in padded]
+
+    diffs = {}
+    for mode in ("inference_mode", "no_grad"):
+        for where in ("this_thread", "second_thread"):
+            if where == "this_thread":
+                out = forward(mode)
+            else:
+                box: dict = {}
+                worker = threading.Thread(target=lambda m=mode: box.update(out=forward(m)))
+                worker.start()
+                worker.join(timeout=600)
+                out = box["out"]
+            diffs[f"{where}_{mode}"] = [
+                float(np.abs(pred - o[:len(tokens)]).max())
+                for tokens, pred, o in zip(batches, served, out)]
+    line = {"phase": "moe_serve_diagnostic", "max_abs_diff_vs_served": diffs}
+    emit(line)
+    return line
+
+
 def moe_serve_phase(torch, card: str, model) -> dict:
     """Main path 2c: the trained MoE module behind Servable ->
     ModelRepository -> ModelServerApp -> HTTP, REQUESTS with the counters
@@ -2011,6 +2065,7 @@ def moe_serve_phase(torch, card: str, model) -> dict:
     batches = [rng.integers(0, LM["vocab_size"], (n, s)) for _, n, s in REQUESTS]
     served, rows, launches = serve_requests(servable, batches)
     ok = launches == {"flash_fwd": LM["n_layers"] * len(REQUESTS)}
+    moe_forward_diagnostic(torch, model, servable, batches, served)
     with torch.inference_mode():
         for row, tokens, pred in zip(rows, batches, served):
             padded = np.zeros((servable._bucket_for(len(tokens)), tokens.shape[1]),
@@ -5313,20 +5368,21 @@ def preempt_phase(torch, card: str, plane, root: str, bare_step_ms: float,
     replica that stalls PREEMPT["stall_s"] after a preemption's
     evictions, the standby the controller-manager binary with
     ``--leader-elect --controllers tpujob``. Both jobs are TRAIN's LM in
-    a worker process (`lm_job_spec`): lm-low (team-a, priority 1, 16
-    steps) and, once lm-low has logged step 6, lm-high (team-b, priority
+    a worker process (`lm_job_spec`): lm-low (team-a, priority 1,
+    PREEMPT["low_steps"] steps) and, once lm-low has logged step 6,
+    lm-high (team-b, priority
     10, 6 steps). The leader evicts lm-low (its pod deleted, SIGTERM from
     the runner; fit() saves at the next step boundary and the worker
     exits 0 as preempted) and stalls; it is SIGKILLed on its ``evicted``
     line; the standby takes the Lease and places lm-high, which runs to
     Succeeded; lm-low is placed again after it and resumes from its
-    preemption's save to step 16.
+    preemption's save to its last step.
 
     Gates: lm-low has one Preempted event and is named by one
     PreemptedLowerPriority event, its pod uid changes once, restarts 0,
     Succeeded, its worker exited 0 with the job's observation untouched;
-    resumed_from = the last step of its first run, and steps 1..16 are
-    logged once across its runs; lm-high never evicted (one pod uid),
+    resumed_from = the last step of its first run, and each of its steps
+    is logged once across its runs; lm-high never evicted (one pod uid),
     Succeeded; leaseTransitions 1 -> 2 at the takeover, the standby's
     first write (its Lease acquisition) within the lease duration + the
     renew deadline + 2 s of the kill, the standby exits 0 on SIGTERM;
@@ -6462,6 +6518,156 @@ def tenant_phase(torch, card: str, path_a: dict) -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
+def platform_phase(torch, card: str, path_a: dict) -> dict:
+    """Path H, the platform in a box: ``python -m kubeflow_tpu_torch.apps``
+    as its own process (the store on a state directory, every controller,
+    the PodDefault, quota and TpuJob admission, the pod runner and the
+    materializer, the dashboard, kfam, the Jupyter and Tensorboards apps,
+    the facade over https with bearer tokens and RBAC, one seeded Node
+    advertising the card), driven only through its entry points by
+    `testing/platform.run_flow`: HTTP to the apps, the https facade and
+    ``python -m kubeflow_tpu_torch.cli`` as subprocesses.
+
+    1. Boot (a team-p service-account token written first as a static
+       token-file entry); the admin token, token file and CA printed.
+    2. The dashboard's workgroup create for team-p to the Profile's
+       Ready; the owner's RoleBinding; kfam's edit binding for the
+       service account.
+    3. `kftpu apply` of PodDefault facade-env (every pod of team-p: a
+       TpuJob's pods carry no label of their CR) with the facade's URL,
+       its CA and the service account's token.
+    4. The Jupyter app's notebook POST with facade-env among its
+       configurations, to ready, the env on its pod; a PATCH stops it.
+    5. `kftpu apply` of TpuJob lm-platform: the LM at TRAIN's shape
+       through the launcher and fit() on the card, one GPU,
+       PLATFORM["steps"] steps, its worker reporting each step through
+       the facade with the service account's token; `kftpu get tpujobs
+       -n team-p -w` to Succeeded; describe, logs --job, top.
+    6. The dashboard's workloads (the job with its one GPU) and
+       activities.
+    7. `kftpu traces`: the apply's request span, the worker's status
+       writes, the operator's reconciles of team-p/lm-platform.
+    8. SIGTERM (exit 0), a boot on the same state directory: the same
+       admin token, lm-platform Succeeded, Notebook nb.
+    9. The dashboard's nuke-self: the Profile and Namespace gone, the
+       service account's token refused with 401 and gone from the token
+       file, the admin's accepted; SIGTERM, exit 0.
+
+    Each step's loss finite and bitwise or within path A's limit
+    (`path_a`); 16 launches a step of flash_fwd, flash_delta and
+    flash_bwd_fused in the worker. Returns the worker's launches."""
+    from kubeflow_tpu_torch.testing.platform import run_flow
+
+    t_phase = time.perf_counter()
+    release(torch)
+    root = tempfile.mkdtemp(prefix="kftpu_platform_")
+    steps, ns, job = PLATFORM["steps"], PLATFORM["namespace"], PLATFORM["job"]
+    try:
+        rec = run_flow(
+            os.path.join(root, "state"), user=PLATFORM["user"], namespace=ns, job=job,
+            timeout=PLATFORM["timeout_s"],
+            job_env={"KFTPU_CKPT_DIR": os.path.join(root, "ckpt"),
+                     "KFTPU_TOTAL_STEPS": str(steps), "KFTPU_SAVE_EVERY": str(steps),
+                     "KFTPU_LM_SIZE": json.dumps({**LM, "batch": TRAIN["batch"],
+                                                  "seq": TRAIN["seq"], "dtype": "bfloat16",
+                                                  "lr": TRAIN["lr"]})})
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    records = log_records(rec["logs"][1])
+    step_recs = {r["step"]: r for r in records if r["event"] == "step"}
+    start = next((r for r in records if r["event"] == "start"), {})
+    done = next((r for r in records if r["event"] == "done"), {})
+    launches = {k[len("launches_"):]: int(v) for k, v in done.items()
+                if k.startswith("launches_")}
+    want_launches = {name: LM["n_layers"] * steps
+                     for name in ("flash_fwd", "flash_delta", "flash_bwd_fused")}
+    losses = {s: r["loss"] for s, r in step_recs.items()}
+    vs_a = {}
+    for step, b in sorted(losses.items()):
+        a = path_a["losses"].get(step)
+        diff = None if a is None else abs(a - b)
+        vs_a[step] = {"path_a": a, "platform": b, "abs_diff": diff,
+                      "holds": "no path A step" if a is None else "bitwise" if diff == 0.0
+                      else "within path A's limit" if diff <= path_a["loss_limit"] else "no"}
+    rc, spans, traces_err = rec["traces"]
+    by_kind: dict = {}
+    for span in spans:
+        by_kind[span["name"]] = by_kind.get(span["name"], 0) + 1
+    http = [sp["attributes"] for sp in spans if sp["name"] == "http"]
+    apply_spans = [a for a in http if a.get("app") == "apiserver" and a.get("method") == "POST"
+                   and a.get("path") == "/apis/TpuJob" and a.get("status") == "201"]
+    status_writes = [a for a in http if a.get("method") == "PUT"
+                     and a.get("path") == f"/apis/TpuJob/{ns}/{job}/status"]
+    reconciles = [sp for sp in spans if sp["name"] == "reconcile"
+                  and sp["attributes"] == {"controller": "tpujob-controller", "key": f"{ns}/{job}"}]
+    workloads = rec["workloads"][1] if rec["workloads"][0] == 200 else []
+    first = min(step_recs.values(), key=lambda r: r["step"], default=None)
+    checks = {
+        "credentials_printed": rec["credentials_printed"],
+        "workgroup_created": rec["workgroup_create"][0] == 200,
+        "owner_binding": rec["owner_binding"] == [PLATFORM["user"]],
+        "kfam_binding": rec["kfam_binding"][0] == 200 and any(
+            b["user"]["name"] == rec["service_account"]
+            for b in rec["kfam_bindings"][1].get("bindings", [])),
+        "poddefault_applied": rec["poddefault_apply"][0] == 0,
+        "notebook_env_injected": rec["notebook_pod_env"] == [rec["facade_env"]],
+        "notebook_stopped": rec["notebook_stop"][0] == 200,
+        "tpujob_applied": rec["tpujob_apply"][0] == 0,
+        "watch_saw_succeeded_exit_0": rec["watch_rc"] == 0,
+        "job_succeeded": rec["job_status"].get("phase") == "Succeeded",
+        "worker_env_injected": rec["worker_pod_env"] == [rec["facade_env"]],
+        "acked_every_step": [pt["step"] for pt in rec["job_status"].get("metrics", [])]
+        == list(range(1, steps + 1)),
+        "losses_finite": sorted(losses) == list(range(1, steps + 1))
+        and all(math.isfinite(v) for v in losses.values()),
+        "losses_vs_path_a": all(v["holds"] != "no" for v in vs_a.values()),
+        "worker_launches": launches == want_launches,
+        "describe_logs_top": rec["describe"][0] == 0 and "Succeeded" in rec["describe"][1]
+        and rec["logs"][0] == 0 and rec["top"][0] == 0,
+        "token_file_outside_log_root": all(not rec["token_file"].startswith(r)
+                                           for r in rec["pod_log_root"]),
+        "workloads_one_gpu": [(r["name"], r["phase"], r["chips"]) for r in workloads]
+        == [(job, "Succeeded", 1)],
+        "activities": rec["activities"][0] == 200 and bool(rec["activities"][1]),
+        "traces_drained": rc == 0 and bool(apply_spans) and len(status_writes) >= steps + 1
+        and bool(reconciles),
+        "stop_exit_0": rec["stop_rc"] == 0,
+        "restart_same_admin_token": rec["restart_same_admin_token"],
+        "restart_job_succeeded": rec["restart_job_phase"] == "Succeeded",
+        "restart_notebook_kept": rec["restart_notebook"] == "nb",
+        "nuke_self": rec["nuke_self"][0] == 200,
+        "service_account_401": "no valid bearer token" in str(rec["sa_after_nuke"]),
+        "service_account_token_gone": not rec["sa_token_in_file"],
+        "admin_token_works": ns not in rec["admin_after_nuke"],
+        "final_exit_0": rec["final_stop_rc"] == 0,
+    }
+    out = {
+        "phase": "platform", "card": card, "namespace": ns, "job": job, "steps": steps,
+        "model": {**LM, "dtype": "bfloat16", "remat": "none"}, "batch": TRAIN["batch"],
+        "seq": TRAIN["seq"], "seconds_by_step": rec["seconds"],
+        "spawn_to_first_step_s": (first["time"] - rec["t_running"]
+                                  if first and rec["t_running"] else None),
+        "spawn_to_worker_start_s": (start["time"] - rec["t_running"]
+                                    if start and rec["t_running"] else None),
+        "step_ms": {s: r["step_ms"] for s, r in sorted(step_recs.items())},
+        "path_a_step_ms": path_a["step_ms"], "losses_vs_path_a": vs_a,
+        "loss_limit": path_a["loss_limit"], "spans_by_kind": by_kind,
+        "spans": {"apply": len(apply_spans), "worker_status_writes": len(status_writes),
+                  "tpujob_reconciles": len(reconciles), "dropped_note": traces_err.strip()},
+        "watch_rows": rec["watch_rows"], "workloads": workloads,
+        "activities": len(rec["activities"][1] or []),
+        "sa_after_nuke": rec["sa_after_nuke"], "launches": launches,
+        "want_launches": want_launches, "checks": checks,
+        "seconds": time.perf_counter() - t_phase,
+    }
+    emit(out)
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        print(rec["output"], file=sys.stderr, flush=True)
+        raise AssertionError(f"platform phase checks failed: {failed}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -6521,6 +6727,7 @@ def main() -> int:
     by_path.update(job_paths)
     by_path["ha_job"] = ha_job_phase(torch, card, path_a)
     by_path["tenant"] = tenant_phase(torch, card, path_a)
+    by_path["platform"] = platform_phase(torch, card, path_a)
     for name, entry in entries.items():
         counts = {path: launches.get(name, 0) for path, launches in by_path.items()}
         entry["launches"] = sum(counts.values())

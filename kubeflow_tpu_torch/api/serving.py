@@ -16,7 +16,6 @@ import math
 from typing import Any
 
 from kubeflow_tpu_torch.api.objects import Resource, new_resource
-from kubeflow_tpu_torch.train.checkpoint import holds_step
 
 KIND = "ServingDeployment"
 # Owned per-replica object: the config-push channel (controller writes
@@ -435,4 +434,8 @@ def version_current(live: int, want: int, checkpoint_dir: str) -> bool:
     no directory and keeps exact equality."""
     if not want or live == want:
         return True
+    # Imported here: the controllers import this module in control-plane
+    # processes that never load torch.
+    from kubeflow_tpu_torch.train.checkpoint import holds_step
+
     return bool(checkpoint_dir) and live > want and not holds_step(checkpoint_dir, want)

@@ -8,9 +8,11 @@ TpuJob slice steps; `controllers/cronworkflow.py`, Workflows spawned on a
 schedule), the tenant controllers (`controllers/profile.py`, a user's
 namespace; `controllers/notebook.py` and `controllers/tensorboard.py`,
 a Notebook or a Tensorboard into its workload, Service and route),
-ResourceQuota admission (`controllers/quota.py`), leader election over a
-Lease with write fencing (`controllers/leader.py`) and the
-controller-manager binary (``python -m kubeflow_tpu_torch.controllers``)."""
+ResourceQuota admission (`controllers/quota.py`), PodDefault admission
+(`controllers/poddefault.py`) and its standalone HTTPS webhook server
+(`controllers/webhook.py`), leader election over a Lease with write
+fencing (`controllers/leader.py`) and the controller-manager binary
+(``python -m kubeflow_tpu_torch.controllers``)."""
 
 from kubeflow_tpu_torch.controllers.cronworkflow import CronWorkflowController
 from kubeflow_tpu_torch.controllers.notebook import NotebookController

@@ -36,7 +36,8 @@ a lost Node fail with reason NodeLost, so their gang restarts), the
 Study controller, the pipeline controllers, Workflow (a DAG of step
 pods and TpuJob slice steps) and CronWorkflow (Workflows spawned on a
 schedule, on the wall clock), and the ServingDeployment controller. An
-unknown name is refused. Not ported: tokens and the client's
+unknown name is refused. Against a secure facade the client's bearer
+token comes from ``KFTPU_TOKEN``, as in JAX. Not ported: the client's
 fault-tolerance flags.
 """
 

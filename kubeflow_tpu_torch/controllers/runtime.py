@@ -9,8 +9,10 @@ server fresh each pass, so a reconcile is idempotent and crash-safe.
 The work queue is the Python one, by design: the JAX package reaches
 for its C++ queue through `kubeflow_tpu.native.core` first and keeps
 the Python one as a fallback with the same semantics; the port imports
-nothing of the JAX package, so the Python queue is its only one. Not
-copied: the tracing span around each reconcile.
+nothing of the JAX package, so the Python queue is its only one. Each
+reconcile is a tracing span (`utils/tracing.py`: "reconcile", its
+controller and key; an exception sets the span's error), and the
+client calls inside it carry its trace id.
 
 Objects delivered by watches and returned by get/list are shared frozen
 snapshots: take a private copy with `.thaw()` before mutating (the
@@ -29,6 +31,7 @@ from typing import Callable, Iterable
 
 from kubeflow_tpu_torch.api.objects import Resource
 from kubeflow_tpu_torch.testing.fake_apiserver import Conflict
+from kubeflow_tpu_torch.utils import tracing
 from kubeflow_tpu_torch.utils.metrics import MetricsRegistry
 
 log = logging.getLogger(__name__)
@@ -250,7 +253,8 @@ class Controller:
             return False
         key = _decode(key_s)
         try:
-            result = self._reconcile(self.api, key) or Result()
+            with tracing.tracer.span("reconcile", controller=self.name, key="/".join(key)):
+                result = self._reconcile(self.api, key) or Result()
         except Exception:
             backoff = self._queue.requeue_error(key_s)
             log.exception(

@@ -2,9 +2,24 @@
 process bootstrap. Tensor, FSDP, pipeline and expert parallelism are
 not ported yet (ROADMAP Queue 1 item 12)."""
 
-from kubeflow_tpu_torch.parallel.collectives import GroupRing, LocalRing
-from kubeflow_tpu_torch.parallel.distributed import ProcessEnv, initialize_from_env
-from kubeflow_tpu_torch.parallel.mesh import AXES, BATCH_AXES, Mesh, MeshSpec, build_mesh
+import importlib
+
+# Name -> submodule, imported at first use: the operator imports
+# `parallel.distributed` (ProcessEnv) in control-plane processes, which
+# must not load torch through the mesh and the collectives.
+_EXPORTS = {
+    "GroupRing": "collectives", "LocalRing": "collectives",
+    "ProcessEnv": "distributed", "initialize_from_env": "distributed",
+    "AXES": "mesh", "BATCH_AXES": "mesh", "Mesh": "mesh", "MeshSpec": "mesh",
+    "build_mesh": "mesh",
+}
+
+
+def __getattr__(name: str):
+    if name in _EXPORTS:
+        return getattr(importlib.import_module(f"{__name__}.{_EXPORTS[name]}"), name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
 
 __all__ = [
     "AXES",

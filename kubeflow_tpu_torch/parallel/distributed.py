@@ -24,10 +24,6 @@ import logging
 import os
 from typing import Mapping
 
-import torch
-import torch.distributed as dist
-
-from kubeflow_tpu_torch._device import resolve_device
 
 log = logging.getLogger(__name__)
 
@@ -112,6 +108,13 @@ def initialize_from_env(
     ``device="cpu"`` with gloo."""
     pe = ProcessEnv.from_env(env)
     if pe.num_processes > 1:
+        # Imported here: the operator builds ProcessEnv in control-plane
+        # processes that never load torch.
+        import torch
+        import torch.distributed as dist
+
+        from kubeflow_tpu_torch._device import resolve_device
+
         device = resolve_device(device)
         backend = "gloo"
         if device.type == "cuda":

@@ -15,41 +15,29 @@ in and out of the device under an LRU limit. A ServingDeployment CR
 (`LocalReplicaRuntime`) or as worker processes in replica mode
 (`ProcessReplicaRuntime`)."""
 
-from kubeflow_tpu_torch.serving.admission import (
-    AdmissionController,
-    QuotaSpec,
-)
-from kubeflow_tpu_torch.serving.batching import (
-    BatchingConfig,
-    BatchingQueue,
-    QueueClosed,
-    QueueFull,
-)
-from kubeflow_tpu_torch.serving.registry import (
-    ModelNotFound,
-    PagingConfig,
-    ServableRegistry,
-)
-from kubeflow_tpu_torch.serving.replica import (
-    HttpReplica,
-    LocalReplica,
-    LocalReplicaRuntime,
-    MultiModelReplica,
-    ProcessReplicaRuntime,
-)
-from kubeflow_tpu_torch.serving.router import (
-    NoReadyReplicas,
-    Overloaded,
-    ReplicaGone,
-    ReplicaOverloaded,
-    Router,
-)
-from kubeflow_tpu_torch.serving.servable import Servable
-from kubeflow_tpu_torch.serving.server import (
-    FrontDoorApp,
-    ModelRepository,
-    ModelServerApp,
-)
+import importlib
+
+# Name -> submodule, imported at first use: a process that needs only
+# the wire codec (a load client) must not load torch with the servables.
+_EXPORTS = {
+    "AdmissionController": "admission", "QuotaSpec": "admission",
+    "BatchingConfig": "batching", "BatchingQueue": "batching",
+    "QueueClosed": "batching", "QueueFull": "batching",
+    "ModelNotFound": "registry", "PagingConfig": "registry", "ServableRegistry": "registry",
+    "HttpReplica": "replica", "LocalReplica": "replica", "LocalReplicaRuntime": "replica",
+    "MultiModelReplica": "replica", "ProcessReplicaRuntime": "replica",
+    "NoReadyReplicas": "router", "Overloaded": "router", "ReplicaGone": "router",
+    "ReplicaOverloaded": "router", "Router": "router",
+    "Servable": "servable",
+    "FrontDoorApp": "server", "ModelRepository": "server", "ModelServerApp": "server",
+}
+
+
+def __getattr__(name: str):
+    if name in _EXPORTS:
+        return getattr(importlib.import_module(f"{__name__}.{_EXPORTS[name]}"), name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
 
 __all__ = [
     "AdmissionController",

@@ -65,21 +65,24 @@ def coordinator_reachable(address: str, timeout: float = 1.0) -> bool:
         return False
 
 
-def default_device_probe() -> bool:
-    """Is the CUDA driver up with at least one device? (the reference's
-    `wait for nvidia driver`). The driver API's `cuInit` and
-    `cuDeviceGetCount` through ctypes: no CUDA context is created and
-    torch is not imported. False where the driver is missing or fails."""
+def driver_device_count() -> int:
+    """The GPUs the CUDA driver reports: the driver API's `cuInit` and
+    `cuDeviceGetCount` through ctypes, so no CUDA context is created and
+    torch is not imported. 0 where the driver is missing or fails."""
     try:
         cuda = ctypes.CDLL("libcuda.so.1")
     except OSError:
-        return False
-    if cuda.cuInit(0) != 0:
-        return False
+        return 0
     count = ctypes.c_int(0)
-    if cuda.cuDeviceGetCount(ctypes.byref(count)) != 0:
-        return False
-    return count.value > 0
+    if cuda.cuInit(0) != 0 or cuda.cuDeviceGetCount(ctypes.byref(count)) != 0:
+        return 0
+    return count.value
+
+
+def default_device_probe() -> bool:
+    """Is the CUDA driver up with at least one device? (the reference's
+    `wait for nvidia driver`; `driver_device_count`)."""
+    return driver_device_count() > 0
 
 
 class SidecarController:

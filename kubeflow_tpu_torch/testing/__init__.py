@@ -7,8 +7,10 @@ WAL (`testing/persist.py`), its active-passive fencing
 (`testing/failover.py`) and its HTTP facade and endpoint-list client
 (`testing/apiserver_http.py`), the one-host job plane
 (`testing/job_plane.py`: the facade, controller-manager processes and
-the local pod runner), RL's study soak (`testing/rl_soak.py`) and the
-workers its TpuJobs run (`testing/workers/`).
+the local pod runner), the platform in a box as a child process and the
+flow that drives it through its entry points (`testing/platform.py`),
+RL's study soak (`testing/rl_soak.py`) and the workers its TpuJobs run
+(`testing/workers/`).
 
 Imports nothing at package level: `loadgen`'s worker processes start
 under the spawn context and import this package first."""

@@ -47,8 +47,32 @@ next one from its bookmark; a bookmark the new active cannot serve gets
 410 and the informer relists. `failovers` counts rotations and
 `handshakes` the connections dialed, refused dials included.
 
-Not copied: bearer tokens and RBAC (the facade is open, for localhost
-rigs), the long-poll watch, conversion, pod logs and the trace drain.
+With `tokens` (an `api/tokens.TokenRegistry`) the facade is secure:
+every request but /healthz carries ``Authorization: Bearer <token>``
+naming a registered identity (else 401), and every operation is gated
+by a SubjectAccessReview over the stored RBAC objects (`api/rbac.py`;
+else 403 with a readable message). Status is its own RBAC subresource
+(``<resource>/status``), and a create from an identity without that
+grant has its status dropped. A watch of one kind needs ``watch`` on
+it; the multiplexed ``_`` stream delivers only the objects whose kind
+and namespace the identity may watch. Without `tokens` the facade is
+open (the test seam and localhost rigs; every earlier caller).
+
+Two more routes: ``GET /apis/Pod/<ns>/<name>/log`` serves the pod's
+captured stdout (`runtime/local.LocalPodRunner` publishes
+``status.logPath``), only from files under `log_root` (status is
+client-writable), and ``GET /debug/traces`` drains the process's
+finished tracing spans (`utils/tracing.py`; gated as a delete of
+``traces`` cluster-wide, since draining clears them).
+
+`HttpApiClient` sends a bearer token (`token=` or ``KFTPU_TOKEN``),
+never over plaintext http unless the caller opts in
+(``allow_plaintext_token=`` or ``KFTPU_ALLOW_PLAINTEXT=1``), and the
+active span's trace id on every call, so a reconcile's calls join its
+trace; a 401 or 403 raises `Forbidden`; `pod_log` reads the log route.
+
+Not copied: the long-poll watch and multi-version conversion (ROADMAP
+lists both).
 """
 
 from __future__ import annotations
@@ -57,17 +81,21 @@ import http.client
 import json
 import logging
 import os
+import pathlib
 import random
 import threading
 import time
 import urllib.parse
 
 from kubeflow_tpu_torch.api.objects import Resource
+from kubeflow_tpu_torch.api.rbac import resource_for_kind, subject_access_review
+from kubeflow_tpu_torch.api.tokens import TokenRegistry
 from kubeflow_tpu_torch.testing.fake_apiserver import (
     AlreadyExists,
     ApiError,
     Conflict,
     FakeApiServer,
+    Forbidden,
     Gone,
     Invalid,
     NotFound,
@@ -83,8 +111,10 @@ from kubeflow_tpu_torch.web.wsgi import (
     Response,
     StreamResponse,
     encode_json,
+    error_response,
     json_response,
 )
+from kubeflow_tpu_torch.utils import tracing
 
 log = logging.getLogger(__name__)
 
@@ -98,7 +128,9 @@ def _seg_ns(seg: str) -> str:
 
 
 class ApiServerApp(App):
-    """REST facade over a `FakeApiServer` (open: no authentication)."""
+    """REST facade over a `FakeApiServer`: secure with `tokens`, open
+    without (see the module docstring). `log_root` is the directory the
+    pod-log route may serve from; None serves no logs."""
 
     # How long one streaming response lives before the server ends it
     # cleanly (bounds a dead client's grip on its thread; a live client
@@ -108,15 +140,97 @@ class ApiServerApp(App):
     # heartbeat and an rv advance.
     STREAM_SLICE = 5.0
 
-    def __init__(self, api: FakeApiServer):
+    def __init__(
+        self,
+        api: FakeApiServer,
+        log_root: str | None = None,
+        tokens: TokenRegistry | None = None,
+    ):
         super().__init__("apiserver")
         self.api = api
+        self.tokens = tokens
+        if tokens is not None:
+            self.before_request(self._authenticate)
+        self.log_root = pathlib.Path(log_root).resolve() if log_root else None
         self.add_route("/apis/<kind>", self.list_kind)
         self.add_route("/apis/<kind>", self.create, ("POST",))
         self.add_route("/apis/<kind>/<ns>/<name>", self.get)
         self.add_route("/apis/<kind>/<ns>/<name>", self.update, ("PUT",))
         self.add_route("/apis/<kind>/<ns>/<name>", self.delete, ("DELETE",))
         self.add_route("/apis/<kind>/<ns>/<name>/status", self.update_status, ("PUT",))
+        self.add_route("/apis/Pod/<ns>/<name>/log", self.pod_log)
+        self.add_route("/debug/traces", self.drain_traces)
+
+    # -- authentication and authorization ------------------------------------
+
+    def _authenticate(self, req: Request) -> Response | None:
+        """Before-request hook (secure mode): the bearer token's identity
+        or a 401. /healthz stays open for probes."""
+        if req.path == "/healthz":
+            return None
+        scheme, _, token = req.headers.get("authorization", "").partition(" ")
+        user = (self.tokens.authenticate(token.strip())
+                if scheme.lower() == "bearer" and token.strip() else None)
+        if user is None:
+            return error_response(
+                401, "no valid bearer token (secure facade: every request needs "
+                "'Authorization: Bearer <token>')")
+        req.user = user
+        return None
+
+    def _authorize(self, req: Request, verb: str, resource: str, namespace: str) -> None:
+        """The SubjectAccessReview gate of one operation; a no-op when
+        open."""
+        if self.tokens is None:
+            return
+        if not subject_access_review(self.api, req.user, verb, resource, namespace):
+            scope = f"in namespace {namespace!r}" if namespace else "cluster-wide"
+            raise HttpError(403, f"user {req.user!r} is not allowed to {verb} {resource} {scope}")
+
+    def _watchable(self, req: Request, kind: str):
+        """The per-event filter of the multiplexed ``_`` stream: an event
+        passes when its (kind, namespace) may be watched by the
+        identity. None when every event passes (open mode, or a
+        concrete kind, authorized up front)."""
+        if self.tokens is None or kind != "_":
+            return None
+        cache: dict = {}
+
+        def may_watch(obj: Resource) -> bool:
+            key = (obj.kind, obj.metadata.namespace or "")
+            if key not in cache:
+                cache[key] = subject_access_review(
+                    self.api, req.user, "watch", resource_for_kind(obj.kind), key[1])
+            return cache[key]
+
+        return may_watch
+
+    def drain_traces(self, req: Request) -> Response:
+        # Draining clears the shared tracer: gated as a write.
+        self._authorize(req, "delete", "traces", "")
+        return json_response({"spans": tracing.tracer.export(),
+                              "dropped": tracing.tracer.dropped})
+
+    def pod_log(self, req: Request) -> Response:
+        """The pod's captured stdout (the kubelet log endpoint's RBAC
+        resource, ``pods/log``, verb get)."""
+        ns = _seg_ns(req.path_params["ns"])
+        self._authorize(req, "get", "pods/log", ns)
+        if self.log_root is None:
+            raise HttpError(404, "log serving not configured (no capture directory)")
+        pod = self.api.get("Pod", req.path_params["name"], ns)
+        log_path = pod.status.get("logPath")
+        if not log_path:
+            raise HttpError(404, f"pod {pod.metadata.name!r} has no captured logs (the "
+                            "local runtime publishes status.logPath when capture is on)")
+        path = pathlib.Path(log_path).resolve()
+        # status is client-writable: nothing outside the capture root.
+        if not path.is_relative_to(self.log_root):
+            raise HttpError(404, f"log path for {pod.metadata.name!r} is outside the "
+                            "capture directory")
+        if not path.is_file():
+            raise HttpError(404, f"log file {log_path!r} is gone")
+        return Response(path.read_bytes(), content_type="text/plain")
 
     def list_kind(self, req: Request) -> Response:
         if req.query.get("watch") in ("true", "1"):
@@ -129,6 +243,8 @@ class ApiServerApp(App):
                 if "=" in part
             )
         namespace = req.query.get("namespace")
+        self._authorize(req, "list", resource_for_kind(req.path_params["kind"]),
+                        _seg_ns(namespace) if namespace is not None else "")
         # The list's rv is the watch bookmark, read BEFORE listing: an
         # object committed between the two reads is then delivered again
         # by the watch (at least once) instead of lost behind it.
@@ -156,6 +272,12 @@ class ApiServerApp(App):
             raise HttpError(400, "resourceVersion must be an integer") from None
         kind = req.path_params["kind"]
         namespace = req.query.get("namespace")
+        if kind != "_":
+            # A concrete kind is authorized up front (a 403 beats a
+            # stream that silently delivers nothing); `_` per event.
+            self._authorize(req, "watch", resource_for_kind(kind),
+                            _seg_ns(namespace) if namespace is not None else "")
+        may_watch = self._watchable(req, kind)
         duration = min(float(req.query.get("timeoutSeconds", self.STREAM_DURATION)), 3600.0)
 
         def line(payload: dict) -> bytes:
@@ -187,6 +309,8 @@ class ApiServerApp(App):
                 # single framed write.
                 out = bytearray()
                 for ev_rv, ev, obj in events:
+                    if may_watch is not None and not may_watch(obj):
+                        continue
                     out += (b'{"type":"' + ev.encode() + b'","rv":' + str(ev_rv).encode()
                             + b',"object":' + obj.wire_bytes() + b"}\n")
                 rv = new_rv
@@ -210,6 +334,8 @@ class ApiServerApp(App):
             raise HttpError(400, f"malformed X-Kftpu-Lease-Guard header: {e}") from None
 
     def get(self, req: Request) -> Response:
+        self._authorize(req, "get", resource_for_kind(req.path_params["kind"]),
+                        _seg_ns(req.path_params["ns"]))
         obj = self.api.get(
             req.path_params["kind"], req.path_params["name"], _seg_ns(req.path_params["ns"])
         )
@@ -219,12 +345,25 @@ class ApiServerApp(App):
         obj = Resource.from_dict(req.json())
         if obj.kind != req.path_params["kind"]:
             raise HttpError(400, "kind mismatch between path and body")
+        resource = resource_for_kind(obj.kind)
+        namespace = obj.metadata.namespace or ""
+        if self.tokens is not None and obj.status and not subject_access_review(
+                self.api, req.user, "update", resource + "/status", namespace):
+            # A create-only identity must not forge a status (a Succeeded
+            # phase, say): dropped, as the real apiserver does. An
+            # identity with the status grant (a runtime that materializes
+            # Running objects) keeps it.
+            obj.status = {}
         if req.query.get("apply") in ("true", "1"):
             # Server-side apply: the store's create-or-update, so a remote
             # reconciler's apply is a no-op exactly when an in-process
-            # one's is and does not re-trigger its own watches.
+            # one's is and does not re-trigger its own watches. It needs
+            # both verbs.
+            self._authorize(req, "create", resource, namespace)
+            self._authorize(req, "update", resource, namespace)
             return json_response(
                 self.api.apply(obj, lease_guard=self._lease_guard(req)).to_dict())
+        self._authorize(req, "create", resource, namespace)
         return json_response(
             self.api.create(obj, lease_guard=self._lease_guard(req)).to_dict(), status=201)
 
@@ -241,14 +380,22 @@ class ApiServerApp(App):
         return obj
 
     def update(self, req: Request) -> Response:
+        self._authorize(req, "update", resource_for_kind(req.path_params["kind"]),
+                        _seg_ns(req.path_params["ns"]))
         return json_response(self.api.update(
             self._body_matching_path(req), lease_guard=self._lease_guard(req)).to_dict())
 
     def update_status(self, req: Request) -> Response:
+        # Its own subresource: `tpujobs` update does not grant
+        # `tpujobs/status`.
+        self._authorize(req, "update", resource_for_kind(req.path_params["kind"]) + "/status",
+                        _seg_ns(req.path_params["ns"]))
         return json_response(self.api.update_status(
             self._body_matching_path(req), lease_guard=self._lease_guard(req)).to_dict())
 
     def delete(self, req: Request) -> Response:
+        self._authorize(req, "delete", resource_for_kind(req.path_params["kind"]),
+                        _seg_ns(req.path_params["ns"]))
         self.api.delete(
             req.path_params["kind"], req.path_params["name"], _seg_ns(req.path_params["ns"]),
             lease_guard=self._lease_guard(req),
@@ -355,7 +502,8 @@ class HttpApiClient:
     `base_url` is one URL or a list of them (see the module docstring).
     Keyword arguments override the class's timing constants for this
     client; `ca` pins the platform CA for https endpoints (default
-    ``KFTPU_CA``)."""
+    ``KFTPU_CA``); `token` is the bearer credential (default
+    ``KFTPU_TOKEN``)."""
 
     # Idle connections kept per endpoint (a worker runs one watch stream
     # and a few concurrent calls).
@@ -379,6 +527,8 @@ class HttpApiClient:
         base_url,
         *,
         ca: str | None = None,
+        token: str | None = None,
+        allow_plaintext_token: bool | None = None,
         timeout: float | None = None,
         watch_retry: float | None = None,
         retry_base: float | None = None,
@@ -412,6 +562,21 @@ class HttpApiClient:
             from kubeflow_tpu_torch.web import tls as tlsmod
 
             self._ssl = tlsmod.client_context(ca)
+        # The identity credential; a pod's worker inherits it from its
+        # env like the endpoints and the CA.
+        self.token = token if token is not None else os.environ.get("KFTPU_TOKEN")
+        plaintext = [ep.url for ep in self._endpoints if not ep.https]
+        if plaintext and self.token:
+            # A bearer token over cleartext is a leaked credential: every
+            # endpoint must be https (a failover would leak it too),
+            # unless the caller opts in for a trusted loopback.
+            if allow_plaintext_token is None:
+                allow_plaintext_token = os.environ.get("KFTPU_ALLOW_PLAINTEXT") == "1"
+            if not allow_plaintext_token:
+                raise ValueError(
+                    f"refusing to send a bearer token over plaintext {plaintext[0]!r}: use "
+                    "https:// (pin the CA via ca=/KFTPU_CA) or pass allow_plaintext_token=True"
+                    " / KFTPU_ALLOW_PLAINTEXT=1 for a trusted loopback")
         self.retries_total = 0  # write attempts beyond the first
         self._pool_lock = threading.Lock()
         self.breaker_threshold = breaker_threshold
@@ -543,7 +708,9 @@ class HttpApiClient:
         answers becomes active. With one endpoint an open circuit raises
         Unavailable and a refused dial its OSError."""
         data = json.dumps(body).encode() if body is not None else None
-        headers = {"Content-Type": "application/json"}
+        headers = {"Content-Type": "application/json", **tracing.trace_header()}
+        if self.token:
+            headers["Authorization"] = f"Bearer {self.token}"
         guard = self.lease_guard
         if guard is not None and method in ("POST", "PUT", "DELETE"):
             headers["X-Kftpu-Lease-Guard"] = json.dumps(list(guard))
@@ -587,6 +754,8 @@ class HttpApiClient:
 
     @staticmethod
     def _raise_for_status(status: int, detail: str):
+        if status in (401, 403):
+            raise Forbidden(detail)
         if status == 404:
             raise NotFound(detail)
         if status == 409:
@@ -709,6 +878,20 @@ class HttpApiClient:
             # which is all a delete promises.
             recover_committed=lambda e: {"deleted": True} if isinstance(e, NotFound) else None,
         )
+
+    def pod_log(self, name: str, namespace: str = "default") -> str:
+        """The pod's captured stdout, as text."""
+        conn, resp = self._request_raw("GET", f"/apis/Pod/{_ns_seg(namespace)}/{name}/log")
+        status = resp.status
+        data = self._finish(conn, resp)
+        if status >= 400:
+            detail = data.decode(errors="replace")
+            try:
+                detail = json.loads(detail).get("log", detail)
+            except ValueError:
+                pass
+            self._raise_for_status(status, detail)
+        return data.decode(errors="replace")
 
     def apply(self, obj: Resource) -> Resource:
         """Create-or-update, evaluated by the store behind the facade.

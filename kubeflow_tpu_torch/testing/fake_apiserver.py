@@ -29,7 +29,15 @@ with no JAX in it), holding what the serving control plane uses:
   `record_event`
 - in-process admission hooks (`register_admission`), run on create and
   spec update inside the store lock: the TpuJob operator's strict spec
-  validation and ResourceQuota admission (`controllers/quota.py`)
+  validation, ResourceQuota admission (`controllers/quota.py`) and the
+  PodDefault mutator (`controllers/poddefault.py`)
+- admission webhooks: a cluster-scoped `WebhookConfiguration` (https
+  url, inline PEM caBundle, kinds, optional namespaces and label
+  selector, timeoutSeconds, failurePolicy Fail or Ignore) makes every
+  create, update and apply of its kinds POST the object to that server
+  (`controllers/webhook.py` serves the protocol) outside the store lock
+  and before the in-process hooks; a denial rejects under either
+  policy, a mutation may change spec, labels and annotations only
 - lease-guard write fencing (`check_lease_guard`): a write that carries
   a `lease_guard` lands only while the Lease it names still shows that
   holder and generation, checked under the commit lock
@@ -51,8 +59,7 @@ once, freezes it and shares that snapshot with the object map, the
 journal, every watch handler and get/list results. `.thaw()` gives a
 private mutable copy.
 
-Not copied (no ported caller needs them yet): admission webhooks and
-multi-version conversion.
+Not copied: multi-version conversion (ROADMAP lists it).
 """
 
 from __future__ import annotations
@@ -91,6 +98,13 @@ class Conflict(ApiError):
 
 class Invalid(ApiError):
     pass
+
+
+class Forbidden(ApiError, PermissionError):
+    """A 401 or 403 from the secure facade: an ApiError, so per-object
+    error handling (the CLI's multi-document apply) reports it and goes
+    on, and a PermissionError, so callers can treat auth failures as a
+    class."""
 
 
 class Gone(ApiError):
@@ -211,6 +225,8 @@ class FakeApiServer:
         self._dispatcher: threading.Thread | None = None
         self._closed = False
         self._admission: list[tuple[str | None, Callable[[Resource], Resource]]] = []
+        # Keys of the stored WebhookConfigurations (a restore rebuilds it).
+        self._webhook_keys: set[tuple[str, str, str]] = set()
         self._wal = None
         self._snapshot_every = max(1, snapshot_every)
         self._appends_since_snapshot = 0
@@ -233,6 +249,8 @@ class FakeApiServer:
     def _install(self, obj: Resource) -> None:
         obj.freeze()
         self._objects[obj.key] = obj
+        if obj.kind == self.WEBHOOK_KIND:
+            self._webhook_keys.add(obj.key)
 
     def _restore_locked(self) -> None:
         """Load the snapshot, then replay the WAL past its rv. Replay
@@ -270,6 +288,7 @@ class FakeApiServer:
                 continue  # a pre-snapshot leftover
             if event == "DELETED":
                 self._objects.pop(obj.key, None)
+                self._webhook_keys.discard(obj.key)
             else:
                 self._install(obj)
             self._rv = rv
@@ -507,6 +526,197 @@ class FakeApiServer:
                 obj = mutator(obj.deepcopy())
         return obj
 
+    # -- webhook admission (the out-of-process extension point) ------------
+    #
+    # The reference's admission boundary is a STANDALONE TLS server the
+    # apiserver calls out to (`admission-webhook/main.go:443` raw TLS,
+    # `:447` mutatePods, `:597` main), registered via a webhook
+    # configuration with timeout + failure semantics. Here that boundary
+    # is a `WebhookConfiguration` CR:
+    #
+    #   spec:
+    #     url: https://127.0.0.1:9443/mutate   (https only)
+    #     caBundle: <inline PEM>               (pins the callee)
+    #     kinds: ["Pod"]
+    #     namespaces: ["team-a"]               (optional; [] = all — the
+    #                                           namespaceSelector analog)
+    #     selector: {matchLabels: {...}}       (optional objectSelector)
+    #     timeoutSeconds: 5
+    #     failurePolicy: Fail | Ignore         (default Fail)
+    #
+    # Callouts run OUTSIDE the store lock (an HTTP round trip must never
+    # stall every writer) and BEFORE the in-process hooks — the K8s
+    # ordering (mutating webhooks, then validating admission), which
+    # also means quota meters the POST-mutation object and keeps its
+    # in-lock check-then-insert atomicity untouched.
+
+    WEBHOOK_KIND = "WebhookConfiguration"
+
+    def _validate_webhook_config(self, obj: Resource) -> None:
+        spec = obj.spec
+        url = spec.get("url", "")
+        if not url.startswith("https://"):
+            raise Invalid(
+                f"WebhookConfiguration {obj.metadata.name!r}: url must be "
+                f"https:// (the admission callee carries object payloads; "
+                f"got {url!r})"
+            )
+        policy = spec.get("failurePolicy", "Fail")
+        if policy not in ("Fail", "Ignore"):
+            raise Invalid(
+                f"WebhookConfiguration {obj.metadata.name!r}: "
+                f"failurePolicy must be Fail or Ignore, got {policy!r}"
+            )
+        kinds = spec.get("kinds")
+        if not isinstance(kinds, list) or not kinds:
+            raise Invalid(
+                f"WebhookConfiguration {obj.metadata.name!r}: spec.kinds "
+                "must be a non-empty list of kind names"
+            )
+        if self.WEBHOOK_KIND in kinds:
+            raise Invalid(
+                f"WebhookConfiguration {obj.metadata.name!r}: a webhook "
+                "cannot admit WebhookConfigurations (self-bricking loop)"
+            )
+        timeout = spec.get("timeoutSeconds", 5)
+        if not isinstance(timeout, (int, float)) or isinstance(
+            timeout, bool
+        ) or not timeout > 0:
+            # Config-time 422, not a per-write "webhook failure" later.
+            raise Invalid(
+                f"WebhookConfiguration {obj.metadata.name!r}: "
+                f"timeoutSeconds must be a positive number, got "
+                f"{timeout!r}"
+            )
+        from kubeflow_tpu_torch.web.tls import is_pem_data
+
+        ca = spec.get("caBundle", "")
+        if ca and not is_pem_data(ca):
+            # Inline PEM only (the K8s caBundle form). A filesystem path
+            # here would make the APISERVER open an arbitrary local file
+            # chosen by whoever may create webhookconfigurations, and
+            # would silently break for remote clients whose path doesn't
+            # exist server-side. make_webhook_config inlines a readable
+            # local path client-side for the legacy convenience.
+            raise Invalid(
+                f"WebhookConfiguration {obj.metadata.name!r}: caBundle "
+                "must be inline PEM data (paths are resolved client-side)"
+            )
+
+    def _call_webhook(
+        self, cfg: Resource, obj: Resource, operation: str
+    ) -> Resource:
+        import json as _json
+        import urllib.request
+
+        from kubeflow_tpu_torch.web import tls as tlsmod
+
+        spec = cfg.spec
+        timeout = min(float(spec.get("timeoutSeconds", 5)), 30.0)
+        ctx = None
+        if spec.get("caBundle"):
+            ctx = tlsmod.client_context(spec["caBundle"])
+        req = urllib.request.Request(
+            spec["url"],
+            method="POST",
+            data=_json.dumps(
+                {"object": obj.to_dict(), "operation": operation}
+            ).encode(),
+            headers={"Content-Type": "application/json"},
+        )
+        # The callee is the configured URL itself, never a proxy the
+        # environment names.
+        opener = urllib.request.build_opener(urllib.request.ProxyHandler({}),
+                                             urllib.request.HTTPSHandler(context=ctx))
+        with opener.open(req, timeout=timeout) as r:
+            resp = _json.loads(r.read())
+        if not resp.get("allowed", False):
+            # A DENIAL is an admission decision, not a webhook failure:
+            # it rejects under BOTH failure policies.
+            raise Invalid(
+                f"admission webhook {cfg.metadata.name!r} denied "
+                f"{obj.kind} {obj.metadata.namespace}/"
+                f"{obj.metadata.name}: {resp.get('message', 'denied')}"
+            )
+        if "object" not in resp:
+            return obj
+        mutated = Resource.from_dict(resp["object"])
+        # A mutator only gets to change spec/labels/annotations — never
+        # identity or concurrency fields. A swapped kind would bypass
+        # the per-kind validation that ran before the callout; a dropped
+        # resourceVersion would disable the stale-write Conflict check;
+        # a changed name/namespace would write a different store key
+        # than the client asked for. (K8s enforces the same immutable
+        # fields on webhook patches.)
+        before = (
+            obj.kind, obj.metadata.name, obj.metadata.namespace,
+            obj.metadata.uid, obj.metadata.resource_version,
+            obj.api_version, obj.status,
+        )
+        after = (
+            mutated.kind, mutated.metadata.name,
+            mutated.metadata.namespace, mutated.metadata.uid,
+            mutated.metadata.resource_version, mutated.api_version,
+            # status too: the facade strips status from clients without
+            # the <resource>/status grant BEFORE admission runs — a
+            # webhook forging phase=Succeeded would bypass that guard.
+            mutated.status,
+        )
+        if before != after:
+            raise Invalid(
+                f"admission webhook {cfg.metadata.name!r} altered "
+                f"immutable fields of {obj.kind} "
+                f"{obj.metadata.namespace}/{obj.metadata.name} "
+                f"({before} -> {after}) — mutation rejected"
+            )
+        return mutated
+
+    def _webhook_admit(self, obj: Resource, operation: str) -> Resource:
+        """Run matching webhook callouts over `obj` (lock NOT held
+        during the HTTP round trips)."""
+        if obj.kind == self.WEBHOOK_KIND:
+            self._validate_webhook_config(obj)
+            return obj
+        if not self._webhook_keys:
+            return obj  # the common case costs one set check
+
+        def _matches_cfg(spec: dict) -> bool:
+            if obj.kind not in (spec.get("kinds") or []):
+                return False
+            namespaces = spec.get("namespaces") or []
+            if namespaces and obj.metadata.namespace not in namespaces:
+                return False  # the namespaceSelector analog
+            selector = (spec.get("selector") or {}).get("matchLabels") or {}
+            return _matches(obj.metadata.labels, selector)  # objectSelector
+
+        with self._lock:
+            # Frozen snapshots — the callout only reads cfg.spec.
+            configs = [
+                self._objects[k]
+                for k in sorted(self._webhook_keys)
+                if k in self._objects
+                and _matches_cfg(self._objects[k].spec)
+            ]
+        for cfg in configs:  # key-sorted: deterministic order
+            try:
+                obj = self._call_webhook(cfg, obj, operation)
+            except Invalid:
+                raise  # an explicit denial, under either policy
+            except Exception as e:
+                if cfg.spec.get("failurePolicy", "Fail") == "Ignore":
+                    log.warning(
+                        "admission webhook %s unreachable (%s); "
+                        "failurePolicy=Ignore — admitting unmodified",
+                        cfg.metadata.name, e,
+                    )
+                    continue
+                raise Invalid(
+                    f"admission webhook {cfg.metadata.name!r} failed "
+                    f"({e}) and failurePolicy=Fail — rejecting "
+                    f"{obj.kind} {obj.metadata.name!r}"
+                ) from e
+        return obj
+
     # -- CRUD -------------------------------------------------------------
 
     def _check_lease_guard(self, guard, kind: str) -> None:
@@ -527,10 +737,19 @@ class FakeApiServer:
         stored.freeze()
         if event != "DELETED":
             self._objects[stored.key] = stored
+            if stored.kind == self.WEBHOOK_KIND:
+                self._webhook_keys.add(stored.key)
+        else:
+            self._webhook_keys.discard(stored.key)
         self._emit(event, stored)
         return stored
 
     def create(self, obj: Resource, *, lease_guard=None) -> Resource:
+        self._check_available()
+        # Webhook callouts outside the lock (an HTTP round trip must not
+        # stall writers), before the in-process hooks (mutating, then
+        # validating: quota meters the mutated object).
+        obj = self._webhook_admit(obj, "CREATE")
         with self._lock:
             self._check_available()
             self._check_lease_guard(lease_guard, obj.kind)
@@ -608,7 +827,11 @@ class FakeApiServer:
             return self._commit(stored, "MODIFIED")
 
     def update(self, obj: Resource, *, lease_guard=None) -> Resource:
-        with self._lock:  # admission atomic with the write
+        # A fail-stopped store must not keep calling webhooks for writes
+        # that cannot commit.
+        self._check_available()
+        obj = self._webhook_admit(obj, "UPDATE")
+        with self._lock:  # in-process admission atomic with the write
             self._check_available()
             return self._update(self._admit(obj), status_only=False, lease_guard=lease_guard)
 
@@ -683,23 +906,37 @@ class FakeApiServer:
 
     def apply(self, obj: Resource, *, lease_guard=None) -> Resource:
         """Create-or-update by (kind, namespace, name): a no-op when the
-        desired fields already match, so level-triggered reconcilers
-        don't re-trigger their own watches."""
+        desired fields, once admitted (webhooks and in-process hooks,
+        which must be idempotent), already match the stored ones, so
+        level-triggered reconcilers don't re-trigger their own watches
+        and injected fields don't defeat the comparison. Each webhook is
+        called once: the update reuses the comparison's mutation."""
+        try:
+            self.get(obj.kind, obj.metadata.name, obj.metadata.namespace)
+        except NotFound:
+            return self.create(obj, lease_guard=lease_guard)
+        obj = self._webhook_admit(obj, "UPDATE")
         with self._lock:
-            try:
-                current = self.get(obj.kind, obj.metadata.name, obj.metadata.namespace)
-            except NotFound:
-                return self.create(obj, lease_guard=lease_guard)
-            if (
-                current.spec == obj.spec
-                and current.metadata.labels == obj.metadata.labels
-                and current.metadata.annotations == obj.metadata.annotations
-            ):
-                return current
-            merged = obj.deepcopy()
-            merged.metadata.resource_version = current.metadata.resource_version
-            merged.metadata.uid = current.metadata.uid
-            return self.update(merged, lease_guard=lease_guard)
+            self._check_available()
+            current = self._objects.get(obj.key)
+            if current is not None:
+                return self._apply_locked(current, obj, lease_guard)
+        # Deleted since the first read: create it (outside the lock, for
+        # the create's own callouts).
+        return self.create(obj, lease_guard=lease_guard)
+
+    def _apply_locked(self, current: Resource, obj: Resource, lease_guard) -> Resource:
+        admitted = self._admit(obj)
+        if (
+            current.spec == admitted.spec
+            and current.metadata.labels == admitted.metadata.labels
+            and current.metadata.annotations == admitted.metadata.annotations
+        ):
+            return current
+        merged = admitted.deepcopy()
+        merged.metadata.resource_version = current.metadata.resource_version
+        merged.metadata.uid = current.metadata.uid
+        return self._update(self._admit(merged), status_only=False, lease_guard=lease_guard)
 
     def record_event(
         self, about: Resource, reason: str, message: str, *, type_: str = "Normal"

@@ -27,9 +27,10 @@ is measuring itself, not the fleet.
 
 Stdlib-only at module level: worker processes re-import this module
 under the spawn context, and a no-op target must not pay a torch
-import. An HTTP target imports the wire codec (and, with its package,
-torch) inside the worker, in `_build_target`, before the worker reports
-ready, so the cost lands before the shared start instant.
+import. An HTTP target imports the wire codec (numpy; the serving
+package loads torch only with its servables) inside the worker, in
+`_build_target`, before the worker reports ready, so the cost lands
+before the shared start instant.
 """
 
 from __future__ import annotations

@@ -1,7 +1,8 @@
 """The durable apiserver facade as its own process: the kill target.
 
 Counterpart of the JAX package's ``tests/e2e/apiserver_worker.py``, with
-the same env contract minus tokens (the port's facade has no authn):
+the same env contract minus tokens (this process serves the facade
+open; `apps/__main__.py` serves it with tokens and RBAC):
 
     python -m kubeflow_tpu_torch.testing.workers.apiserver
 

@@ -11,9 +11,15 @@ connections and chunked `StreamResponse`s (the watch stream's
 transport), over HTTPS with `tls=` (a `web.tls.TlsPaths`: each accepted
 connection is wrapped server-side, its handshake in the connection's
 thread; the server counts `tls_handshakes` and `requests_served`), and
-`TestClient`, which calls the app in-process with a WSGI-style environ.
-Not copied yet (ROADMAP Queue 1): the tracing span per request, static
-mounts and the WSGI ``__call__`` shim.
+`TestClient`, which calls the app in-process with a WSGI-style environ
+(with default headers, e.g. a bearer token or an identity). Every
+request is a tracing span (`utils/tracing.py`: app, method, path and
+status; an inbound ``x-kftpu-trace-id`` continues the caller's trace);
+`before_request` hooks (authentication sets `Request.user`) run on every
+request, matched or not; `mount_static` serves an app's single-page
+frontend, API routes always winning; a ``<name:path>`` route parameter
+matches the rest of the path. Not copied: the WSGI ``__call__`` shim
+and HEAD/OPTIONS.
 """
 
 from __future__ import annotations
@@ -22,6 +28,8 @@ import http.server
 import io
 import json
 import logging
+import mimetypes
+import pathlib
 import re
 import socketserver
 import threading
@@ -30,6 +38,7 @@ import urllib.parse
 from typing import Any, Callable
 
 from kubeflow_tpu_torch.testing import fake_apiserver as storage
+from kubeflow_tpu_torch.utils import tracing
 
 log = logging.getLogger(__name__)
 
@@ -65,6 +74,7 @@ class Request:
         if "CONTENT_TYPE" in environ:
             self.headers["content-type"] = environ["CONTENT_TYPE"]
         self.path_params: dict[str, str] = {}
+        self.user: str | None = None  # set by the authentication hook
         self._body: bytes | None = None
 
     @property
@@ -146,6 +156,15 @@ def json_response(
     return Response(encode_json(payload), status=status, headers=headers)
 
 
+def success_response(field: str | None = None, value: Any = None) -> Response:
+    """The web apps' envelope: always ``{"success": true, "status": 200,
+    <field>: <value>}``."""
+    body: dict[str, Any] = {"success": True, "status": 200}
+    if field is not None:
+        body[field] = value
+    return json_response(body)
+
+
 def error_response(
     status: int,
     message: str,
@@ -161,23 +180,54 @@ class _Route:
     def __init__(self, pattern: str, methods: tuple[str, ...], handler):
         self.methods = methods
         self.handler = handler
-        # <name> matches one path segment.
-        regex = re.sub(
-            r"<([a-zA-Z_][a-zA-Z0-9_]*)>", r"(?P<\1>[^/]+)", pattern
-        )
+        self.pattern = pattern  # the declared form, for introspection
+        # <name> matches one path segment, <name:path> the rest of the
+        # path, slashes included. One pass, so the emitted groups are
+        # never substituted again.
+        def group(m: re.Match) -> str:
+            return f"(?P<{m.group(1)}>.*)" if m.group(2) else f"(?P<{m.group(1)}>[^/]+)"
+
+        regex = re.sub(r"<([a-zA-Z_][a-zA-Z0-9_]*)(:path)?>", group, pattern)
         self.regex = re.compile(f"^{regex}$")
 
 
 class App:
-    """A web application with path-param routes."""
+    """A web application with path-param routes and before-request hooks."""
 
     def __init__(self, name: str):
         self.name = name
         self._routes: list[_Route] = []
+        self._before: list[Callable[[Request], Response | None]] = []
+        self._static_root: pathlib.Path | None = None
+        self._static_index = "index.html"
         self.add_route("/healthz", self._healthz, methods=("GET",))
 
+    def mount_static(self, root: str | pathlib.Path, index: str = "index.html") -> None:
+        """Serve the app's single-page frontend: GET / returns `index`,
+        other unmatched GET paths are looked up under `root`. API routes
+        always win."""
+        self._static_root = pathlib.Path(root).resolve()
+        self._static_index = index
+
+    def _try_static(self, req: Request) -> Response | None:
+        if self._static_root is None or req.method != "GET":
+            return None
+        rel = req.path.lstrip("/") or self._static_index
+        target = (self._static_root / rel).resolve()
+        # resolve() collapses ../: refuse anything outside the root.
+        if not target.is_relative_to(self._static_root) or not target.is_file():
+            return None
+        ctype = mimetypes.guess_type(str(target))[0] or "application/octet-stream"
+        return Response(body=target.read_bytes(), content_type=ctype)
+
     def _healthz(self, req: Request) -> Response:
+        # Probes need no identity: authentication hooks skip this path.
         return json_response({"app": self.name, "ok": True})
+
+    def before_request(self, hook: Callable[[Request], Response | None]) -> None:
+        """Run `hook` before every request; a Response it returns is the
+        answer (a 401, say) and the route is not called."""
+        self._before.append(hook)
 
     def add_route(
         self,
@@ -190,6 +240,17 @@ class App:
         )
 
     def handle(self, req: Request) -> Response:
+        # Every request is a span; an inbound x-kftpu-trace-id continues
+        # the caller's trace.
+        with tracing.tracer.span(
+            "http", trace_id=tracing.from_header(req.headers), app=self.name,
+            method=req.method, path=req.path,
+        ) as span:
+            resp = self._handle_inner(req)
+            span.attributes["status"] = resp.status
+            return resp
+
+    def _handle_inner(self, req: Request) -> Response:
         try:
             return self._dispatch(req)
         except HttpError as e:
@@ -208,6 +269,12 @@ class App:
             return error_response(500, f"internal error: {e}")
 
     def _dispatch(self, req: Request) -> Response:
+        # Hooks run on every request, matched or not: an unauthenticated
+        # client must not probe the route table by 404 against 405.
+        for hook in self._before:
+            resp = hook(req)
+            if resp is not None:
+                return resp
         matched_path = False
         for route in self._routes:
             m = route.regex.match(req.path)
@@ -220,6 +287,9 @@ class App:
             return route.handler(req)
         if matched_path:
             raise HttpError(405, f"{req.method} not allowed on {req.path}")
+        static = self._try_static(req)
+        if static is not None:
+            return static
         raise HttpError(404, f"no route for {req.path}")
 
 
@@ -390,8 +460,9 @@ class TestClient:
 
     __test__ = False  # not a pytest test class
 
-    def __init__(self, app: App):
+    def __init__(self, app: App, headers: dict[str, str] | None = None):
         self.app = app
+        self.headers = dict(headers or {})
 
     def request(
         self,
@@ -415,7 +486,7 @@ class TestClient:
             "CONTENT_TYPE": content_type,
             "wsgi.input": io.BytesIO(raw),
         }
-        for key, value in (headers or {}).items():
+        for key, value in {**self.headers, **(headers or {})}.items():
             environ["HTTP_" + key.upper().replace("-", "_")] = value
         return self.app.handle(Request(environ))
 
