@@ -79,13 +79,13 @@ JSON line; any failure raises and the exit code is non-zero:
    under inference_mode (the server's) and no_grad.
 15. fit, main path 4: the same LM and stream through the training job's
    entry point, `fit()`, with an AnomalyGuard and the two-pass backward
-   pinned: an uninterrupted 6-step run; a run that saves every 2 steps
-   into a temporary Checkpointer directory and gets a SIGTERM at step 3
-   (`Preempted` at step 4 after its save); a resumed run to step 6,
-   under the profiler for one step, bitwise equal to the uninterrupted
-   one over the same batch positions; then a step poisoned with NaN
-   (skipped, nothing moves), a byte flipped in the newest checkpoint
-   (quarantined, step 4 restored bitwise), save and restore times, the
+   pinned: an uninterrupted 4-step run; a run that saves every 2 steps into a temporary Checkpointer directory and gets
+   a SIGTERM at step 1 (`Preempted` at step 2 after its save); a resumed
+   run to step 4, under the profiler for one step, bitwise equal to the
+   uninterrupted one over the same batch positions; then a step poisoned
+   with NaN (skipped, nothing moves), a byte flipped in the newest
+   checkpoint (quarantined, step 2 restored bitwise), save and restore
+   times, the
    checkpoint's size, and fit()'s step time beside the bare steps'. The
    counters are zeroed before the three fit() runs and read after them
    (16 flash_fwd, flash_delta, flash_bwd_dq and flash_bwd_dkv a step).
@@ -200,17 +200,17 @@ JSON line; any failure raises and the exit code is non-zero:
 28. pipeline, main path 14: the nightly pipeline on the same plane, the
    binary running the workflow and cronworkflow controllers too
    (`pipeline_phase`): a CronWorkflow "lm-nightly" (``* * * * *``,
-   Forbid) spawns one Workflow at the next minute boundary and is
-   suspended at once; its DAG trains the same LM as a TpuJob slice step
-   (8 steps, SIGKILLed after step 4 once it is saved, restarted by the
-   operator and resumed from 4: the DAG reads Restarting as in flight),
-   evaluates step 8 read-only in a pod (held-out loss against ln(vocab) +
-   1: promote), serves it from a pod over HTTP (REQUESTS, bitwise equal
-   to the restored module's forward, version 8) and tears the
-   checkpoint directory down in its exit handler: one Workflow, one train
-   attempt, each pod's process gone before the next starts, Succeeded;
-   the cron wait, each step's seconds, kill to first resumed step, the
-   eval loss beside the fresh init's, serve latencies, each pod's peak
+   Forbid), created suspended before path A, is unsuspended, fires its
+   missed tick at once and is suspended again; its DAG trains the same
+   LM as a TpuJob slice step (4 steps, no SIGKILL: path A runs the kill
+   and resume on the card, tests/test_torch_pipeline_e2e.py the DAG's),
+   evaluates step 4 read-only in a pod (held-out loss against ln(vocab)
+   + 1: promote), serves it from a pod over HTTP (REQUESTS, bitwise
+   equal to the restored module's forward, version 4) and tears the
+   checkpoint directory down in its exit handler: one Workflow, one
+   train attempt, no restart, each pod's process gone before the next
+   starts, Succeeded; the cron wait, each step's seconds, the eval loss
+   beside the fresh init's, serve latencies, each pod's peak
    memory, the card's memory.used at each pod's start, the Workflow's
    seconds; the launches of train, eval and serve.
 28a. node_lost, main path 15: a lost Node on the same plane, the binary
@@ -260,14 +260,23 @@ JSON line; any failure raises and the exit code is non-zero:
 32. platform, main path 18: the platform in a box (`platform_phase`):
    ``python -m kubeflow_tpu_torch.apps`` as its own process, driven only
    through the dashboard, kfam, the Jupyter app, the https facade and
-   the `kftpu` CLI: a workgroup registered, a PodDefault with the
+   the `kftpu` CLI: a workgroup registered, an RBAC-bound outsider
+   refused by the mesh gate (403), a PodDefault with the
    facade's env and a team service-account token, a notebook spawned
    and stopped, the LM as TpuJob lm-platform (4 steps) applied and
    watched to Succeeded, described, its logs and `top`, the dashboard's
    tables, the trace drain, a durable restart, nuke-self with the
    token revoked (401); seconds for each.
-33. kernels: one line per ported kernel (launches, error, times, bound).
-34. the last line: {"ok": true, "device": {...}}.
+33. chaos_job, main path 19: the control plane's wire under faults
+   (`chaos_job_phase`): the facade process behind a seeded `ChaosProxy`
+   (seed 0, two faults of each of the seven wire classes), the binary,
+   the pod runner and the worker on the proxy; the LM as TpuJob lm-chaos
+   (4 steps) beside a Notebook applied at v1alpha1 and read back at
+   every served version; every class fired, no duplicate side effect,
+   the binary's watch degraded to long-poll and streamed again; seconds
+   for each, the faults by class, long-poll rounds, degraded seconds.
+34. kernels: one line per ported kernel (launches, error, times, bound).
+35. the last line: {"ok": true, "device": {...}}.
 
 Without a GPU, or outside a checkout (copied alone, where
 `kubeflow_tpu_torch` does not import), it says why on stderr and exits
@@ -366,9 +375,9 @@ REMAT = dict(block=("none", "full", "mlp", "dots", "attn", "flash"),
 # trained module at `max_batch`.
 MOE = dict(num_experts=8, capacity_factor=1.25, aux_loss_coef=0.01, remat="flash",
            steps=6, check_layers=2, max_batch=4)
-# fit(): 6 steps of TRAIN's LM and stream, saving every 2 steps, with a
-# SIGTERM raised at step 3 in the preempted run.
-FIT = dict(steps=6, save_every=2, sigterm_at=3)
+# fit(): 4 steps of TRAIN's LM and stream, saving every 2 steps, with a
+# SIGTERM raised at step 1 in the preempted run.
+FIT = dict(steps=4, save_every=2, sigterm_at=1)
 RECT_SHAPES = [  # (B, S_q, S_k, H, D, causal)
     (1, 128, 128, 2, 64, False),
     (2, 1001, 777, 4, 128, False),  # ragged: the plain versions pad
@@ -484,12 +493,16 @@ PREEMPT = dict(low_steps=10, high_steps=6, save_every=4, submit_at=6, lease_s=2.
 # in [0.02, 0.08], 18 learner steps, a publish every 6.
 RL_SOAK = dict(seed=7, trials=4, steps=18, publish_every=6, deadline_s=420)
 # The nightly pipeline (path D): a CronWorkflow ("* * * * *", Forbid)
-# whose Workflow trains TRAIN's LM as a TpuJob slice step for `steps`,
-# SIGKILLed after step `kill_at` once that save is committed, evaluates
+# whose Workflow trains TRAIN's LM as a TpuJob slice step for `steps`
+# with no kill (path A runs the kill and resume on the card, and
+# tests/test_torch_pipeline_e2e.py the DAG's through a kill), evaluates
 # the newest step and serves it when its held-out loss is at most
-# ln(vocab) + 1 (uniform tokens: a trained loss stays near ln(vocab)).
-# The first fire comes at the minute boundary after the anchor.
-PIPELINE = dict(steps=8, save_every=4, kill_at=4, max_eval_loss=math.log(32000) + 1.0,
+# ln(vocab) + 1 (uniform tokens: a trained loss stays near ln(vocab)). The
+# CronWorkflow is created suspended before path A, so its anchor is
+# minutes old when the pipeline unsuspends it and the missed tick fires
+# at once, where a CronWorkflow created in the phase would wait 5-60 s
+# for the next minute boundary.
+PIPELINE = dict(steps=4, save_every=4, max_eval_loss=math.log(32000) + 1.0,
                 cron_wait_s=61.0, spawn_timeout_s=75, timeout_s=480)
 # The durable, highly available control plane (path F): TpuJob "lm-ha" of
 # one worker running TRAIN's LM through fit() for `steps` on an HA job
@@ -518,6 +531,12 @@ TENANT = dict(steps=8, save_every=8, drain_after=3, owner="c@example.com",
               drain_timeout_s=120, manager_ready_s=120)
 PLATFORM = dict(steps=4, user="p@example.com", namespace="team-p", job="lm-platform",
                 timeout_s=300)
+# The control plane's wire under faults (path I): the facade process
+# behind a ChaosProxy running FaultSchedule(seed, faults_per_class) over
+# the seven wire fault classes; TRAIN's LM as TpuJob "lm-chaos" for
+# `steps` steps (one save, at the end) beside a Notebook applied at
+# v1alpha1. Waits in seconds.
+CHAOS_JOB = dict(seed=0, faults_per_class=2, steps=4, timeout_s=300, manager_ready_s=120)
 REQUESTS = [  # (wire format, batch, sequence length)
     ("json", 1, 2048),
     ("json", 3, 2048),  # padded to bucket 4
@@ -1482,15 +1501,16 @@ def fit_phase(torch, card: str) -> dict:
     """Main path 4: the training job's entry point, `fit()`, on the same
     LM and stream as the train phase, with an AnomalyGuard and the
     two-pass backward pinned (a step that repeats bitwise). (a) An
-    uninterrupted 6-step run; a run that saves every 2 steps and gets a
-    SIGTERM at step 3 (from on_metrics), which must return `Preempted` at
-    step 4 after its save; a third `fit()` that resumes from step 4 to
-    6, under the profiler for one step, and must reach the uninterrupted
+    uninterrupted FIT["steps"]-step run; a run that saves every
+    FIT["save_every"] steps and gets a SIGTERM at step FIT["sigterm_at"]
+    (from on_metrics), which must return `Preempted` at the next step
+    after its save; a third `fit()` that resumes from there to the end,
+    under the profiler for one step, and must reach the uninterrupted
     run's parameters bitwise over the same batch positions. (b) One step
     whose embedding output is multiplied by NaN (a forward pre-hook on the
     first block): skipped, parameters and optimizer state unchanged.
     (c) A byte flipped in the newest step's parameters file: restore
-    quarantines it and falls back to step 4, bitwise. (d) Save and
+    quarantines it and falls back to the preemption's step, bitwise. (d) Save and
     restore times, the checkpoint's size, and fit()'s step time beside
     the bare guarded and unguarded steps' (and a profile of each).
     Returns the launch counts of the three fit() runs."""
@@ -1538,10 +1558,14 @@ def fit_phase(torch, card: str) -> dict:
             first = fit(trainer, tape, FIT["steps"], rng=SEED, checkpointer=ckpt,
                         log_every=1, on_metrics=sigterm_at)
             at_preempt = params()
+            # The interval saves up to the preemption's step and its own
+            # save there, the newest two kept.
+            saved = sorted(set(range(FIT["save_every"], FIT["sigterm_at"] + 2,
+                                     FIT["save_every"])) | {FIT["sigterm_at"] + 1})[-2:]
             checks["preempted"] = (isinstance(first, Preempted)
                                    and first.signum == signal.SIGTERM
                                    and int(first.state.step) == FIT["sigterm_at"] + 1
-                                   and ckpt.all_steps() == [2, 4])
+                                   and ckpt.all_steps() == saved)
             del first
 
             ckpt2 = timed_checkpointer(ckpt_dir, save_interval_steps=FIT["save_every"],
@@ -5135,31 +5159,55 @@ def lm_job_spec(name: str, namespace: str, priority: int, steps: int, root: str)
         env=tuple(env.items()))
 
 
-def set_suspend(api, kind: str, name: str, namespace: str = "default") -> None:
-    """`spec.suspend = True` on a CR, retried over the controller's own
+def set_suspend(api, kind: str, name: str, namespace: str = "default",
+                suspend: bool = True) -> None:
+    """`spec.suspend = suspend` on a CR, retried over the controller's own
     status writes."""
     from kubeflow_tpu_torch.testing.fake_apiserver import Conflict
 
     for _ in range(50):
         obj = api.get(kind, name, namespace).thaw()
-        obj.spec = {**obj.spec, "suspend": True}
+        obj.spec = {**obj.spec, "suspend": suspend}
         try:
             api.update(obj)
             return
         except Conflict:
             time.sleep(0.01)
-    raise AssertionError(f"could not suspend {kind} {name}")
+    raise AssertionError(f"could not set suspend={suspend} on {kind} {name}")
 
 
-def pipeline_phase(torch, card: str, plane, root: str) -> dict:
+def pipeline_cron(plane, root: str):
+    """Create path D's CronWorkflow "lm-nightly" suspended, so it is
+    anchored now and fires nothing until the pipeline phase unsuspends
+    it; returns the created object."""
+    from kubeflow_tpu_torch.api import CronWorkflowSpec, new_resource
+    from kubeflow_tpu_torch.testing.workers.lm_pipeline import pipeline_spec
+
+    lm_size = {**LM, "batch": TRAIN["batch"], "seq": TRAIN["seq"], "dtype": "bfloat16",
+               "lr": TRAIN["lr"]}
+    job = lm_job_spec("lm-nightly-train", "default", 0, PIPELINE["steps"], root).spec
+    spec = CronWorkflowSpec(
+        schedule="* * * * *", concurrency_policy="Forbid", suspend=True,
+        workflow_spec=pipeline_spec(
+            job, steps=PIPELINE["steps"], max_eval_loss=PIPELINE["max_eval_loss"],
+            ckpt_dir=os.path.join(root, "pipeline-ckpt"), save_every=PIPELINE["save_every"],
+            kill_at=0, lm_size=lm_size, requests=REQUESTS))
+    spec.validate()
+    return plane.api.create(new_resource("CronWorkflow", "lm-nightly", "default",
+                                         spec=spec.to_dict()))
+
+
+def pipeline_phase(torch, card: str, plane, root: str, cron) -> dict:
     """Path D, the nightly pipeline: the Workflow and CronWorkflow
     controllers in the same controller-manager binary as paths A and B
     (``--controllers tpujob,study,workflow,cronworkflow,nodehealth``). A
-    CronWorkflow "lm-nightly" (``* * * * *``, concurrencyPolicy Forbid)
+    CronWorkflow "lm-nightly" (``* * * * *``, concurrencyPolicy Forbid;
+    `cron`, created suspended by `pipeline_cron` before path A, is
+    unsuspended here and fires its missed tick at once)
     spawns a Workflow (`testing/workers/lm_pipeline.pipeline_spec`):
     ``train``, a TpuJob slice step running `lm_job_spec`'s worker (TRAIN's
     LM through fit(), PIPELINE["steps"] steps, a save every
-    PIPELINE["save_every"], SIGKILLed after PIPELINE["kill_at"]); ``eval``,
+    PIPELINE["save_every"]); ``eval``,
     a pod that restores the newest step read-only and gates on the
     held-out loss (``promote`` or ``hold``); ``serve``, when eval read
     promote, a pod that serves the checkpoint over HTTP (REQUESTS) and
@@ -5169,9 +5217,9 @@ def pipeline_phase(torch, card: str, plane, root: str) -> dict:
     second run starts.
 
     Gates: one Workflow spawned, owned by the CronWorkflow, within
-    PIPELINE["cron_wait_s"] of its creation; the train TpuJob Succeeded
-    with restarts 1, resumed_from 4, attempt label 0 and the only TpuJob
-    of its step (the DAG read Restarting as in flight); 16 launches a
+    PIPELINE["cron_wait_s"] of its unsuspension; the train TpuJob
+    Succeeded with restarts 0, never resumed, killed or read Restarting,
+    attempt label 0 and the only TpuJob of its step; 16 launches a
     step of flash_fwd, flash_delta and flash_bwd_fused in its
     observation; eval ``promote`` at step PIPELINE["steps"] with 16
     flash_fwd a forward; serve answering REQUESTS at that version; the
@@ -5180,39 +5228,27 @@ def pipeline_phase(torch, card: str, plane, root: str) -> dict:
     pod's process gone before the next pod started; deleting the
     CronWorkflow removes the Workflow, its pods and its TpuJob (the
     owner cascade). Numbers: the cron wait, each step's seconds from
-    creation to Succeeded, the kill to the first resumed step, the eval
-    loss beside the fresh init's, the serve latencies, each pod's peak
-    device memory, the card's memory.used at each step's start, the
-    Workflow's seconds. Returns the launches of train (its resumed run),
-    eval and serve."""
-    from kubeflow_tpu_torch.api import CronWorkflowSpec, new_resource
+    creation to Succeeded, the eval loss beside the fresh init's, the
+    serve latencies, each pod's peak device memory, the card's
+    memory.used at each step's start, the Workflow's seconds. Returns the
+    launches of train, eval and serve."""
     from kubeflow_tpu_torch.controllers.cronworkflow import LABEL_CRON
     from kubeflow_tpu_torch.controllers.tpujob import LABEL_INCARNATION
     from kubeflow_tpu_torch.controllers.workflow import LABEL_ATTEMPT, LABEL_WORKFLOW
-    from kubeflow_tpu_torch.testing.workers.lm_pipeline import pipeline_spec
 
     t_phase = time.perf_counter()
     ckpt_dir = os.path.join(root, "pipeline-ckpt")
-    lm_size = {**LM, "batch": TRAIN["batch"], "seq": TRAIN["seq"], "dtype": "bfloat16",
-               "lr": TRAIN["lr"]}
-    job = lm_job_spec("lm-nightly-train", "default", 0, PIPELINE["steps"], root).spec
-    spec = CronWorkflowSpec(
-        schedule="* * * * *", concurrency_policy="Forbid",
-        workflow_spec=pipeline_spec(
-            job, steps=PIPELINE["steps"], max_eval_loss=PIPELINE["max_eval_loss"],
-            ckpt_dir=ckpt_dir, save_every=PIPELINE["save_every"],
-            kill_at=PIPELINE["kill_at"], lm_size=lm_size, requests=REQUESTS))
-    spec.validate()
     spawned = lambda: plane.api.list("Workflow", "default",
                                      label_selector={LABEL_CRON: "lm-nightly"})
-    cron = plane.api.create(new_resource("CronWorkflow", "lm-nightly", "default",
-                                         spec=spec.to_dict()))
+    t_armed = time.time()
+    set_suspend(plane.api, "CronWorkflow", "lm-nightly", suspend=False)
+    anchored_s = t_armed - cron.metadata.creation_timestamp
     plane.run_until(lambda: spawned(), PIPELINE["spawn_timeout_s"],
                     "the CronWorkflow to spawn its Workflow")
     set_suspend(plane.api, "CronWorkflow", "lm-nightly")
     [wf] = spawned()
     name = wf.metadata.name
-    cron_wait_s = wf.metadata.creation_timestamp - cron.metadata.creation_timestamp
+    cron_wait_s = wf.metadata.creation_timestamp - t_armed
 
     seen = {"running": set(), "succeeded": {}, "memory_at_start_mib": {},
             "train_phases": []}
@@ -5258,9 +5294,7 @@ def pipeline_phase(torch, card: str, plane, root: str) -> dict:
     records = {stem: log_records(logs.get(f"{name}-{stem}.log", ""))
                for stem in ("train-0-worker-0", "eval-0", "serve-0", "teardown-0")}
     event = lambda stem, kind: [r for r in records[stem] if r["event"] == kind]
-    train_steps = event("train-0-worker-0", "step")
     kills = event("train-0-worker-0", "kill")
-    resumed = [r for r in train_steps if r["incarnation"] == 1]
     evals, serves = event("eval-0", "eval"), event("serve-0", "serve")
     ev = evals[0] if evals else {}
     sv = serves[0] if serves else {}
@@ -5292,14 +5326,14 @@ def pipeline_phase(torch, card: str, plane, root: str) -> dict:
         == [cron.metadata.uid],
         "cron_wait": 0.0 <= cron_wait_s <= PIPELINE["cron_wait_s"],
         "train_succeeded": train is not None and train.status.get("phase") == "Succeeded",
-        "train_restarts_1": train is not None and train.status.get("restarts") == 1,
-        "train_resumed_from_4": obs.get("resumed_from") == float(PIPELINE["kill_at"]),
+        "train_restarts_0": train is not None and train.status.get("restarts", 0) == 0,
+        "train_not_resumed": obs.get("resumed_from") == 0.0,
         "train_one_attempt": train is not None
         and train.metadata.labels.get(LABEL_ATTEMPT) == "0"
         and steps_status.get("train", {}).get("attempts") == 1
         and steps_status.get("train", {}).get("failedAttempts") == [],
-        "train_read_restarting": "Restarting" in seen["train_phases"],
-        "killed_once": [k["step"] for k in kills] == [PIPELINE["kill_at"]],
+        "train_never_restarting": "Restarting" not in seen["train_phases"],
+        "not_killed": kills == [],
         "train_launches": train_launches == want_train,
         "eval_promote": steps_status.get("eval", {}).get("output") == "promote",
         "eval_step": ev.get("step") == PIPELINE["steps"],
@@ -5324,15 +5358,13 @@ def pipeline_phase(torch, card: str, plane, root: str) -> dict:
         "Pod", "default", label_selector={LABEL_WORKFLOW: name}) and not plane.api.list(
         "TpuJob", "default", label_selector={LABEL_WORKFLOW: name}))
     out = {
-        "phase": "pipeline", "card": card, "cron": {"schedule": spec.schedule,
+        "phase": "pipeline", "card": card, "cron": {"schedule": cron.spec["schedule"],
                                                      "concurrencyPolicy": "Forbid"},
         "workflow": name, "model": {**LM, "dtype": "bfloat16", "remat": "none"},
         "batch": TRAIN["batch"], "seq": TRAIN["seq"], "steps": PIPELINE["steps"],
-        "save_every": PIPELINE["save_every"], "kill_at": PIPELINE["kill_at"],
-        "max_eval_loss": PIPELINE["max_eval_loss"],
-        "cron_wait_s": cron_wait_s, "step_created_to_succeeded_s": step_s,
-        "kill_to_first_resumed_step_s": (resumed[0]["time"] - kills[0]["time"]
-                                         if kills and resumed else None),
+        "save_every": PIPELINE["save_every"], "max_eval_loss": PIPELINE["max_eval_loss"],
+        "cron_wait_s": cron_wait_s, "cron_anchored_s_before": anchored_s,
+        "step_created_to_succeeded_s": step_s,
         "train_phases_seen": seen["train_phases"], "train_observation": obs,
         "eval": {k: ev.get(k) for k in ("step", "loss", "fresh_init_loss", "decision",
                                         "restore_s", "eval_forward_s", "launches")},
@@ -5879,10 +5911,12 @@ def job_plane_phases(torch, card: str, bare_step_ms: float, loss_se: float,
                                       "nodehealth"),
                          capture_dir=os.path.join(root, "logs"),
                          ready_timeout=JOB["manager_ready_s"])
+        # Anchored now: by the pipeline phase its first tick is long past.
+        cron = pipeline_cron(plane, root)
         launches, worker_mib, path_a = job_phase(torch, card, plane, root, bare_step_ms,
                                                  LOSS_Z * loss_se)
         rl_soak_phase(torch, card, plane, root)
-        pipeline_launches = pipeline_phase(torch, card, plane, root)
+        pipeline_launches = pipeline_phase(torch, card, plane, root, cron)
         node_lost_launches = node_lost_phase(torch, card, plane, root, records_losses)
         code = plane.stop_manager()
         if code != 0:
@@ -6532,7 +6566,9 @@ def platform_phase(torch, card: str, path_a: dict) -> dict:
        token-file entry); the admin token, token file and CA printed.
     2. The dashboard's workgroup create for team-p to the Profile's
        Ready; the owner's RoleBinding; kfam's edit binding for the
-       service account.
+       service account. The mesh gate: an outsider given an edit
+       RoleBinding in team-p (no kfam, so no AuthorizationPolicy rule)
+       gets 403 from the Jupyter app's notebook list, the owner 200.
     3. `kftpu apply` of PodDefault facade-env (every pod of team-p: a
        TpuJob's pods carry no label of their CR) with the facade's URL,
        its CA and the service account's token.
@@ -6609,6 +6645,9 @@ def platform_phase(torch, card: str, path_a: dict) -> dict:
         "kfam_binding": rec["kfam_binding"][0] == 200 and any(
             b["user"]["name"] == rec["service_account"]
             for b in rec["kfam_bindings"][1].get("bindings", [])),
+        "mesh_outsider_403": rec["mesh_outsider"][0] == 403
+        and "mesh policy denies" in str(rec["mesh_outsider"][1]),
+        "mesh_owner_200": rec["mesh_owner"][0] == 200,
         "poddefault_applied": rec["poddefault_apply"][0] == 0,
         "notebook_env_injected": rec["notebook_pod_env"] == [rec["facade_env"]],
         "notebook_stopped": rec["notebook_stop"][0] == 200,
@@ -6655,6 +6694,7 @@ def platform_phase(torch, card: str, path_a: dict) -> dict:
         "spans": {"apply": len(apply_spans), "worker_status_writes": len(status_writes),
                   "tpujob_reconciles": len(reconciles), "dropped_note": traces_err.strip()},
         "watch_rows": rec["watch_rows"], "workloads": workloads,
+        "mesh_outsider": rec["mesh_outsider"],
         "activities": len(rec["activities"][1] or []),
         "sa_after_nuke": rec["sa_after_nuke"], "launches": launches,
         "want_launches": want_launches, "checks": checks,
@@ -6665,6 +6705,113 @@ def platform_phase(torch, card: str, path_a: dict) -> dict:
     if failed:
         print(rec["output"], file=sys.stderr, flush=True)
         raise AssertionError(f"platform phase checks failed: {failed}")
+    return launches
+
+
+def chaos_job_phase(torch, card: str, path_a: dict) -> dict:
+    """Path I, the control plane's wire under faults
+    (`testing/chaos_job.run_chaos_job`): the facade as its own process
+    over a state directory, on plain http (opted into: the proxy must
+    read the HTTP), behind a `ChaosProxy` running
+    FaultSchedule(CHAOS_JOB["seed"], faults_per_class=2) over the seven
+    wire fault classes; the controller-manager binary (tpujob and
+    notebook controllers; its watch degrades after one failed stream for
+    1 s), the pod runner and the LM worker's status client reach the
+    store only through the proxy; the stream lives 2 s, bookmarks every
+    0.2 s. TRAIN's LM trains as TpuJob "lm-chaos" on one GPU for
+    CHAOS_JOB["steps"] steps (one save); a Notebook is applied with
+    ``kftpu apply`` as a v1alpha1 manifest and read back at v1, v1beta1
+    and v1alpha1.
+
+    Gates: `chaos_job.checks` (Succeeded, restarts 0, one pod, every step
+    acked, the Notebook stored at v1, read at every version, its
+    v1alpha1 round trip equal to the manifest, one StatefulSet, Service
+    and VirtualService, every fault class fired and the schedule
+    exhausted, no object live twice and no Event twice, the binary
+    long-polled while degraded and streamed again, and exited 0 on
+    SIGTERM); one worker process; each acked step in status.metrics with
+    the worker's loss; the losses finite and bitwise or within path A's
+    limit (`path_a`); 16 launches a step of flash_fwd, flash_delta and
+    flash_bwd_fused in the worker. Returns the worker's launches."""
+    from kubeflow_tpu_torch.testing import chaos_job
+
+    t_phase = time.perf_counter()
+    release(torch)
+    root = tempfile.mkdtemp(prefix="kftpu_chaos_")
+    steps = CHAOS_JOB["steps"]
+    try:
+        rec = chaos_job.run_chaos_job(
+            root, steps=steps, seed=CHAOS_JOB["seed"],
+            faults_per_class=CHAOS_JOB["faults_per_class"], timeout=CHAOS_JOB["timeout_s"],
+            ready_timeout=CHAOS_JOB["manager_ready_s"],
+            job_env={"KFTPU_CKPT_DIR": os.path.join(root, "ckpt"),
+                     "KFTPU_TOTAL_STEPS": str(steps), "KFTPU_SAVE_EVERY": str(steps),
+                     "KFTPU_LM_SIZE": json.dumps({**LM, "batch": TRAIN["batch"],
+                                                  "seq": TRAIN["seq"], "dtype": "bfloat16",
+                                                  "lr": TRAIN["lr"]})})
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    records = log_records(rec["logs"])
+    step_recs = {r["step"]: r for r in records if r["event"] == "step"}
+    acked = {r["step"] for r in records if r["event"] == "acked"}
+    start = next((r for r in records if r["event"] == "start"), {})
+    done = next((r for r in records if r["event"] == "done"), {})
+    launches = {k[len("launches_"):]: int(v) for k, v in done.items()
+                if k.startswith("launches_")}
+    want_launches = {name: LM["n_layers"] * steps
+                     for name in ("flash_fwd", "flash_delta", "flash_bwd_fused")}
+    losses = {s: r["loss"] for s, r in step_recs.items()}
+    status_curve = {p["step"]: p["loss"] for p in rec["job_status"].get("metrics", [])}
+    vs_a = {}
+    for step, b in sorted(losses.items()):
+        a = path_a["losses"].get(step)
+        diff = None if a is None else abs(a - b)
+        vs_a[step] = {"path_a": a, "chaos_job": b, "abs_diff": diff,
+                      "holds": "no path A step" if a is None else "bitwise" if diff == 0.0
+                      else "within path A's limit" if diff <= path_a["loss_limit"] else "no"}
+    first = min(step_recs.values(), key=lambda r: r["step"], default=None)
+    checks = {
+        **chaos_job.checks(rec, steps),
+        "one_worker_process": len({r["pid"] for r in records}) == 1,
+        "acked_steps_in_status": sorted(acked) == list(range(1, steps + 1))
+        and all(status_curve.get(s) == losses.get(s) for s in acked),
+        "losses_finite": sorted(losses) == list(range(1, steps + 1))
+        and all(math.isfinite(v) for v in losses.values()),
+        "losses_vs_path_a": all(v["holds"] != "no" for v in vs_a.values()),
+        "worker_launches": launches == want_launches,
+    }
+    sec = rec["seconds"]
+    out = {
+        "phase": "chaos_job", "card": card, "job": "lm-chaos", "steps": steps,
+        "transport": "plain http between every client and the facade, opted into "
+                     "(KFTPU_PLAINTEXT=1): the proxy reads the HTTP it injects into",
+        "model": {**LM, "dtype": "bfloat16", "remat": "none"}, "batch": TRAIN["batch"],
+        "seq": TRAIN["seq"], "config": CHAOS_JOB,
+        "plan": [[f.cls, f.param, f.gap] for f in rec["schedule"].plan],
+        "faults_fired": rec["coverage"], "seconds": sec,
+        "cr_to_pod_running_s": sec["cr_to_pod_running"],
+        "spawn_to_first_step_s": (first["time"] - rec["t_running"]
+                                  if first and rec["t_running"] else None),
+        "worker_start_to_first_step_s": (first["time"] - start["time"]
+                                         if first and start else None),
+        "step_ms": {s: r["step_ms"] for s, r in sorted(step_recs.items())},
+        "worker_median_step_ms": done.get("step_ms"), "path_a_step_ms": path_a["step_ms"],
+        "job_wall_s": sec["job_wall"], "notebook_apply_to_ready_s": sec["notebook_apply_to_ready"],
+        "binary_client": rec["binary_client"], "runner_client": rec["runner_client"],
+        "worker_client": {k: done.get(k) for k in ("failovers", "handshakes")},
+        "binary_degraded_marks_s": rec["binary_degraded_marks"],
+        "long_poll_rounds": rec["binary_client"]["watch"]["longpoll_rounds"],
+        "degraded_seconds": rec["binary_client"]["watch"]["degraded_seconds"],
+        "churn_rounds": rec["churn_rounds"], "events": rec["events"],
+        "losses_vs_path_a": vs_a, "loss_limit": path_a["loss_limit"],
+        "launches": launches, "want_launches": want_launches, "checks": checks,
+        "phase_seconds": time.perf_counter() - t_phase,
+    }
+    emit(out)
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        print(rec["diagnostics"], file=sys.stderr, flush=True)
+        raise AssertionError(f"chaos_job phase checks failed: {failed}")
     return launches
 
 
@@ -6728,6 +6875,7 @@ def main() -> int:
     by_path["ha_job"] = ha_job_phase(torch, card, path_a)
     by_path["tenant"] = tenant_phase(torch, card, path_a)
     by_path["platform"] = platform_phase(torch, card, path_a)
+    by_path["chaos_job"] = chaos_job_phase(torch, card, path_a)
     for name, entry in entries.items():
         counts = {path: launches.get(name, 0) for path, launches in by_path.items()}
         entry["launches"] = sum(counts.values())

@@ -7,7 +7,11 @@ package's `kubeflow_tpu/apps/` (modules with no JAX in them), each an
 - `tensorboards`: Tensorboard CRUD;
 - `dashboard`: the central hub API and the workgroup registration flow;
 - `staticserver`: a file server for platform config;
+- `probe`: the availability prober and its /metrics app
+  (``python -m kubeflow_tpu_torch.apps.probe --url U``);
+- `echo`: the echo server that reflects a request, its identity included
+  (``python -m kubeflow_tpu_torch.apps.echo [PORT]``);
+- `cloud_metrics`: the dashboard's Cloud Monitoring metrics service,
+  its requests sent through `deploy/gke.py`'s transport seam;
 - `__main__`: the platform in a box, ``python -m kubeflow_tpu_torch.apps``.
-
-Not copied: `probe`, `cloud_metrics` and `echo` (ROADMAP lists them).
 """

@@ -2,7 +2,8 @@
 
 A copy of `kubeflow_tpu/apps/kfam.py` (a module with no JAX in it),
 whole. The AuthorizationPolicy a binding writes is the mesh half of the
-pair; the port's apps authorize by RBAC alone (`web/authz.py`).
+pair, which the apps' second gate evaluates (`web/authz.py`,
+`web/mesh.py`).
 
 Parity with `components/access-management/` (SURVEY.md §2 #10): a REST
 service that owns the user→namespace mapping.

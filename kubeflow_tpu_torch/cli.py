@@ -14,12 +14,13 @@ kubectl surface against the platform's own apiserver facade
     python -m kubeflow_tpu_torch.cli top
     python -m kubeflow_tpu_torch.cli traces
 
-Two departures. `get -w` follows the facade's streaming watch (the port
-serves no long-poll watch): the table, then one row per event; a
-bookmark past the journal's horizon relists. `--api-version` needs
-conversion between served versions, which is not ported: a version
-other than the one the objects are stored at is refused with a message
-naming the stored one. `top` counts the GPUs pods ask for
+`get --api-version V` and `describe --api-version V` read at any served
+version of a multi-version kind (the facade's ``?version=``, the store's
+conversion, `api/versioning.py`); `apply` takes a manifest at any served
+version, which the store keeps at the hub version. Departures: `get -w`
+follows the facade's streaming watch (JAX's long-polls): the table, then
+one row per event; a bookmark past the journal's horizon relists;
+`describe` takes `--api-version` too. `top` counts the GPUs pods ask for
 (``nvidia.com/gpu``) against each Node's ``chips``, and its duty column
 reads the Node's ``tpuDutyCycle`` (the JAX wire names).
 
@@ -206,14 +207,12 @@ def cmd_get(client: HttpApiClient, args) -> int:
     if args.watch:
         return _watch_kind(client, kind, args)
     if args.name:
-        res = _get_scoped(client, kind, args.name, args.namespace)
-        _check_version([res], args.api_version)
+        res = _get_scoped(client, kind, args.name, args.namespace, version=args.api_version)
         _emit(res.to_dict(), args.output or "yaml")
         return 0
     # Lists default to ALL namespaces (the table shows the namespace
     # column anyway, and cluster-scoped kinds live in ""); -n narrows.
-    items = client.list(kind, namespace=args.namespace)
-    _check_version(items, args.api_version)
+    items = client.list(kind, namespace=args.namespace, version=args.api_version)
     if args.output in ("yaml", "json"):
         _emit([r.to_dict() for r in items], args.output)
         return 0
@@ -222,19 +221,6 @@ def cmd_get(client: HttpApiClient, args) -> int:
         [(r.metadata.namespace, r.metadata.name, _phase(r)) for r in items],
     )
     return 0
-
-
-def _check_version(items: list, version: str | None) -> None:
-    """Refuse a read at a version other than the stored one: rendering
-    an object at another served version is conversion, not ported."""
-    if not version:
-        return
-    for res in items:
-        stored = res.api_version.rsplit("/", 1)[-1]
-        if version not in (stored, res.api_version):
-            raise ApiError(
-                f"--api-version {version}: {res.kind} is stored at {res.api_version}, and "
-                "conversion between served versions is not ported; omit --api-version")
 
 
 def _watch_kind(client: HttpApiClient, kind: str, args) -> int:
@@ -325,7 +311,7 @@ def _stream_rows(client: HttpApiClient, kind: str, params: dict, rv: int, wanted
         conn.close()
 
 
-def _get_scoped(client: HttpApiClient, kind, name, namespace):
+def _get_scoped(client: HttpApiClient, kind, name, namespace, version=None):
     """Fetch honoring scope: an explicit -n (including -n '') is taken
     verbatim; with no -n, try the default namespace then fall back to
     cluster scope, so `describe node tpu-node-0` works without the user
@@ -334,18 +320,18 @@ def _get_scoped(client: HttpApiClient, kind, name, namespace):
     from kubeflow_tpu_torch.testing.fake_apiserver import Forbidden, NotFound
 
     if namespace is not None:
-        return client.get(kind, name, namespace)
+        return client.get(kind, name, namespace, version=version)
     try:
-        return client.get(kind, name, "default")
+        return client.get(kind, name, "default", version=version)
     except NotFound:
-        return client.get(kind, name, "")
+        return client.get(kind, name, "", version=version)
     except Forbidden as denied:
         # A namespace-scoped token 403s the default-ns probe; the target
         # may still be a cluster-scoped object this identity CAN read
         # (`describe node x` with a node-reader token). Try cluster scope
         # before surfacing the denial.
         try:
-            return client.get(kind, name, "")
+            return client.get(kind, name, "", version=version)
         except (NotFound, Forbidden):
             raise denied from None
 
@@ -359,7 +345,7 @@ def cmd_describe(client: HttpApiClient, args) -> int:
     # `churches`) resolve against live objects; no emptiness warning —
     # a wrong by-name kind already fails loudly with NotFound.
     kind = resolve_kind(args.kind, client, warn_empty=False)
-    res = _get_scoped(client, kind, args.name, args.namespace)
+    res = _get_scoped(client, kind, args.name, args.namespace, version=args.api_version)
     ns = res.metadata.namespace
     meta = res.metadata
 
@@ -606,8 +592,7 @@ def main(argv: list[str] | None = None) -> int:
                      "for a named get)")
     get.add_argument("-o", "--output", choices=("yaml", "json"))
     get.add_argument("--api-version", dest="api_version",
-                     help="the version to read at; only the stored one (conversion "
-                     "is not ported)")
+                     help="read at a served CRD version (e.g. v1alpha1)")
     get.add_argument("-w", "--watch", action="store_true",
                      help="print the table, then stream change events "
                      "(kubectl get -w analog; Ctrl-C to stop)")
@@ -620,6 +605,8 @@ def main(argv: list[str] | None = None) -> int:
     describe.add_argument("kind")
     describe.add_argument("name")
     describe.add_argument("-n", "--namespace", default=None)
+    describe.add_argument("--api-version", dest="api_version",
+                          help="read at a served CRD version (e.g. v1alpha1)")
     describe.set_defaults(fn=cmd_describe)
 
     top = sub.add_parser(

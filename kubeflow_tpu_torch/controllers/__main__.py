@@ -6,14 +6,30 @@ Counterpart of `kubeflow_tpu/controllers/__main__.py`:
     python -m kubeflow_tpu_torch.controllers \
         --apiserver https://<facade-a>,https://<facade-b> --ca <ca.crt> \
         [--controllers profile,notebook,tensorboard,tpujob,nodehealth,study,...] \
-        [--leader-elect [--lease-name N] [--identity I]]
+        [--leader-elect [--lease-name N] [--identity I]] \
+        [--write-retries N] [--breaker-cooldown S] [--stream-reprobe S] \
+        [--stream-failure-threshold N] [--stream-degraded S]
 
-builds each named controller on one `HttpApiClient` (its streaming
-watch feeds every controller's queue), starts them, prints ``manager
-ready <names>`` and reconciles until SIGTERM or SIGINT, then stops the
-controllers, prints ``client {"failovers": N, "handshakes": M}`` and
-exits 0. `--apiserver` is one URL or an endpoint list (an active-passive
-facade pair, `testing/failover.py`): the client fails over between them.
+builds each named controller on one `HttpApiClient` (its watch feeds
+every controller's queue), starts them, prints ``manager ready
+<names>`` and reconciles until SIGTERM or SIGINT, then stops the
+controllers, prints ``client {json}`` (its failovers, the connections
+it dialed, its write retries and its watch's counters,
+`HttpApiClient.watch_stats`: streams opened and failed, long-poll
+rounds, degraded episodes and seconds, streams opened after one) and
+exits 0. The client flags are JAX's: bounded write retries, the
+per-endpoint breakers' cooldown and the re-probe of a rejected stream.
+Two more, which JAX's binary lacks (it leaves them at the client's
+defaults), set the stream breaker: the failed streams in a row before
+the watch degrades to long-poll, and for how long. They exist for the
+chaos scenario (`testing/chaos_job.py`), where the binary is a process
+of its own, so the in-process constructor arguments JAX's chaos soak
+passes cannot reach its client. There one failed stream must degrade
+the watch: at the soak's threshold of 2, the seed-0 schedule's stream
+faults never fail two of the binary's streams in a row, and its watch
+never degrades. `--apiserver` is one URL or an
+endpoint list (an active-passive facade pair, `testing/failover.py`):
+the client fails over between them.
 An https endpoint needs the platform CA, `--ca` (default ``KFTPU_CA``).
 
 With ``--leader-elect``, N replicas run with one active (the Lease and
@@ -37,8 +53,7 @@ Study controller, the pipeline controllers, Workflow (a DAG of step
 pods and TpuJob slice steps) and CronWorkflow (Workflows spawned on a
 schedule, on the wall clock), and the ServingDeployment controller. An
 unknown name is refused. Against a secure facade the client's bearer
-token comes from ``KFTPU_TOKEN``, as in JAX. Not ported: the client's
-fault-tolerance flags.
+token comes from ``KFTPU_TOKEN``, as in JAX.
 """
 
 from __future__ import annotations
@@ -97,6 +112,23 @@ def main(argv: list[str] | None = None) -> int:
     parser.add_argument("--lease-duration", type=float, default=15.0)
     parser.add_argument("--renew-deadline", type=float, default=10.0)
     parser.add_argument("--retry-period", type=float, default=2.0)
+    # The client's fault tolerance: bounded write retries (guarded by
+    # resourceVersion preconditions, never double-applying), the
+    # per-endpoint breakers, and the watch's degraded mode.
+    parser.add_argument("--write-retries", type=int, default=3,
+                        help="extra attempts for a transient write failure")
+    parser.add_argument("--breaker-cooldown", type=float, default=2.0,
+                        help="seconds a tripped per-endpoint circuit sheds load before "
+                        "probing the endpoint again")
+    parser.add_argument("--stream-reprobe", type=float, default=60.0,
+                        help="seconds between re-probes of the streaming watch after the "
+                        "server rejects it (the long-poll fallback is never sticky)")
+    # The stream breaker, for the chaos scenario (see above).
+    parser.add_argument("--stream-failure-threshold", type=int, default=3,
+                        help="failed streams in a row that degrade the watch to long-poll")
+    parser.add_argument("--stream-degraded", type=float, default=5.0,
+                        help="seconds the degraded watch long-polls before it probes the "
+                        "stream again")
     args = parser.parse_args(argv)
 
     names = [n.strip() for n in args.controllers.split(",") if n.strip()]
@@ -105,14 +137,22 @@ def main(argv: list[str] | None = None) -> int:
         parser.error(f"unknown controllers {unknown}; valid: {sorted(CONTROLLERS)}")
 
     try:
-        client = HttpApiClient(endpoints_from_env(args.apiserver), ca=args.ca)
+        client = HttpApiClient(
+            endpoints_from_env(args.apiserver), ca=args.ca, watch_poll_timeout=2.0,
+            watch_retry=0.1, write_retries=args.write_retries,
+            breaker_cooldown=args.breaker_cooldown,
+            stream_reprobe_seconds=args.stream_reprobe,
+            stream_failure_threshold=args.stream_failure_threshold,
+            stream_degraded_seconds=args.stream_degraded)
     except ValueError as e:
         parser.error(str(e))
     shutdown = sigutil.install_shutdown_handlers()
 
     def report_client() -> None:
         print("client " + json.dumps({"failovers": client.failovers,
-                                      "handshakes": client.handshakes}), flush=True)
+                                      "handshakes": client.handshakes,
+                                      "retries": client.retries_total,
+                                      "watch": client.watch_stats()}), flush=True)
 
     def start_manager() -> ControllerManager:
         # Built only once this replica is active: construction registers

@@ -70,9 +70,14 @@ def retry_on_conflict(
 
 class WorkQueue:
     """The rate-limited work queue: keyed dedup, sooner-wins supersede,
-    an in-flight dirty set, per-key exponential error backoff."""
+    an in-flight dirty set, per-key exponential error backoff. `clock`
+    (default `time.monotonic`) says when a delayed item comes due: a
+    scripted test passes its own, so a `requeue_after` fires when the
+    script moves time and never because a pass ran slowly."""
 
-    def __init__(self, base_backoff: float = 0.02, max_backoff: float = 30.0):
+    def __init__(self, base_backoff: float = 0.02, max_backoff: float = 30.0,
+                 clock: Callable[[], float] = time.monotonic):
+        self._clock = clock
         self._heap: list[tuple[float, int, str]] = []
         self._queued: dict[str, float] = {}
         self._inflight: set[str] = set()
@@ -85,7 +90,7 @@ class WorkQueue:
         self._down = False
 
     def add(self, key: str, *, after: float = 0.0) -> None:
-        ready = time.monotonic() + max(0.0, after)
+        ready = self._clock() + max(0.0, after)
         with self._cv:
             if self._down:
                 return
@@ -108,13 +113,13 @@ class WorkQueue:
             heapq.heappop(self._heap)
 
     def get(self, timeout: float = 0.0) -> str | None:
-        deadline = time.monotonic() + timeout
+        deadline = self._clock() + timeout
         with self._cv:
             while True:
                 if self._down:
                     return None
                 self._prune()
-                now = time.monotonic()
+                now = self._clock()
                 if self._heap:
                     ready, _, key = self._heap[0]
                     if ready <= now:
@@ -137,7 +142,7 @@ class WorkQueue:
             if key in self._dirty:
                 self._dirty.discard(key)
                 if not self._down:
-                    ready = time.monotonic()
+                    ready = self._clock()
                     current = self._queued.get(key)
                     if current is None or current > ready:
                         self._queued[key] = ready
@@ -150,7 +155,7 @@ class WorkQueue:
             n = self._failures[key] = self._failures.get(key, 0) + 1
             backoff = min(self._max, self._base * 2 ** (n - 1))
             if not self._down:
-                ready = time.monotonic() + backoff
+                ready = self._clock() + backoff
                 current = self._queued.get(key)
                 if current is None or current > ready:
                     self._queued[key] = ready
@@ -173,7 +178,7 @@ class WorkQueue:
             self._prune()
             if not self._heap:
                 return None
-            return max(0.0, self._heap[0][0] - time.monotonic())
+            return max(0.0, self._heap[0][0] - self._clock())
 
     def shutdown(self) -> None:
         with self._cv:

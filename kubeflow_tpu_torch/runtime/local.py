@@ -4,7 +4,11 @@ Counterpart of `kubeflow_tpu/runtime/local.py` (a module with no JAX in
 it): the kubelet the in-process API server lacks. It watches Pods,
 launches each as a local process with the container's env injected,
 mirrors the process's lifecycle onto the pod's status (Running →
-Succeeded/Failed) and terminates processes whose pods are deleted.
+Succeeded/Failed) and terminates processes whose pods are deleted. A
+status write that fails (a faulty link to the apiserver) is made again
+by the next `step`, the Running one included (the JAX runner writes
+Running once, when it starts the process, and a pod whose write was
+lost reads no phase until its process exits).
 
 With the TpuJob operator this closes the loop in one host: TpuJob CR →
 operator creates a gang → runner execs N local processes → phases flow
@@ -143,6 +147,10 @@ class LocalPodRunner:
                     continue
             if proc is None and phase is None:
                 self._start(pod, key)
+            elif proc is not None and phase is None and proc.poll() is None:
+                # Started, but the Running write failed (a faulty link to
+                # the apiserver): write it again.
+                self._mark_running(pod)
             elif proc is not None and proc.poll() is not None:
                 # Report the exit BEFORE untracking: if the status write
                 # fails (apiserver outage), the process stays tracked and
@@ -166,12 +174,9 @@ class LocalPodRunner:
             self._set_phase(pod, "Failed")
             return
         stdout = None
-        log_path = None
-        if self.capture_dir:
+        log_path = self._log_path(pod)
+        if log_path:
             os.makedirs(self.capture_dir, exist_ok=True)
-            log_path = os.path.abspath(
-                os.path.join(self.capture_dir, f"{pod.metadata.name}.log")
-            )
             stdout = open(log_path, "a")
             incarnation = pod.metadata.labels.get("kubeflow-tpu.org/gang-incarnation", "0")
             stdout.write(f"--- pod {pod.metadata.name} incarnation {incarnation} ---\n")
@@ -197,11 +202,20 @@ class LocalPodRunner:
         with self._lock:
             self._procs[key] = proc
             self._uids[key] = pod.metadata.uid
+        self._mark_running(pod)
+
+    def _log_path(self, pod: Resource) -> str | None:
+        if not self.capture_dir:
+            return None
+        return os.path.abspath(os.path.join(self.capture_dir, f"{pod.metadata.name}.log"))
+
+    def _mark_running(self, pod: Resource) -> None:
         # One status write: Running phase plus (when capturing) where the
         # pod's stdout lands, so the apiserver facade can serve `kubectl
         # logs` (`/apis/Pod/<ns>/<name>/log`, the kubelet log-endpoint
         # analog). A separate logPath write would double the MODIFIED
         # events every watcher sees per pod start.
+        log_path = self._log_path(pod)
         try:
             fresh = self.api.get(
                 "Pod", pod.metadata.name, pod.metadata.namespace

@@ -2,19 +2,29 @@
 
 A cut-down copy of `kubeflow_tpu/testing/apiserver_http.py` (a module
 with no JAX in it). `ApiServerApp` serves a `FakeApiServer` over REST so
-that separate processes (the model-server workers of a ``runtime:
-process`` fleet) share the control plane's store:
+that separate processes (controller managers, pod workers, the CLI)
+share the control plane's store:
 
-    GET    /apis/<kind>                  ?namespace=&labelSelector=k=v
-    GET    /apis/<kind>?watch=true&stream=true&resourceVersion=N
-    GET    /apis/<kind>/<ns>/<name>      ('_' namespace = cluster scope)
+    GET    /apis/<kind>                  ?namespace=&labelSelector=k=v&version=
+    GET    /apis/<kind>?watch=true       &resourceVersion=N&timeoutSeconds=S[&stream=true]
+    GET    /apis/<kind>/<ns>/<name>      ('_' namespace = cluster scope; ?version=)
     POST   /apis/<kind>                  (?apply=true: create-or-update)
     PUT    /apis/<kind>/<ns>/<name>[/status]
     DELETE /apis/<kind>/<ns>/<name>
 
-The watch is the streaming form: one chunked response held open across
-events, one JSON event per line, BOOKMARK lines for quiet progress and
-an ERROR line (410 past the journal's horizon) before the stream ends.
+Multi-version kinds: a POST or PUT body may carry any served apiVersion
+(the store converts it to the hub version); a GET with ``?version=``
+reads at any served version, and an unserved one is a 422.
+
+The watch has two forms. The long-poll (the default, without
+``stream``) blocks until events land past ``resourceVersion`` or
+``timeoutSeconds`` (at most 60) pass, and returns them with the rv to
+resume from; a bookmark past the journal's horizon is a 410. The
+streaming form (``stream=true``) is one chunked response held open
+across events, one JSON event per line, BOOKMARK lines for quiet
+progress and an ERROR line (410 past the horizon) before the stream
+ends. Both build each event's bytes once in the `WatchCache`, whatever
+the number of watchers.
 
 A write may carry ``X-Kftpu-Lease-Guard: [ns, name, holder,
 transitions]`` (a leader-elected client arms it with
@@ -30,7 +40,16 @@ connections from a pool, bounded write retries that never double-apply
 what it sent; a delete takes NotFound as done; an update carries its
 resourceVersion), and an informer watch loop that lists every watched
 kind, then follows the stream from the list's resourceVersion,
-reconnects after a dropped stream and re-lists on Gone.
+reconnects after a dropped stream and re-lists on Gone. The watch
+prefers the stream and degrades to the long-poll, never for good:
+`stream_failure_threshold` failed streams in a row open the stream
+circuit for `stream_degraded_seconds` (one long-poll round follows every
+failed stream), and a server that affirmatively rejects ``stream``
+(a 400 naming it, `_stream_rejected`; a stray 400 is a transient error)
+is re-probed every `stream_reprobe_seconds`. `watch_stats()` counts the
+streams opened and failed, the long-poll rounds (those while degraded
+too), the degraded episodes and seconds, and the streams opened after a
+degraded episode.
 
 `base_url` may be an endpoint list (`endpoints_from_env`: an
 active-passive pair over one durable store, `testing/failover.py`), of
@@ -71,18 +90,18 @@ never over plaintext http unless the caller opts in
 active span's trace id on every call, so a reconcile's calls join its
 trace; a 401 or 403 raises `Forbidden`; `pod_log` reads the log route.
 
-Not copied: the long-poll watch and multi-version conversion (ROADMAP
-lists both).
 """
 
 from __future__ import annotations
 
+import collections
 import http.client
 import json
 import logging
 import os
 import pathlib
 import random
+import re
 import threading
 import time
 import urllib.parse
@@ -127,6 +146,54 @@ def _seg_ns(seg: str) -> str:
     return "" if seg == "_" else seg
 
 
+class WatchCache:
+    """Shared watch cache: each journal event is serialized to its
+    compact-JSON wire form EXACTLY ONCE, and the cached bytes fan out
+    to every consumer — streaming connections write the cached line,
+    long-poll responses are assembled from the cached fragments. This
+    is the apiserver watch-cache property (serialize once, no matter
+    how many watchers): 50 watchers of one event cost one json.dumps
+    and 50 socket writes.
+
+    Keyed by (rv, type): both stores stamp every journal event with a
+    fresh rv, so the key is unique per event; DELETED events carry
+    their own fresh rv by construction. Bounded FIFO — rv is monotonic,
+    so eviction order is age order. Thread-safe; a rare concurrent miss
+    serializes twice, which only costs the duplicate work."""
+
+    def __init__(self, size: int = 4096):
+        self._entries: collections.OrderedDict[tuple[int, str], bytes] = (
+            collections.OrderedDict()
+        )
+        self._size = size
+        self._lock = threading.Lock()
+        self.serializations = 0  # misses: actual json.dumps calls
+        self.hits = 0
+
+    def event_bytes(self, rv: int, etype: str, obj: Resource) -> bytes:
+        """Wire form of one watch event, without trailing newline:
+        {"type":...,"rv":...,"object":{...}}. The object payload comes
+        from the snapshot's own cached wire bytes (`Resource.
+        wire_bytes`), so even the one serialization per event is shared
+        with get/list responses of the same snapshot."""
+        key = (rv, etype)
+        with self._lock:
+            cached = self._entries.get(key)
+            if cached is not None:
+                self.hits += 1
+                return cached
+        data = (
+            b'{"type":"' + etype.encode() + b'","rv":' + str(rv).encode()
+            + b',"object":' + obj.wire_bytes() + b"}"
+        )
+        with self._lock:
+            self.serializations += 1
+            self._entries[key] = data
+            while len(self._entries) > self._size:
+                self._entries.popitem(last=False)
+        return data
+
+
 class ApiServerApp(App):
     """REST facade over a `FakeApiServer`: secure with `tokens`, open
     without (see the module docstring). `log_root` is the directory the
@@ -149,6 +216,7 @@ class ApiServerApp(App):
         super().__init__("apiserver")
         self.api = api
         self.tokens = tokens
+        self.watch_cache = WatchCache()
         if tokens is not None:
             self.before_request(self._authenticate)
         self.log_root = pathlib.Path(log_root).resolve() if log_root else None
@@ -254,18 +322,25 @@ class ApiServerApp(App):
             namespace=_seg_ns(namespace) if namespace is not None else None,
             label_selector=selector,
         )
+        items = [self._at_version(r, req) for r in items]
         body = (
             b'{"items":[' + b",".join(r.wire_bytes() for r in items)
             + b'],"resourceVersion":' + str(rv).encode() + b"}"
         )
         return Response(body)
 
-    def _watch(self, req: Request) -> StreamResponse:
-        """The streaming watch from `resourceVersion`; `_` as the kind
-        watches every kind (the client multiplexes one stream across its
-        handlers)."""
-        if req.query.get("stream") not in ("true", "1"):
-            raise HttpError(400, "only the streaming watch (stream=true) is served")
+    def _watch(self, req: Request) -> Response:
+        """The watch from `resourceVersion`, in two forms; `_` as the kind
+        watches every kind (the client multiplexes one watch across its
+        handlers).
+
+        Long-poll (the default): block until events land past the
+        bookmark or `timeoutSeconds` (at most 60) pass, and return them
+        with the rv to resume from; 410 past the journal's horizon.
+
+        Streaming (``stream=true``): one chunked response held open across
+        events, a BOOKMARK line each quiet `STREAM_SLICE` and an ERROR
+        line carrying the would-be status (410, 503) before it ends."""
         try:
             since = int(req.query.get("resourceVersion", "0"))
         except ValueError:
@@ -274,10 +349,31 @@ class ApiServerApp(App):
         namespace = req.query.get("namespace")
         if kind != "_":
             # A concrete kind is authorized up front (a 403 beats a
-            # stream that silently delivers nothing); `_` per event.
+            # watch that silently delivers nothing); `_` per event.
             self._authorize(req, "watch", resource_for_kind(kind),
                             _seg_ns(namespace) if namespace is not None else "")
         may_watch = self._watchable(req, kind)
+        if req.query.get("stream") in ("true", "1"):
+            return self._watch_stream(req, since, kind, namespace, may_watch)
+        timeout = min(float(req.query.get("timeoutSeconds", "10")), 60.0)
+        try:
+            events, rv = self.api.wait_events(
+                since,
+                kind=None if kind == "_" else kind,
+                namespace=_seg_ns(namespace) if namespace is not None else None,
+                timeout=timeout,
+            )
+        except Gone as e:
+            raise HttpError(410, str(e)) from None
+        # The envelope from the cached per-event bytes: N long-pollers of
+        # one event share one serialization.
+        frags = [self.watch_cache.event_bytes(ev_rv, ev, obj) for ev_rv, ev, obj in events
+                 if may_watch is None or may_watch(obj)]
+        return Response(b'{"events":[' + b",".join(frags)
+                        + b'],"resourceVersion":' + str(rv).encode() + b"}")
+
+    def _watch_stream(self, req: Request, since: int, kind: str, namespace: str | None,
+                      may_watch) -> StreamResponse:
         duration = min(float(req.query.get("timeoutSeconds", self.STREAM_DURATION)), 3600.0)
 
         def line(payload: dict) -> bytes:
@@ -311,8 +407,7 @@ class ApiServerApp(App):
                 for ev_rv, ev, obj in events:
                     if may_watch is not None and not may_watch(obj):
                         continue
-                    out += (b'{"type":"' + ev.encode() + b'","rv":' + str(ev_rv).encode()
-                            + b',"object":' + obj.wire_bytes() + b"}\n")
+                    out += self.watch_cache.event_bytes(ev_rv, ev, obj) + b"\n"
                 rv = new_rv
                 out += line({"type": "BOOKMARK", "resourceVersion": rv})
                 yield bytes(out)
@@ -339,7 +434,16 @@ class ApiServerApp(App):
         obj = self.api.get(
             req.path_params["kind"], req.path_params["name"], _seg_ns(req.path_params["ns"])
         )
-        return Response(obj.wire_bytes())
+        return Response(self._at_version(obj, req).wire_bytes())
+
+    def _at_version(self, obj: Resource, req: Request) -> Resource:
+        """`obj` at the query's ``version``, or as stored. An unserved
+        version raises Invalid, which the app maps to 422 and the client
+        maps back."""
+        version = req.query.get("version")
+        if not version:
+            return obj
+        return self.api.convert_to(obj, version)
 
     def create(self, req: Request) -> Response:
         obj = Resource.from_dict(req.json())
@@ -531,9 +635,15 @@ class HttpApiClient:
         allow_plaintext_token: bool | None = None,
         timeout: float | None = None,
         watch_retry: float | None = None,
+        watch_poll_timeout: float = 5.0,
+        write_retries: int | None = None,
         retry_base: float | None = None,
+        retry_cap: float | None = None,
         breaker_threshold: int = 5,
         breaker_cooldown: float = 2.0,
+        stream_failure_threshold: int = 3,
+        stream_degraded_seconds: float = 5.0,
+        stream_reprobe_seconds: float = 60.0,
     ):
         urls = [base_url] if isinstance(base_url, str) else list(base_url)
         if not urls:
@@ -545,7 +655,8 @@ class HttpApiClient:
         self._endpoint_lock = threading.Lock()
         self.failovers = 0  # endpoint rotations
         for attr, value in (("TIMEOUT", timeout), ("WATCH_RETRY", watch_retry),
-                            ("RETRY_BASE", retry_base)):
+                            ("WRITE_RETRIES", write_retries), ("RETRY_BASE", retry_base),
+                            ("RETRY_CAP", retry_cap)):
             if value is not None:
                 setattr(self, attr, value)
         # The pinned CA (a path or inline PEM), passed on to the pods a
@@ -591,6 +702,19 @@ class HttpApiClient:
         # the guard and the store refuses it (Conflict) unless the lease
         # still shows this holder and generation.
         self.lease_guard: tuple[str, str, str, int] | None = None
+        # The watch's health: failed streams past the threshold shed it to
+        # long-poll for `stream_degraded_seconds`, then the stream is
+        # probed again; a server that affirmatively rejects the stream
+        # form is re-probed every `stream_reprobe_seconds`.
+        self.watch_poll_timeout = watch_poll_timeout
+        self._stream_breaker = CircuitBreaker(threshold=stream_failure_threshold,
+                                              cooldown=stream_degraded_seconds)
+        self.stream_reprobe_seconds = stream_reprobe_seconds
+        self._stream_unsupported_until = 0.0
+        self._degraded_since: float | None = None
+        self._watch_counts = collections.Counter()
+        self._stats_lock = threading.Lock()
+        self._degraded_s = 0.0
 
     def set_lease_guard(self, guard: tuple[str, str, str, int] | None) -> None:
         """Arm (or, with None, disarm) the lease guard on every write.
@@ -640,6 +764,12 @@ class HttpApiClient:
                 breaker = self._breakers[key] = CircuitBreaker(
                     threshold=self.breaker_threshold, cooldown=self.breaker_cooldown)
             return breaker
+
+    def breaker_state(self) -> dict[str, tuple[int, bool]]:
+        """Each endpoint class's breaker: (trips, open now)."""
+        with self._breakers_lock:
+            snapshot = dict(self._breakers)
+        return {k: (b.trips, b.open) for k, b in snapshot.items()}
 
     # -- transport ----------------------------------------------------------
 
@@ -820,16 +950,23 @@ class HttpApiClient:
 
     # -- CRUD ---------------------------------------------------------------
 
-    def get(self, kind: str, name: str, namespace: str = "default") -> Resource:
-        return Resource.from_dict(self._call("GET", f"/apis/{kind}/{_ns_seg(namespace)}/{name}"))
+    def get(self, kind: str, name: str, namespace: str = "default",
+            version: str | None = None) -> Resource:
+        """The object, at `version` when given (any served version)."""
+        query = f"?{urllib.parse.urlencode({'version': version})}" if version else ""
+        return Resource.from_dict(
+            self._call("GET", f"/apis/{kind}/{_ns_seg(namespace)}/{name}{query}"))
 
     def list(
         self,
         kind: str,
         namespace: str | None = None,
         label_selector: dict[str, str] | None = None,
+        version: str | None = None,
     ) -> list[Resource]:
         params = {}
+        if version:
+            params["version"] = version
         if namespace is not None:
             params["namespace"] = _ns_seg(namespace)
         if label_selector:
@@ -968,20 +1105,114 @@ class HttpApiClient:
                 self._dispatch("MODIFIED", Resource.from_dict(item))
         return rv if rv is not None else 0
 
+    def _stream_allowed(self) -> bool:
+        """Whether this pass tries the streaming form: not while the
+        server has rejected it (until the re-probe) nor while the stream
+        circuit is open (long-poll, degraded)."""
+        if time.monotonic() < self._stream_unsupported_until:
+            return False
+        return self._stream_breaker.allow()
+
+    @property
+    def stream_degraded(self) -> bool:
+        """True while the watch long-polls instead of streaming."""
+        return (time.monotonic() < self._stream_unsupported_until
+                or self._stream_breaker.open)
+
+    def watch_stats(self) -> dict:
+        """The watch's transport counters: streams opened and failed,
+        long-poll rounds (and those while degraded), degraded episodes
+        and seconds (an episode still open counts to now), and streams
+        opened after a degraded episode."""
+        with self._stats_lock:
+            out = {k: self._watch_counts[k] for k in (
+                "stream_opens", "stream_failures", "longpoll_rounds",
+                "longpoll_rounds_degraded", "degraded_episodes", "streams_after_degraded")}
+            since = self._degraded_since
+            out["degraded_seconds"] = self._degraded_s + (
+                time.monotonic() - since if since is not None else 0.0)
+        return out
+
+    def _count(self, what: str) -> None:
+        with self._stats_lock:
+            self._watch_counts[what] += 1
+
+    def _note_degraded(self) -> None:
+        with self._stats_lock:
+            if self._degraded_since is None:
+                self._degraded_since = time.monotonic()
+                self._watch_counts["degraded_episodes"] += 1
+
+    def _note_stream_open(self) -> None:
+        with self._stats_lock:
+            self._watch_counts["stream_opens"] += 1
+            if self._degraded_since is not None:
+                self._degraded_s += time.monotonic() - self._degraded_since
+                self._degraded_since = None
+                self._watch_counts["streams_after_degraded"] += 1
+
     def _watch_loop(self) -> None:
         rv = None
+        # Prefer the stream; fall back to long-polling while the server
+        # rejects it or the stream circuit is open. Neither fallback is
+        # sticky: a rejection is re-probed every stream_reprobe_seconds,
+        # and failed streams shed to long-poll only for the breaker's
+        # cooldown.
         while not self._closed.is_set():
             try:
                 if rv is None:
                     rv = self._resync()
-                rv = self._stream_once(rv)
+                if self._stream_allowed():
+                    try:
+                        rv = self._stream_once(rv)
+                        self._stream_breaker.success()
+                        continue
+                    except _StreamUnsupported as e:
+                        log.info("server rejected the streaming watch (%s); long-polling, "
+                                 "re-probe in %.0f s", e, self.stream_reprobe_seconds)
+                        self._stream_unsupported_until = (
+                            time.monotonic() + self.stream_reprobe_seconds)
+                    except (Gone, PermissionError):
+                        raise
+                    except Exception:
+                        if self._closed.is_set():
+                            return
+                        # Against the stream circuit; then one long-poll
+                        # round, so progress continues while the stream is
+                        # sick.
+                        self._stream_breaker.failure()
+                        self._count("stream_failures")
+                        log.debug("stream watch failed (%d in a row); long-poll round",
+                                  self._stream_breaker.failures, exc_info=True)
+                degraded = self.stream_degraded
+                if degraded:
+                    self._note_degraded()
+                params = urllib.parse.urlencode({"watch": "true", "resourceVersion": rv,
+                                                 "timeoutSeconds": self.watch_poll_timeout})
+                data = self._call("GET", f"/apis/_?{params}")
             except Gone:
                 rv = None  # the journal's horizon passed us: re-list
+                continue
+            except PermissionError as e:
+                if self._closed.is_set():
+                    return
+                # A missing, revoked or under-privileged token does not
+                # heal by retrying hot: say so and back off hard.
+                log.error("watch unauthorized (%s); backing off", e)
+                self._closed.wait(max(self.WATCH_RETRY, 5.0))
+                continue
             except Exception:
                 if self._closed.is_set():
                     return
-                log.debug("watch stream error; retrying", exc_info=True)
+                log.debug("watch error; retrying", exc_info=True)
                 self._closed.wait(self.WATCH_RETRY)
+                continue
+            self._count("longpoll_rounds")
+            if degraded:
+                self._count("longpoll_rounds_degraded")
+            rv = data["resourceVersion"]
+            for ev in data["events"]:
+                self._dispatch(ev["type"], Resource.from_dict(ev["object"]))
 
     def _stream_once(self, rv: int) -> int:
         """Consume one streaming watch response, dispatching events as
@@ -990,9 +1221,17 @@ class HttpApiClient:
         loop reconnects from the last rv) and Gone on a 410."""
         params = urllib.parse.urlencode({"watch": "true", "stream": "true", "resourceVersion": rv})
         conn, resp = self._request_raw("GET", f"/apis/_?{params}")
+        if resp.status == 400:
+            detail = self._finish(conn, resp).decode(errors="replace")
+            if _stream_rejected(detail):
+                raise _StreamUnsupported(detail)
+            # A stray 400 (an intermediary, a fault, a bad bookmark) is no
+            # evidence that the server lacks the stream form.
+            raise ApiError(f"watch stream HTTP 400: {detail}")
         if resp.status >= 400:
             status = resp.status
             self._raise_for_status(status, self._finish(conn, resp).decode(errors="replace"))
+        self._note_stream_open()
         # The server bookmarks every STREAM_SLICE (5 s): a silent peer
         # past this read timeout is a dead one.
         if conn.sock is not None:
@@ -1020,3 +1259,27 @@ class HttpApiClient:
         except BaseException:
             conn.close()
             raise
+
+
+def _stream_rejected(detail: str) -> bool:
+    """Whether a 400 body is an AFFIRMATIVE rejection of the streaming
+    watch: the stream token at a word start (an intermediary's
+    "upstream" never matches) AND rejection language ("stream timeout"
+    and "stream reset" transients never match). Only such a rejection
+    may put the client in long-poll fallback."""
+    message = detail
+    try:
+        parsed = json.loads(detail)
+        if isinstance(parsed, dict):
+            message = parsed.get("log", detail)
+    except ValueError:
+        pass
+    message = str(message)
+    return (re.search(r"\bstream", message, re.IGNORECASE) is not None
+            and re.search(r"unsupported|not supported|unknown|unrecognized|invalid|parameter",
+                          message, re.IGNORECASE) is not None)
+
+
+class _StreamUnsupported(Exception):
+    """The server affirmatively rejected ``stream=true``: long-poll and
+    re-probe every `stream_reprobe_seconds`, never for good."""

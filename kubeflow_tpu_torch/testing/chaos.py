@@ -1,21 +1,672 @@
-"""Fault plans: seeded serving replica kills and the RL soak's faults.
+"""Fault plans: the control-plane chaos proxy, seeded serving replica
+kills and the RL soak's faults.
 
-The port's copy of two parts of `kubeflow_tpu/testing/chaos.py`: the
-serving part (`ReplicaKill`, `ReplicaKillSchedule`) and the RL soak's
-(`ACTOR_KILL`, `LEARNER_KILL`, `TRIAL_KILL`, `RL_FAULT_CLASSES`,
-`RLFault`, `RLFaultSchedule`); the control-plane chaos proxy and the
-training fault plans are not ported. The serving chaos run kills
-REPLICAS: a worker dies mid-request under concurrent clients, and the
-router's ack contract (acked == completed + failed, failed == 0 for
-idempotent traffic) is the gate. Every plan is finite, seeded and
-coverage-accounted, and for the same arguments identical to JAX's.
+The port's copy of three parts of `kubeflow_tpu/testing/chaos.py` (a
+module with no JAX in it); the training fault plans are not ported.
+
+The control-plane part (`FAULT_CLASSES`, `HA_FAULT_CLASSES`, `Fault`,
+`FaultSchedule`, `ChaosProxy`): a TCP proxy between `HttpApiClient` and
+the apiserver facade that injects faults from a finite, seeded plan, so
+a soak under faults reproduces from one integer. The classes are the
+failure modes a controller meets between itself and an apiserver:
+
+- ``error_5xx``          a synthesized 503 burst: the request never
+                         reached the server (a retry is safe);
+- ``reset_mid_response`` the response dies partway: the request WAS
+                         processed, only the answer is lost;
+- ``stale_gone``         a synthesized 410 on a watch: relist;
+- ``slow_stream``        the streaming watch crawls, then recovers;
+- ``truncate_stream``    the streaming watch is severed mid-body with no
+                         terminal chunk;
+- ``delay_write``        a write is held before it is forwarded;
+- ``crash_before_ack``   a write is forwarded and COMMITTED but the
+                         connection dies before the ack (the
+                         duplicate-side-effect trap);
+- ``apiserver_kill``     (opt-in, `HA_FAULT_CLASSES`) the caller's
+                         `kill_active` callback SIGKILLs the active facade.
+
+A `FaultSchedule(seed)` draws the same plan as the JAX package's from
+the same arguments; each entry is consumed by the first eligible
+request, and `coverage()` counts only the faults whose effect landed on
+the wire, so a soak that exercised nothing fails its own gate.
+
+The serving part (`ReplicaKill`, `ReplicaKillSchedule`) kills REPLICAS:
+a worker dies mid-request under concurrent clients, and the router's ack
+contract (acked == completed + failed, failed == 0 for idempotent
+traffic) is the gate. The RL soak's part is `ACTOR_KILL`, `LEARNER_KILL`,
+`TRIAL_KILL`, `RL_FAULT_CLASSES`, `RLFault` and `RLFaultSchedule`. Every
+plan is finite, seeded and coverage-accounted, and for the same
+arguments identical to JAX's.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import logging
 import random
+import socket
+import struct
 import threading
+import time
+
+log = logging.getLogger(__name__)
+
+
+FAULT_CLASSES = (
+    "error_5xx",
+    "reset_mid_response",
+    "stale_gone",
+    "slow_stream",
+    "truncate_stream",
+    "delay_write",
+    "crash_before_ack",
+)
+
+# Whole-control-plane death (arXiv:2011.03641's canonical failure mode):
+# SIGKILL the ACTIVE apiserver facade mid-load and let the standby take
+# over (testing/failover.py). Not in FAULT_CLASSES — it needs a process
+# to kill, so only callers that can supply one (ChaosProxy's
+# `kill_active` callback, or the failover soak consuming the schedule
+# directly) opt in via FaultSchedule(classes=HA_FAULT_CLASSES); the
+# plain wire-proxy soak keeps its historical 7-class plan.
+APISERVER_KILL = "apiserver_kill"
+HA_FAULT_CLASSES = FAULT_CLASSES + (APISERVER_KILL,)
+
+_WRITE_METHODS = ("POST", "PUT", "DELETE", "PATCH")
+
+
+@dataclasses.dataclass(frozen=True)
+class Fault:
+    """One planned injection. `param` is class-specific (burst length,
+    byte budget, delay seconds, body fraction); `gap` is how many
+    eligible requests pass unfaulted afterwards, so the system gets
+    breathing room to make progress between injections."""
+
+    cls: str
+    param: float
+    gap: int
+
+
+def _eligible(cls: str, method: str, path: str, query: str) -> bool:
+    """Which requests a fault class may bind to. Streams and watches are
+    identified by their query params (the facade's watch contract)."""
+    watch = "watch=true" in query or "watch=1" in query
+    stream = "stream=true" in query or "stream=1" in query
+    if cls in ("slow_stream", "truncate_stream"):
+        return stream
+    if cls == "stale_gone":
+        return watch
+    if cls in ("delay_write", "crash_before_ack"):
+        return method in _WRITE_METHODS
+    if cls == "reset_mid_response":
+        # Mid-body resets of a *stream* are truncate_stream's job.
+        return not stream
+    return True  # error_5xx / apiserver_kill: anything
+
+
+class FaultSchedule:
+    """A finite, seeded fault plan plus its runtime consumption state.
+
+    Two schedules built from the same seed have identical `plan`s — the
+    reproducibility contract the soak pins. The first round contains one
+    entry of EVERY class (shuffled) so even a short soak can reach 100%
+    class coverage; subsequent rounds are uniformly shuffled.
+    """
+
+    def __init__(
+        self,
+        seed: int,
+        *,
+        faults_per_class: int = 2,
+        max_gap: int = 3,
+        classes: tuple[str, ...] = FAULT_CLASSES,
+    ):
+        self.seed = seed
+        self.classes = tuple(classes)
+        rng = random.Random(seed)
+
+        def mk(cls: str) -> Fault:
+            if cls == "error_5xx":
+                param = float(rng.randint(1, 3))  # burst length
+            elif cls == "reset_mid_response":
+                param = rng.uniform(0.2, 0.8)  # body fraction forwarded
+            elif cls == "slow_stream":
+                param = rng.uniform(0.02, 0.08)  # per-burst delay (s)
+            elif cls == "truncate_stream":
+                param = float(rng.randint(80, 400))  # bytes before cut
+            elif cls == "delay_write":
+                param = rng.uniform(0.05, 0.25)  # hold time (s)
+            else:  # stale_gone, crash_before_ack, apiserver_kill
+                param = 0.0
+            return Fault(cls, param, rng.randint(1, max_gap))
+
+        first = (
+            [mk(c) for c in self.classes] if faults_per_class >= 1 else []
+        )
+        rng.shuffle(first)
+        rest = [
+            mk(c)
+            for _ in range(max(0, faults_per_class - 1))
+            for c in self.classes
+        ]
+        rng.shuffle(rest)
+        self.plan: tuple[Fault, ...] = tuple(first + rest)
+        self._pending: list[Fault] = list(self.plan)
+        self._cooldown = 0
+        self._inflight = 0
+        self._injected: dict[str, int] = {c: 0 for c in self.classes}
+        self._lock = threading.Lock()
+
+    @classmethod
+    def from_plan(cls, plan) -> "FaultSchedule":
+        """A schedule with an explicit plan (targeted tests that need
+        exactly one known fault, not a seeded mix)."""
+        sched = cls(0, faults_per_class=0)
+        sched.plan = tuple(plan)
+        sched._pending = list(sched.plan)
+        return sched
+
+    def __repr__(self) -> str:  # shows up in assertion messages
+        return (
+            f"FaultSchedule(seed={self.seed}, planned={len(self.plan)}, "
+            f"pending={len(self._pending)}, coverage={self.coverage()})"
+        )
+
+    def next_fault(self, method: str, path: str, query: str) -> Fault | None:
+        """The fault (if any) to attempt on this request: the first
+        pending plan entry the request is eligible for, rate-limited by
+        the previous entry's gap. Thread-safe; consumption order across
+        concurrent requests may vary, the plan itself never does.
+
+        Consumption is NOT coverage: the proxy calls `mark_injected`
+        only once the fault's effect actually lands, and `requeue` when
+        it could not (a stream that ended before the truncation budget,
+        an upstream that died first) — so `coverage()` never reports
+        robustness the run didn't test."""
+        with self._lock:
+            if not self._pending:
+                return None
+            if self._cooldown > 0:
+                self._cooldown -= 1
+                return None
+            for i, fault in enumerate(self._pending):
+                if _eligible(fault.cls, method, path, query):
+                    del self._pending[i]
+                    self._cooldown = fault.gap
+                    self._inflight += 1
+                    return fault
+            return None
+
+    def mark_injected(self, fault: Fault) -> None:
+        """The fault's effect happened on the wire."""
+        with self._lock:
+            # .get: from_plan() may stage classes outside this
+            # schedule's seeded set (targeted tests).
+            self._injected[fault.cls] = self._injected.get(fault.cls, 0) + 1
+            self._inflight -= 1
+
+    def requeue(self, fault: Fault) -> None:
+        """The fault bound to a request it could not actually affect —
+        put it back at the head so a later eligible request retries it."""
+        with self._lock:
+            self._pending.insert(0, fault)
+            self._inflight -= 1
+
+    def coverage(self) -> dict[str, int]:
+        """Injections actually performed, per class. The soak's coverage
+        gate: every class must be > 0 or the run proved nothing about
+        that failure mode."""
+        with self._lock:
+            return dict(self._injected)
+
+    @property
+    def exhausted(self) -> bool:
+        """Every plan entry has taken effect (none pending, none still
+        bound to an in-flight request)."""
+        with self._lock:
+            return not self._pending and self._inflight == 0
+
+    @property
+    def remaining(self) -> int:
+        with self._lock:
+            return len(self._pending)
+
+
+def _abort(sock: socket.socket) -> None:
+    """Hard-close: RST instead of FIN (SO_LINGER 0), so the peer sees a
+    connection *failure*, not a clean end-of-stream."""
+    try:
+        sock.setsockopt(
+            socket.SOL_SOCKET, socket.SO_LINGER, struct.pack("ii", 1, 0)
+        )
+    except OSError:
+        pass
+    try:
+        sock.close()
+    except OSError:
+        pass
+
+
+def _synth_response(status: int, reason: str, payload: dict) -> bytes:
+    """A synthesized HTTP/1.1 response in the facade's error envelope
+    (`web.wsgi.error_response`), so injected statuses are
+    indistinguishable from server-emitted ones at the client."""
+    body = json.dumps(
+        {"success": False, "status": status, **payload}
+    ).encode()
+    head = (
+        f"HTTP/1.1 {status} {reason}\r\n"
+        f"Content-Type: application/json\r\n"
+        f"Content-Length: {len(body)}\r\n\r\n"
+    ).encode()
+    return head + body
+
+
+class ChaosProxy:
+    """Seeded fault-injecting TCP proxy in front of the apiserver facade.
+
+    One listener; each accepted client connection gets a thread and one
+    upstream connection (keep-alive preserved end-to-end when no fault
+    intervenes). Requests are parsed just enough to classify them
+    (method, path, query, Content-Length body) and to frame upstream
+    responses (Content-Length vs chunked) so the proxy can relay
+    streaming watches chunk-by-chunk — the surface the stream faults
+    need.
+    """
+
+    def __init__(
+        self,
+        upstream_host: str,
+        upstream_port: int,
+        schedule: FaultSchedule,
+        host: str = "127.0.0.1",
+        port: int = 0,
+        kill_active=None,
+    ):
+        self.upstream = (upstream_host, upstream_port)
+        self.schedule = schedule
+        # apiserver_kill executor: a caller-supplied callable that
+        # SIGKILLs the active facade (and typically restarts the deposed
+        # one as a fresh standby). Return a falsy value when no kill
+        # happened (the entry requeues), True when the NEW active serves
+        # on the same upstream address, or the new active's
+        # (host, port) — the proxy retargets, so an active-passive pair
+        # on per-replica ports stays reachable through one proxied
+        # address across takeovers. Without a callback, apiserver_kill
+        # entries requeue forever — so only schedules built with
+        # HA_FAULT_CLASSES should meet a proxy without one, and only in
+        # tests asserting that.
+        self.kill_active = kill_active
+        self.host = host
+        self._want_port = port
+        self._listener: socket.socket | None = None
+        self._closed = threading.Event()
+        self._conns: set[socket.socket] = set()
+        self._conns_lock = threading.Lock()
+        # Remaining synthesized 503s of an active error_5xx burst.
+        self._burst = 0
+        self._burst_lock = threading.Lock()
+
+    # -- lifecycle ---------------------------------------------------------
+
+    def start(self) -> "ChaosProxy":
+        listener = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        listener.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        listener.bind((self.host, self._want_port))
+        listener.listen(64)
+        listener.settimeout(1.0)
+        self._listener = listener
+        threading.Thread(
+            target=self._accept_loop, name="chaos-proxy", daemon=True
+        ).start()
+        return self
+
+    @property
+    def port(self) -> int:
+        assert self._listener is not None, "start() first"
+        return self._listener.getsockname()[1]
+
+    @property
+    def base_url(self) -> str:
+        return f"http://{self.host}:{self.port}"
+
+    def stop(self) -> None:
+        self._closed.set()
+        if self._listener is not None:
+            try:
+                self._listener.close()
+            except OSError:
+                pass
+        with self._conns_lock:
+            conns, self._conns = set(self._conns), set()
+        for c in conns:
+            try:
+                c.close()
+            except OSError:
+                pass
+
+    def _accept_loop(self) -> None:
+        while not self._closed.is_set():
+            try:
+                conn, _ = self._listener.accept()
+            except socket.timeout:
+                continue
+            except OSError:
+                return  # listener closed
+            with self._conns_lock:
+                self._conns.add(conn)
+            threading.Thread(
+                target=self._serve_conn, args=(conn,), daemon=True
+            ).start()
+
+    # -- request parsing ---------------------------------------------------
+
+    def _read_request(self, sock: socket.socket):
+        """One full client request (clients send Content-Length-framed
+        JSON bodies only). Returns (method, target, raw_head, body) or
+        None on clean EOF."""
+        buf = b""
+        while b"\r\n\r\n" not in buf:
+            try:
+                data = sock.recv(65536)
+            except OSError:
+                return None
+            if not data:
+                return None
+            buf += data
+        head, _, tail = buf.partition(b"\r\n\r\n")
+        lines = head.decode("latin-1").split("\r\n")
+        method, target = lines[0].split(" ", 2)[:2]
+        length = 0
+        for line in lines[1:]:
+            name, _, value = line.partition(":")
+            if name.strip().lower() == "content-length":
+                try:
+                    length = int(value.strip())
+                except ValueError:
+                    length = 0
+        body = tail
+        while len(body) < length:
+            data = sock.recv(65536)
+            if not data:
+                return None
+            body += data
+        return method, target, head + b"\r\n\r\n", body
+
+    # -- response relay ----------------------------------------------------
+
+    def _read_response_head(self, upstream: socket.socket):
+        """Status line + headers + any body bytes already received.
+        Returns (status, headers_lower, raw_head, extra) or None."""
+        buf = b""
+        while b"\r\n\r\n" not in buf:
+            data = upstream.recv(65536)
+            if not data:
+                return None
+            buf += data
+        head, _, extra = buf.partition(b"\r\n\r\n")
+        lines = head.decode("latin-1").split("\r\n")
+        status = int(lines[0].split(" ", 2)[1])
+        headers: dict[str, str] = {}
+        for line in lines[1:]:
+            name, _, value = line.partition(":")
+            headers[name.strip().lower()] = value.strip()
+        return status, headers, head + b"\r\n\r\n", extra
+
+    def _read_exact(self, upstream: socket.socket, buf: bytes, n: int):
+        while len(buf) < n:
+            data = upstream.recv(65536)
+            if not data:
+                break
+            buf += data
+        return buf
+
+    def _relay_fixed(
+        self, client, upstream, raw_head, extra, length, fault
+    ) -> bool:
+        """Relay a Content-Length response; returns False when the
+        connection pair must be dropped."""
+        try:
+            body = self._read_exact(upstream, extra, length)[:length]
+        except OSError:
+            if fault is not None:
+                self.schedule.requeue(fault)
+            raise
+        if fault is not None and fault.cls == "reset_mid_response":
+            cut = max(1, int(len(body) * fault.param)) if body else 0
+            try:
+                client.sendall(raw_head + body[:cut])
+            except OSError:
+                pass
+            # Either way the client experienced a severed response.
+            self.schedule.mark_injected(fault)
+            _abort(client)
+            return False
+        if fault is not None and fault.cls == "crash_before_ack":
+            # The upstream response is fully read — the write COMMITTED.
+            # The client never hears the ack.
+            self.schedule.mark_injected(fault)
+            _abort(client)
+            return False
+        if fault is not None:
+            # A stream-class fault bound to a request whose response
+            # turned out non-chunked (e.g. the stream request drew a
+            # plain-framed error): it never took effect — retry later.
+            self.schedule.requeue(fault)
+        client.sendall(raw_head + body)
+        return True
+
+    def _relay_chunked(self, client, upstream, raw_head, extra, fault) -> bool:
+        """Relay a chunked (streaming watch) response burst-by-burst,
+        watching for the terminal 0-chunk so keep-alive survives a
+        cleanly-ended stream. Returns False when the pair must drop.
+        A bound stream fault is marked injected only when its effect
+        actually lands (the sever happened / at least one burst was
+        delayed) and requeued when the stream ends first — coverage
+        must never claim an injection the wire never carried."""
+        try:
+            client.sendall(raw_head)
+        except OSError:
+            if fault is not None:
+                self.schedule.requeue(fault)
+            raise
+        relayed = 0
+        slow_bursts = 8 if (fault and fault.cls == "slow_stream") else 0
+        slowed = False
+        tail = b""
+        buf = extra
+
+        def settle(applied: bool) -> None:
+            if fault is None:
+                return
+            if applied:
+                self.schedule.mark_injected(fault)
+            else:
+                self.schedule.requeue(fault)
+
+        while True:
+            if buf:
+                if fault is not None and fault.cls == "truncate_stream":
+                    if relayed + len(buf) >= fault.param:
+                        keep = max(0, int(fault.param) - relayed)
+                        try:
+                            client.sendall(buf[:keep])
+                        except OSError:
+                            pass
+                        # Sever with no terminal chunk: the client's
+                        # chunked reader must treat this as a transport
+                        # failure, never a clean end.
+                        settle(True)
+                        _abort(client)
+                        return False
+                if slow_bursts > 0:
+                    time.sleep(fault.param)
+                    slow_bursts -= 1
+                    slowed = True
+                try:
+                    client.sendall(buf)
+                except OSError:
+                    settle(slowed)
+                    return False
+                relayed += len(buf)
+                tail = (tail + buf)[-8:]
+                buf = b""
+                if tail.endswith(b"0\r\n\r\n"):
+                    # Terminal chunk: response complete. A slow fault
+                    # that delayed at least one burst took effect; a
+                    # truncate fault whose byte budget never arrived
+                    # did not.
+                    settle(slowed if fault is not None
+                           and fault.cls == "slow_stream" else False)
+                    return True
+            try:
+                buf = upstream.recv(65536)
+            except OSError:
+                buf = b""
+            if not buf:
+                settle(slowed)
+                return False  # upstream died mid-stream: drop the pair
+
+    # -- per-connection loop -----------------------------------------------
+
+    def _serve_conn(self, client: socket.socket) -> None:
+        upstream: socket.socket | None = None
+        client.settimeout(300.0)
+        try:
+            while not self._closed.is_set():
+                req = self._read_request(client)
+                if req is None:
+                    return
+                method, target, raw_head, body = req
+                path, _, query = target.partition("?")
+
+                with self._burst_lock:
+                    in_burst = self._burst > 0
+                    if in_burst:
+                        self._burst -= 1
+                if in_burst:
+                    # Burst continuation: not a plan entry, no coverage
+                    # accounting of its own.
+                    fault = Fault("error_5xx", 0.0, 0)
+                else:
+                    fault = self.schedule.next_fault(method, path, query)
+
+                if fault is not None and fault.cls == "error_5xx":
+                    if not in_burst and fault.param > 1:
+                        with self._burst_lock:
+                            self._burst += int(fault.param) - 1
+                    client.sendall(
+                        _synth_response(
+                            503,
+                            "Service Unavailable",
+                            {"log": "chaos: injected apiserver outage"},
+                        )
+                    )
+                    if not in_burst:
+                        self.schedule.mark_injected(fault)
+                    continue
+                if fault is not None and fault.cls == "stale_gone":
+                    client.sendall(
+                        _synth_response(
+                            410,
+                            "Gone",
+                            {
+                                "log": (
+                                    "chaos: resourceVersion expired — "
+                                    "relist"
+                                )
+                            },
+                        )
+                    )
+                    self.schedule.mark_injected(fault)
+                    continue
+                if fault is not None and fault.cls == APISERVER_KILL:
+                    # Whole-facade death: the caller's callback SIGKILLs
+                    # the active. The in-flight request dies with it (an
+                    # aborted connection, exactly what a real kill does
+                    # to this client), and every other client discovers
+                    # the death through its own transport errors.
+                    killed = (
+                        self.kill_active()
+                        if self.kill_active is not None
+                        else None
+                    )
+                    if killed:
+                        if isinstance(killed, tuple):
+                            # The new active serves elsewhere (per-
+                            # replica ports): retarget, so the NEXT
+                            # connection through this proxy reaches it.
+                            self.upstream = killed
+                        self.schedule.mark_injected(fault)
+                        _abort(client)
+                        return
+                    self.schedule.requeue(fault)
+                    fault = None
+                if fault is not None and fault.cls == "delay_write":
+                    # The hold itself is the effect; the write then
+                    # proceeds normally.
+                    time.sleep(fault.param)
+                    self.schedule.mark_injected(fault)
+                    fault = None
+
+                if upstream is None:
+                    try:
+                        upstream = socket.create_connection(
+                            self.upstream, timeout=300.0
+                        )
+                    except OSError:
+                        if fault is not None:
+                            self.schedule.requeue(fault)
+                        _abort(client)
+                        return
+                    with self._conns_lock:
+                        self._conns.add(upstream)
+                try:
+                    upstream.sendall(raw_head + body)
+                    resp = self._read_response_head(upstream)
+                except OSError:
+                    resp = None
+                if resp is None:
+                    # Upstream gone mid-request: the bound fault never
+                    # took effect — retry it later. Surface a transport
+                    # failure to the client and retire both ends.
+                    if fault is not None:
+                        self.schedule.requeue(fault)
+                    _abort(client)
+                    return
+                status, headers, resp_head, extra = resp
+                try:
+                    if headers.get("transfer-encoding", "").lower() == \
+                            "chunked":
+                        ok = self._relay_chunked(
+                            client, upstream, resp_head, extra, fault
+                        )
+                    else:
+                        length = int(headers.get("content-length", 0) or 0)
+                        ok = self._relay_fixed(
+                            client, upstream, resp_head, extra, length,
+                            fault,
+                        )
+                except OSError:
+                    ok = False
+                if not ok:
+                    return
+                if headers.get("connection", "").lower() == "close":
+                    return
+        except Exception:
+            log.debug("chaos proxy connection error", exc_info=True)
+        finally:
+            for sock in (client, upstream):
+                if sock is None:
+                    continue
+                with self._conns_lock:
+                    self._conns.discard(sock)
+                try:
+                    sock.close()
+                except OSError:
+                    pass
+
 
 REPLICA_KILL = "replica_kill"
 SERVING_FAULT_CLASSES = (REPLICA_KILL,)

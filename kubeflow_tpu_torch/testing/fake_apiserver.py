@@ -59,7 +59,12 @@ once, freezes it and shares that snapshot with the object map, the
 journal, every watch handler and get/list results. `.thaw()` gives a
 private mutable copy.
 
-Not copied: multi-version conversion (ROADMAP lists it).
+Multi-version kinds (`api/versioning.py`, the Notebook's v1alpha1,
+v1beta1 and hub v1): every write at any served apiVersion is converted
+to the kind's hub version before admission and storage, so the journal,
+the watches and the WAL (`testing/persist.py`, JAX's format) hold the
+hub form only; `convert_to` renders a stored object at another served
+version. An unserved version is Invalid.
 """
 
 from __future__ import annotations
@@ -73,6 +78,7 @@ import time
 from operator import itemgetter
 from typing import Callable
 
+from kubeflow_tpu_torch.api import versioning
 from kubeflow_tpu_torch.api.objects import ObjectMeta, Resource, fresh_uid, now
 
 WatchHandler = Callable[[str, Resource], None]  # (event_type, obj)
@@ -744,8 +750,25 @@ class FakeApiServer:
         self._emit(event, stored)
         return stored
 
+    def _normalize_version(self, obj: Resource) -> Resource:
+        """A write at any served version in storage form; an unserved
+        version of a registered kind is a client error."""
+        try:
+            return versioning.registry.normalize(obj)
+        except versioning.ConversionError as e:
+            raise Invalid(str(e)) from e
+
+    def convert_to(self, obj: Resource, version: str) -> Resource:
+        """A stored (hub-version) object rendered at another served
+        version."""
+        try:
+            return versioning.registry.convert(obj, version)
+        except versioning.ConversionError as e:
+            raise Invalid(str(e)) from e
+
     def create(self, obj: Resource, *, lease_guard=None) -> Resource:
         self._check_available()
+        obj = self._normalize_version(obj)
         # Webhook callouts outside the lock (an HTTP round trip must not
         # stall writers), before the in-process hooks (mutating, then
         # validating: quota meters the mutated object).
@@ -830,7 +853,7 @@ class FakeApiServer:
         # A fail-stopped store must not keep calling webhooks for writes
         # that cannot commit.
         self._check_available()
-        obj = self._webhook_admit(obj, "UPDATE")
+        obj = self._webhook_admit(self._normalize_version(obj), "UPDATE")
         with self._lock:  # in-process admission atomic with the write
             self._check_available()
             return self._update(self._admit(obj), status_only=False, lease_guard=lease_guard)
@@ -915,7 +938,9 @@ class FakeApiServer:
             self.get(obj.kind, obj.metadata.name, obj.metadata.namespace)
         except NotFound:
             return self.create(obj, lease_guard=lease_guard)
-        obj = self._webhook_admit(obj, "UPDATE")
+        # Compared post-conversion: a spoke-version apply of the stored
+        # object is a no-op.
+        obj = self._webhook_admit(self._normalize_version(obj), "UPDATE")
         with self._lock:
             self._check_available()
             current = self._objects.get(obj.key)

@@ -40,6 +40,21 @@ comma-joined list and `endpoints` the facades' URLs in their order.
 the signal went out; `active_facade()` names it. While no facade serves,
 `run_until` treats a refused or failed call as a tick that saw nothing.
 
+With `chaos_state_dir` the store is one facade process
+(`testing/workers/apiserver.py`, "facade", durable in that directory,
+over plain http, which the proxy must read: an explicit opt-in) behind a
+`ChaosProxy` that injects `chaos_schedule`'s faults, in this process.
+`url` is the proxy's: the managers, the pod runner (`api`, an
+`HttpApiClient` with `CHAOS_CLIENT`'s settings, the chaos soak's) and,
+through the pod env, every worker reach the store only through it.
+`observer` is a client on the facade itself, which no fault touches,
+for the caller's reads and checks. The facade's stream lives
+`CHAOS_STREAM_TIMING[0]` s and bookmarks every `[1]` s, so a short run
+meets enough stream requests to consume every stream fault of its
+plan. `run_pods=False` with `start_pods()` later starts the runner and
+the materializer when the caller chooses. Under faults `run_until`
+treats any failed call as a tick that saw nothing.
+
 Every wait has a deadline and fails loudly with `diagnostics()`: each
 manager's and facade's output stamped with seconds since the plane
 started, the leadership timeline (which replica led, stood by, evicted
@@ -67,7 +82,7 @@ from kubeflow_tpu_torch.controllers.tpujob import register_admission
 from kubeflow_tpu_torch.runtime.local import LocalPodRunner
 from kubeflow_tpu_torch.runtime.workloads import WorkloadMaterializer
 from kubeflow_tpu_torch.testing.apiserver_http import ApiServerApp, HttpApiClient
-from kubeflow_tpu_torch.testing.fake_apiserver import FakeApiServer, Unavailable
+from kubeflow_tpu_torch.testing.fake_apiserver import ApiError, FakeApiServer, Unavailable
 from kubeflow_tpu_torch.web.wsgi import serve
 
 ROOT = Path(__file__).resolve().parents[2]
@@ -77,6 +92,12 @@ LEADERSHIP_MARKERS = ("standby ", "leading ", "evicted ", "deposed ")
 FACADE_MARKERS = LEADERSHIP_MARKERS + ("takeover ", "apiserver ready ")
 # What a call meets while no facade of a pair serves.
 OUTAGE_ERRORS = (Unavailable, http.client.HTTPException, OSError)
+# The chaos mode's pod-runner client (the chaos soak's settings) and the
+# facade's stream lifetime and bookmark cadence, seconds.
+CHAOS_CLIENT = dict(timeout=5.0, watch_poll_timeout=1.0, watch_retry=0.05, retry_base=0.02,
+                    breaker_threshold=4, breaker_cooldown=0.3, stream_failure_threshold=2,
+                    stream_degraded_seconds=0.5)
+CHAOS_STREAM_TIMING = (2.0, 0.2)
 
 
 def _free_port() -> int:
@@ -166,6 +187,8 @@ class JobPlane:
         run_pods: bool = True,
         ha_state_dir: str | None = None,
         persist_dir: str | None = None,
+        chaos_state_dir: str | None = None,
+        chaos_schedule=None,
     ):
         self.started = time.time()
         self.managers: list[Manager] = []
@@ -176,12 +199,17 @@ class JobPlane:
         self.capture_dir = capture_dir
         self.ha_state_dir = ha_state_dir
         self.server = None
+        self.proxy = None
+        self.observer: HttpApiClient | None = None
         self.ca: str | None = None
         self.tls_tool: str | None = None
         self._outage_errors: tuple = ()
-        pod_env = dict(extra_env or {})
+        self._pod_env = pod_env = dict(extra_env or {})
         try:
-            if ha_state_dir is None:
+            if chaos_state_dir is not None:
+                self._start_chaos(chaos_state_dir, chaos_schedule, ready_timeout)
+                pod_env.setdefault("KFTPU_APISERVER", self.url)
+            elif ha_state_dir is None:
                 self.api = FakeApiServer(persist_dir=persist_dir)
                 register_admission(self.api)
                 quota.register(self.api)
@@ -196,12 +224,39 @@ class JobPlane:
                 # Process start to "manager ready".
                 self.manager_ready_s = time.monotonic() - t0
             if run_pods:
-                self.runner = LocalPodRunner(self.api, cwd=str(ROOT), extra_env=pod_env,
-                                             capture_dir=capture_dir)
-                self.materializer = WorkloadMaterializer(self.api)
+                self.start_pods()
         except BaseException:
             self.close()
             raise
+
+    def start_pods(self) -> None:
+        """Start the pod runner and the workload materializer on `api`."""
+        self.runner = LocalPodRunner(self.api, cwd=str(ROOT), extra_env=self._pod_env,
+                                     capture_dir=self.capture_dir)
+        self.materializer = WorkloadMaterializer(self.api)
+
+    # -- the facade behind a fault-injecting proxy ----------------------------
+
+    def _start_chaos(self, state_dir: str, schedule, timeout: float) -> None:
+        from kubeflow_tpu_torch.testing.chaos import ChaosProxy
+
+        port = _free_port()
+        duration, slice_s = CHAOS_STREAM_TIMING
+        env = {"KFTPU_STATE_DIR": state_dir, "KFTPU_PORT": str(port), "KFTPU_PLAINTEXT": "1",
+               "KFTPU_STREAM_DURATION": str(duration), "KFTPU_STREAM_SLICE": str(slice_s)}
+        argv = [sys.executable, "-m", "kubeflow_tpu_torch.testing.workers.apiserver"]
+        facade = Manager("facade", argv, self._env(env))
+        self.facades.append(facade)
+        try:
+            facade.wait_for("apiserver ready", timeout)
+        except (RuntimeError, TimeoutError) as e:
+            raise RuntimeError(f"{e}\n{self.diagnostics()}") from None
+        self.facade_url = f"http://127.0.0.1:{port}"
+        self.observer = HttpApiClient(self.facade_url)
+        self.proxy = ChaosProxy("127.0.0.1", port, schedule).start()
+        self.url = self.proxy.base_url
+        self.api = HttpApiClient(self.url, **CHAOS_CLIENT)
+        self._outage_errors = OUTAGE_ERRORS + (ApiError,)
 
     # -- the facade pair ----------------------------------------------------
 
@@ -285,6 +340,7 @@ class JobPlane:
         self,
         controllers: tuple[str, ...] = ("tpujob",),
         *,
+        extra_args: tuple[str, ...] = (),
         leader_elect: bool = False,
         identity: str | None = None,
         lease_name: str = "controller-manager",
@@ -294,11 +350,11 @@ class JobPlane:
         wait_for: str | None = None,
         timeout: float = 120.0,
     ) -> Manager:
-        """Start the controller-manager binary and wait for `wait_for`
-        (default: ``manager ready``, or ``standby <identity>`` with
-        `leader_elect`)."""
+        """Start the controller-manager binary (`extra_args` appended to its
+        argv) and wait for `wait_for` (default: ``manager ready``, or
+        ``standby <identity>`` with `leader_elect`)."""
         argv = [sys.executable, "-m", "kubeflow_tpu_torch.controllers", "--apiserver",
-                self.url, "--controllers", ",".join(controllers)]
+                self.url, "--controllers", ",".join(controllers), *extra_args]
         if self.ca:
             argv += ["--ca", self.ca]
         name = identity or f"manager-{len(self.managers)}"
@@ -449,6 +505,8 @@ class JobPlane:
             self.runner.shutdown()
         for m in self.managers:
             m.stop()
+        if self.proxy is not None:
+            self.proxy.stop()
         if self.server is not None:
             self.server.shutdown()
             self.server.server_close()
@@ -458,9 +516,9 @@ class JobPlane:
         active = self.active_facade()
         for facade in sorted(self.facades, key=lambda f: f is active):
             facade.stop()
-        api = getattr(self, "api", None)
-        if api is not None:
-            api.close()
+        for client in (getattr(self, "api", None), self.observer):
+            if client is not None:
+                client.close()
 
     def __enter__(self) -> "JobPlane":
         return self

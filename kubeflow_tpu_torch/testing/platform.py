@@ -182,13 +182,13 @@ class Platform:
     # -- its entry points ---------------------------------------------------
 
     def request(self, app: str, method: str, path: str, body=None,
-                timeout: float = 30.0) -> tuple[int, object]:
-        """One HTTP request to a web app as the platform's user: the
-        status and the parsed JSON body."""
+                timeout: float = 30.0, user: str | None = None) -> tuple[int, object]:
+        """One HTTP request to a web app as the platform's user (or
+        `user`): the status and the parsed JSON body."""
         data = json.dumps(body).encode() if body is not None else None
         req = urllib.request.Request(self.url(app) + path, data=data, method=method,
                                      headers={"Content-Type": "application/json",
-                                              USER_HEADER: self.user})
+                                              USER_HEADER: user or self.user})
         try:
             with _OPENER.open(req, timeout=timeout) as resp:
                 return resp.status, json.loads(resp.read() or b"null")
@@ -224,6 +224,8 @@ class Platform:
 TPUJOB_COMMAND = ("-m", "kubeflow_tpu_torch.launcher", "--module",
                   "kubeflow_tpu_torch.testing.workers.lm_job:main")
 FACADE_ENV = ("KFTPU_APISERVER", "KFTPU_CA", "KFTPU_TOKEN")
+# A user bound by RBAC alone, whom no mesh rule admits.
+OUTSIDER = "mallory@example.com"
 
 
 def _wait(predicate, timeout: float, what: str, poll: float = 0.1) -> float:
@@ -262,6 +264,9 @@ def run_flow(state_dir: str, *, user: str, job_env: dict, env: dict | None = Non
        first, as a static ``--token-auth-file`` entry);
     2. the dashboard's workgroup create to the Profile's Ready, the
        owner's binding, kfam's edit binding for that service account;
+       then the mesh gate: an outsider given an edit RoleBinding in the
+       namespace directly (no kfam, so no AuthorizationPolicy rule)
+       lists its notebooks through the Jupyter app, beside the owner;
     3. `kftpu apply` of a PodDefault selecting every pod of the
        namespace (a TpuJob's pods carry no label of their CR) with the
        facade's env: its URL, the CA and the service-account token;
@@ -279,7 +284,8 @@ def run_flow(state_dir: str, *, user: str, job_env: dict, env: dict | None = Non
 
     Returns what it saw and timed (seconds on the host's clock); the
     caller holds it to its checks."""
-    from kubeflow_tpu_torch.api import make_tpujob
+    from kubeflow_tpu_torch.api import make_tpujob, new_resource
+    from kubeflow_tpu_torch.api.rbac import EDIT_ROLE
     from kubeflow_tpu_torch.api.tokens import TokenRegistry, service_account
     from kubeflow_tpu_torch.testing.fake_apiserver import Forbidden, NotFound
     import yaml
@@ -319,6 +325,14 @@ def run_flow(state_dir: str, *, user: str, job_env: dict, env: dict | None = Non
             "user": {"kind": "ServiceAccount", "name": sa}, "referredNamespace": namespace,
             "roleRef": {"kind": "ClusterRole", "name": "edit"}})
         rec["kfam_bindings"] = p.request("kfam", "GET", f"/kfam/v1/bindings?namespace={namespace}")
+        # RBAC without a mesh rule: the namespace's policies admit the
+        # owner and kfam's contributors only, so the second gate refuses.
+        api.create(new_resource("RoleBinding", "outsider-edit", namespace, spec={
+            "roleRef": {"kind": "ClusterRole", "name": EDIT_ROLE},
+            "subjects": [{"kind": "User", "name": OUTSIDER}]}))
+        notebooks = f"/api/namespaces/{namespace}/notebooks"
+        rec["mesh_outsider"] = p.request("jupyter", "GET", notebooks, user=OUTSIDER)
+        rec["mesh_owner"] = p.request("jupyter", "GET", notebooks)
 
         # 3. A PodDefault with the facade's env.
         facade_env = {"KFTPU_APISERVER": p.url("apiserver"), "KFTPU_CA": p.ca,

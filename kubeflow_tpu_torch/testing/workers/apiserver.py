@@ -2,7 +2,8 @@
 
 Counterpart of the JAX package's ``tests/e2e/apiserver_worker.py``, with
 the same env contract minus tokens (this process serves the facade
-open; `apps/__main__.py` serves it with tokens and RBAC):
+open; `apps/__main__.py` serves it with tokens and RBAC), over https
+unless told otherwise:
 
     python -m kubeflow_tpu_torch.testing.workers.apiserver
 
@@ -14,6 +15,11 @@ open; `apps/__main__.py` serves it with tokens and RBAC):
     KFTPU_TLS_DIR         the TLS directory it serves https with (default
                           <state>/tls, minted by `web.tls.ensure_tls_dir` if
                           empty; clients pin its ca.crt)
+    KFTPU_PLAINTEXT       1: serve plain http instead (an explicit opt-in, for
+                          a fault-injecting proxy that must read the HTTP)
+    KFTPU_STREAM_DURATION, KFTPU_STREAM_SLICE
+                          the streaming watch's lifetime and bookmark cadence
+                          in seconds (`ApiServerApp`'s defaults otherwise)
     KFTPU_HA_IDENTITY     this replica's identity; set, it runs in HA mode
     KFTPU_LEASE_DURATION  the apiserver lease's TTL in seconds (default 3)
     KFTPU_RENEW_DEADLINE  default 2
@@ -73,10 +79,15 @@ def _admit(api) -> None:
 
 
 def _serve(api):
-    paths = tls.ensure_tls_dir(os.environ.get("KFTPU_TLS_DIR") or os.path.join(
-        os.environ["KFTPU_STATE_DIR"], "tls"))
-    server, _ = serve(ApiServerApp(api), host="127.0.0.1", port=int(os.environ["KFTPU_PORT"]),
-                      tls=paths)
+    paths = None
+    if os.environ.get("KFTPU_PLAINTEXT") != "1":
+        paths = tls.ensure_tls_dir(os.environ.get("KFTPU_TLS_DIR") or os.path.join(
+            os.environ["KFTPU_STATE_DIR"], "tls"))
+    app = ApiServerApp(api)
+    for attr in ("STREAM_DURATION", "STREAM_SLICE"):
+        if os.environ.get(f"KFTPU_{attr}"):
+            setattr(app, attr, float(os.environ[f"KFTPU_{attr}"]))
+    server, _ = serve(app, host="127.0.0.1", port=int(os.environ["KFTPU_PORT"]), tls=paths)
     print(f"apiserver ready {server.server_port}", flush=True)
     return server
 

@@ -239,6 +239,14 @@ class App:
             _Route(pattern, tuple(m.upper() for m in methods), handler)
         )
 
+    def route(self, pattern: str, methods: tuple[str, ...] = ("GET",)):
+        """`add_route` as a decorator."""
+        def deco(handler):
+            self.add_route(pattern, handler, methods)
+            return handler
+
+        return deco
+
     def handle(self, req: Request) -> Response:
         # Every request is a span; an inbound x-kftpu-trace-id continues
         # the caller's trace.
@@ -355,10 +363,17 @@ class _Http11Handler(http.server.BaseHTTPRequestHandler):
 
     def _send(self, resp: Response) -> None:
         self.send_response(resp.status)
+        framed = False
         for key, value in resp.headers:
+            if key.lower() in ("content-length", "transfer-encoding"):
+                framed = True
             self.send_header(key, value)
-        # Content-Length is what keeps the connection reusable.
-        self.send_header("Content-Length", str(len(resp.body)))
+        # Content-Length is what keeps the connection reusable. A handler
+        # that set its own framing header keeps it: a second
+        # Content-Length (or one beside Transfer-Encoding) gives a
+        # keep-alive peer two framings to disagree on.
+        if not framed:
+            self.send_header("Content-Length", str(len(resp.body)))
         self.end_headers()
         self.wfile.write(resp.body)
 

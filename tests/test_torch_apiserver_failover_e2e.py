@@ -15,8 +15,9 @@ tests/e2e/test_apiserver_restart_e2e.py.
 - One durable facade SIGKILLed and restarted on its port: objects, uids
   and resourceVersions survive, a bookmark from before the restart gets
   410, and the informer relists and then sees live events.
-- The nightly soak (``slow``): seeded kill cycles from JAX's
-  `FaultSchedule` under a continuous writer, the corpse restarted as a
+- The nightly soak (``slow``): seeded kill cycles from the port's
+  `FaultSchedule` (the plan JAX's draws, `test_torch_chaos.py`) under a
+  continuous writer, the corpse restarted as a
   fresh standby each time.
 
 Every wait has its own deadline; every process is reaped on every path.
@@ -305,12 +306,12 @@ def test_sigkill_restart_preserves_state_and_watch_recovers(tmp_path):
 
 @pytest.mark.slow
 def test_failover_soak_nightly(tmp_path):
-    """Seeded kill cycles (JAX's `FaultSchedule`, apiserver_kill only)
+    """Seeded kill cycles (the port's `FaultSchedule`, apiserver_kill only)
     under a continuous writer: each kill's survivor takes over and the
     corpse restarts as a fresh standby on its port. Gates: every planned
     kill fired and no acked write was lost (KFTPU_FAILOVER_SEED replays
     a run)."""
-    from kubeflow_tpu.testing.chaos import APISERVER_KILL, FaultSchedule
+    from kubeflow_tpu_torch.testing.chaos import APISERVER_KILL, FaultSchedule
 
     seed = int(os.environ.get("KFTPU_FAILOVER_SEED") or DEFAULT_SEED)
     print(f"# failover soak seed={seed}")

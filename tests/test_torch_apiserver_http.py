@@ -135,7 +135,8 @@ def test_statuses_on_the_wire(facade):
     assert call("POST", "/apis/Other", thing) == 400
     assert call("DELETE", "/apis/Thing/default/a") == 200
     assert call("DELETE", "/apis/Thing/default/a") == 404
-    assert call("GET", "/apis/Thing?watch=true") == 400  # only the stream is served
+    assert call("GET", "/apis/Thing?watch=true&timeoutSeconds=0.05") == 200  # the long-poll
+    assert call("GET", "/apis/Thing?watch=true&resourceVersion=x") == 400
 
 
 def test_web_core_maps_store_errors_and_methods():

@@ -6,10 +6,8 @@ tokens, RBAC per operation, the status subresource, the per-event watch
 filter, the pod-log route and the trace drain).
 
 - JAX's own tests/test_apiserver_auth.py runs against the port, every
-  case, its imports pointed at the port. Its two watch cases read the
-  long-poll watch, which the port does not serve (ROADMAP); on the port
-  they read the streaming watch with the same query, and hold the same
-  statuses and the same delivered kinds.
+  case, its imports pointed at the port (its two watch cases read the
+  long-poll watch).
 - Seeded RBAC worlds (cluster roles, namespaced roles, cluster and
   namespaced bindings, users and service accounts) through both
   evaluators: the same SubjectAccessReview answers, cluster-admin
@@ -19,9 +17,9 @@ filter, the pod-log route and the trace drain).
 - One script of requests by several identities through both secure
   facades holding the same tokens: the same statuses, the same error
   messages and the same stored objects.
-- The handlers' gate departs in one place: JAX's also asks the mesh
-  policy (`kubeflow_tpu/web/mesh.py`, not ported); the port's is RBAC
-  alone.
+- The handlers' gate asks RBAC and then the mesh policy in both
+  packages (`web/mesh.py`; test_torch_mesh_policy.py holds the two
+  evaluators to each other).
 """
 
 import json
@@ -51,17 +49,6 @@ from kubeflow_tpu_torch.web.authn import HeaderAuthn
 from kubeflow_tpu_torch.web.wsgi import HttpError, Request
 
 REPO = Path(__file__).resolve().parents[1]
-STREAM_PATCHES = [
-    ('"/apis/Notebook?watch=true&resourceVersion=0&timeoutSeconds=0.05"',
-     '"/apis/Notebook?watch=true&stream=true&resourceVersion=0&timeoutSeconds=0.05"'),
-    ('"/apis/Pod?watch=true&resourceVersion=0&timeoutSeconds=0.05"',
-     '"/apis/Pod?watch=true&stream=true&resourceVersion=0&timeoutSeconds=0.05"'),
-    ('"/apis/_?watch=true&resourceVersion=0&timeoutSeconds=0.05"',
-     '"/apis/_?watch=true&stream=true&resourceVersion=0&timeoutSeconds=0.05"'),
-    ('kinds = {ev["object"]["kind"] for ev in resp.json()["events"]}',
-     'kinds = {ev["object"]["kind"] for ev in map(__import__("json").loads,'
-     ' b"".join(resp.chunks).splitlines()) if "object" in ev}'),
-]
 
 
 def _jax_tests_on_the_port(stem: str, patches=()) -> dict:
@@ -81,7 +68,7 @@ def _jax_tests_on_the_port(stem: str, patches=()) -> dict:
             if k.startswith("test_") or hasattr(v, "_fixture_function_marker")}
 
 
-JAX_TESTS = _jax_tests_on_the_port("test_apiserver_auth", STREAM_PATCHES)
+JAX_TESTS = _jax_tests_on_the_port("test_apiserver_auth")
 globals().update(JAX_TESTS)  # collected here, under JAX's names
 
 
@@ -209,9 +196,9 @@ def test_authz_gate_matches_jax_where_no_mesh_policy_applies():
 
 
 def test_authz_is_rbac_alone_without_the_mesh_gate():
-    """The departure: a namespace whose AuthorizationPolicy admits no one
-    is closed to an RBAC-bound user in JAX (its mesh gate) and open on
-    the port, which evaluates no mesh policy."""
+    """A namespace whose AuthorizationPolicy admits no one is closed to an
+    RBAC-bound user in both packages: RBAC alone does not open it, the
+    mesh gate refuses what RBAC allows."""
     outcomes = []
     for store_cls, new, module, gate, error_cls in (
             (FakeApiServer, new_resource, rbac, authz.ensure_authorized, HttpError),
@@ -228,7 +215,7 @@ def test_authz_is_rbac_alone_without_the_mesh_gate():
             outcomes.append("allowed")
         except error_cls as e:
             outcomes.append(e.status)
-    assert outcomes == ["allowed", 403]
+    assert outcomes == [403, 403]
 
 
 # -- the secure facade ---------------------------------------------------------------

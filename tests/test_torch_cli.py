@@ -5,14 +5,12 @@ kubeflow_tpu_torch.cli``) against the JAX package's.
   the ``-m`` module of its subprocesses) pointed at the port and
   `google.com/tpu` read as `nvidia.com/gpu`; its logs case prints the
   port's process id variable (``TPUJOB_PROCESS_ID``: the port's pods
-  carry no TPU_WORKER_ID). Two cases stay JAX's, since they need
-  conversion between served versions, which the port does not have
-  (ROADMAP): `test_get_at_api_version` (a read at v1alpha1) and
-  `test_apply_invalid_create_surfaces_real_error` (a create at an
-  unserved version, refused by JAX's store). In their place: a read at
-  another version is refused with a message naming the stored one, and
-  an invalid create surfaces the store's own refusal, not the fallback
-  read's NotFound.
+  carry no TPU_WORKER_ID). Every case runs, `test_get_at_api_version`
+  (a read at v1alpha1) and `test_apply_invalid_create_surfaces_real_error`
+  (a create at an unserved version) included, on the port's conversion.
+  Besides: a read at a served version renders there, one at an unserved
+  version is refused, and an invalid create surfaces the store's own
+  refusal, not the fallback read's NotFound.
 - One script of commands (get as a table, as YAML and JSON, describe,
   apply of a multi-document file creating and configuring, delete,
   top, logs, get of a missing object) against both packages' facades:
@@ -39,7 +37,7 @@ from kubeflow_tpu_torch.testing.fake_apiserver import FakeApiServer
 from kubeflow_tpu_torch.web.wsgi import serve
 
 REPO = Path(__file__).resolve().parents[1]
-EXCLUDED = {"test_get_at_api_version", "test_apply_invalid_create_surfaces_real_error"}
+EXCLUDED: set[str] = set()
 
 
 def _jax_tests_on_the_port(stem: str, patches=()) -> dict:
@@ -95,16 +93,18 @@ def port_server():
 
 
 def test_a_read_at_another_version_is_refused(port_server):
+    """A read at another served version renders there; one at an unserved
+    version is refused, naming the served ones."""
     api, url = port_server
     api.create(new_resource("Notebook", "nb2", "team", spec={"image": "x"}))
     rc, out, err = run(cli, url, "get", "notebook", "nb2", "-n", "team",
                        "--api-version", "v1alpha1")
-    assert rc == 1 and not out
-    assert "stored at kubeflow-tpu.org/v1" in err and "conversion" in err
+    assert rc == 0 and "apiVersion: kubeflow-tpu.org/v1alpha1" in out
+    assert "containerImage: x" in out
     rc, out, _ = run(cli, url, "get", "notebook", "nb2", "-n", "team", "--api-version", "v1")
     assert rc == 0 and "image: x" in out
     rc, out, err = run(cli, url, "get", "notebooks", "--api-version", "v2")
-    assert rc == 1 and "conversion" in err
+    assert rc == 1 and "not served" in err and "v1alpha1" in err
 
 
 def test_an_invalid_create_surfaces_the_stores_refusal(port_server):

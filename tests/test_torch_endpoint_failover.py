@@ -2,9 +2,8 @@
 the JAX package's failover rules.
 
 First JAX's own tests (tests/test_endpoint_failover.py, all 8) run on
-the port: the module's source with its imports pointed at the port
-(`_client` takes the port's keyword arguments: the long-poll watch is
-not ported, so its timeout is dropped), one rule a test: the env
+the port: the module's source with its imports pointed at the port,
+one rule a test: the env
 contract, a single endpoint behaving as before (no rotation, a refused
 dial and an open circuit surfacing as errors), a refused dial rotating
 reads and writes, sticky rotation, an open circuit shedding to the next
@@ -52,16 +51,6 @@ PORT = _jax_tests_on_the_port(REPO / "tests" / "test_endpoint_failover.py")
 PORT_TESTS = {k: v for k, v in PORT.items() if k.startswith("test_") and callable(v)}
 
 
-def _port_client(endpoints, **kw) -> HttpApiClient:
-    """JAX's `_client` defaults, minus the long-poll watch's timeout."""
-    kw.pop("watch_poll_timeout", None)
-    kw.setdefault("timeout", 5.0)
-    kw.setdefault("watch_retry", 0.05)
-    kw.setdefault("retry_base", 0.02)
-    return HttpApiClient(endpoints, **kw)
-
-
-PORT["_client"] = _port_client
 
 
 def test_all_of_jax_endpoint_failover_tests_are_ported():

@@ -162,9 +162,27 @@ def test_binary_builds_its_client_from_the_flags(monkeypatch, capsys):
                         lambda self, c: None)
     assert binary.main(["--apiserver", "http://127.0.0.1:1, http://127.0.0.1:2",
                         "--ca", "ca.pem", "--controllers", "noop"]) == 0
-    assert built == [(["http://127.0.0.1:1", "http://127.0.0.1:2"], {"ca": "ca.pem"})]
+    # JAX's binary's client: its watch poll and retry, and the client
+    # flags' defaults.
+    defaults = {"ca": "ca.pem", "watch_poll_timeout": 2.0, "watch_retry": 0.1,
+                "write_retries": 3, "breaker_cooldown": 2.0, "stream_reprobe_seconds": 60.0,
+                "stream_failure_threshold": 3, "stream_degraded_seconds": 5.0}
+    assert built == [(["http://127.0.0.1:1", "http://127.0.0.1:2"], defaults)]
     out = capsys.readouterr().out.splitlines()
-    assert out == ["manager ready noop", 'client {"failovers": 0, "handshakes": 0}']
+    assert out[0] == "manager ready noop" and out[1].startswith("client ")
+    watch = {"stream_opens": 0, "stream_failures": 0, "longpoll_rounds": 0,
+             "longpoll_rounds_degraded": 0, "degraded_episodes": 0,
+             "streams_after_degraded": 0, "degraded_seconds": 0.0}
+    assert json.loads(out[1][len("client "):]) == {"failovers": 0, "handshakes": 0,
+                                                   "retries": 0, "watch": watch}
+    assert binary.main(["--apiserver", "http://127.0.0.1:1", "--controllers", "noop",
+                        "--write-retries", "5", "--breaker-cooldown", "0.3",
+                        "--stream-reprobe", "7", "--stream-failure-threshold", "1",
+                        "--stream-degraded", "1.5"]) == 0
+    assert built[1] == (["http://127.0.0.1:1"], {
+        **defaults, "ca": None, "write_retries": 5, "breaker_cooldown": 0.3,
+        "stream_reprobe_seconds": 7.0, "stream_failure_threshold": 1,
+        "stream_degraded_seconds": 1.5})
 
 
 def _steps(log: str) -> list[dict]:

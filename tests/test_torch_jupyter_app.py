@@ -11,10 +11,10 @@ against the JAX package's.
     port accepts the field and drops it (one card has no topology), so
     on the port that line asserts the Notebook has no nodeSelector;
   - tests/test_frontends.py, every case, reading the port's copies of
-    the pages; its route-drift checks list routes from the apps' own
-    route tables (JAX reads them through `web/openapi.py`, not ported);
+    the pages; its route-drift checks read the apps' route tables
+    through the port's `web/openapi.py`;
   - of tests/test_small_components.py the two static config server
-    cases (its prober and echo apps are not ported).
+    cases (its prober and echo cases run in test_torch_small_apps.py).
 - One script of form posts, stop and start patches, deletes, snapshot
   and restore, PodDefault and storage-class reads, Tensorboard creates
   and deletes, with refusals, by an editor and a stranger, goes through
@@ -52,13 +52,6 @@ TOPOLOGY_LINE = '''    assert nb.spec["nodeSelector"]["cloud.google.com/tpu-topo
 '''
 
 
-def route_table(app) -> set[tuple[str, str]]:
-    """The app's operations as (lowercase method, path with {params})."""
-    return {(method.lower(), re.sub(r"<([a-zA-Z_][a-zA-Z0-9_]*)(:path)?>", r"{\1}",
-                                    route.pattern))
-            for route in app._routes for method in route.methods}
-
-
 def _jax_tests_on_the_port(stem: str, patches=(), only=None) -> dict:
     """JAX's tests/<stem>.py with `kubeflow_tpu.` pointed at the port and
     the TPU resource read as the GPU: its test functions (those in
@@ -72,8 +65,7 @@ def _jax_tests_on_the_port(stem: str, patches=(), only=None) -> dict:
                       "from kubeflow_tpu.testing.fake_apiserver import")
     src = re.sub(r"\bkubeflow_tpu\.", "kubeflow_tpu_torch.", src)
     src = src.replace('"google.com/tpu"', '"nvidia.com/gpu"')
-    namespace: dict = {"__name__": f"port_{stem}", "__file__": str(path),
-                       "route_table": route_table}
+    namespace: dict = {"__name__": f"port_{stem}", "__file__": str(path)}
     exec(compile(src, str(path), "exec"), namespace)
     return {k: v for k, v in namespace.items()
             if (k.startswith("test_") and (only is None or k in only))
@@ -86,8 +78,7 @@ JAX_TESTS = {
 ''')]),
     **_jax_tests_on_the_port("test_frontends", patches=[
         ('pathlib.Path("kubeflow_tpu/apps/static")',
-         'pathlib.Path(__file__).resolve().parents[1] / "kubeflow_tpu_torch/apps/static"'),
-        ("    from kubeflow_tpu.web.openapi import route_table\n", "")]),
+         'pathlib.Path(__file__).resolve().parents[1] / "kubeflow_tpu_torch/apps/static"')]),
     **_jax_tests_on_the_port("test_small_components", patches=[
         ("from kubeflow_tpu.apps.echo import EchoApp\n", ""),
         ("from kubeflow_tpu.apps.probe import AvailabilityProber, ProberApp\n", "")], only={

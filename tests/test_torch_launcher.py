@@ -235,6 +235,46 @@ def test_runner_terminates_a_deleted_pods_process():
         api.close()
 
 
+class LosesFirstStatusWrite:
+    """A store whose first status write is lost on the link (it raises
+    and changes nothing); records the phase of each write that lands."""
+
+    def __init__(self, api):
+        self.api, self.lost, self.landed = api, False, []
+
+    def __getattr__(self, name):
+        return getattr(self.api, name)
+
+    def update_status(self, obj):
+        if not self.lost:
+            self.lost = True
+            raise ConnectionResetError("the link dropped the write")
+        self.landed.append(obj.status.get("phase"))
+        return self.api.update_status(obj)
+
+
+def test_runner_writes_running_again_after_a_lost_write():
+    """The Running write made when a pod's process starts is lost: the
+    next step writes Running once, and later steps write nothing while
+    the process lives."""
+    api = FakeApiServer()
+    link = LosesFirstStatusWrite(api)
+    runner = LocalPodRunner(link)
+    try:
+        api.create(_pod("w", [sys.executable, "-c", "import time; time.sleep(60)"]))
+        with pytest.raises(ConnectionResetError):
+            runner.step()
+        assert runner.running_count() == 1 and api.get("Pod", "w").status.get("phase") is None
+        runner.step()
+        assert api.get("Pod", "w").status["phase"] == "Running"
+        for _ in range(3):
+            runner.step()
+        assert link.landed == ["Running"] and runner.running_count() == 1
+    finally:
+        runner.shutdown()
+        api.close()
+
+
 def test_shutdown_signals_set_the_event():
     stop = sigutil.install_shutdown_handlers((signal.SIGUSR1,))
     try:

@@ -3,7 +3,8 @@ kubeflow_tpu_torch.apps`` (`apps/__main__.py`) as its own process,
 driven only through its entry points (HTTP to the dashboard, kfam and
 the Jupyter app, the https facade and ``python -m
 kubeflow_tpu_torch.cli``), by `testing/platform.run_flow`: a workgroup
-registered, a PodDefault with the facade's env, a notebook spawned and
+registered, an RBAC-bound outsider refused by the mesh gate, a
+PodDefault with the facade's env, a notebook spawned and
 stopped, a tiny LM TpuJob applied, watched to Succeeded, described and
 its logs read, the dashboard's tables, the trace drain, a durable
 restart, and nuke-self with the team's service-account token revoked.
@@ -43,6 +44,10 @@ def test_platform_flow_on_the_cpu(tmp_path):
     assert ns in rec["env_info"][1]["namespaces"] and rec["env_info"][1]["isClusterAdmin"]
     assert rec["kfam_binding"][0] == 200
     assert any(b["user"]["name"] == sa for b in rec["kfam_bindings"][1]["bindings"])
+    # The mesh gate: RBAC without an AuthorizationPolicy rule is refused.
+    status, body = rec["mesh_outsider"]
+    assert status == 403 and "mesh policy denies" in body["log"], rec["mesh_outsider"]
+    assert rec["mesh_owner"][0] == 200
     # 3-4. The PodDefault's env on the notebook's pod.
     assert rec["poddefault_apply"][0] == 0
     assert "poddefault/facade-env created" in rec["poddefault_apply"][1]

@@ -3,8 +3,6 @@
 - JAX's own tests/test_token_lifecycle.py runs against the port, every
   case, its imports pointed at the port: expiry, rotation under an
   in-flight watch, revocation when a Profile is deleted, the token file.
-  Its watch client passes the long-poll's timeout, which the port's
-  streaming-only client has no use for: on the port it is left out.
 - The token file is one format: a registry saved by either package
   loads in the other with the same identities, expiries and
   revocations, and a seeded sequence of issue, add, rotate, revoke,
@@ -47,8 +45,7 @@ def _jax_tests_on_the_port(stem: str, patches=()) -> dict:
             if k.startswith("test_") or hasattr(v, "_fixture_function_marker")}
 
 
-JAX_TESTS = _jax_tests_on_the_port("test_token_lifecycle", patches=[
-    ("        watch_poll_timeout=1.0, watch_retry=0.1,\n", "        watch_retry=0.1,\n")])
+JAX_TESTS = _jax_tests_on_the_port("test_token_lifecycle")
 globals().update(JAX_TESTS)  # collected here, under JAX's names
 
 

@@ -20,6 +20,7 @@ JAX package's.
 
 import random
 import re
+import threading
 import time
 import types
 from pathlib import Path
@@ -28,11 +29,13 @@ import pytest
 
 from kubeflow_tpu.api import make_tpujob as j_make_tpujob
 from kubeflow_tpu.api.objects import new_resource as j_new_resource
+from kubeflow_tpu.controllers import runtime as j_runtime
 from kubeflow_tpu.controllers import tpujob as j_tpujob
 from kubeflow_tpu.native.scheduler import PyGangScheduler as JPyGangScheduler
 from kubeflow_tpu.testing import FakeApiServer as JFakeApiServer
 from kubeflow_tpu_torch.api.objects import new_resource as t_new_resource
 from kubeflow_tpu_torch.api.tpujob import make_tpujob as t_make_tpujob
+from kubeflow_tpu_torch.controllers import runtime as t_runtime
 from kubeflow_tpu_torch.controllers import tpujob as t_tpujob
 from kubeflow_tpu_torch.testing.fake_apiserver import FakeApiServer, Invalid
 
@@ -71,16 +74,22 @@ NODES = ([(f"t{i}", {"pool": "4x4", "x": i % 4, "y": i // 4, "chips": 4}) for i 
 
 
 class Clock:
-    """The operators' wall clock (`time.time()` in each module): moved by
-    the script, so the 3 s backoff and the retries pass on both sides at
-    once."""
+    """The operators' wall clock (`time.time()` in each module) and their
+    work queues' clock, both moved by the script only: the 3 s backoff,
+    the retries and every `requeue_after` (0.5 s after a preemption) come
+    due on both sides at once, however long a drain takes."""
 
     def __init__(self):
         self.now = time.time()
+        self.start = self.now
+        self.mono_start = time.monotonic()
+
+    def monotonic(self) -> float:
+        return self.mono_start + (self.now - self.start)
 
     def module(self):
-        return types.SimpleNamespace(time=lambda: self.now, monotonic=time.monotonic,
-                                     sleep=time.sleep)
+        return types.SimpleNamespace(time=lambda: self.now, monotonic=self.monotonic,
+                                     sleep=time.sleep, perf_counter=time.perf_counter)
 
 
 @pytest.fixture
@@ -88,17 +97,67 @@ def clock(monkeypatch):
     c = Clock()
     monkeypatch.setattr(j_tpujob, "time", c.module())
     monkeypatch.setattr(t_tpujob, "time", c.module())
+    # JAX's Python work queue reads its module's `time.monotonic`.
+    monkeypatch.setattr(j_runtime, "time", c.module())
     return c
 
 
+class ScriptQueue:
+    """A controller's work queue as the script drives it. A watch event
+    reaches the queue from the store's dispatcher thread, and whether it
+    lands while the reconcile that caused it is still in flight (the key
+    marked dirty, re-added when it is done) or after (added in event
+    order) depends on the threads' timing; the order of the next keys
+    differs between the two, and with it which gang places first. Adds
+    from any thread but the one driving the script wait here until that
+    thread next asks for a key, so every event a reconcile causes lands
+    after it is done, on both sides alike."""
+
+    def __init__(self, inner):
+        self._inner = inner
+        self._held: list[tuple[str, float]] = []
+        self._lock = threading.Lock()
+        self._driver = threading.current_thread()
+
+    def add(self, key: str, *, after: float = 0.0) -> None:
+        if threading.current_thread() is self._driver:
+            self._inner.add(key, after=after)
+            return
+        with self._lock:
+            self._held.append((key, after))
+
+    def _release(self) -> None:
+        with self._lock:
+            held, self._held = self._held, []
+        for key, after in held:
+            self._inner.add(key, after=after)
+
+    def get(self, timeout: float = 0.0):
+        self._release()
+        return self._inner.get(timeout)
+
+    def __len__(self) -> int:
+        self._release()
+        return len(self._inner)
+
+    def __getattr__(self, name):
+        return getattr(self._inner, name)
+
+
 class Pair:
-    def __init__(self):
+    def __init__(self, clock: Clock):
         self.j_api, self.t_api = JFakeApiServer(), FakeApiServer()
         for name, spec in NODES:
             self.j_api.create(j_new_resource("Node", name, "", spec=dict(spec)))
             self.t_api.create(t_new_resource("Node", name, "", spec=dict(spec)))
         self.j_ctl = j_tpujob.TpuJobController(self.j_api, scheduler=JPyGangScheduler)
         self.t_ctl = t_tpujob.TpuJobController(self.t_api)
+        # Both operators on work queues that read the script's clock (JAX's
+        # may have built its native queue, which reads the real one) and
+        # take watch events only between reconciles (`ScriptQueue`).
+        assert not self.j_ctl.controller.has_pending() and not self.t_ctl.controller.has_pending()
+        self.j_ctl.controller._queue = ScriptQueue(j_runtime._PyWorkQueue())
+        self.t_ctl.controller._queue = ScriptQueue(t_runtime.WorkQueue(clock=clock.monotonic))
 
     def both(self, fn):
         fn(self.j_api, j_make_tpujob)
@@ -165,7 +224,7 @@ def _pick(api, u: float, placed: bool):
 
 @pytest.mark.parametrize("seed", [0, 1, 2, 3])
 def test_seeded_script_same_victims_phases_and_reasons_as_jax(clock, seed):
-    pair = Pair()
+    pair = Pair(clock)
     seen = {"victims": 0, "reasons": set(), "finished": 0, "deleted": 0}
     for action, arg in _script(seed, 44):
         if action == "submit":
