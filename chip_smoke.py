@@ -79,14 +79,18 @@ JSON line; any failure raises and the exit code is non-zero:
    under inference_mode (the server's) and no_grad.
 15. fit, main path 4: the same LM and stream through the training job's
    entry point, `fit()`, with an AnomalyGuard and the two-pass backward
-   pinned: an uninterrupted 4-step run; a run that saves every 2 steps into a temporary Checkpointer directory and gets
-   a SIGTERM at step 1 (`Preempted` at step 2 after its save); a resumed
-   run to step 4, under the profiler for one step, bitwise equal to the
+   pinned: an uninterrupted 4-step run; a run that saves every step into
+   a temporary Checkpointer directory (4 kept) and gets a SIGTERM at
+   step 1 (`Preempted` at step 2 after its save); a resumed run to step
+   4, under the profiler for one step, bitwise equal to the
    uninterrupted one over the same batch positions; then a step poisoned
-   with NaN (skipped, nothing moves), a byte flipped in the newest
-   checkpoint (quarantined, step 2 restored bitwise), save and restore
-   times, the
-   checkpoint's size, and fit()'s step time beside the bare steps'. The
+   with NaN (skipped, nothing moves); the soak's three storage faults
+   (`testing/chaos.apply_checkpoint_fault`: a truncated file, flipped
+   bytes, a garbled manifest) on steps 4, 3 and 2 in a seeded
+   `TrainFaultSchedule`'s order, each quarantined, step 1 restored
+   bitwise (the classes, quarantined steps and restored step printed);
+   save and restore times, the checkpoint's size and the directory's at
+   its peak, and fit()'s step time beside the bare steps'. The
    counters are zeroed before the three fit() runs and read after them
    (16 flash_fwd, flash_delta, flash_bwd_dq and flash_bwd_dkv a step).
 16. ring_train, main path 3: the same LM with sequence parallelism, its
@@ -275,8 +279,19 @@ JSON line; any failure raises and the exit code is non-zero:
    every served version; every class fired, no duplicate side effect,
    the binary's watch degraded to long-poll and streamed again; seconds
    for each, the faults by class, long-poll rounds, degraded seconds.
-34. kernels: one line per ported kernel (launches, error, times, bound).
-35. the last line: {"ok": true, "device": {...}}.
+34. deploy, main path 20: deploying the platform (`deploy_phase`), no
+   work on the card: ``python -m kubeflow_tpu_torch.deploy serve
+   --worker-mode process`` as its own process, a platform created over
+   its HTTP API with one GPU pool sized from the card (nvidia-smi's name
+   through the GPU table, one GPU on one host), its worker SIGKILLed
+   mid-apply (the pool's Node written, no bundle object yet),
+   respawned, the phase Ready with KfAvailable, the same Node and every
+   bundle object; one
+   `DeployProber` round; ``deploy apply --dry-run`` with provider gke
+   printing an a3-highgpu-1g pool with one nvidia-h100-80gb; no deploy
+   process loads torch; the phase within 15 s.
+35. kernels: one line per ported kernel (launches, error, times, bound).
+36. the last line: {"ok": true, "device": {...}}.
 
 Without a GPU, or outside a checkout (copied alone, where
 `kubeflow_tpu_torch` does not import), it says why on stderr and exits
@@ -375,9 +390,12 @@ REMAT = dict(block=("none", "full", "mlp", "dots", "attn", "flash"),
 # trained module at `max_batch`.
 MOE = dict(num_experts=8, capacity_factor=1.25, aux_loss_coef=0.01, remat="flash",
            steps=6, check_layers=2, max_batch=4)
-# fit(): 4 steps of TRAIN's LM and stream, saving every 2 steps, with a
-# SIGTERM raised at step 1 in the preempted run.
-FIT = dict(steps=4, save_every=2, sigterm_at=1)
+# fit(): 4 steps of TRAIN's LM and stream with a SIGTERM raised at step 1
+# in the preempted run; every step saved and four kept, so the storage
+# faults damage the newest three and the restore lands on the fourth. The
+# classes come in the order TrainFaultSchedule(fault_seed, 32,
+# save_interval=4) draws them.
+FIT = dict(steps=4, save_every=1, sigterm_at=1, keep=4, fault_seed=0)
 RECT_SHAPES = [  # (B, S_q, S_k, H, D, causal)
     (1, 128, 128, 2, 64, False),
     (2, 1001, 777, 4, 128, False),  # ragged: the plain versions pad
@@ -537,6 +555,10 @@ PLATFORM = dict(steps=4, user="p@example.com", namespace="team-p", job="lm-platf
 # `steps` steps (one save, at the end) beside a Notebook applied at
 # v1alpha1. Waits in seconds.
 CHAOS_JOB = dict(seed=0, faults_per_class=2, steps=4, timeout_s=300, manager_ready_s=120)
+# The deploy phase: each worker holds apply_delay_s between its PLATFORM
+# and K8S phases (the worker's KFTPU_WORKER_APPLY_DELAY), and the first
+# is SIGKILLed in that hold; the phase must end within limit_s.
+DEPLOY = dict(apply_delay_s=1.5, ready_timeout_s=12.0, limit_s=15.0)
 REQUESTS = [  # (wire format, batch, sequence length)
     ("json", 1, 2048),
     ("json", 3, 2048),  # padded to bucket 4
@@ -1509,8 +1531,13 @@ def fit_phase(torch, card: str) -> dict:
     run's parameters bitwise over the same batch positions. (b) One step
     whose embedding output is multiplied by NaN (a forward pre-hook on the
     first block): skipped, parameters and optimizer state unchanged.
-    (c) A byte flipped in the newest step's parameters file: restore
-    quarantines it and falls back to the preemption's step, bitwise. (d) Save and
+    (c) The three storage fault classes of the soak's plan
+    (`testing/chaos.apply_checkpoint_fault`: truncate_checkpoint,
+    corrupt_checkpoint, corrupt_manifest), in the order a seeded
+    `TrainFaultSchedule` draws them, stacked on the phase's one crash
+    boundary at offsets 0, 1 and 2 (the newest three of the FIT["keep"]
+    steps saved): restore quarantines each damaged step and lands on the
+    newest intact one, its parameters bitwise those saved there. (d) Save and
     restore times, the checkpoint's size, and fit()'s step time beside
     the bare guarded and unguarded steps' (and a profile of each).
     Returns the launch counts of the three fit() runs."""
@@ -1519,6 +1546,7 @@ def fit_phase(torch, card: str) -> dict:
     import tempfile
 
     from kubeflow_tpu_torch.ops import _kernels
+    from kubeflow_tpu_torch.testing.chaos import TrainFaultSchedule, apply_checkpoint_fault
     from kubeflow_tpu_torch.train import (
         AnomalyGuard, Preempted, ProfileSchedule, Profiler, SyntheticTokens,
         Trainer, fit)
@@ -1535,7 +1563,13 @@ def fit_phase(torch, card: str) -> dict:
     checks, out = {}, {"phase": "fit", "steps": FIT["steps"],
                        "save_every": FIT["save_every"], "sigterm_at": FIT["sigterm_at"]}
 
+    # The step the storage faults leave as the newest intact one.
+    intact_step = FIT["steps"] - 3
+    at_save = {}
+
     def sigterm_at(step, rec):
+        if step == intact_step:
+            at_save[step] = params()
         if step == FIT["sigterm_at"]:
             os.kill(os.getpid(), signal.SIGTERM)
 
@@ -1553,15 +1587,14 @@ def fit_phase(torch, card: str) -> dict:
             del straight
 
             ckpt = timed_checkpointer(ckpt_dir, save_interval_steps=FIT["save_every"],
-                                      max_to_keep=2)
+                                      max_to_keep=FIT["keep"])
             tape = stream()
             first = fit(trainer, tape, FIT["steps"], rng=SEED, checkpointer=ckpt,
                         log_every=1, on_metrics=sigterm_at)
-            at_preempt = params()
             # The interval saves up to the preemption's step and its own
-            # save there, the newest two kept.
+            # save there, the newest FIT["keep"] kept.
             saved = sorted(set(range(FIT["save_every"], FIT["sigterm_at"] + 2,
-                                     FIT["save_every"])) | {FIT["sigterm_at"] + 1})[-2:]
+                                     FIT["save_every"])) | {FIT["sigterm_at"] + 1})[-FIT["keep"]:]
             checks["preempted"] = (isinstance(first, Preempted)
                                    and first.signum == signal.SIGTERM
                                    and int(first.state.step) == FIT["sigterm_at"] + 1
@@ -1569,7 +1602,7 @@ def fit_phase(torch, card: str) -> dict:
             del first
 
             ckpt2 = timed_checkpointer(ckpt_dir, save_interval_steps=FIT["save_every"],
-                                       max_to_keep=2)
+                                       max_to_keep=FIT["keep"])
             tape = stream()
             trace_dir = os.path.join(root, "trace")
             profiler = Profiler(trace_dir, ProfileSchedule(start_step=1, num_steps=1))
@@ -1589,6 +1622,10 @@ def fit_phase(torch, card: str) -> dict:
             ckpt_bytes = sum(
                 os.path.getsize(os.path.join(ckpt_dir, str(FIT["steps"]), name))
                 for name in os.listdir(os.path.join(ckpt_dir, str(FIT["steps"]))))
+            # The directory at its peak: every kept step, before any fault.
+            dir_bytes = sum(os.path.getsize(os.path.join(d, name))
+                            for d, _, names in os.walk(ckpt_dir) for name in names)
+            on_disk = ckpt2.all_steps()
 
             # (b) A NaN at the embedding output for one step.
             before = params()
@@ -1608,23 +1645,36 @@ def fit_phase(torch, card: str) -> dict:
                 and int(poisoned.state.step) == 1)
             del before, poisoned
 
-            # (c) One byte flipped in the newest step's parameters.
-            newest = os.path.join(ckpt_dir, str(FIT["steps"]), "params.pt")
-            with open(newest, "r+b") as f:
-                f.seek(os.path.getsize(newest) // 2)
-                byte = f.read(1)
-                f.seek(-1, os.SEEK_CUR)
-                f.write(bytes([byte[0] ^ 0xFF]))
+            # (c) The three storage fault classes, stacked at offsets 0-2.
+            plan = TrainFaultSchedule(FIT["fault_seed"], 32, save_interval=4)
+            faults = []
+            t_faults = time.perf_counter()
+            for offset, fault in enumerate(plan.storage_faults):
+                desc = apply_checkpoint_fault(ckpt_dir, fault.cls, offset=offset)
+                faults.append({"cls": fault.cls, "offset": offset,
+                               "step": on_disk[-1 - offset], "damaged": desc})
+            fault_s = time.perf_counter() - t_faults
             ckpt3 = timed_checkpointer(ckpt_dir, save_interval_steps=FIT["save_every"])
             restored = ckpt3.restore_latest(trainer.abstract_state())
             trainer.load_state_dict(restored.state)
             torch.cuda.synchronize()
+            quarantined = sorted(int(name[len("corrupt-"):]) for name in os.listdir(ckpt_dir)
+                                 if name.startswith("corrupt-"))
+            damaged = sorted(f["step"] for f in faults)
+            checks["storage_faults_applied"] = (
+                {f["cls"] for f in faults} == {"truncate_checkpoint", "corrupt_checkpoint",
+                                               "corrupt_manifest"}
+                and all(f["damaged"] for f in faults)
+                and on_disk == list(range(1, FIT["steps"] + 1)))
             checks["corrupt_fell_back"] = (
-                restored.step == FIT["sigterm_at"] + 1
-                and ckpt3.all_steps() == [FIT["sigterm_at"] + 1]
-                and os.path.isdir(os.path.join(ckpt_dir, f"corrupt-{FIT['steps']}"))
-                and max_abs_diff(torch, params(), at_preempt) == 0.0)
-            del restored, at_preempt, want
+                restored.step == intact_step and quarantined == damaged
+                and ckpt3.all_steps() == [intact_step]
+                and max_abs_diff(torch, params(), at_save[intact_step]) == 0.0)
+            out.update({"storage_faults": faults, "quarantined_steps": quarantined,
+                        "restored_step": restored.step, "storage_faults_s": fault_s,
+                        "checkpoint_dir_peak_gb": dir_bytes / 1e9,
+                        "steps_on_disk_at_peak": on_disk})
+            del restored, at_save, want
 
             # (d) The bare steps, guarded and not, on the same trainer.
             bare = {}
@@ -6815,6 +6865,296 @@ def chaos_job_phase(torch, card: str, path_a: dict) -> dict:
     return launches
 
 
+def gpu_accelerator(card: str) -> str:
+    """The GPU table's accelerator (`deploy/kfdef.GPUS_PER_HOST`) that
+    nvidia-smi's name names ("NVIDIA H100 80GB HBM3, 700.00 W" -> h100)."""
+    from kubeflow_tpu_torch.deploy.kfdef import GPUS_PER_HOST
+
+    name = card.split(",")[0].lower()
+    for accelerator in GPUS_PER_HOST:
+        if accelerator in name:
+            return accelerator
+    raise AssertionError(f"no accelerator of the GPU table in {card!r}")
+
+
+class DeployClient:
+    """The deploy service over HTTP, as `DeployProber` calls it: post and
+    get, each returning a reply with `status` and `json()`."""
+
+    class Reply:
+        def __init__(self, status: int, body: bytes):
+            self.status, self.body = status, body
+
+        def json(self):
+            return json.loads(self.body)
+
+    def __init__(self, base: str):
+        self.base = base
+
+    def _call(self, method: str, path: str, body=None):
+        import urllib.error
+
+        data = None if body is None else json.dumps(body).encode()
+        req = urllib.request.Request(self.base + path, data=data, method=method,
+                                     headers={"Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=30) as resp:
+                return self.Reply(resp.status, resp.read())
+        except urllib.error.HTTPError as e:
+            return self.Reply(e.code, e.read())
+
+    def post(self, path: str, body=None):
+        return self._call("POST", path, body)
+
+    def get(self, path: str):
+        return self._call("GET", path)
+
+
+def child_processes(pid: int) -> dict:
+    """The live (not zombie) children of `pid`: {pid: command line}."""
+    out = {}
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+            if int(fields[1]) != pid or fields[0] == "Z":
+                continue
+            with open(f"/proc/{entry}/cmdline", "rb") as f:
+                out[int(entry)] = f.read().replace(b"\0", b" ").decode()
+        except (OSError, IndexError, ValueError):
+            continue
+    return out
+
+
+def deploy_worker_alive(pid: int) -> bool:
+    """Whether `pid` is a live deploy worker process."""
+    try:
+        with open(f"/proc/{pid}/cmdline", "rb") as f:
+            return b"kubeflow_tpu_torch.deploy.worker" in f.read()
+    except OSError:
+        return False
+
+
+def worker_store(pid: int):
+    """The deploy server's store as its worker `pid` reaches it: the
+    facade's URL from the worker's command line, the token and the CA
+    from its environment."""
+    from kubeflow_tpu_torch.testing.apiserver_http import HttpApiClient
+
+    with open(f"/proc/{pid}/cmdline", "rb") as f:
+        argv = f.read().decode().split("\0")
+    with open(f"/proc/{pid}/environ", "rb") as f:
+        env = dict(item.split("=", 1) for item in f.read().decode().split("\0") if "=" in item)
+    return HttpApiClient(argv[argv.index("--apiserver") + 1], ca=env["KFTPU_CA"],
+                         token=env["KFTPU_TOKEN"])
+
+
+def loads_torch(pid: int) -> bool:
+    """Whether the live process `pid` has torch's shared library mapped."""
+    with open(f"/proc/{pid}/maps") as f:
+        return any("libtorch" in line for line in f)
+
+
+def deploy_phase(torch, card: str) -> dict:
+    """Main path 20, deploying the platform (`deploy/`): no work on the
+    card, the port's deploy entry points on the card's machine.
+    ``python -m kubeflow_tpu_torch.deploy serve --worker-mode process``
+    as its own process (every worker holds DEPLOY["apply_delay_s"]
+    between its PLATFORM and K8S phases); a platform created over its
+    HTTP API with the default bundles and one GPU pool sized from the
+    card (nvidia-smi's name mapped through the GPU table, one GPU on one
+    host); its worker SIGKILLed in the middle of the apply, once the
+    server's store holds the pool's Node (read through the worker
+    plane's facade with the worker's own credential): the deployment
+    Pending, its Node written and no bundle object yet; the babysitter's
+    respawn and the phase Ready with KfAvailable, the Node the same
+    object (its uid) and every bundle object there, each once; one
+    `DeployProber` round against the server; then
+    ``python -m kubeflow_tpu_torch.deploy apply --dry-run`` on the same
+    pool with provider gke, which must print one node pool of machine
+    type a3-highgpu-1g with one nvidia-h100-80gb.
+
+    Gates: each of those; no deploy process (the server, every worker,
+    the dry run) loaded torch; the server exits 0 on SIGTERM with its
+    workers gone; no kernel launched; the phase within
+    DEPLOY["limit_s"]. Returns the launch counts (none)."""
+    import select
+    import signal
+
+    from kubeflow_tpu_torch.deploy.bundles import bundle_resources
+    from kubeflow_tpu_torch.deploy.kfdef import NodePool, default_spec
+    from kubeflow_tpu_torch.deploy.provisioner import PLATFORM_LABEL
+    from kubeflow_tpu_torch.ops import _kernels
+    from kubeflow_tpu_torch.testing.e2e_util import DeployProber
+    from kubeflow_tpu_torch.testing.fake_apiserver import NotFound
+
+    t_phase = time.perf_counter()
+    _kernels.launches.clear()
+    accelerator = gpu_accelerator(card)
+    pool = NodePool(name="gpu-pool-0", accelerator=accelerator, topology="1")
+    spec = default_spec("kf-card")
+    spec.node_pools = [pool]
+    checks, sec, workers = {}, {}, {}
+    root = tempfile.mkdtemp(prefix="kftpu_deploy_")
+    env = {**os.environ, "KFTPU_WORKER_APPLY_DELAY": str(DEPLOY["apply_delay_s"]),
+           "PYTHONPATH": os.pathsep.join(p for p in (ROOT, os.environ.get("PYTHONPATH")) if p)}
+    server = subprocess.Popen(
+        [sys.executable, "-m", "kubeflow_tpu_torch.deploy", "serve", "--port", "0",
+         "--worker-mode", "process"], cwd=ROOT, env=env, stdout=subprocess.PIPE, text=True)
+    try:
+        ready, _, _ = select.select([server.stdout], [], [], 10.0)
+        line = server.stdout.readline() if ready else ""
+        if not line.startswith("deploy-server: http://"):
+            raise AssertionError(f"the deploy server printed {line!r}")
+        sec["server_start"] = time.perf_counter() - t_phase
+        client = DeployClient(line.split()[1])
+        status_path = "/kfctl/apps/v1/status/kf-card"
+
+        def phase_of():
+            reply = client.get(status_path)
+            return reply.json()["status"] if reply.status == 200 else {}
+
+        def worker_pids() -> set:
+            return {pid for pid, cmd in child_processes(server.pid).items()
+                    if "kubeflow_tpu_torch.deploy.worker" in cmd and "kf-card" in cmd}
+
+        t_create = time.perf_counter()
+        checks["create_200"] = client.post("/kfctl/apps/v1/create",
+                                           spec.to_dict()).status == 200
+        first = wait_for(lambda: worker_pids(), 5.0, "the deploy worker")
+        [victim] = worker_pids()
+        workers["killed"] = victim
+        store = worker_store(victim)
+
+        def nodes() -> dict:
+            return {n.metadata.name: n.metadata.uid for n in store.list(
+                "Node", "", label_selector={PLATFORM_LABEL: spec.name})}
+
+        def bundle_objects() -> list:
+            present = []
+            for res in bundle_resources(spec):
+                try:
+                    store.get(res.kind, res.metadata.name, res.metadata.namespace)
+                except NotFound:
+                    continue
+                present.append((res.kind, res.metadata.namespace, res.metadata.name))
+            return present
+
+        wait_for(lambda: phase_of().get("phase") == "Pending" and nodes(),
+                 DEPLOY["ready_timeout_s"], "the PLATFORM phase's Node")
+        os.kill(victim, signal.SIGKILL)
+        t_kill = time.perf_counter()
+        # The respawn holds as long before its K8S phase: what is in the
+        # store now is what the killed worker left.
+        at_kill = phase_of()
+        nodes_at_kill, bundles_at_kill = nodes(), bundle_objects()
+        checks["killed_mid_apply"] = (
+            at_kill.get("phase") == "Pending"
+            and sorted(nodes_at_kill) == [f"{spec.name}-{pool.name}-0"]
+            and bundles_at_kill == [])
+        wait_for(lambda: worker_pids() - {victim}, 10.0, "the respawned deploy worker")
+        sec["kill_to_respawn"] = time.perf_counter() - t_kill
+        [workers["respawned"]] = worker_pids() - {victim}
+        wait_for(lambda: phase_of().get("phase") in ("Ready", "Failed"),
+                 DEPLOY["ready_timeout_s"], "the deployment to converge")
+        sec["kill_to_ready"] = time.perf_counter() - t_kill
+        status = phase_of()
+        checks["ready_after_respawn"] = (
+            status.get("phase") == "Ready"
+            and [c.get("type") for c in status.get("conditions", [])] == ["KfAvailable"])
+        nodes_ready, bundles_ready = nodes(), bundle_objects()
+        store.close()
+        checks["applied_once_after_respawn"] = (
+            nodes_ready == nodes_at_kill
+            and len(bundles_ready) == len(bundle_resources(spec)))
+        sec["create_to_worker"] = first
+
+        t_probe = time.perf_counter()
+        prober = DeployProber(client, sleep=lambda dt: time.sleep(0.1),
+                              timeout_seconds=DEPLOY["ready_timeout_s"])
+        probe_spec = default_spec("kf-probe")
+        probe_spec.node_pools = [pool]
+        checks["probe_ok"] = prober.probe_once(probe_spec.to_dict())
+        sec["probe"] = time.perf_counter() - t_probe
+        metrics = prober.metrics.expose_text()
+        checks["probe_gauges"] = ("deployment_service_status 1" in metrics
+                                  and "deployment_probe_failures_total 0" in metrics)
+        workers["probe"] = sorted(
+            pid for pid, cmd in child_processes(server.pid).items() if "kf-probe" in cmd)
+        live = [server.pid, *(p for p in (workers["respawned"], *workers["probe"])
+                              if os.path.exists(f"/proc/{p}"))]
+        torch_in = {pid: loads_torch(pid) for pid in live}
+
+        t_dry = time.perf_counter()
+        gke = default_spec("kf-card")
+        gke.provider, gke.project, gke.zone = "gke", "kftpu-card", "us-central1-a"
+        gke.node_pools = [pool]
+        spec_file = os.path.join(root, "platform.yaml")
+        with open(spec_file, "w") as f:
+            f.write(gke.to_yaml())
+        dry = subprocess.run(
+            [sys.executable, "-X", "importtime", "-m", "kubeflow_tpu_torch.deploy", "apply",
+             "-f", spec_file, "--dry-run"], cwd=ROOT, env=env, capture_output=True, text=True,
+            timeout=60)
+        sec["dry_run"] = time.perf_counter() - t_dry
+        # The requests as indented JSON objects, then the K8S phase's line.
+        text = dry.stdout
+        payload = "\n".join(ln for ln in text.splitlines() if not ln.startswith("#"))
+        requests, pos, decoder = [], 0, json.JSONDecoder()
+        while payload[pos:].strip():
+            obj, end = decoder.raw_decode(payload[pos:].lstrip())
+            pos += len(payload[pos:]) - len(payload[pos:].lstrip()) + end
+            requests.append(obj)
+        pools = [r["body"]["nodePool"] for r in requests if r["url"].endswith("/nodePools")]
+        imported = {line.rsplit("|", 1)[-1].strip() for line in dry.stderr.splitlines()
+                    if line.startswith("import time:")}
+        checks["dry_run_gpu_pool"] = (
+            dry.returncode == 0 and len(pools) == 1
+            and pools[0]["config"]["machineType"] == "a3-highgpu-1g"
+            and pools[0]["config"]["accelerators"] == [
+                {"acceleratorType": "nvidia-h100-80gb", "acceleratorCount": 1}]
+            and "K8S phase would apply" in text)
+        torch_in["dry_run"] = any(m == "torch" or m.startswith("torch.") for m in imported)
+        checks["no_torch_in_deploy_processes"] = len(torch_in) >= 3 and not any(
+            torch_in.values())
+
+        server.send_signal(signal.SIGTERM)
+        code = server.wait(timeout=30)
+        seen = [workers["killed"], workers["respawned"], *workers["probe"]]
+        time.sleep(0.2)
+        checks["server_exit_0"] = code == 0
+        checks["workers_gone"] = not any(deploy_worker_alive(p) for p in seen)
+    finally:
+        if server.poll() is None:
+            server.kill()
+            server.wait()
+        shutil.rmtree(root, ignore_errors=True)
+    launches = dict(_kernels.launches)
+    checks["no_kernel_launch"] = launches == {}
+    seconds = time.perf_counter() - t_phase
+    checks["within_limit"] = seconds <= DEPLOY["limit_s"]
+    out = {
+        "phase": "deploy", "card": card, "accelerator": accelerator,
+        "pool": pool.to_dict(), "gpus_per_host": 1, "config": DEPLOY,
+        "status_at_kill": at_kill, "nodes_at_kill": nodes_at_kill,
+        "bundle_objects_at_kill": len(bundles_at_kill), "nodes_ready": nodes_ready,
+        "bundle_objects_ready": len(bundles_ready), "status": status, "workers": workers,
+        "probe_metrics": {ln.split()[0]: float(ln.split()[1]) for ln in metrics.splitlines()
+                          if ln and not ln.startswith("#")},
+        "dry_run_pools": pools, "torch_loaded": {str(k): v for k, v in torch_in.items()},
+        "server_exit": code, "launches": launches, "checks": checks,
+        "seconds": {k: round(v, 3) for k, v in sec.items()}, "phase_seconds": seconds,
+    }
+    emit(out)
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        print(dry.stderr[-4000:], file=sys.stderr, flush=True)
+        raise AssertionError(f"deploy phase checks failed: {failed}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -6876,6 +7216,7 @@ def main() -> int:
     by_path["tenant"] = tenant_phase(torch, card, path_a)
     by_path["platform"] = platform_phase(torch, card, path_a)
     by_path["chaos_job"] = chaos_job_phase(torch, card, path_a)
+    by_path["deploy"] = deploy_phase(torch, card)
     for name, entry in entries.items():
         counts = {path: launches.get(name, 0) for path, launches in by_path.items()}
         entry["launches"] = sum(counts.values())

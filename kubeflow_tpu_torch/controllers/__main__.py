@@ -17,7 +17,9 @@ controllers, prints ``client {json}`` (its failovers, the connections
 it dialed, its write retries and its watch's counters,
 `HttpApiClient.watch_stats`: streams opened and failed, long-poll
 rounds, degraded episodes and seconds, streams opened after one) and
-exits 0. The client flags are JAX's: bounded write retries, the
+exits 0. SIGUSR1 dumps every thread's stack and prints the ``client``
+line without stopping anything (`JobPlane.stall_report` sends it). The
+client flags are JAX's: bounded write retries, the
 per-endpoint breakers' cooldown and the re-probe of a rejected stream.
 Two more, which JAX's binary lacks (it leaves them at the client's
 defaults), set the stream breaker: the failed streams in a row before
@@ -59,9 +61,11 @@ token comes from ``KFTPU_TOKEN``, as in JAX.
 from __future__ import annotations
 
 import argparse
+import faulthandler
 import json
 import logging
 import os
+import signal
 import sys
 
 from kubeflow_tpu_torch.controllers.cronworkflow import CronWorkflowController
@@ -86,6 +90,10 @@ CONTROLLERS = {
     "cronworkflow": CronWorkflowController,
     "serving": ServingDeploymentController,
 }
+
+
+# What prints the client's counters, once main() has built the client.
+_reporters: list = []
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -154,6 +162,8 @@ def main(argv: list[str] | None = None) -> int:
                                       "retries": client.retries_total,
                                       "watch": client.watch_stats()}), flush=True)
 
+    _reporters.append(report_client)
+
     def start_manager() -> ControllerManager:
         # Built only once this replica is active: construction registers
         # the watches and lists, and a standby reconciles nothing.
@@ -200,4 +210,9 @@ if __name__ == "__main__":
     logging.basicConfig(
         level=logging.INFO if os.environ.get("KFTPU_DEBUG") else logging.WARNING
     )
+    # SIGUSR1 dumps every thread's stack, then the client's counters: a
+    # stalled plane's report asks for both. Installed here, not in main(),
+    # so that a test calling main() keeps its own handlers.
+    signal.signal(signal.SIGUSR1, lambda signum, frame: [r() for r in _reporters])
+    faulthandler.register(signal.SIGUSR1, chain=True)
     sys.exit(main())

@@ -14,9 +14,10 @@ CR owns a Namespace and the identity scaffolding inside it:
   written: a tenant's `nvidia.com/gpu` cap is what the port's quota
   (`controllers/quota.py`) meters;
 - a plugin seam (`apply`/`revoke`; an unknown kind is an `UnknownPlugin`
-  Warning), with the finalizer revoking on delete. The port ports no
-  plugin (the JAX package's are cloud IAM bindings), and its binary
-  passes none.
+  Warning), with the finalizer revoking on delete. The cloud IAM
+  plugins, `WorkloadIdentityPlugin` and `AwsIamPlugin`, are in
+  `controllers/cloud_iam.py`; the binary passes none, as JAX's passes
+  none.
 
 Deleting the Profile clears the finalizer; the store then removes it,
 and the cascade removes the Namespace, whose drain removes everything

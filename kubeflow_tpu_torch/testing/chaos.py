@@ -1,8 +1,9 @@
-"""Fault plans: the control-plane chaos proxy, seeded serving replica
-kills and the RL soak's faults.
+"""Fault plans: the control-plane chaos proxy, the training fault plans
+of the kill-and-resume soak, seeded serving replica kills and the RL
+soak's faults.
 
-The port's copy of three parts of `kubeflow_tpu/testing/chaos.py` (a
-module with no JAX in it); the training fault plans are not ported.
+The port's copy of `kubeflow_tpu/testing/chaos.py` (a module with no JAX
+in it), whole.
 
 The control-plane part (`FAULT_CLASSES`, `HA_FAULT_CLASSES`, `Fault`,
 `FaultSchedule`, `ChaosProxy`): a TCP proxy between `HttpApiClient` and
@@ -29,6 +30,16 @@ A `FaultSchedule(seed)` draws the same plan as the JAX package's from
 the same arguments; each entry is consumed by the first eligible
 request, and `coverage()` counts only the faults whose effect landed on
 the wire, so a soak that exercised nothing fails its own gate.
+
+The training part (`TRAIN_FAULT_CLASSES`, `ELASTIC_FAULT_CLASSES`,
+`TrainFault`, `TrainFaultSchedule`, `apply_checkpoint_fault`,
+`ResumableWrapper`, `SpikedData`) is injected against a real `fit()`
+run: its process (SIGKILL between steps, SIGTERM mid-step), its
+checkpoints (a truncated file, flipped bytes, a garbled manifest, each
+of which `Checkpointer.restore_latest` must quarantine) and its data
+(loss spikes the guard must skip). `testing/workers/resilience.py` is
+one incarnation of the soak. `ResumableWrapper.rebind` raises: elastic
+resize waits for ROADMAP Queue 1 item 12.
 
 The serving part (`ReplicaKill`, `ReplicaKillSchedule`) kills REPLICAS:
 a worker dies mid-request under concurrent clients, and the router's ack
@@ -666,6 +677,409 @@ class ChaosProxy:
                     sock.close()
                 except OSError:
                     pass
+
+
+# ---------------------------------------------------------------------------
+# Training fault plans
+#
+# The control-plane proxy above injects faults on the wire; training
+# faults are injected against a real `fit()` run instead — the process,
+# its checkpoints, and its data. Same discipline: a finite SEEDED plan,
+# consumed by a caller that runs subprocess incarnations, with coverage
+# accounting so a soak that quietly exercised nothing fails its gate.
+# The plans equal JAX's for the same arguments, the elastic ones too;
+# the port's `fit(elastic=)` still raises (ROADMAP Queue 1 item 12), so
+# an elastic plan has no worker to run it yet.
+# ---------------------------------------------------------------------------
+
+TRAIN_FAULT_CLASSES = (
+    # process faults — one crash boundary each
+    "kill",                  # SIGKILL between steps: no warning, no save
+    "sigterm",               # SIGTERM mid-step: fit must exit Preempted
+                             # at the boundary after an emergency save
+    # storage faults — applied between incarnations, against the newest
+    # checkpoint (each exercises a distinct verification path)
+    "truncate_checkpoint",   # torn write: a committed file loses its tail
+    "corrupt_checkpoint",    # bit rot: same size, flipped bytes
+    "corrupt_manifest",      # the verifier's own record is garbage
+    # data faults — identical in the baseline run (part of the data)
+    "loss_spike",            # a poison batch the AnomalyGuard must skip
+)
+
+# Elastic-resize fault classes: the soak variant where
+# preemption is ABSORBED instead of fatal. A `preempt_shrink` is a real
+# SIGTERM self-delivered at the scheduled position WITH a staged
+# shrink-to-fit target (the scheduler's resize proposal): fit() must
+# reshape the mesh at the boundary and keep training — the process
+# never dies, so steps-lost-per-kill is ~0 instead of a save-interval's
+# worth. `grow_back` is the unprompted return to full dp when capacity
+# comes back. Built with `TrainFaultSchedule(..., elastic=True)`, which
+# swaps the crash/storage classes for resize cycles (the no-death
+# story) while keeping the loss spikes (the guard must compose with
+# resize).
+ELASTIC_FAULT_CLASSES = (
+    "preempt_shrink",
+    "grow_back",
+    "loss_spike",
+)
+
+# The accepted steps before the soak worker's guard arms its spike tests;
+# the plan puts every loss spike after them.
+DEFAULT_GUARD_WARMUP = 3
+
+_PROCESS_CLASSES = ("kill", "sigterm")
+_STORAGE_CLASSES = ("truncate_checkpoint", "corrupt_checkpoint", "corrupt_manifest")
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainFault:
+    """One planned training fault. `at_step` is the 0-based batch
+    position it binds to (process/data faults; 0 for storage faults);
+    `after_crash` is the 0-based crash-boundary index a storage fault is
+    applied at, and `offset` which checkpoint it targets (0 = newest,
+    1 = second-newest, ...) — faults stacked on one boundary get
+    distinct offsets so each one's verification path is actually
+    exercised by the newest-first fallback walk, not masked by a
+    sibling fault on the same step. `dp` is the resize target of an
+    elastic fault (preempt_shrink/grow_back; 0 otherwise)."""
+
+    cls: str
+    at_step: int = 0
+    after_crash: int = 0
+    offset: int = 0
+    dp: int = 0
+
+
+class TrainFaultSchedule:
+    """A finite, seeded fault plan for a kill-and-resume soak.
+
+    Pure function of (seed, total_steps, save_interval,
+    faults_per_class): two schedules from the same arguments have
+    identical plans — the reproducibility contract the soak pins, same
+    as `FaultSchedule`. The plan always covers EVERY class:
+
+    - `faults_per_class` kills and sigterms, placed at ascending step
+      positions spaced >= 3*save_interval + 2 apart (and at least that
+      far in), so every incarnation both finds >= 3 prior checkpoints
+      (max_to_keep's worth) to fall back through and makes save
+      progress before dying;
+    - `faults_per_class` of each storage class, distributed round-robin
+      over the crash boundaries with per-boundary distinct `offset`s
+      (newest, second-newest, ...), so stacked faults damage DIFFERENT
+      steps and the fallback walk meets every one;
+    - `faults_per_class` loss spikes at positions the guard's EWMA has
+      warmed up for, disjoint from the crash steps.
+
+    ``elastic=True`` builds the RESIZE soak's plan instead:
+    `faults_per_class` shrink->grow cycles — each a `preempt_shrink`
+    (real SIGTERM + staged target ``dp_shrunk``) later undone by a
+    `grow_back` to ``dp_full`` — plus the same loss spikes; the crash
+    and storage classes are absent because the whole point is that the
+    process never dies and the checkpoint directory is never the
+    recovery path. Coverage accounting runs over
+    `ELASTIC_FAULT_CLASSES`.
+    """
+
+    def __init__(
+        self,
+        seed: int,
+        total_steps: int,
+        *,
+        save_interval: int,
+        faults_per_class: int = 1,
+        guard_warmup: int = DEFAULT_GUARD_WARMUP,
+        elastic: bool = False,
+        dp_full: int = 2,
+        dp_shrunk: int = 1,
+    ):
+        self.seed = seed
+        self.total_steps = total_steps
+        self.save_interval = save_interval
+        self.elastic = elastic
+        self._injected: dict[str, int] = {
+            c: 0
+            for c in (
+                ELASTIC_FAULT_CLASSES if elastic else TRAIN_FAULT_CLASSES
+            )
+        }
+        self._lock = threading.Lock()
+        rng = random.Random(seed)
+
+        if elastic:
+            self._init_elastic(
+                rng, total_steps, faults_per_class, guard_warmup,
+                dp_full, dp_shrunk,
+            )
+            return
+
+        self.resize_faults: tuple[TrainFault, ...] = ()
+        k = faults_per_class
+        spacing = 3 * save_interval + 2
+        first = spacing
+        last = total_steps - 2
+        n_crashes = 2 * k
+        if first + (n_crashes - 1) * spacing > last:
+            raise ValueError(
+                f"total_steps={total_steps} too small for {n_crashes} "
+                f"crashes spaced {spacing} (save_interval={save_interval})"
+            )
+        # Ascending crash positions with guaranteed spacing: distribute
+        # the slack between the minimum-spacing slots.
+        slack = last - (first + (n_crashes - 1) * spacing)
+        offsets = sorted(rng.randint(0, slack) for _ in range(n_crashes))
+        steps = [first + i * spacing + offsets[i] for i in range(n_crashes)]
+        kinds = [_PROCESS_CLASSES[i % 2] for i in range(n_crashes)]
+        rng.shuffle(kinds)
+        self.crash_faults: tuple[TrainFault, ...] = tuple(
+            TrainFault(cls, at_step=s) for cls, s in zip(kinds, steps)
+        )
+
+        storage = [cls for cls in _STORAGE_CLASSES for _ in range(k)]
+        rng.shuffle(storage)
+        per_boundary: dict[int, int] = {}
+        storage_faults = []
+        for i, cls in enumerate(storage):
+            boundary = i % n_crashes
+            offset = per_boundary.get(boundary, 0)
+            per_boundary[boundary] = offset + 1
+            storage_faults.append(
+                TrainFault(cls, after_crash=boundary, offset=offset)
+            )
+        self.storage_faults: tuple[TrainFault, ...] = tuple(storage_faults)
+
+        crash_steps = {f.at_step for f in self.crash_faults}
+        candidates = [
+            s for s in range(max(guard_warmup + 2, 3), total_steps - 1)
+            if s not in crash_steps
+        ]
+        spikes = sorted(rng.sample(candidates, k))
+        self.spike_faults: tuple[TrainFault, ...] = tuple(
+            TrainFault("loss_spike", at_step=s) for s in spikes
+        )
+
+        self.plan: tuple[TrainFault, ...] = (
+            self.crash_faults + self.storage_faults + self.spike_faults
+        )
+
+    def _init_elastic(
+        self, rng, total_steps: int, k: int, guard_warmup: int,
+        dp_full: int, dp_shrunk: int,
+    ) -> None:
+        """The resize-soak plan: k shrink->grow cycles at ascending,
+        spaced positions, plus the usual seeded loss spikes."""
+        if dp_shrunk >= dp_full or dp_shrunk < 1:
+            raise ValueError(
+                f"elastic schedule needs 1 <= dp_shrunk < dp_full, got "
+                f"{dp_shrunk} / {dp_full}"
+            )
+        self.crash_faults = ()
+        self.storage_faults = ()
+        spacing = max(3, self.save_interval)
+        first = max(guard_warmup + 2, spacing)
+        last = total_steps - 2
+        n_events = 2 * k
+        if first + (n_events - 1) * spacing > last:
+            raise ValueError(
+                f"total_steps={total_steps} too small for {k} "
+                f"shrink->grow cycles spaced {spacing}"
+            )
+        slack = last - (first + (n_events - 1) * spacing)
+        offsets = sorted(rng.randint(0, slack) for _ in range(n_events))
+        steps = [first + i * spacing + offsets[i] for i in range(n_events)]
+        self.resize_faults = tuple(
+            TrainFault(
+                "preempt_shrink" if i % 2 == 0 else "grow_back",
+                at_step=s,
+                dp=dp_shrunk if i % 2 == 0 else dp_full,
+            )
+            for i, s in enumerate(steps)
+        )
+        resize_steps = {f.at_step for f in self.resize_faults}
+        candidates = [
+            s for s in range(max(guard_warmup + 2, 3), total_steps - 1)
+            if s not in resize_steps
+        ]
+        spikes = sorted(rng.sample(candidates, k))
+        self.spike_faults = tuple(
+            TrainFault("loss_spike", at_step=s) for s in spikes
+        )
+        self.plan = self.resize_faults + self.spike_faults
+
+    @property
+    def resize_plan(self) -> tuple[dict, ...]:
+        """The resize cycles as the worker's staged-proposal env
+        payload (JSON-ready)."""
+        return tuple(
+            {"at_step": f.at_step, "dp": f.dp, "cls": f.cls}
+            for f in self.resize_faults
+        )
+
+    @property
+    def spike_steps(self) -> tuple[int, ...]:
+        return tuple(f.at_step for f in self.spike_faults)
+
+    def storage_after(self, crash_idx: int) -> tuple[TrainFault, ...]:
+        """Storage faults the caller applies after crash boundary
+        `crash_idx` (the newest checkpoint is the target)."""
+        return tuple(
+            f for f in self.storage_faults if f.after_crash == crash_idx
+        )
+
+    def mark_injected(self, fault: TrainFault) -> None:
+        """The fault's effect verifiably happened (the caller observed
+        the kill/exit code, mutated a real file, or counted the guard
+        skip)."""
+        with self._lock:
+            self._injected[fault.cls] += 1
+
+    def coverage(self) -> dict[str, int]:
+        with self._lock:
+            return dict(self._injected)
+
+    def __repr__(self) -> str:
+        return (
+            f"TrainFaultSchedule(seed={self.seed}, "
+            f"planned={len(self.plan)}, coverage={self.coverage()})"
+        )
+
+
+def apply_checkpoint_fault(ckpt_dir, cls: str, offset: int = 0) -> str | None:
+    """Mutate the checkpoint `offset` steps back from the newest under
+    `ckpt_dir` (0 = newest) per the storage fault class. Returns a
+    description of what was damaged, or None when there was nothing to
+    damage at that offset (the caller must treat that as a scheduling
+    bug — storage faults are planned after >= max_to_keep saves)."""
+    from pathlib import Path
+
+    from kubeflow_tpu_torch.train.checkpoint import MANIFEST_NAME
+
+    root = Path(ckpt_dir)
+    steps = sorted(
+        (int(p.name), p) for p in root.iterdir()
+        if p.is_dir() and p.name.isdigit()
+    )
+    if len(steps) <= offset:
+        return None
+    step, step_dir = steps[-1 - offset]
+    if cls == "corrupt_manifest":
+        target = step_dir / MANIFEST_NAME
+        # Unparsable JSON: the verifier must treat it as corruption, not
+        # crash on it.
+        target.write_bytes(b'{"files": {broken')
+        return f"corrupt_manifest step={step}"
+    files = sorted(
+        (p for p in step_dir.rglob("*")
+         if p.is_file() and p.name != MANIFEST_NAME),
+        key=lambda p: p.stat().st_size,
+    )
+    if not files:
+        return None
+    target = files[-1]  # the largest payload file: real tensor bytes
+    data = target.read_bytes()
+    if cls == "truncate_checkpoint":
+        target.write_bytes(data[: max(1, len(data) // 2)])
+        return f"truncate_checkpoint step={step} file={target.name}"
+    if cls == "corrupt_checkpoint":
+        mid = len(data) // 2
+        flipped = bytes(b ^ 0xFF for b in data[mid:mid + 16])
+        target.write_bytes(data[:mid] + flipped + data[mid + 16:])
+        return f"corrupt_checkpoint step={step} file={target.name}"
+    raise ValueError(f"unknown storage fault class {cls!r}")
+
+
+class ResumableWrapper:
+    """Base for fault-injecting wrappers over a resumable data iterable:
+    forwards the whole resumable-data protocol (`train/loop.py`) so a
+    wrapped stream checkpoints/restores/perturbs exactly like the bare
+    one, and exposes `position` — the upcoming batch's 0-based index —
+    in either state dialect (the synthetic streams count "position",
+    RecordDataset counts "batches_delivered")."""
+
+    def __init__(self, data):
+        self._data = data
+
+    @property
+    def position(self) -> int:
+        state = self._data.state_dict()
+        if "position" in state:
+            return int(state["position"])
+        return int(state["batches_delivered"])
+
+    def state_dict(self) -> dict:
+        return self._data.state_dict()
+
+    def load_state_dict(self, state: dict) -> None:
+        self._data.load_state_dict(state)
+
+    def rebind(self, mesh) -> "ResumableWrapper":
+        """Elastic resize's re-targeting of the wrapped stream: not
+        ported."""
+        raise NotImplementedError(
+            "ResumableWrapper.rebind follows an elastic mesh resize, which is "
+            "not ported yet (ROADMAP Queue 1 item 12)"
+        )
+
+    def __getattr__(self, name):
+        # `perturb` is OPTIONAL in the protocol: expose it only when
+        # the wrapped data actually has one, so capability probes
+        # (e.g. fit()'s rollback precondition, which must refuse
+        # non-perturbable data rather than run futile identical
+        # retries) see the truth through the wrapper.
+        if name == "perturb" and "_data" in self.__dict__:
+            return getattr(self._data, "perturb")
+        raise AttributeError(name)
+
+    def __iter__(self):
+        it = iter(self._data)
+        while True:
+            pos = self.position
+            try:
+                batch = next(it)
+            except StopIteration:
+                # PEP 479: a StopIteration escaping a generator body
+                # becomes RuntimeError — end cleanly instead, so finite
+                # wrapped streams (e.g. bounded-epoch RecordDatasets)
+                # still signal exhaustion to the training loop.
+                return
+            yield self.transform(pos, batch)
+
+    def transform(self, pos: int, batch):
+        """Override: the (possibly faulted) batch for position `pos`."""
+        return batch
+
+
+class SpikedData(ResumableWrapper):
+    """Deterministic loss-spike injector over a resumable data iterable.
+
+    At each position in `positions`, the yielded batch's float fields
+    are scaled by `scale` — a poison batch whose loss/grad-norm the
+    AnomalyGuard must reject. The spike is a pure function of the
+    position, so a resumed (or baseline) run sees the identical poison
+    at the identical step — the spikes are part of the data, which is
+    what lets the soak assert exact final-state parity against an
+    uninterrupted run."""
+
+    def __init__(self, data, positions, scale: float = 1e4):
+        super().__init__(data)
+        self.positions = frozenset(int(p) for p in positions)
+        self.scale = scale
+
+    def transform(self, pos: int, batch):
+        if pos not in self.positions:
+            return batch
+        return {
+            k: v * self.scale if _is_float(v) else v
+            for k, v in batch.items()
+        }
+
+
+def _is_float(value) -> bool:
+    """A floating-point tensor (the port's streams) or array."""
+    is_fp = getattr(value, "is_floating_point", None)
+    if callable(is_fp):
+        return bool(is_fp())
+    return value.dtype.kind == "f"
+
 
 
 REPLICA_KILL = "replica_kill"

@@ -59,7 +59,10 @@ Every wait has a deadline and fails loudly with `diagnostics()`: each
 manager's and facade's output stamped with seconds since the plane
 started, the leadership timeline (which replica led, stood by, evicted
 and was deposed, and which facade took the apiserver lease over, when)
-and the pod logs. `close` reaps the pods, the managers and the facades
+and the pod logs. A wait that times out adds `stall_report()`: every
+live manager's thread stacks and client counters (it dumps them on
+SIGUSR1), this process's threads, the requests the facade served and
+the store's objects, so a plane that stalled names where. `close` reaps the pods, the managers and the facades
 on every exit path (use it as a context manager); a facade pair stops
 gracefully, so the active checkpoints its store and releases the lease.
 """
@@ -74,6 +77,7 @@ import subprocess
 import sys
 import threading
 import time
+import traceback
 from pathlib import Path
 
 from kubeflow_tpu_torch.api.objects import new_resource
@@ -98,6 +102,8 @@ CHAOS_CLIENT = dict(timeout=5.0, watch_poll_timeout=1.0, watch_retry=0.05, retry
                     breaker_threshold=4, breaker_cooldown=0.3, stream_failure_threshold=2,
                     stream_degraded_seconds=0.5)
 CHAOS_STREAM_TIMING = (2.0, 0.2)
+# The kinds whose objects a stall report lists.
+STALL_KINDS = ("Study", "Workflow", "TpuJob", "Pod", "Event")
 
 
 def _free_port() -> int:
@@ -468,7 +474,7 @@ class JobPlane:
                     f"waiting for {what}\n{self.diagnostics()}")
             if time.monotonic() - t0 > timeout:
                 raise TimeoutError(f"timed out after {timeout} s waiting for {what}\n"
-                                   f"{self.diagnostics()}")
+                                   f"{self.diagnostics()}\n{self.stall_report()}")
             time.sleep(0.05)
 
     def pod_logs(self) -> dict[str, str]:
@@ -498,6 +504,49 @@ class JobPlane:
                 parts += [f"{t - self.started:9.3f} {line}" for t, line in m.lines[-tail:]]
         for name, text in self.pod_logs().items():
             parts += [f"--- {name} ---", *text.splitlines()[-tail:]]
+        return "\n".join(parts)
+
+    def stall_report(self, wait: float = 3.0) -> str:
+        """Where a stalled plane is stuck: each live manager's thread
+        stacks and client counters (SIGUSR1; up to `wait` s for them to
+        arrive), this process's threads, the requests the in-process
+        facade served, and the store's objects of `STALL_KINDS`."""
+        marks = {m.name: len(m.lines) for m in self.managers if m.proc.poll() is None}
+        for m in self.managers:
+            if m.name in marks:
+                m.signal(signal.SIGUSR1)
+        deadline = time.monotonic() + wait
+        while time.monotonic() < deadline and not all(
+                any(line.startswith("client ") for _, line in m.lines[marks[m.name]:])
+                for m in self.managers if m.name in marks):
+            time.sleep(0.1)
+        parts = []
+        for m in self.managers:
+            if m.name in marks:
+                parts.append(f"--- manager {m.name} on SIGUSR1 ---")
+                parts += [line for _, line in m.lines[marks[m.name]:]]
+        parts.append("--- this process's threads ---")
+        frames = sys._current_frames()
+        for thread in threading.enumerate():
+            frame = frames.get(thread.ident)
+            if frame is not None:
+                parts.append(f"thread {thread.name}:")
+                parts += [ln.rstrip("\n") for ln in traceback.format_stack(frame)]
+        if self.server is not None:
+            parts.append(f"--- the facade served {self.server.requests_served} requests ---")
+        parts.append("--- the store's objects ---")
+        for kind in STALL_KINDS:
+            try:
+                objects = self.api.list(kind)
+            except Exception as e:  # a stalled or absent store is a finding too
+                parts.append(f"{kind}: list failed: {e!r}")
+                continue
+            for obj in objects:
+                if kind == "Event":
+                    detail = f"{obj.spec.get('reason')}: {obj.spec.get('message')}"
+                else:
+                    detail = f"{obj.status.get('phase')} restarts={obj.status.get('restarts', 0)}"
+                parts.append(f"{kind} {obj.metadata.namespace}/{obj.metadata.name} {detail}")
         return "\n".join(parts)
 
     def close(self) -> None:

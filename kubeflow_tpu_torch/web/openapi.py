@@ -5,12 +5,12 @@ The specs live in `docs/api/*.yaml`, read as data; `route_table`
 extracts an App's live routing table in OpenAPI path form and
 `spec_drift` diffs it against a spec, so a route added without a spec
 (or a spec entry without a route) fails the tests
-(`tests/test_torch_openapi.py` holds the port's facade, kfam and
-webhook apps against `docs/api/{apiserver,kfam,webhook}.yaml`).
+(`tests/test_torch_openapi.py` holds the port's facade, kfam, deploy
+service and webhook apps against
+`docs/api/{apiserver,kfam,deploy,webhook}.yaml`).
 
 `python -m kubeflow_tpu_torch.web.openapi` prints skeletons of those
-three apps' specs to diff against when authoring. Not copied: the
-deploy service's app (not ported).
+four apps' specs to diff against when authoring.
 """
 
 from __future__ import annotations
@@ -100,6 +100,8 @@ def main() -> None:
 
     from kubeflow_tpu_torch.apps.kfam import KfamApp
     from kubeflow_tpu_torch.controllers.webhook import MutatingWebhookApp
+    from kubeflow_tpu_torch.deploy.provisioner import FakeCloud
+    from kubeflow_tpu_torch.deploy.server import DeployServer
     from kubeflow_tpu_torch.testing.apiserver_http import ApiServerApp
     from kubeflow_tpu_torch.testing.fake_apiserver import FakeApiServer
 
@@ -107,6 +109,7 @@ def main() -> None:
     for app, title in (
         (ApiServerApp(api), "kubeflow-tpu apiserver facade"),
         (KfamApp(api), "kubeflow-tpu access management (kfam)"),
+        (DeployServer(api, FakeCloud(api)), "kubeflow-tpu deploy service"),
         (MutatingWebhookApp(lambda obj, op: obj), "kubeflow-tpu admission webhook"),
     ):
         sys.stdout.write(f"# --- {app.name} ---\n")

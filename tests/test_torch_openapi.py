@@ -1,9 +1,9 @@
 """The port's OpenAPI drift gate (`web/openapi.py`) and its apps' routes
 against `docs/api/*.yaml` and the JAX package's.
 
-- The port's apiserver facade, kfam and admission webhook apps have zero
-  drift against `docs/api/{apiserver,kfam,webhook}.yaml`, read as data
-  (the deploy service and its spec are the JAX package's alone).
+- The port's apiserver facade, kfam, deploy service and admission
+  webhook apps have zero drift against
+  `docs/api/{apiserver,kfam,deploy,webhook}.yaml`, read as data.
 - JAX's tests/test_openapi.py cases on the port: the specs' OpenAPI 3
   shape, the gate catching drift both ways, the route table extraction.
 - The port's `route_table`, `spec_operations`, `spec_drift` and
@@ -13,23 +13,29 @@ against `docs/api/*.yaml` and the JAX package's.
 
 import pathlib
 import re
+import subprocess
+import sys
 
 import pytest
 import yaml
 
 from kubeflow_tpu.apps.kfam import KfamApp as JKfamApp
 from kubeflow_tpu.controllers.webhook import MutatingWebhookApp as JMutatingWebhookApp
+from kubeflow_tpu.deploy.provisioner import FakeCloud as JFakeCloud
+from kubeflow_tpu.deploy.server import DeployServer as JDeployServer
 from kubeflow_tpu.testing.apiserver_http import ApiServerApp as JApiServerApp
 from kubeflow_tpu.testing.fake_apiserver import FakeApiServer as JFakeApiServer
 from kubeflow_tpu.web import openapi as j_openapi
 from kubeflow_tpu_torch.apps.kfam import KfamApp
 from kubeflow_tpu_torch.controllers.webhook import MutatingWebhookApp
+from kubeflow_tpu_torch.deploy.provisioner import FakeCloud
+from kubeflow_tpu_torch.deploy.server import DeployServer
 from kubeflow_tpu_torch.testing.apiserver_http import ApiServerApp
 from kubeflow_tpu_torch.testing.fake_apiserver import FakeApiServer
 from kubeflow_tpu_torch.web.openapi import route_table, skeleton, spec_drift, spec_operations
 
 DOCS = pathlib.Path(__file__).resolve().parent.parent / "docs" / "api"
-SPECS = ["apiserver.yaml", "kfam.yaml", "webhook.yaml"]
+SPECS = ["apiserver.yaml", "kfam.yaml", "deploy.yaml", "webhook.yaml"]
 
 
 def _apps():
@@ -37,6 +43,7 @@ def _apps():
     return {
         "apiserver.yaml": ApiServerApp(api),
         "kfam.yaml": KfamApp(api),
+        "deploy.yaml": DeployServer(api, FakeCloud(api)),
         "webhook.yaml": MutatingWebhookApp(lambda obj, op: obj),
     }
 
@@ -46,6 +53,7 @@ def _jax_apps():
     return {
         "apiserver.yaml": JApiServerApp(api),
         "kfam.yaml": JKfamApp(api),
+        "deploy.yaml": JDeployServer(api, JFakeCloud(api)),
         "webhook.yaml": JMutatingWebhookApp(lambda obj, op: obj),
     }
 
@@ -107,3 +115,14 @@ def test_routes_and_gate_equal_jax(spec_file):
     drifted["paths"].pop(first)
     drifted["paths"]["/ghost/{x}"] = {"get": {"responses": {"200": {"description": "x"}}}}
     assert spec_drift(app, drifted) == j_openapi.spec_drift(j_app, drifted) != []
+
+
+def test_module_prints_every_skeleton_the_deploy_service_included():
+    out = subprocess.run([sys.executable, "-m", "kubeflow_tpu_torch.web.openapi"],
+                         cwd=str(DOCS.parent.parent), capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    sections = re.findall(r"^# --- (\S+) ---$", out.stdout, re.M)
+    assert sections == ["apiserver", "kfam", "deploy-server", "admission-webhook"]
+    deploy = out.stdout.split("# --- deploy-server ---\n")[1].split("# --- ")[0]
+    assert spec_operations(yaml.safe_load(deploy)) == spec_operations(_spec("deploy.yaml"))

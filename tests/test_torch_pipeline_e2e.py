@@ -29,6 +29,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import pytest
@@ -43,6 +44,41 @@ TINY = dict(vocab_size=128, d_model=64, n_layers=2, n_heads=2, head_dim=32, d_ff
             batch=2, seq=128, dtype="float32", lr=1e-2)
 REQUESTS = [("json", 1, 128), ("json", 3, 128), ("binary", 2, 61)]
 RUNS = {"promote": 100.0, "hold": 0.0}  # max_eval_loss
+
+
+class _Timeline:
+    """What a stalled setup is named by: every change of a Workflow step,
+    a TpuJob or a pod's phase, and every gap of more than a second
+    between two polls of the test's own loop, each at its seconds since
+    the plane started. The setup's failure prints it."""
+
+    def __init__(self, plane):
+        self.plane, self.last, self.rows = plane, {}, []
+        self.polled = time.monotonic()
+
+    def __call__(self) -> None:
+        api, now = self.plane.api, time.time() - self.plane.started
+        gap, self.polled = time.monotonic() - self.polled, time.monotonic()
+        if gap > 1.0:
+            self.rows.append(f"{now:9.3f} the poll loop stalled {gap:.3f} s")
+        seen = {}
+        for wf in api.list("Workflow", "default"):
+            for name, step in wf.status.get("steps", {}).items():
+                seen[f"Workflow {wf.metadata.name} {name}"] = (step.get("state"),
+                                                                step.get("attempts"))
+        for job in api.list("TpuJob", "default"):
+            seen[f"TpuJob {job.metadata.name}"] = (job.status.get("phase"),
+                                                   job.status.get("restarts"))
+        for pod in api.list("Pod", "default"):  # a restart's pod has the name, not the uid
+            seen[f"Pod {pod.metadata.name} {pod.metadata.uid[:8]}"] = pod.status.get("phase")
+        for key, value in seen.items():
+            if self.last.get(key) != value:
+                self.last[key] = value
+                self.rows.append(f"{now:9.3f} {key}: {value}")
+
+    def __str__(self) -> str:
+        return "\n".join([f"--- setup timeline (s since the plane started; manager ready "
+                          f"after {self.plane.manager_ready_s:.3f} s) ---", *self.rows])
 
 
 def _records(log: str) -> list[dict]:
@@ -66,10 +102,14 @@ def pipelines(tmp_path_factory):
                                  ckpt_dir=str(root / run), save_every=2, kill_at=2,
                                  lm_size=TINY, requests=REQUESTS)
             plane.api.create(new_resource("Workflow", run, "default", spec=spec))
-        plane.run_until(
-            lambda: all(plane.api.get("Workflow", run).status.get("phase")
-                        in ("Succeeded", "Failed") for run in RUNS),
-            150, "both pipelines to finish")
+        timeline = _Timeline(plane)
+        try:
+            plane.run_until(
+                lambda: all(plane.api.get("Workflow", run).status.get("phase")
+                            in ("Succeeded", "Failed") for run in RUNS),
+                150, "both pipelines to finish", tick=timeline)
+        except (TimeoutError, RuntimeError) as err:
+            raise type(err)(f"{err}\n{timeline}") from None
         out = {}
         for run in RUNS:
             out[run] = (
