@@ -12,7 +12,11 @@ JSON line; any failure raises and the exit code is non-zero:
    nvcc for sm_90a (one nvcc per source, all at once, or found built),
    with ptxas's resource report (registers, spills, and the dynamic
    shared memory of every flash_fwd, flash_bwd_dq and flash_bwd_dkv
-   instantiation).
+   instantiation); beside them, while nvcc runs, the compiled
+   control-plane tier from kubeflow_tpu_torch/native/csrc with c++
+   (libkftpu_core: the work queue, store and WAL; libkftpu_sched: the
+   gang scheduler), each library's seconds printed, so every controller
+   process and facade finds them built.
 3. kernel: flash_fwd against its plain PyTorch version on the card, in
    bf16 and f32, at small, ragged and serving shapes, with the stated
    tolerance; then its time beside the plain version's, one PyTorch
@@ -230,14 +234,29 @@ JSON line; any failure raises and the exit code is non-zero:
    the upload, exit 0; seconds from the loss to the NodeLost write, the
    new pod, the worker's start and its first resumed step; each step's
    loss against records_fit's straight run.
+28b. ci_dag, main path 21: the kernel CI DAG on the same plane
+   (`ci_dag_phase`), before the binary stops:
+   `testing/workflows.sharded_unit_tests_workflow` with two shards of the
+   card's kernel tests (tests/test_torch_cuda_kernels.py's
+   test_flash_fwd_matches_plain_version and
+   test_flash_delta_matches_plain_version, pytest without
+   tests/conftest.py), each a pod of `testing/shard_runner`, then the
+   collect step's `testing/junit_merge`: the Workflow Succeeded, a junit
+   file per shard, junit_merged.xml with tests > 0, failures 0 and errors
+   0; the counts and each shard's seconds. Then, after path C, the
+   job plane's compiled tier (`tier_phase`, a ``job_plane_tier`` line):
+   the binary's and the preempt_ha replica's work queues all compiled,
+   and their gang placements (paths E and C) all on the compiled
+   scheduler; ha_job, tenant, platform and chaos_job each print such a
+   line for their own managers, on a one-GPU Node.
 29. preempt, main path 13: the multi-tenant, highly available job plane
    on the same facade and runner (`preempt_phase`): a one-GPU Node and
    two tenants with a ResourceQuota of one GPU each; two operator
    replicas on one Lease (a `testing/workers/preempt_ha.py` leader that
    stalls after a preemption's evictions, the binary with
    ``--leader-elect`` as standby); the LM as TpuJob lm-low (priority 1,
-   16 steps), evicted at its step boundary by lm-high (priority 10, 6
-   steps) once it has logged step 6; the leader SIGKILLed in the stall,
+   8 steps), evicted at its step boundary by lm-high (priority 10, 4
+   steps) once it has logged step 5; the leader SIGKILLed in the stall,
    the standby taking over and placing lm-high; lm-low resumed from its
    preemption's save after lm-high: one eviction, no lost or repeated
    step, restarts 0, quota usage, each worker's flash launches, the
@@ -249,7 +268,9 @@ JSON line; any failure raises and the exit code is non-zero:
    over one WAL-backed store, over https, the binary leader-elected on
    the endpoint list; the active facade SIGKILLed after step 4's ack;
    no restart, every acked step in a fresh store over the state
-   directory, the losses against path A's.
+   directory, the losses against path A's; both facades on the compiled
+   WAL, ``wal.log`` on a new inode after the standby's takeover (the
+   inodes before and after printed).
 31. tenant, main path 17: tenants (`tenant_phase`): a job plane on a
    durable store, the binary running the profile, notebook, tensorboard
    and tpujob controllers, the workload materializer beside the pod
@@ -497,13 +518,15 @@ RL = dict(obs_dim=8, n_actions=4, n_envs=8, horizon=4, hidden=32, steps=48,
 JOB = dict(steps=8, save_every=4, kill_at=6, max_restarts=1, timeout_s=600,
            manager_ready_s=120)
 # Priority preemption under leader election (path C): lm-low (team-a,
-# priority 1, 10 steps) runs until step 6, then lm-high (team-b, priority
-# 10, 6 steps) evicts it on the one-GPU cluster model; the leader, a
+# priority 1, 8 steps; 10 until PR 22) runs until step 5 (6 until PR 22),
+# then lm-high (team-b, priority 10, 4 steps; 6 until PR 22) evicts it on
+# the one-GPU cluster model (the PR 22 cut, two fewer 3.0 GB saves,
+# paying for path K); the leader, a
 # preempt_ha replica, stalls 6 s after the eviction and is SIGKILLed in
 # it; the standby binary takes the Lease (2 s, renew deadline 1.2 s,
 # polls every 0.25 s as the JAX e2e's) and places lm-high; lm-low resumes
 # after it. Waits in seconds; the memory slack is this gate's 2 GiB.
-PREEMPT = dict(low_steps=10, high_steps=6, save_every=4, submit_at=6, lease_s=2.0,
+PREEMPT = dict(low_steps=8, high_steps=4, save_every=4, submit_at=5, lease_s=2.0,
                renew_s=1.2, retry_s=0.25, stall_s=6.0, timeout_s=480, manager_ready_s=120,
                memory_slack_mib=2048)
 # RL's study soak (path B): bench.py's nightly configuration
@@ -559,6 +582,14 @@ CHAOS_JOB = dict(seed=0, faults_per_class=2, steps=4, timeout_s=300, manager_rea
 # and K8S phases (the worker's KFTPU_WORKER_APPLY_DELAY), and the first
 # is SIGKILLed in that hold; the phase must end within limit_s.
 DEPLOY = dict(apply_delay_s=1.5, ready_timeout_s=12.0, limit_s=15.0)
+# The compiled control-plane tier the build phase builds (`native/build.py`).
+NATIVE_LIBRARIES = ("kftpu_core", "kftpu_sched")
+# The kernel CI DAG (path K): `sharded_unit_tests_workflow` over these
+# shards of the card's kernel tests, each shard's pytest without
+# tests/conftest.py (it imports JAX); waits in seconds.
+CI_DAG = dict(shards=("tests/test_torch_cuda_kernels.py::test_flash_fwd_matches_plain_version",
+                      "tests/test_torch_cuda_kernels.py::test_flash_delta_matches_plain_version"),
+              pytest_args="-q --noconftest -p no:cacheprovider", timeout_s=300)
 REQUESTS = [  # (wire format, batch, sequence length)
     ("json", 1, 2048),
     ("json", 3, 2048),  # padded to bucket 4
@@ -588,7 +619,7 @@ def close(a, b, atol: float, rtol: float) -> bool:
     return bool(((a - b).abs() <= atol + rtol * b.abs()).all())
 
 
-def device_phase(torch) -> dict:
+def device_phase(torch, bytecode: dict) -> dict:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -602,6 +633,7 @@ def device_phase(torch) -> dict:
         "torch": torch.__version__,
         "cuda": torch.version.cuda,
         "python": sys.version.split()[0],
+        "bytecode_cache": bytecode,
     }
     emit(info)
     return info
@@ -656,11 +688,31 @@ def kernel_smem(name: str):
     return None
 
 
+def build_native(name: str) -> dict:
+    """Builds one of the port's host libraries (`native/build.py`)."""
+    from kubeflow_tpu_torch.native import build
+
+    cached = build.target(name).exists()
+    t0 = time.perf_counter()
+    path = build.build(name)
+    return {"library": os.path.basename(path), "cached": cached,
+            "seconds": time.perf_counter() - t0}
+
+
 def build_phase() -> list[str]:
-    """Builds the kernels; returns ptxas's lines of every source."""
+    """Builds the kernels, and beside them (one thread, while nvcc runs)
+    the compiled control-plane tier, libkftpu_core then libkftpu_sched,
+    so the binary and the facade processes find them built; returns
+    ptxas's lines of every source."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from kubeflow_tpu_torch.ops import _kernels
 
-    built = _kernels.build()
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(1) as pool:
+        native = pool.submit(lambda: {name: build_native(name) for name in NATIVE_LIBRARIES})
+        built = _kernels.build()
+        native = native.result()
     kernels = {
         name: {
             "cached": b["cached"],
@@ -669,7 +721,8 @@ def build_phase() -> list[str]:
         }
         for name, b in built.items()
     }
-    emit({"phase": "build", "kernels": kernels})
+    emit({"phase": "build", "kernels": kernels, "native": native,
+          "seconds": time.perf_counter() - t0})
     return [line for k in kernels.values() for line in k["ptxas"]]
 
 
@@ -5451,9 +5504,9 @@ def preempt_phase(torch, card: str, plane, root: str, bare_step_ms: float,
     evictions, the standby the controller-manager binary with
     ``--leader-elect --controllers tpujob``. Both jobs are TRAIN's LM in
     a worker process (`lm_job_spec`): lm-low (team-a, priority 1,
-    PREEMPT["low_steps"] steps) and, once lm-low has logged step 6,
-    lm-high (team-b, priority
-    10, 6 steps). The leader evicts lm-low (its pod deleted, SIGTERM from
+    PREEMPT["low_steps"] steps) and, once lm-low has logged step
+    PREEMPT["submit_at"], lm-high (team-b, priority 10,
+    PREEMPT["high_steps"] steps). The leader evicts lm-low (its pod deleted, SIGTERM from
     the runner; fit() saves at the next step boundary and the worker
     exits 0 as preempted) and stalls; it is SIGKILLed on its ``evicted``
     line; the standby takes the Lease and places lm-high, which runs to
@@ -5543,7 +5596,7 @@ def preempt_phase(torch, card: str, plane, root: str, bare_step_ms: float,
     api.create(lm_job_spec("lm-low", "team-a", 1, PREEMPT["low_steps"], root))
     plane.run_until(lambda: any(r["event"] == "step" and r["step"] >= PREEMPT["submit_at"]
                                 for r in log("lm-low")),
-                    PREEMPT["timeout_s"], "lm-low's step 6", tick=tick)
+                    PREEMPT["timeout_s"], f"lm-low's step {PREEMPT['submit_at']}", tick=tick)
     t_submit = time.time()
     api.create(lm_job_spec("lm-high", "team-b", 10, PREEMPT["high_steps"], root))
     plane.run_until(lambda: leader.line_time("evicted mgr-a") is not None,
@@ -5933,16 +5986,125 @@ def node_lost_phase(torch, card: str, plane, root: str, straight_losses: list) -
     return launches
 
 
+def tier_phase(name: str, card: str, reports: dict) -> dict:
+    """The compiled control-plane tier of one phase's managers: each
+    manager's last ``plane`` line (`controllers.runtime.plane_report`: its
+    controllers' work-queue backends and its TpuJob operator's
+    tpujob_gang_placements_total by scheduler backend, which it prints
+    when ready, before each ``evicted`` line and at exit), and the
+    placements summed over them. Fails unless every manager reported, every
+    work queue is the compiled one, and the managers placed gangs on the
+    compiled scheduler (native > 0) and never on the Python twin."""
+    placements = {backend: sum(int(r["tpujob_gang_placements_total"][backend])
+                               for r in reports.values() if r)
+                  for backend in ("native", "python", "custom")}
+    checks = {
+        "every_manager_reported": bool(reports) and None not in reports.values(),
+        "compiled_work_queues": all(r and set(r["workqueue"].values()) == {"native"}
+                                    for r in reports.values()),
+        "native_placements": placements["native"] > 0,
+        "no_python_placements": placements["python"] == 0,
+    }
+    emit({"phase": f"{name}_tier", "card": card, "managers": reports,
+          "placements": placements, "checks": checks})
+    failed = [c for c, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"{name}'s compiled tier checks failed: {failed}")
+    return placements
+
+
+def ci_dag_phase(card: str, plane, root: str) -> dict:
+    """Path K, the kernel CI DAG on the job plane's binary (its workflow
+    controller) and pod runner: `testing/workflows.sharded_unit_tests_workflow`
+    fans CI_DAG["shards"] out as one pod each (``python -m
+    kubeflow_tpu_torch.testing.shard_runner <shard> --junit-dir <artifacts>
+    --pytest-args ...``: the card's kernel tests, on the kernels the build
+    phase built) and then merges their junit (``python -m
+    kubeflow_tpu_torch.testing.junit_merge``). Gates: the Workflow
+    Succeeded, every shard step and the collect step Succeeded, a junit
+    file per shard in the artifacts directory, and junit_merged.xml with
+    tests > 0, failures 0 and errors 0. Numbers: the counts, each shard's
+    seconds (its state seen Running to Succeeded on the host's clock, and
+    pytest's own time from its junit) and the Workflow's."""
+    import xml.etree.ElementTree as ET
+
+    from kubeflow_tpu_torch.testing.shard_runner import safe_name
+    from kubeflow_tpu_torch.testing.workflows import sharded_unit_tests_workflow
+
+    artifacts = os.path.join(root, "ci-artifacts")
+    os.makedirs(artifacts)
+    name = "kernel-ci"
+    wf = sharded_unit_tests_workflow(CI_DAG["shards"], name=name, namespace="default",
+                                     artifacts_dir=artifacts,
+                                     pytest_args=CI_DAG["pytest_args"])
+    api = plane.api
+    seen: dict = {}
+
+    def status() -> dict:
+        st = api.get("Workflow", name).status
+        now = time.time()
+        for step, info in st.get("steps", {}).items():
+            seen.setdefault(step, {}).setdefault(info.get("state"), now)
+        return st
+
+    t0 = time.time()
+    api.create(wf)
+    plane.run_until(lambda: status().get("phase") in ("Succeeded", "Failed"),
+                    CI_DAG["timeout_s"], f"Workflow {name} to finish")
+    wall_s = time.time() - t0
+    final = status()
+    steps = final.get("steps", {})
+    shards = {}
+    for i, target in enumerate(CI_DAG["shards"]):
+        path = os.path.join(artifacts, f"junit_{safe_name(target)}.xml")
+        suite = ET.parse(path).getroot() if os.path.exists(path) else None
+        if suite is not None and suite.tag != "testsuite":
+            suite = suite.find("testsuite")
+        marks = seen.get(f"shard-{i}", {})
+        start = marks.get("Running", marks.get("Succeeded"))
+        shards[target] = {
+            "state": steps.get(f"shard-{i}", {}).get("state"),
+            "junit": os.path.basename(path) if suite is not None else None,
+            "tests": int(suite.get("tests", 0)) if suite is not None else None,
+            "pytest_s": float(suite.get("time", 0)) if suite is not None else None,
+            "seconds": marks["Succeeded"] - start if "Succeeded" in marks and start else None,
+        }
+    merged_path = os.path.join(artifacts, "junit_merged.xml")
+    merged = ET.parse(merged_path).getroot() if os.path.exists(merged_path) else None
+    counts = {k: int(merged.get(k, -1)) if merged is not None else None
+              for k in ("tests", "failures", "errors")}
+    checks = {
+        "succeeded": final.get("phase") == "Succeeded",
+        "every_step_succeeded": all(steps.get(f"shard-{i}", {}).get("state") == "Succeeded"
+                                    for i in range(len(CI_DAG["shards"])))
+        and steps.get("collect-junit", {}).get("state") == "Succeeded",
+        "junit_per_shard": all(v["junit"] for v in shards.values()),
+        "merged_clean": merged is not None and counts["tests"] > 0
+        and counts["failures"] == 0 and counts["errors"] == 0,
+    }
+    out = {"phase": "ci_dag", "card": card, "workflow": name, "shards": shards,
+           "merged": counts, "pytest_args": CI_DAG["pytest_args"],
+           "phase_final": final.get("phase"), "workflow_s": wall_s, "checks": checks}
+    emit(out)
+    failed = [c for c, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"ci_dag phase checks failed: {failed}")
+    return out
+
+
 def job_plane_phases(torch, card: str, bare_step_ms: float, loss_se: float,
                      records_losses: list) -> dict:
-    """Paths A, B, D, E and C on one job plane (`testing/job_plane.JobPlane`):
+    """Paths A, B, D, E, K and C on one job plane (`testing/job_plane.JobPlane`):
     the apiserver facade over this process's store (with the TpuJob and
     ResourceQuota admission), the controller-manager binary as its own
     process (``--controllers tpujob,study,workflow,cronworkflow,nodehealth``)
     and the local pod runner stepped here. This process gives back its
     cached card memory before anything is spawned. The manager must exit
-    0 on SIGTERM after paths A, B, D and E; path C then starts its two
-    leader-elected replicas on the same facade. The pods, the managers
+    0 on SIGTERM after paths A, B, D, E and K; path C then starts its two
+    leader-elected replicas on the same facade. Then the plane's compiled
+    tier (`tier_phase`) over the three managers: compiled work queues, and
+    gangs placed by the compiled scheduler only (paths E and C place on
+    Nodes). The pods, the managers
     and the facade are reaped on every exit path, and on a failure the
     managers' output, the leadership timeline and the pod logs are
     printed. `bare_step_ms` is the train phase's step, `loss_se`
@@ -5968,10 +6130,12 @@ def job_plane_phases(torch, card: str, bare_step_ms: float, loss_se: float,
         rl_soak_phase(torch, card, plane, root)
         pipeline_launches = pipeline_phase(torch, card, plane, root, cron)
         node_lost_launches = node_lost_phase(torch, card, plane, root, records_losses)
+        ci_dag_phase(card, plane, root)
         code = plane.stop_manager()
         if code != 0:
             raise AssertionError(f"the controller manager exited {code} on SIGTERM")
         preempt_launches = preempt_phase(torch, card, plane, root, bare_step_ms, worker_mib)
+        tier_phase("job_plane", card, plane.plane_reports())
     except BaseException:
         if plane is not None:
             print(plane.diagnostics(), file=sys.stderr, flush=True)
@@ -6017,7 +6181,12 @@ def ha_job_phase(torch, card: str, path_a: dict) -> dict:
     which; steps past path A's 8 are not compared); 16 launches a step
     of flash_fwd, flash_delta and flash_bwd_fused in the worker; the
     killed facade exited by SIGKILL and its port refuses connections to
-    the end. Numbers: kill to standby serving; kill to the first acked
+    the end; both facades' stores on the compiled WAL, and ``wal.log`` on a
+    new inode after the standby's takeover (its checkpoint renamed a fresh
+    log over it: the inode it found and the one after, in its ``takeover``
+    line); the compiled tier (`tier_phase`: the binary's work queue, and the
+    gang placed on the one-GPU Node "h100-0" by the compiled scheduler).
+    Numbers: kill to standby serving; kill to the first acked
     write through the new active from the worker (its step reports),
     the binary (its Lease renewals) and the runner's client (a probe
     write every HA_JOB["probe_every_s"]); the worker's step ms across the
@@ -6059,6 +6228,7 @@ def ha_job_phase(torch, card: str, path_a: dict) -> dict:
             retry_period=HA_JOB["manager_retry_s"], wait_for="manager ready tpujob",
             timeout=HA_JOB["manager_ready_s"])
         api = plane.api
+        plane.add_node("h100-0", chips=1)  # the gang places through the scheduler
         probe = {"last": 0.0, "acked": []}
 
         def tick():
@@ -6116,8 +6286,11 @@ def ha_job_phase(torch, card: str, path_a: dict) -> dict:
         binary_client = json.loads(next(
             line for _, line in reversed(manager.lines)
             if line.startswith("client "))[len("client "):])
+        tier_phase("ha_job", card, plane.plane_reports())
         takeover = json.loads(next(line for _, line in survivor.lines
                                    if line.startswith("takeover "))[len("takeover "):])
+        first_takeover = json.loads(next(line for _, line in killed.lines
+                                         if line.startswith("takeover "))[len("takeover "):])
         standby_serving_s = survivor.line_time("apiserver ready ") - t_kill
         tls_used, tls_tool = all(e.startswith("https://") for e in plane.endpoints), \
             plane.tls_tool
@@ -6188,6 +6361,11 @@ def ha_job_phase(torch, card: str, path_a: dict) -> dict:
             "deposed_never_serves": refused_after_kill and still_refused,
             "standby_took_over": survivor is not None and survivor is not killed,
             "tls": tls_used,
+            "compiled_wal": first_takeover.get("wal_backend") == "native"
+            and takeover.get("wal_backend") == "native",
+            "wal_new_inode_at_takeover": None not in (takeover.get("wal_inode_found"),
+                                                      takeover.get("wal_inode"))
+            and takeover["wal_inode_found"] != takeover["wal_inode"],
         }
         out = {
             "phase": "ha_job", "card": card, "job": "lm-ha", "worker_command": "python -m "
@@ -6206,6 +6384,9 @@ def ha_job_phase(torch, card: str, path_a: dict) -> dict:
                 "binary_renewal_seen_by_plane": lease.get("seen", t_kill) - t_kill,
                 "runner_client_probe": first_probe - t_kill if first_probe else None},
             "takeover": takeover,
+            "wal_inode": {"backend": takeover.get("wal_backend"),
+                          "before_takeover": takeover.get("wal_inode_found"),
+                          "after_takeover": takeover.get("wal_inode")},
             "step_ms": {s: r["step_ms"] for s, r in sorted(step_recs.items())},
             "acked_at_s_after_kill": {s: r["time"] - t_kill for s, r in sorted(acked.items())},
             "worker_median_step_ms": obs.get("step_ms"), "path_a_step_ms": path_a["step_ms"],
@@ -6264,7 +6445,9 @@ def tenant_phase(torch, card: str, path_a: dict) -> dict:
        kind left in team-c; a fresh store over a copy of the state directory
        with no Profile team-c, no Namespace team-c and nothing in team-c;
        team-x's Profile and Namespace untouched; the binary exits 0 on
-       SIGTERM.
+       SIGTERM; the compiled tier (`tier_phase`: the binary's work
+       queues, lm-tenant placed on the one-GPU Node "h100-0" by the
+       compiled scheduler).
 
     Returns the worker's launch counts."""
     from kubeflow_tpu_torch.api import make_tpujob
@@ -6300,6 +6483,7 @@ def tenant_phase(torch, card: str, path_a: dict) -> dict:
                          capture_dir=os.path.join(root, "logs"), persist_dir=state,
                          ready_timeout=TENANT["manager_ready_s"])
         api = plane.api
+        plane.add_node("h100-0", chips=1)  # the gang places through the scheduler
         manager_ready_s = plane.manager_ready_s
 
         def condition(name: str):
@@ -6479,6 +6663,7 @@ def tenant_phase(torch, card: str, path_a: dict) -> dict:
         conflict_events = conflicts()
         records = log_records(plane.pod_logs().get(f"{worker}.log", ""))
         binary_exit = plane.stop_manager()
+        tier_phase("tenant", card, plane.plane_reports())
         plane.close()
         diagnostics = plane.diagnostics()
         plane = None
@@ -6638,6 +6823,9 @@ def platform_phase(torch, card: str, path_a: dict) -> dict:
     9. The dashboard's nuke-self: the Profile and Namespace gone, the
        service account's token refused with 401 and gone from the token
        file, the admin's accepted; SIGTERM, exit 0.
+    10. The compiled tier (`tier_phase`) over the two boots' ``plane``
+       lines: compiled work queues, lm-platform placed on the seeded Node
+       by the compiled scheduler.
 
     Each step's loss finite and bitwise or within path A's limit
     (`path_a`); 16 launches a step of flash_fwd, flash_delta and
@@ -6659,6 +6847,8 @@ def platform_phase(torch, card: str, path_a: dict) -> dict:
                                                   "lr": TRAIN["lr"]})})
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    tier_phase("platform", card, {f"apps-boot{i + 1}": plane
+                                  for i, plane in enumerate(rec["planes"])})
     records = log_records(rec["logs"][1])
     step_recs = {r["step"]: r for r in records if r["event"] == "step"}
     start = next((r for r in records if r["event"] == "start"), {})
@@ -6782,7 +6972,9 @@ def chaos_job_phase(torch, card: str, path_a: dict) -> dict:
     SIGTERM); one worker process; each acked step in status.metrics with
     the worker's loss; the losses finite and bitwise or within path A's
     limit (`path_a`); 16 launches a step of flash_fwd, flash_delta and
-    flash_bwd_fused in the worker. Returns the worker's launches."""
+    flash_bwd_fused in the worker; the compiled tier (`tier_phase`: the
+    binary's work queues, the job placed on a one-GPU Node by the compiled
+    scheduler). Returns the worker's launches."""
     from kubeflow_tpu_torch.testing import chaos_job
 
     t_phase = time.perf_counter()
@@ -6793,7 +6985,7 @@ def chaos_job_phase(torch, card: str, path_a: dict) -> dict:
         rec = chaos_job.run_chaos_job(
             root, steps=steps, seed=CHAOS_JOB["seed"],
             faults_per_class=CHAOS_JOB["faults_per_class"], timeout=CHAOS_JOB["timeout_s"],
-            ready_timeout=CHAOS_JOB["manager_ready_s"],
+            ready_timeout=CHAOS_JOB["manager_ready_s"], nodes=1,
             job_env={"KFTPU_CKPT_DIR": os.path.join(root, "ckpt"),
                      "KFTPU_TOTAL_STEPS": str(steps), "KFTPU_SAVE_EVERY": str(steps),
                      "KFTPU_LM_SIZE": json.dumps({**LM, "batch": TRAIN["batch"],
@@ -6801,6 +6993,7 @@ def chaos_job_phase(torch, card: str, path_a: dict) -> dict:
                                                   "lr": TRAIN["lr"]})})
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    tier_phase("chaos_job", card, {"manager-0": rec["plane"]})
     records = log_records(rec["logs"])
     step_recs = {r["step"]: r for r in records if r["event"] == "step"}
     acked = {r["step"] for r in records if r["event"] == "acked"}
@@ -7155,6 +7348,22 @@ def deploy_phase(torch, card: str) -> dict:
     return launches
 
 
+def cache_bytecode() -> dict:
+    """Lets this process and every process it starts (workers, pods,
+    binaries: they inherit the environment) keep the bytecode Python
+    compiles under ``build/pycache`` in the checkout; returns that
+    directory and whether the environment had turned writing off. Where the environment says PYTHONDONTWRITEBYTECODE and the
+    installed packages ship no ``.pyc``, every new process compiles
+    torch's Python sources anew, on import and in its first step's lazy
+    imports (tools/worker_start.py): seconds of every worker's start."""
+    prefix = os.path.join(ROOT, "build", "pycache")
+    was_off = bool(os.environ.pop("PYTHONDONTWRITEBYTECODE", None)) or sys.dont_write_bytecode
+    os.environ["PYTHONPYCACHEPREFIX"] = prefix
+    sys.pycache_prefix = prefix
+    sys.dont_write_bytecode = False
+    return {"prefix": prefix, "writing_was_off": was_off}
+
+
 def main() -> int:
     import torch
 
@@ -7172,7 +7381,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
-    card = device_phase(torch)["nvidia_smi"]
+    card = device_phase(torch, cache_bytecode())["nvidia_smi"]
     ptxas = build_phase()
     if sys.argv[1:2] == ["--loss-seeds"]:
         loss_seeds(torch, int(sys.argv[2]))

@@ -24,7 +24,10 @@ directory is loaded, so a static token written there before the first
 boot is honoured) and the CA. The token file is never under the pod-log
 root. Deleting a Profile revokes its namespace's service-account tokens.
 ``--insecure-apiserver`` serves the facade open over http (dev only).
-SIGTERM or SIGINT shuts it down and exits 0.
+SIGTERM or SIGINT shuts it down, prints ``plane {json}`` (the
+controller-manager binary's line, `controllers.runtime.plane_report`:
+each controller's work-queue backend and the TpuJob operator's gang
+placements by scheduler backend) and exits 0.
 
 The seeded Nodes are the port's: ``--nodes`` (default 1) Nodes in pool
 ``--node-pool``, each advertising as ``chips`` the GPUs the CUDA driver
@@ -39,6 +42,7 @@ import argparse
 import atexit
 import faulthandler
 import hashlib
+import json
 import logging
 import os
 import shutil
@@ -59,7 +63,7 @@ from kubeflow_tpu_torch.controllers.cronworkflow import CronWorkflowController
 from kubeflow_tpu_torch.controllers.nodehealth import NodeHealthController
 from kubeflow_tpu_torch.controllers.notebook import NotebookController
 from kubeflow_tpu_torch.controllers.profile import ProfileController
-from kubeflow_tpu_torch.controllers.runtime import ControllerManager
+from kubeflow_tpu_torch.controllers.runtime import ControllerManager, plane_report
 from kubeflow_tpu_torch.controllers.study import StudyController
 from kubeflow_tpu_torch.controllers.tensorboard import TensorboardController
 from kubeflow_tpu_torch.controllers.tpujob import TpuJobController
@@ -167,7 +171,7 @@ def main() -> None:
             pass
 
     manager = ControllerManager()
-    for ctl in (
+    built = (
         ProfileController(api),
         NotebookController(api),
         TensorboardController(api),
@@ -176,7 +180,8 @@ def main() -> None:
         StudyController(api),
         WorkflowController(api),
         CronWorkflowController(api),
-    ):
+    )
+    for ctl in built:
         manager.add(ctl.controller)
     poddefault.register(api)
     quota.register(api)
@@ -261,6 +266,7 @@ def main() -> None:
     pods_thread.join(timeout=10.0)
     runner.shutdown()
     manager.stop()
+    print("plane " + json.dumps(plane_report(built)), flush=True)
     for server in servers:
         server.shutdown()
         server.server_close()

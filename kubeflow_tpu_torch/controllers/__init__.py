@@ -1,7 +1,8 @@
-"""Controllers: the reconcile runtime (`controllers/runtime.py`), the
-serving controller (`controllers/serving.py`, a ServingDeployment into a
-replica fleet), the TpuJob operator (`controllers/tpujob.py`, a job into
-a gang of worker pods, placed by `controllers/gang.py`), the Study
+"""Controllers: the reconcile runtime (`controllers/runtime.py`, on the
+compiled work queue), the serving controller (`controllers/serving.py`, a
+ServingDeployment into a replica fleet), the TpuJob operator
+(`controllers/tpujob.py`, a job into a gang of worker pods, placed by
+the compiled gang scheduler, `native/scheduler.py`), the Study
 controller (`controllers/study.py`, a search into trial TpuJobs), the
 pipeline controllers (`controllers/workflow.py`, a DAG into step pods and
 TpuJob slice steps; `controllers/cronworkflow.py`, Workflows spawned on a

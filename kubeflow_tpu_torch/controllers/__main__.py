@@ -12,13 +12,16 @@ Counterpart of `kubeflow_tpu/controllers/__main__.py`:
 
 builds each named controller on one `HttpApiClient` (its watch feeds
 every controller's queue), starts them, prints ``manager ready
-<names>`` and reconciles until SIGTERM or SIGINT, then stops the
-controllers, prints ``client {json}`` (its failovers, the connections
+<names>`` and then ``plane {json}`` (`runtime.plane_report`: each controller's
+work-queue backend, ``native`` for the compiled queue, and the TpuJob
+operator's ``tpujob_gang_placements_total`` by scheduler backend), and
+reconciles until SIGTERM or SIGINT, then stops the controllers, prints
+``plane {json}`` again and ``client {json}`` (its failovers, the connections
 it dialed, its write retries and its watch's counters,
 `HttpApiClient.watch_stats`: streams opened and failed, long-poll
 rounds, degraded episodes and seconds, streams opened after one) and
-exits 0. SIGUSR1 dumps every thread's stack and prints the ``client``
-line without stopping anything (`JobPlane.stall_report` sends it). The
+exits 0. SIGUSR1 dumps every thread's stack and prints the ``plane``
+and ``client`` lines without stopping anything (`JobPlane.stall_report` sends it). The
 client flags are JAX's: bounded write retries, the
 per-endpoint breakers' cooldown and the re-probe of a rejected stream.
 Two more, which JAX's binary lacks (it leaves them at the client's
@@ -72,7 +75,7 @@ from kubeflow_tpu_torch.controllers.cronworkflow import CronWorkflowController
 from kubeflow_tpu_torch.controllers.nodehealth import NodeHealthController
 from kubeflow_tpu_torch.controllers.notebook import NotebookController
 from kubeflow_tpu_torch.controllers.profile import ProfileController
-from kubeflow_tpu_torch.controllers.runtime import ControllerManager
+from kubeflow_tpu_torch.controllers.runtime import ControllerManager, plane_report
 from kubeflow_tpu_torch.controllers.serving import ServingDeploymentController
 from kubeflow_tpu_torch.controllers.study import StudyController
 from kubeflow_tpu_torch.controllers.tensorboard import TensorboardController
@@ -94,6 +97,7 @@ CONTROLLERS = {
 
 # What prints the client's counters, once main() has built the client.
 _reporters: list = []
+
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -162,22 +166,30 @@ def main(argv: list[str] | None = None) -> int:
                                       "retries": client.retries_total,
                                       "watch": client.watch_stats()}), flush=True)
 
-    _reporters.append(report_client)
+    built: list = []
+
+    def report_plane() -> None:
+        print("plane " + json.dumps(plane_report(built)), flush=True)
+
+    _reporters.extend([report_plane, report_client])
 
     def start_manager() -> ControllerManager:
         # Built only once this replica is active: construction registers
         # the watches and lists, and a standby reconciles nothing.
         manager = ControllerManager()
         for name in names:
-            manager.add(CONTROLLERS[name](client).controller)
+            built.append(CONTROLLERS[name](client))
+            manager.add(built[-1].controller)
         manager.start()
         print(f"manager ready {','.join(names)}", flush=True)
+        report_plane()
         return manager
 
     if not args.leader_elect:
         manager = start_manager()
         sigutil.wait_for_shutdown(shutdown)
         manager.stop()
+        report_plane()
         report_client()
         client.close()
         return 0
@@ -198,6 +210,7 @@ def main(argv: list[str] | None = None) -> int:
     lost = elector.run(shutdown, on_lead)
     if manager is not None:
         manager.stop()
+    report_plane()
     report_client()
     if lost:
         print(f"deposed {elector.identity}", flush=True)

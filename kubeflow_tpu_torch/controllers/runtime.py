@@ -6,13 +6,16 @@ errors requeue with backoff, `requeue_after` drives periodic work.
 Reconcilers are functions of observed state only: they read the API
 server fresh each pass, so a reconcile is idempotent and crash-safe.
 
-The work queue is the Python one, by design: the JAX package reaches
-for its C++ queue through `kubeflow_tpu.native.core` first and keeps
-the Python one as a fallback with the same semantics; the port imports
-nothing of the JAX package, so the Python queue is its only one. Each
-reconcile is a tracing span (`utils/tracing.py`: "reconcile", its
-controller and key; an exception sets the span's error), and the
-client calls inside it carry its trace id.
+The work queue is the compiled one (`make_workqueue`: the port's copy
+of ``workqueue.cc``, `native/core.WorkQueue`), as the JAX package's is.
+If it cannot be built or loaded, `make_workqueue` raises: the JAX
+package falls back to its Python queue with a warning, the port does
+not. `PyWorkQueue`, the Python twin with the same semantics, is reached
+only by name (``Controller(workqueue=PyWorkQueue(...))``); it alone
+takes a `clock`, for scripted tests. Each reconcile is a tracing span
+(`utils/tracing.py`: "reconcile", its controller and key; an exception
+sets the span's error), and the client calls inside it carry its trace
+id.
 
 Objects delivered by watches and returned by get/list are shared frozen
 snapshots: take a private copy with `.thaw()` before mutating (the
@@ -30,6 +33,7 @@ import time
 from typing import Callable, Iterable
 
 from kubeflow_tpu_torch.api.objects import Resource
+from kubeflow_tpu_torch.native.core import WorkQueue, backend_of
 from kubeflow_tpu_torch.testing.fake_apiserver import Conflict
 from kubeflow_tpu_torch.utils import tracing
 from kubeflow_tpu_torch.utils.metrics import MetricsRegistry
@@ -68,12 +72,15 @@ def retry_on_conflict(
             delay = min(delay * 2, 0.25)
 
 
-class WorkQueue:
-    """The rate-limited work queue: keyed dedup, sooner-wins supersede,
-    an in-flight dirty set, per-key exponential error backoff. `clock`
+class PyWorkQueue:
+    """The compiled work queue's Python twin (JAX's `_PyWorkQueue`), with
+    its interface and semantics: keyed dedup, sooner-wins supersede, an
+    in-flight dirty set, per-key exponential error backoff. `clock`
     (default `time.monotonic`) says when a delayed item comes due: a
     scripted test passes its own, so a `requeue_after` fires when the
     script moves time and never because a pass ran slowly."""
+
+    tier = "python"
 
     def __init__(self, base_backoff: float = 0.02, max_backoff: float = 30.0,
                  clock: Callable[[], float] = time.monotonic):
@@ -186,6 +193,27 @@ class WorkQueue:
             self._cv.notify_all()
 
 
+def make_workqueue(base_backoff: float = 0.02, max_backoff: float = 30.0):
+    """The compiled work queue; raises if it cannot be built or loaded."""
+    return WorkQueue(base_backoff=base_backoff, max_backoff=max_backoff)
+
+
+def plane_report(built) -> dict:
+    """The compiled tier of one manager's controller objects `built`
+    (each with a ``.controller``): each controller's work-queue backend,
+    and gang placements by scheduler backend summed over the TpuJob
+    operators among them (their ``tpujob_gang_placements_total``)."""
+    placements = {"native": 0, "python": 0, "custom": 0}
+    for ctl in built:
+        counter = getattr(ctl, "gang_placements", None)
+        if counter is not None:
+            for backend in placements:
+                placements[backend] += int(counter.value(backend=backend))
+    return {"workqueue": {ctl.controller.name: backend_of(ctl.controller._queue)
+                          for ctl in built},
+            "tpujob_gang_placements_total": placements}
+
+
 def _encode(key: Key) -> str:
     return f"{key[0]}/{key[1]}"
 
@@ -215,7 +243,10 @@ class Controller:
         self.name = name or f"{kind.lower()}-controller"
         self._reconcile = reconcile
         self._owns = tuple(owns)
-        self._queue = workqueue or WorkQueue(max_backoff=max_backoff)
+        # `is None`, not `or`: an empty queue is falsy (it has __len__),
+        # and JAX's `workqueue or ...` drops a caller's empty queue.
+        self._queue = workqueue if workqueue is not None else make_workqueue(
+            max_backoff=max_backoff)
         metrics = metrics or MetricsRegistry()
         self.reconcile_total = metrics.counter(
             "reconcile_total", "reconcile passes", ("controller", "outcome")

@@ -9,9 +9,13 @@ worker, injects the coordination env and supervises the gang:
 - **whole-gang restart on any failure**, bounded by spec.maxRestarts,
   counted in status.restarts; each gang's pods carry its incarnation
   (the restart count at creation) as a label;
-- **placement** through the gang scheduler (`controllers/gang.py`)
-  whenever Node objects exist: a topology names its pool, a
-  topology-less gang tries every pool, most free accelerators first;
+- **placement** through the compiled gang scheduler
+  (`native/scheduler.make_gang_scheduler`, or the `scheduler_factory`
+  a caller names, as JAX's ``scheduler=``) whenever Node objects exist:
+  a topology names its pool, a topology-less gang tries every pool,
+  most free accelerators first; ``tpujob_gang_placements_total`` counts
+  each placement by ``backend`` (``native``, ``python`` for the twin
+  `PyGangScheduler`, ``custom``);
 - **priority preemption** at gang granularity (`_preempt_for`): a gang
   that cannot place evicts gangs of strictly lower priority holding
   accelerators in its pool, lowest priority and youngest first, and only
@@ -65,13 +69,14 @@ from kubeflow_tpu_torch.api.tpujob import (
     KIND,
     TpuJobSpec,
 )
-from kubeflow_tpu_torch.controllers.gang import PlacementError, PyGangScheduler
 from kubeflow_tpu_torch.controllers.runtime import (
     Controller,
     Key,
     Result,
     retry_on_conflict,
 )
+from kubeflow_tpu_torch.native.core import backend_of
+from kubeflow_tpu_torch.native.scheduler import PlacementError, make_gang_scheduler
 from kubeflow_tpu_torch.parallel.distributed import ProcessEnv
 from kubeflow_tpu_torch.testing.fake_apiserver import (
     Conflict,
@@ -131,8 +136,10 @@ class TpuJobController:
         metrics: MetricsRegistry | None = None,
         quota_retry_seconds: float = 10.0,
         preempt_stall=None,
+        scheduler_factory=None,
     ):
         self.api = api
+        self._scheduler_factory = scheduler_factory
         self._pools: list[str] = []
         self._quota_retry_seconds = quota_retry_seconds
         self._preempt_stall = preempt_stall
@@ -237,7 +244,8 @@ class TpuJobController:
         nodes = api.list("Node")
         if not nodes:
             return None
-        sched = PyGangScheduler()
+        sched = (self._scheduler_factory() if self._scheduler_factory is not None
+                 else make_gang_scheduler())
         coords: dict[str, list[tuple[int, int]]] = {}
         for n in nodes:
             pool = n.spec.get("pool", "default")
@@ -287,7 +295,7 @@ class TpuJobController:
                 last = e
                 continue
             if count:
-                self.gang_placements.inc(backend="python")
+                self.gang_placements.inc(backend=backend_of(sched))
             return result
         raise last if last is not None else PlacementError(
             f"no node pools exist to place {gang_id}"

@@ -23,7 +23,11 @@ reads (`JobPlane.observer`) and ``kftpu`` go straight to the facade.
    --api-version`` at every served version.
 5. The Notebook is churned (an annotation a round) until every planned
    fault has taken effect; the binary is stopped with SIGTERM and its
-   ``client`` line read.
+   ``client`` and ``plane`` lines read.
+
+With `nodes`, that many Nodes of `gpus` accelerators each are created
+(through the observer) before the job, so its gang is placed by the
+operator's scheduler.
 
 Returns what it saw and timed (wall-clock seconds), for the caller to
 hold to its checks; `checks(rec, steps)` gives the control-plane ones.
@@ -127,10 +131,11 @@ def _degraded_and_back(schedule, since: float):
 
 def run_chaos_job(root: str, *, job_env: dict, steps: int, seed: int = 0,
                   faults_per_class: int = 2, job: str = "lm-chaos", gpus: int = 1,
-                  timeout: float = 300.0, ready_timeout: float = 120.0) -> dict:
+                  timeout: float = 300.0, ready_timeout: float = 120.0,
+                  nodes: int = 0) -> dict:
     import yaml
 
-    from kubeflow_tpu_torch.api import make_tpujob
+    from kubeflow_tpu_torch.api import make_tpujob, new_resource
     from kubeflow_tpu_torch.controllers.tpujob import LABEL_JOB
     from kubeflow_tpu_torch.testing.job_plane import JobPlane
 
@@ -150,6 +155,10 @@ def run_chaos_job(root: str, *, job_env: dict, steps: int, seed: int = 0,
         manager = plane.start_manager(("tpujob", "notebook"), extra_args=BINARY_FLAGS,
                                       timeout=ready_timeout)
         sec["binary_ready"] = time.time() - t_manager
+        for i in range(nodes):  # the cluster model: the gang places on one
+            node = new_resource("Node", f"node-{i}", "", spec={"pool": "default", "chips": gpus})
+            node.status = {"ready": True}
+            obs.create(node)
 
         t_create = time.time()
         obs.create(make_tpujob(job, replicas=1, tpu_chips_per_worker=gpus, max_restarts=1,
@@ -227,6 +236,7 @@ def run_chaos_job(root: str, *, job_env: dict, steps: int, seed: int = 0,
         rec["runner_client"] = {"retries": plane.api.retries_total,
                                 "watch": plane.api.watch_stats()}
         rec["binary_rc"] = manager.stop()
+        rec["plane"] = manager.plane()
         rec["binary_client"] = json.loads(next(
             line for _, line in reversed(manager.lines)
             if line.startswith("client "))[len("client "):])

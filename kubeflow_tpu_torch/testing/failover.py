@@ -16,9 +16,11 @@ another lease store):
   (`FakeApiServer._restore_locked`: snapshot plus WAL tail, torn-tail
   repair, the watch floor re-seeded at the durable rv so older bookmarks
   get 410 and relist), then `checkpoint()`s, which moves ``wal.log`` onto
-  a new inode (`PyWal.snapshot` truncates by replacement): a deposed
-  active still holding the old fd appends into an orphan no restart
-  replays.
+  a new inode (both WAL backends truncate by replacement, the compiled
+  one the store opens by default and `PyWal`): a deposed active still
+  holding the old fd appends into an orphan no restart replays. JAX's
+  takeover pins its store to the Python WAL, since its compiled WAL
+  truncates in place; the port's needs no pin.
 - The active's WAL is wrapped in `FencedWal`, which re-reads the lease
   before and after every append and snapshot. Once the term has moved,
   the next durable write raises `WalFenced`, the store fail-stops (every

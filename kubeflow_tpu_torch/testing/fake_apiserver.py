@@ -43,7 +43,8 @@ with no JAX in it), holding what the serving control plane uses:
   holder and generation, checked under the commit lock
 
 - durability (`persist_dir=`): every committed write is appended to a
-  fsync'd WAL (`testing/persist.py`) before its event is journaled or
+  fsync'd WAL (`testing/persist.py`; the compiled one unless
+  ``wal_backend="python"`` names its twin) before its event is journaled or
   delivered, the WAL folds into a snapshot every `snapshot_every`
   writes and on `checkpoint()`/`close()`, and a store built over the
   same directory restores the objects and the resourceVersion
@@ -207,6 +208,7 @@ class FakeApiServer:
         journal_size: int = 10_000,
         persist_dir: str | None = None,
         snapshot_every: int = 1_000,
+        wal_backend: str = "native",
         wal_wrap=None,
     ):
         self._objects: dict[tuple[str, str, str], Resource] = {}
@@ -241,10 +243,12 @@ class FakeApiServer:
         self._broken: BaseException | None = None
         # Namespaces drained since this store started, until created again.
         self._drained: set[str] = set()
+        # The WAL backend this store opened ("native" or "python"), or None.
+        self.wal_backend = wal_backend if persist_dir is not None else None
         if persist_dir is not None:
             from kubeflow_tpu_torch.testing import persist
 
-            self._wal = persist.open_wal(persist_dir)
+            self._wal = persist.open_wal(persist_dir, backend=wal_backend)
             if wal_wrap is not None:
                 self._wal = wal_wrap(self._wal)
             with self._lock:  # a torn-tail repair checkpoints under the lock

@@ -23,7 +23,10 @@ on one machine, as the JAX package's e2e soaks do:
   `run_pods=False` leaves pods unrun and workloads unmaterialized, as
   the JAX HA tests do;
 - `add_node` and `set_quota`, the cluster model's Nodes and a tenant's
-  ResourceQuota, and `lose_node`, a host's failure.
+  ResourceQuota, and `lose_node`, a host's failure;
+- `plane_reports()`: each manager's last ``plane {json}`` line, its
+  compiled tier (work-queue backends, gang placements by scheduler
+  backend), every line read once the manager is stopped or killed.
 
 With `ha_state_dir` the control plane is an active-passive pair
 instead (`testing/failover.py`): two facade processes
@@ -70,6 +73,7 @@ gracefully, so the active checkpoints its store and releases the lease.
 from __future__ import annotations
 
 import http.client
+import json
 import os
 import signal
 import socket
@@ -125,7 +129,9 @@ class Manager:
         self._cv = threading.Condition()
         self.proc = subprocess.Popen(argv, cwd=str(ROOT), env=env, stdout=subprocess.PIPE,
                                      stderr=subprocess.STDOUT, text=True)
-        threading.Thread(target=self._read, name=f"manager-{name}", daemon=True).start()
+        self._reader = threading.Thread(target=self._read, name=f"manager-{name}",
+                                        daemon=True)
+        self._reader.start()
 
     def _read(self) -> None:
         for line in self.proc.stdout:
@@ -166,6 +172,7 @@ class Manager:
         t = time.time()
         self.signal(signal.SIGKILL)
         self.proc.wait(timeout=10)
+        self._reader.join(timeout=5)
         return t
 
     def stop(self, timeout: float = 30.0) -> int:
@@ -179,7 +186,17 @@ class Manager:
         except subprocess.TimeoutExpired:
             self.proc.kill()
             self.proc.wait()
+        self._reader.join(timeout=5)  # every line it printed, read
         return self.proc.returncode
+
+    def plane(self) -> dict | None:
+        """Its last ``plane {json}`` line (the compiled tier's report:
+        each controller's work-queue backend and gang placements by
+        scheduler backend, `controllers.runtime.plane_report`), or None."""
+        with self._cv:
+            last = next((line for _, line in reversed(self.lines)
+                         if line.startswith("plane ")), None)
+        return json.loads(last[len("plane "):]) if last is not None else None
 
 
 class JobPlane:
@@ -404,6 +421,10 @@ class JobPlane:
     @property
     def manager_output(self) -> list[str]:
         return [line for _, line in self.manager.lines]
+
+    def plane_reports(self) -> dict[str, dict | None]:
+        """Each manager's last ``plane`` line, by manager name."""
+        return {m.name: m.plane() for m in self.managers}
 
     def stop_manager(self, timeout: float = 30.0) -> int:
         """SIGTERM the first manager and wait for it; returns its exit code."""

@@ -7,18 +7,23 @@ package restores in the other:
     <dir>/snapshot.json   full state {format, rv, objects}
     <dir>/wal.log         one JSON record {rv, event, object} per committed write
 
-`PyWal` keeps the crash-safety contract: an append returns only after
-fdatasync; a snapshot is tmp + fsync + rename + dirsync before the WAL
-is truncated, and the truncate is by replacement (a fresh file renamed
-over ``wal.log``, so the log moves to a new inode and a deposed process
-still holding the old fd appends into an orphan no restart replays). A
-crash between the snapshot and the truncate leaves stale WAL records,
-which the reader skips by rv.
+Two backends keep one crash-safety contract and write the same bytes:
+the compiled WAL (`native/core.NativeWal`, the port's copy of
+``wal.cc``), which `open_wal` opens by default, and `PyWal`, its Python
+twin, chosen only by name (``backend="python"``). An append returns only
+after fdatasync; a snapshot is tmp + fsync + rename + dirsync before the
+WAL is truncated, and the truncate is by replacement (a fresh file
+renamed over ``wal.log``, so the log moves to a new inode and a deposed
+process still holding the old fd appends into an orphan no restart
+replays). A crash between the snapshot and the truncate leaves stale
+WAL records, which the reader skips by rv.
 
-The compiled WAL (`native/src/wal.cc`) is not ported: it truncates
-``wal.log`` in place, which would leave a deposed active's fd on the
-live log, and the JAX package pins its HA stores to the Python WAL for
-that reason. `open_wal` takes the Python backend only.
+JAX's compiled WAL truncates ``wal.log`` in place, which would leave a
+deposed active's fd on the live log, so the JAX package pins its HA
+stores to its Python WAL; the port's copy does not, and its HA stores
+run on the compiled WAL too (`testing/failover.py`). JAX's `open_wal`
+falls back to the Python backend when the compiled one cannot be built;
+the port's raises.
 """
 
 from __future__ import annotations
@@ -36,7 +41,8 @@ def _write_all(fd: int, data: bytes) -> None:
 
 
 class PyWal:
-    """The WAL and snapshot files of one store directory."""
+    """The WAL and snapshot files of one store directory: the compiled
+    WAL's Python twin."""
 
     def __init__(self, directory: str):
         self._dir = str(directory)
@@ -103,7 +109,17 @@ class PyWal:
         return self._read(self._wal_path)
 
 
-def open_wal(directory: str) -> PyWal:
-    """Open a store directory: JAX's `open_wal` on its Python backend, the
-    only one ported."""
-    return PyWal(directory)
+BACKENDS = ("native", "python")
+
+
+def open_wal(directory: str, backend: str = "native"):
+    """Open a store directory on the compiled WAL (``native``, the
+    default; raises if it cannot be built or loaded) or on `PyWal`
+    (``python``)."""
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown wal backend {backend!r}; one of {BACKENDS}")
+    if backend == "python":
+        return PyWal(directory)
+    from kubeflow_tpu_torch.native.core import NativeWal
+
+    return NativeWal(directory)

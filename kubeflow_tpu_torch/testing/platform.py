@@ -167,6 +167,12 @@ class Platform:
         with open(self.log_path, errors="replace") as f:
             return f.read()
 
+    def planes(self) -> list[dict]:
+        """The ``plane {json}`` lines of the current boot's output (the
+        compiled tier's report the process prints at exit)."""
+        return [json.loads(line[len("plane "):]) for line in self.output().splitlines()
+                if line.startswith("plane ")]
+
     def close(self) -> None:
         if self.proc is not None and self.proc.poll() is None:
             self.proc.kill()
@@ -277,10 +283,12 @@ def run_flow(state_dir: str, *, user: str, job_env: dict, env: dict | None = Non
        Succeeded, then `describe`, `logs --job` and `top`;
     6. the dashboard's workloads and activities;
     7. `kftpu traces`;
-    8. SIGTERM, exit code, a boot on the same state directory: the
-       admin token, the job and the notebook;
+    8. SIGTERM, exit code, the process's ``plane`` line (its work-queue
+       backends and gang placements), a boot on the same state
+       directory: the admin token, the job and the notebook;
     9. the dashboard's nuke-self to the Profile and Namespace gone, the
-       service-account token before and after, the admin's; SIGTERM.
+       service-account token before and after, the admin's; SIGTERM and
+       the second boot's ``plane`` line.
 
     Returns what it saw and timed (seconds on the host's clock); the
     caller holds it to its checks."""
@@ -427,6 +435,7 @@ def run_flow(state_dir: str, *, user: str, job_env: dict, env: dict | None = Non
 
         # 8. A durable restart.
         rec["stop_rc"] = p.stop()
+        rec["planes"] = p.planes()
         api.close()
         sec["restart_to_serving"] = p.start()
         api = p.client()
@@ -462,6 +471,7 @@ def run_flow(state_dir: str, *, user: str, job_env: dict, env: dict | None = Non
         rec["token_file"] = p.token_file
         api.close()
         rec["final_stop_rc"] = p.stop()
+        rec["planes"] += p.planes()
         rec["output"] = p.output()[-4000:]
         return rec
     except BaseException:

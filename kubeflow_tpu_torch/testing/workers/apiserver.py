@@ -36,7 +36,9 @@ in the lease's acquire loop, serving nothing (it does not bind its
 port). On winning the lease it takes over (`open_active_store`: replay
 the WAL, checkpoint, which moves the log to a new inode, serve fenced to
 this term), prints ``takeover {json}`` (the WAL and snapshot bytes it
-found, `open_active_store`'s seconds, the rv and the object count), then
+found and the inode of ``wal.log`` it found, `open_active_store`'s
+seconds, the WAL backend, the inode of ``wal.log`` after the checkpoint,
+the rv and the object count), then
 ``apiserver ready <port>`` and ``leading <identity> gen <n>``, the last
 line of its boot. On losing the lease it prints ``deposed <identity>``
 and exits 2 without closing the store: a deposed active's checkpoint is
@@ -71,6 +73,13 @@ def _size(path: str) -> int:
         return os.path.getsize(path)
     except FileNotFoundError:
         return 0
+
+
+def _inode(path: str) -> int | None:
+    try:
+        return os.stat(path).st_ino
+    except FileNotFoundError:
+        return None
 
 
 def _admit(api) -> None:
@@ -129,11 +138,14 @@ def main() -> int:
     print(f"standby {identity}", flush=True)
     if not elector.acquire(stop):
         return 0  # stopped while parked: it never served
-    found = {"wal_bytes": _size(os.path.join(store_dir, "wal.log")),
-             "snapshot_bytes": _size(os.path.join(store_dir, "snapshot.json"))}
+    wal_log = os.path.join(store_dir, "wal.log")
+    found = {"wal_bytes": _size(wal_log),
+             "snapshot_bytes": _size(os.path.join(store_dir, "snapshot.json")),
+             "wal_inode_found": _inode(wal_log)}
     t0 = time.perf_counter()
     api = open_active_store(store_dir, leases, "apiserver", identity, elector.transitions)
     found["open_active_store_s"] = time.perf_counter() - t0
+    found.update(wal_backend=api.wal_backend, wal_inode=_inode(wal_log))
     found.update(rv=api.current_rv, objects=sum(len(api.list(k)) for k in api.kinds()),
                  time=time.time())
     print(f"takeover {json.dumps(found)}", flush=True)

@@ -20,13 +20,17 @@ Env: ``KFTPU_APISERVER`` (the facade's URL or endpoint list), ``KFTPU_IDENTITY``
 ``KFTPU_LEASE_NAME`` (default ``tpujob-controller``),
 ``KFTPU_LEASE_DURATION`` (3), ``KFTPU_RENEW_DEADLINE`` (2),
 ``KFTPU_PREEMPT_STALL`` (0). It prints ``standby <identity>``, then
-``leading <identity> gen <transitions>`` once it holds the Lease; it
-exits 0 on SIGTERM and, printing ``deposed <identity>``, 2 on losing the
-Lease.
+``leading <identity> gen <transitions>`` once it holds the Lease, then
+the binary's ``plane {json}`` line (its work-queue backend and its gang
+placements by scheduler backend, `controllers.runtime.plane_report`),
+again just before each ``evicted`` line (the leader may be killed in the
+stall) and at exit; it exits 0 on SIGTERM and, printing ``deposed
+<identity>``, 2 on losing the Lease.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import signal
 import sys
@@ -36,6 +40,7 @@ import time
 
 def main() -> int:
     from kubeflow_tpu_torch.controllers.leader import LeaderElector
+    from kubeflow_tpu_torch.controllers.runtime import plane_report
     from kubeflow_tpu_torch.controllers.tpujob import TpuJobController
     from kubeflow_tpu_torch.testing.apiserver_http import HttpApiClient, endpoints_from_env
     from kubeflow_tpu_torch.testing.fake_apiserver import Conflict
@@ -43,9 +48,15 @@ def main() -> int:
     identity = os.environ["KFTPU_IDENTITY"]
     stall = float(os.environ.get("KFTPU_PREEMPT_STALL", "0"))
 
+    built: list = []
+
+    def report_plane() -> None:
+        print("plane " + json.dumps(plane_report(built)), flush=True)
+
     def preempt_stall() -> None:
         # The victims are evicted and committed; the preemptor is not
         # placed yet. Announce the window, then hold it open.
+        report_plane()
         print(f"evicted {identity}", flush=True)
         if stall:
             time.sleep(stall)
@@ -67,12 +78,15 @@ def main() -> int:
         client.set_lease_guard(el.guard)
         print(f"leading {identity} gen {el.transitions}", flush=True)
         ctl = TpuJobController(client, preempt_stall=preempt_stall)
+        built.append(ctl)
+        report_plane()
         threading.Thread(target=ctl.controller.run, args=(stop,), daemon=True).start()
 
     try:
         lost = elector.run(stop, start_leading)
     except Conflict:
         lost = True
+    report_plane()
     if lost:
         # A deposed leader's in-flight preemption belongs to a dead term.
         print(f"deposed {identity}", flush=True)

@@ -140,6 +140,7 @@ def test_binary_refuses_https_without_a_ca():
 
 def test_binary_builds_its_client_from_the_flags(monkeypatch, capsys):
     import threading
+    import types
 
     from kubeflow_tpu_torch.controllers import __main__ as binary
     from kubeflow_tpu_torch.testing import apiserver_http
@@ -156,8 +157,9 @@ def test_binary_builds_its_client_from_the_flags(monkeypatch, capsys):
     stop.set()  # a SIGTERM already delivered: start, then shut down
     monkeypatch.setattr(apiserver_http, "HttpApiClient", Recorder)
     monkeypatch.setattr(sigutil, "install_shutdown_handlers", lambda: stop)
+    noop = types.SimpleNamespace(name="noop-controller", _queue=None)
     monkeypatch.setattr(binary, "CONTROLLERS", {"noop": lambda client: type(
-        "C", (), {"controller": None})()})
+        "C", (), {"controller": noop})()})
     monkeypatch.setattr("kubeflow_tpu_torch.controllers.runtime.ControllerManager.add",
                         lambda self, c: None)
     assert binary.main(["--apiserver", "http://127.0.0.1:1, http://127.0.0.1:2",
@@ -169,11 +171,15 @@ def test_binary_builds_its_client_from_the_flags(monkeypatch, capsys):
                 "stream_failure_threshold": 3, "stream_degraded_seconds": 5.0}
     assert built == [(["http://127.0.0.1:1", "http://127.0.0.1:2"], defaults)]
     out = capsys.readouterr().out.splitlines()
-    assert out[0] == "manager ready noop" and out[1].startswith("client ")
+    # Ready, the compiled tier's report at start and at exit, the client.
+    assert out[0] == "manager ready noop" and out[3].startswith("client ")
+    plane = {"workqueue": {"noop-controller": "custom"},
+             "tpujob_gang_placements_total": {"native": 0, "python": 0, "custom": 0}}
+    assert [json.loads(line[len("plane "):]) for line in out[1:3]] == [plane, plane]
     watch = {"stream_opens": 0, "stream_failures": 0, "longpoll_rounds": 0,
              "longpoll_rounds_degraded": 0, "degraded_episodes": 0,
              "streams_after_degraded": 0, "degraded_seconds": 0.0}
-    assert json.loads(out[1][len("client "):]) == {"failovers": 0, "handshakes": 0,
+    assert json.loads(out[3][len("client "):]) == {"failovers": 0, "handshakes": 0,
                                                    "retries": 0, "watch": watch}
     assert binary.main(["--apiserver", "http://127.0.0.1:1", "--controllers", "noop",
                         "--write-retries", "5", "--breaker-cooldown", "0.3",
@@ -367,7 +373,7 @@ def test_lm_job_rides_out_a_killed_active_facade(tmp_path):
 def test_job_plane_modules_import_no_jax():
     modules = [
         "kubeflow_tpu_torch.api.tpujob", "kubeflow_tpu_torch.api.study",
-        "kubeflow_tpu_torch.controllers.gang", "kubeflow_tpu_torch.controllers.tpujob",
+        "kubeflow_tpu_torch.native.scheduler", "kubeflow_tpu_torch.controllers.tpujob",
         "kubeflow_tpu_torch.controllers.study", "kubeflow_tpu_torch.controllers.__main__",
         "kubeflow_tpu_torch.runtime.local", "kubeflow_tpu_torch.launcher.launcher",
         "kubeflow_tpu_torch.utils.signals", "kubeflow_tpu_torch.testing.chaos",

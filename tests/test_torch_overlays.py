@@ -2,11 +2,10 @@
 package's.
 
 - JAX's own tests/test_overlays.py runs against the port, every case,
-  its imports pointed at the port. JAX's CI tool that two cases render
-  the shipped overlays through (`kubeflow_tpu/ci/application_util.py`)
-  is not ported; those cases call `render_overlaid_yaml` below, which
-  renders the port's bundle through the port's overlays the same way,
-  and `test_render_equals_jax_ci_tool` holds it against JAX's tool.
+  its imports pointed at the port, the CI tool two cases render the
+  shipped overlays through among them (`ci/application_util.py`, since
+  PR 22); `test_render_equals_jax_ci_tool` holds the port's tool against
+  JAX's.
 - `strategic_merge`, `split_image`, `ImageRule.rewrite`,
   `apply_overlay` and `apply_overlays` give JAX's answers on JAX's
   cases and on the shipped overlays over every bundle.
@@ -16,7 +15,6 @@ import re
 from pathlib import Path
 
 import pytest
-import yaml
 
 from kubeflow_tpu.api.objects import new_resource as j_new_resource
 from kubeflow_tpu.ci import application_util as j_app_util
@@ -24,6 +22,7 @@ from kubeflow_tpu.deploy import bundles as jbundles
 from kubeflow_tpu.deploy import kfdef as jkfdef
 from kubeflow_tpu.deploy import overlays as jov
 from kubeflow_tpu_torch.api.objects import new_resource
+from kubeflow_tpu_torch.ci import application_util as app_util
 from kubeflow_tpu_torch.deploy import bundles as pbundles
 from kubeflow_tpu_torch.deploy import kfdef as pkfdef
 from kubeflow_tpu_torch.deploy import overlays as pov
@@ -33,25 +32,11 @@ SHIPPED = [REPO / "manifests" / "overlays" / "dev.yaml",
            REPO / "manifests" / "overlays" / "prod.yaml"]
 
 
-def render_overlaid_yaml(name: str, overlay_paths: list[str]) -> str:
-    """One of the port's bundles rendered through a chain of overlay
-    files, as JAX's `ci.application_util.render_overlaid_yaml` renders
-    JAX's."""
-    resources = pov.apply_overlays(pbundles.BUNDLES[name](pkfdef.default_spec()),
-                                   [pov.Overlay.load(p) for p in overlay_paths])
-    return yaml.safe_dump_all([r.to_dict() for r in resources], sort_keys=True)
-
-
 def _jax_tests_on_the_port(stem: str) -> dict:
-    """JAX's tests/<stem>.py with `kubeflow_tpu.` pointed at the port and
-    its CI tool's renderer replaced by the one above."""
+    """JAX's tests/<stem>.py with `kubeflow_tpu.` pointed at the port."""
     path = REPO / "tests" / f"{stem}.py"
-    src = path.read_text()
-    old = "from kubeflow_tpu.ci.application_util import render_overlaid_yaml\n"
-    assert src.count(old) == 1
-    src = re.sub(r"\bkubeflow_tpu\.", "kubeflow_tpu_torch.", src.replace(old, ""))
-    namespace: dict = {"__name__": f"port_{stem}", "__file__": str(path),
-                       "render_overlaid_yaml": render_overlaid_yaml}
+    src = re.sub(r"\bkubeflow_tpu\.", "kubeflow_tpu_torch.", path.read_text())
+    namespace: dict = {"__name__": f"port_{stem}", "__file__": str(path)}
     exec(compile(src, str(path), "exec"), namespace)
     return {k: v for k, v in namespace.items()
             if k.startswith("test_") or hasattr(v, "_fixture_function_marker")}
@@ -71,7 +56,7 @@ def test_render_equals_jax_ci_tool(overlay, app):
     want = j_app_util.render_overlaid_yaml(app, [str(overlay)])
     # Volatile ids: the uids the bundles stamp differ between runs.
     strip = lambda text: re.sub(r"uid: \S+", "uid: -", text)  # noqa: E731
-    assert strip(render_overlaid_yaml(app, [str(overlay)])) == strip(want)
+    assert strip(app_util.render_overlaid_yaml(app, [str(overlay)])) == strip(want)
 
 
 MERGES = [

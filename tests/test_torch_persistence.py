@@ -3,16 +3,18 @@
 against the JAX package's.
 
 First the cases of JAX's tests/test_persistence.py, on the port's store
-(the Python WAL; the compiled one is not ported): a restart restores the
+(on the compiled WAL, its default): a restart restores the
 objects, uids, generations and resourceVersions; a bookmark from before
 it gets Gone; compaction, a torn tail and its repair, a stale
 pre-snapshot record, a snapshot of another format, the fail-stop after a
 failed WAL write, and a pending deletion parked by a finalizer and
 finalized after the restart. Then the same writes through both packages restore to
 equal objects and rv, a directory written by either restores in the
-other, and the fence: `FileLeaseStore` answers a CAS sequence as JAX's
-does, a store fenced to a moved term fail-stops on its next write, and
-the takeover's checkpoint moves ``wal.log`` to a new inode.
+other (on either of the port's WAL backends), and the fence:
+`FileLeaseStore` answers a CAS sequence as JAX's does, a store fenced to
+a moved term fail-stops on its next write, and the takeover's checkpoint
+moves ``wal.log`` to a new inode on both backends, so a deposed fd's
+appends are never replayed.
 """
 
 import json
@@ -362,21 +364,31 @@ def test_same_writes_restore_equal_in_both_packages(tmp_path, snapshot_every):
 
 
 def test_open_wal_takes_the_python_backend_only(tmp_path):
-    """The port's `open_wal` is JAX's on the Python backend: the same
-    files as JAX's `PyWal` writes for the same appends and snapshot."""
+    """The Python backend is taken only by name: `open_wal` opens the
+    compiled WAL by default and `PyWal` for ``backend="python"``. Both
+    write the same files as JAX's `PyWal` for the same appends and
+    snapshot."""
     from kubeflow_tpu.testing import persist as j_persist
+    from kubeflow_tpu_torch.native.core import NativeWal
 
-    for mod, d in ((persist, tmp_path / "port"), (j_persist, tmp_path / "jax")):
-        wal = mod.open_wal(str(d)) if mod is persist else mod.open_wal(str(d), "python")
-        assert type(wal).__name__ == "PyWal"
+    assert isinstance(persist.open_wal(str(tmp_path / "default")), NativeWal)
+    with pytest.raises(ValueError, match="unknown wal backend"):
+        persist.open_wal(str(tmp_path / "auto"), "auto")
+    dirs = {"jax": tmp_path / "jax", "native": tmp_path / "native", "python": tmp_path / "python"}
+    for name, d in dirs.items():
+        wal = (j_persist.open_wal(str(d), "python") if name == "jax"
+               else persist.open_wal(str(d), backend=name))
+        assert type(wal).__name__ == {"jax": "PyWal", "native": "NativeWal",
+                                      "python": "PyWal"}[name]
         wal.append('{"rv":1}')
         wal.snapshot('{"format":1,"rv":1,"objects":[]}')
         wal.append('{"rv":2}')
         wal.close()
     for name in ("wal.log", "snapshot.json"):
-        assert (tmp_path / "port" / name).read_bytes() == (tmp_path / "jax" / name).read_bytes()
-    assert sorted(p.name for p in (tmp_path / "port").iterdir()) == [
-        "snapshot.json", "wal.log"]
+        for d in ("native", "python"):
+            assert (dirs[d] / name).read_bytes() == (dirs["jax"] / name).read_bytes()
+    for d in dirs.values():
+        assert sorted(p.name for p in d.iterdir()) == ["snapshot.json", "wal.log"]
 
 
 def test_lease_store_answers_a_cas_sequence_as_jax_does(tmp_path):
@@ -453,21 +465,94 @@ def test_fenced_store_fail_stops_once_the_term_moves(tmp_path):
 def test_takeover_moves_the_wal_to_a_new_inode(tmp_path):
     """A deposed active that still holds the old log's fd appends into a
     file no restart replays: the takeover's checkpoint renamed a fresh
-    log over ``wal.log``."""
-    store = tmp_path / "store"
-    old = FakeApiServer(persist_dir=str(store))
-    old.create(new_resource("ConfigMap", "a", spec={}))
-    inode = os.stat(store / "wal.log").st_ino
+    log over ``wal.log``. On both of the port's WAL backends (JAX's
+    compiled one truncates in place, which is why JAX pins its HA stores
+    to its Python WAL)."""
+    for backend in persist.BACKENDS:
+        store = tmp_path / backend / "store"
+        old = FakeApiServer(persist_dir=str(store), wal_backend=backend)
+        old.create(new_resource("ConfigMap", "a", spec={}))
+        inode = os.stat(store / "wal.log").st_ino
+        leases = failover.FileLeaseStore(str(tmp_path / backend / "lease"))
+        leases.create(new_resource("Lease", "apiserver", "",
+                                   spec={"holderIdentity": "b", "leaseTransitions": 1}))
+        new = failover.open_active_store(str(store), leases, "apiserver", "b", 1,
+                                         wal_backend=backend)
+        assert new.wal_backend == backend
+        assert os.stat(store / "wal.log").st_ino != inode, backend
+        old.create(new_resource("ConfigMap", "orphaned", spec={}))  # the deposed one's write
+        new.create(new_resource("ConfigMap", "b", spec={}))
+        del old, new
+        restored = FakeApiServer(persist_dir=str(store), wal_backend=backend)
+        assert {o.metadata.name for o in restored.list("ConfigMap")} == {"a", "b"}, backend
+        restored.close()
+
+
+def test_the_takeover_runs_on_the_compiled_wal_by_default(tmp_path):
+    """`open_active_store` pins no backend: the store it opens writes
+    through the compiled WAL, as every durable store of the port does."""
     leases = failover.FileLeaseStore(str(tmp_path / "lease"))
     leases.create(new_resource("Lease", "apiserver", "",
-                               spec={"holderIdentity": "b", "leaseTransitions": 1}))
-    new = failover.open_active_store(str(store), leases, "apiserver", "b", 1)
-    assert os.stat(store / "wal.log").st_ino != inode
-    old.create(new_resource("ConfigMap", "orphaned", spec={}))  # the deposed one's write
-    new.create(new_resource("ConfigMap", "b", spec={}))
-    del old, new
-    restored = FakeApiServer(persist_dir=str(store))
-    assert {o.metadata.name for o in restored.list("ConfigMap")} == {"a", "b"}
+                               spec={"holderIdentity": "a", "leaseTransitions": 1}))
+    api = failover.open_active_store(str(tmp_path / "store"), leases, "apiserver", "a", 1)
+    assert api.wal_backend == "native"
+    assert type(api._wal._inner).__name__ == "NativeWal"
+    api.close()
+
+
+def test_native_snapshot_orphans_a_deposed_fd(tmp_path):
+    """Two handles on one directory, the second opened first (a deposed
+    active's): after the live handle's snapshot, the old handle's
+    appends land in the orphaned inode and never in what a restart
+    reads; the live handle's do."""
+    from kubeflow_tpu_torch.native.core import NativeWal
+
+    d = tmp_path / "state"
+    deposed = NativeWal(str(d))
+    live = NativeWal(str(d))
+    live.append('{"rv":1}')
+    deposed.append('{"rv":2}')  # before the snapshot: the same, live log
+    assert live.read_journal() == '{"rv":1}\n{"rv":2}\n'
+    inode = os.stat(d / "wal.log").st_ino
+    live.snapshot('{"format":1,"rv":2,"objects":[]}')
+    assert os.stat(d / "wal.log").st_ino != inode
+    assert not (d / "wal.log.tmp").exists()
+    deposed.append('{"rv":3,"deposed":true}')
+    live.append('{"rv":3}')
+    assert live.read_journal() == '{"rv":3}\n'
+    deposed.close()
+    live.close()
+    reopened = persist.open_wal(str(d), backend="python")
+    assert reopened.read_journal() == '{"rv":3}\n'
+    assert reopened.read_snapshot() == '{"format":1,"rv":2,"objects":[]}'
+    reopened.close()
+
+
+@pytest.mark.parametrize("backend", persist.BACKENDS)
+def test_a_directory_restores_across_both_packages(tmp_path, backend):
+    """The format contract of `testing/persist.py`: a directory the
+    port's store wrote (on either backend; a snapshot and a WAL tail)
+    restores in JAX's `FakeApiServer(wal_backend="python")`, which goes
+    on writing, and the port restores what JAX wrote after it."""
+    api = FakeApiServer(persist_dir=str(tmp_path / "state"), wal_backend=backend)
+    api.create(new_resource("ConfigMap", "a", spec={"k": "v"}))
+    api.checkpoint()
+    api.create(new_resource("ConfigMap", "b", spec={}))
+    port = {o.metadata.name: o.to_dict() for o in api.list("ConfigMap")}
+    del api  # the tail stays in the WAL
+
+    japi = _jax_server(tmp_path)
+    assert {o.metadata.name: o.to_dict() for o in japi.list("ConfigMap")} == port
+    japi.create(j_new_resource("ConfigMap", "c", spec={}))
+    japi.delete("ConfigMap", "a")
+    jax = {o.metadata.name: o.to_dict() for o in japi.list("ConfigMap")}
+    jrv = japi.current_rv
+    del japi
+
+    api2 = FakeApiServer(persist_dir=str(tmp_path / "state"), wal_backend=backend)
+    assert {o.metadata.name: o.to_dict() for o in api2.list("ConfigMap")} == jax
+    assert api2.current_rv == jrv == 4
+    api2.close()
 
 
 def test_lease_store_create_races_through_already_exists(tmp_path):

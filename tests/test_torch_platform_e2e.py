@@ -97,6 +97,12 @@ def test_platform_flow_on_the_cpu(tmp_path):
     assert ns not in rec["admin_after_nuke"]
     assert not rec["sa_token_in_file"]
     assert rec["final_stop_rc"] == 0
+    # Both boots ran every controller on the compiled work queue (no Node
+    # here: nothing was placed by a scheduler).
+    assert len(rec["planes"]) == 2
+    for plane in rec["planes"]:
+        assert set(plane["workqueue"].values()) == {"native"}
+        assert plane["tpujob_gang_placements_total"]["python"] == 0
 
 
 def test_the_platform_modules_import_no_jax():

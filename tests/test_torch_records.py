@@ -131,7 +131,9 @@ def test_loader_builds_from_the_port_sources_alone():
     lib = t_build.build("dataloader")
     assert lib.parent == REPO / "build" / "kubeflow_tpu_torch"
     assert lib == t_build.target("dataloader") and lib.exists()
-    assert sorted(p.name for p in t_build.CSRC.iterdir()) == ["dataloader.cc", "dataloader.h"]
+    assert t_build.sources("dataloader") == (t_build.CSRC / "dataloader.cc",)
+    assert {p.name for p in t_build.CSRC.glob("dataloader*")} == {"dataloader.cc",
+                                                                  "dataloader.h"}
 
 
 def test_loader_build_without_a_compiler_raises(monkeypatch):

@@ -1,6 +1,5 @@
 """The port's TpuJob operator (`kubeflow_tpu_torch/controllers/tpujob.py`),
-its CRD (`api/tpujob.py`) and gang scheduler (`controllers/gang.py`)
-against the JAX package's.
+and its CRD (`api/tpujob.py`) against the JAX package's.
 
 First JAX's own operator tests (tests/test_tpujob_controller.py) run
 against the port: the module's source with its imports pointed at the
@@ -14,8 +13,10 @@ only difference allowed between the two operators' pods:
 - the JAX pod carries libtpu's TPU_WORKER_ID and TPU_WORKER_HOSTNAMES,
   the port's does not.
 
-With Node objects, the port's placement gives JAX's nodeNames (JAX's
-operator is handed its `PyGangScheduler`). The port admits and runs a
+With Node objects, the port's placement (its compiled scheduler, counted
+``native``) gives JAX's nodeNames (JAX's operator is handed its
+`PyGangScheduler`); the schedulers themselves are held to each other in
+tests/test_torch_native_scheduler.py. The port admits and runs a
 gang's priority (its preemption is held against JAX's in
 tests/test_torch_tpujob_priority.py) and refuses what it cannot run yet,
 elastic resize, at admission and in reconcile, never ignoring it.
@@ -29,13 +30,11 @@ import pytest
 from kubeflow_tpu.api import make_tpujob as j_make_tpujob
 from kubeflow_tpu.api.objects import new_resource as j_new_resource
 from kubeflow_tpu.controllers import tpujob as j_tpujob
-from kubeflow_tpu.native.scheduler import PlacementError as JPlacementError
 from kubeflow_tpu.native.scheduler import PyGangScheduler as JPyGangScheduler
 from kubeflow_tpu.testing import FakeApiServer as JFakeApiServer
 from kubeflow_tpu_torch.api.objects import new_resource as t_new_resource
 from kubeflow_tpu_torch.api.tpujob import TpuJobSpec, make_tpujob as t_make_tpujob
 from kubeflow_tpu_torch.controllers import tpujob as t_tpujob
-from kubeflow_tpu_torch.controllers.gang import PlacementError, PyGangScheduler
 from kubeflow_tpu_torch.testing.apiserver_http import ApiServerApp, HttpApiClient
 from kubeflow_tpu_torch.testing.fake_apiserver import FakeApiServer, Invalid
 from kubeflow_tpu_torch.web.wsgi import serve
@@ -267,39 +266,11 @@ def test_placement_equals_jax_scheduler():
     got = _same(pair.create("d", replicas=9, tpu_chips_per_worker=4, topology="v5e-4x2"))
     job = [j for j in got["jobs"] if j["metadata"]["name"] == "d"][0]
     assert job["status"]["reason"] == "Unschedulable"
-    assert pair.t_ctl.gang_placements.value(backend="python") == 3
+    assert pair.t_ctl.gang_placements.value(backend="native") == 3
+    assert pair.t_ctl.gang_placements.value(backend="python") == 0
     # Finishing "a" frees its nodes; a waiting gang places when retried.
     for i in range(3):
         _same(pair.set_phase(f"a-worker-{i}", "Succeeded"))
-
-
-@pytest.mark.parametrize("seed", range(6))
-def test_gang_scheduler_equals_jax_twin(seed):
-    import random
-
-    rng = random.Random(seed)
-    j, t = JPyGangScheduler(), PyGangScheduler()
-    pools = ["4x4", "line", "flat"]
-    for i in range(rng.randrange(4, 20)):
-        pool = rng.choice(pools)
-        kw = dict(x=rng.randrange(4), y=rng.randrange(4), chips=rng.choice([1, 2, 4, 8]))
-        for s in (j, t):
-            s.add_node(f"n{i}", pool, **kw)
-    for s in (j, t):
-        s.set_pool_topology("4x4", 4, 4)
-    for g in range(12):
-        args = (f"g{g}", rng.choice(pools), rng.randrange(1, 6), rng.choice([0, 1, 2, 4]))
-        outcome = []
-        for s, err in ((j, JPlacementError), (t, PlacementError)):
-            try:
-                outcome.append(s.place_gang(*args))
-            except err as e:
-                outcome.append(("refused", str(e)))
-        assert outcome[1] == outcome[0], args
-        if rng.random() < 0.3:
-            victim = f"g{rng.randrange(g + 1)}"
-            assert t.release_gang(victim) == j.release_gang(victim)
-        assert [t.free_chips(p) for p in pools] == [j.free_chips(p) for p in pools]
 
 
 # -- what the port refuses ----------------------------------------------------

@@ -9,7 +9,7 @@ JAX package's.
   against the port.
 - One seeded script of submissions, completions and deletions over two
   pools, at mixed priorities, replicas and accelerators per worker, goes
-  through JAX's operator (handed its `PyGangScheduler`) and the port's,
+  through JAX's operator (handed its compiled `GangScheduler`) and the port's,
   each on its own store, with one fake clock for both operators'
   backoffs and retries. After every reconcile pass both give the same
   victims in the same order, the same phase and reason for every job and
@@ -31,7 +31,7 @@ from kubeflow_tpu.api import make_tpujob as j_make_tpujob
 from kubeflow_tpu.api.objects import new_resource as j_new_resource
 from kubeflow_tpu.controllers import runtime as j_runtime
 from kubeflow_tpu.controllers import tpujob as j_tpujob
-from kubeflow_tpu.native.scheduler import PyGangScheduler as JPyGangScheduler
+from kubeflow_tpu.native.scheduler import GangScheduler as JGangScheduler
 from kubeflow_tpu.testing import FakeApiServer as JFakeApiServer
 from kubeflow_tpu_torch.api.objects import new_resource as t_new_resource
 from kubeflow_tpu_torch.api.tpujob import make_tpujob as t_make_tpujob
@@ -150,14 +150,14 @@ class Pair:
         for name, spec in NODES:
             self.j_api.create(j_new_resource("Node", name, "", spec=dict(spec)))
             self.t_api.create(t_new_resource("Node", name, "", spec=dict(spec)))
-        self.j_ctl = j_tpujob.TpuJobController(self.j_api, scheduler=JPyGangScheduler)
+        self.j_ctl = j_tpujob.TpuJobController(self.j_api, scheduler=JGangScheduler)
         self.t_ctl = t_tpujob.TpuJobController(self.t_api)
         # Both operators on work queues that read the script's clock (JAX's
         # may have built its native queue, which reads the real one) and
         # take watch events only between reconciles (`ScriptQueue`).
         assert not self.j_ctl.controller.has_pending() and not self.t_ctl.controller.has_pending()
         self.j_ctl.controller._queue = ScriptQueue(j_runtime._PyWorkQueue())
-        self.t_ctl.controller._queue = ScriptQueue(t_runtime.WorkQueue(clock=clock.monotonic))
+        self.t_ctl.controller._queue = ScriptQueue(t_runtime.PyWorkQueue(clock=clock.monotonic))
 
     def both(self, fn):
         fn(self.j_api, j_make_tpujob)
@@ -258,8 +258,10 @@ def test_seeded_script_same_victims_phases_and_reasons_as_jax(clock, seed):
     assert seen["victims"] >= 2, seen
     assert {"Unschedulable"} <= seen["reasons"], seen
     assert seen["finished"] and seen["deleted"], seen
-    assert pair.t_ctl.gang_placements.value(backend="python") == \
-        pair.j_ctl.gang_placements.value(backend="python")
+    # Both operators place on their compiled schedulers, the same gangs.
+    assert pair.t_ctl.gang_placements.value(backend="native") == \
+        pair.j_ctl.gang_placements.value(backend="native") > 0
+    assert pair.t_ctl.gang_placements.value(backend="python") == 0
 
 
 def test_what_if_placements_are_not_counted():
@@ -273,14 +275,15 @@ def test_what_if_placements_are_not_counted():
     api.create(t_make_tpujob("v2", priority=2, replicas=1, tpu_chips_per_worker=4,
                              topology="4x4", command=("true",)))
     ctl.controller.run_until_idle()
-    assert ctl.gang_placements.value(backend="python") == 2
+    assert ctl.gang_placements.value(backend="native") == 2
     api.create(t_make_tpujob("hi", priority=9, replicas=2, tpu_chips_per_worker=4,
                              topology="4x4", command=("true",)))
     # Two what-ifs (v1 alone, then v1 and v2), both victims evicted, and
     # the preemptor placed by its next pass: one more real placement.
     ctl.controller.run_until_idle()
     assert len(api.list("Pod", label_selector={t_tpujob.LABEL_JOB: "hi"})) == 2
-    assert ctl.gang_placements.value(backend="python") == 3
+    assert ctl.gang_placements.value(backend="native") == 3
+    assert ctl.gang_placements.value(backend="python") == 0
     events = [e.spec for e in api.list("Event") if e.spec["reason"] == "PreemptedLowerPriority"]
     assert len(events) == 1 and events[0]["message"].endswith("default/v1, default/v2")
 

@@ -5,8 +5,8 @@ binary (`controllers/webhook.py`).
 
 - JAX's own tests/test_webhook_admission.py runs against the port, its
   imports pointed at the port and `google.com/tpu` read as
-  `nvidia.com/gpu`, every case but one: the native store's refusal
-  (`kubeflow_tpu.native`'s compiled store is not ported, ROADMAP).
+  `nvidia.com/gpu`, every case (since PR 22 the native store's refusal
+  too, on the port's `native/apiserver.NativeApiServer`).
   `test_webhook_mutates_on_create_and_update` writes into the frozen
   snapshot `create` returns, which both stores refuse
   (FrozenResourceError at tests/test_webhook_admission.py:61, one of
@@ -38,7 +38,6 @@ from kubeflow_tpu_torch.web.wsgi import serve
 REPO = Path(__file__).resolve().parents[1]
 FROZEN_WRITE = '''        created.spec["containers"][0]["env"] = []  # client strips it
 '''
-EXCLUDED = {"test_native_backend_refuses_webhook_configs"}
 
 
 def _jax_tests_on_the_port(rel: str, patches=()) -> dict:
@@ -56,8 +55,7 @@ def _jax_tests_on_the_port(rel: str, patches=()) -> dict:
     namespace: dict = {"__name__": f"port_{path.stem}", "__file__": str(path)}
     exec(compile(src, str(path), "exec"), namespace)
     return {k: v for k, v in namespace.items()
-            if (k.startswith("test_") and k not in EXCLUDED)
-            or hasattr(v, "_fixture_function_marker")}
+            if k.startswith("test_") or hasattr(v, "_fixture_function_marker")}
 
 
 JAX_TESTS = {
@@ -69,7 +67,7 @@ globals().update(JAX_TESTS)  # collected here, under JAX's names
 
 
 def test_every_jax_webhook_test_is_collected():
-    assert len([k for k in JAX_TESTS if k.startswith("test_")]) == 19 - len(EXCLUDED) + 2
+    assert len([k for k in JAX_TESTS if k.startswith("test_")]) == 19 + 2
 
 
 def _pods_through(store_cls, new, module, app_cls, tls_paths) -> list:

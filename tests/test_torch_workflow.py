@@ -7,10 +7,9 @@ fail-fast, the exit handler once after success or failure, GC'd pods,
 invalid specs, parameters and step outputs, render failures that still
 run the teardown, withItems, `when`, TpuJob slice steps and their
 Restarting phase) run against the port: the module's source with its
-imports pointed at the port. JAX's CI DAG builders
-(`kubeflow_tpu.testing.workflows`, not ported) still build the specs
-those tests parse, now with the port's `WorkflowSpec`; the junit merge
-test, which tests only that JAX module, is left to tests/test_workflow.py.
+imports pointed at the port, the CI DAG builders and the junit merge
+(`testing/workflows.py`, `testing/junit_merge.py`, since PR 22) among
+them.
 
 Then one scripted sequence of events goes through both packages'
 controllers, each on its own store: pod phases and outputs, TpuJob
@@ -37,22 +36,16 @@ from kubeflow_tpu_torch.controllers.workflow import report_step_output as t_repo
 from kubeflow_tpu_torch.testing.fake_apiserver import FakeApiServer
 
 REPO = Path(__file__).resolve().parents[1]
-# JAX test modules that stay JAX's: the CI DAG builders and junit tooling.
-_KEEP = r"(?!testing\.(workflows|e2e_util|junit_merge)\b)"
-
-
 def _jax_tests_on_the_port(path: Path) -> dict:
     """JAX's test module `path` executed with its `kubeflow_tpu.` imports
-    (but `_KEEP`'s) pointed at `kubeflow_tpu_torch.`: its test functions
-    by name."""
-    src = re.sub(r"\bkubeflow_tpu\." + _KEEP, "kubeflow_tpu_torch.", path.read_text())
+    pointed at `kubeflow_tpu_torch.`: its test functions by name."""
+    src = re.sub(r"\bkubeflow_tpu\.", "kubeflow_tpu_torch.", path.read_text())
     namespace: dict = {"__name__": f"port_{path.stem}"}
     exec(compile(src, str(path), "exec"), namespace)
     return {k: v for k, v in namespace.items() if k.startswith("test_") and callable(v)}
 
 
 JAX_TESTS = _jax_tests_on_the_port(REPO / "tests" / "test_workflow.py")
-JAX_TESTS.pop("test_junit_merge")
 
 
 @pytest.mark.parametrize("name", sorted(JAX_TESTS))
