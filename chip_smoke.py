@@ -61,6 +61,13 @@ JSON line; any failure raises and the exit code is non-zero:
    kernel path against the same step with attention through the plain
    versions, in bf16 and in f32, with the tolerances stated in
    `train_check_phase`.
+10a. gang_parity, the gang phase's parity: two ranks of one gang
+   (TPUJOB_* contract; on one card gloo ranks sharing it) take one f32
+   step of the same LM on their rows of train_check's batch at dp = 2
+   and at fsdp = 2 (ZeRO-3), each rank's loss and gathered gradients
+   held to train_check's one-process f32 step with its f32 limits; per
+   rank the step's s, its s in collectives, peak memory, launches
+   (`gang_parity_phase`).
 11. remat, main path 2a: the train step under every remat policy of the
    JAX model: block policies none, full, mlp, dots, attn and flash, and
    step_remat dots, attn and flash over block "none". Each: one step
@@ -108,9 +115,10 @@ JSON line; any failure raises and the exit code is non-zero:
 17. ring_check: one ring step's loss and gradients against the flat
    LM's in f32, and against the same ring on the plain versions in
    bf16, with the tolerances stated in `ring_check_phase`.
-18. ring_nccl: with two or more cards, the ring over an NCCL process
-   group against the in-process ring; with one card it prints
-   {"run": false} and counts as nothing.
+18. ring_nccl (printed right after gang_parity): the ring over a process
+   group against the in-process ring: with two or more cards over NCCL,
+   one card each; with one card, gang_parity's two gloo ranks sharing it
+   run it (`parallel/distributed.choose_backend`).
 19. resnet_check: ResNet-50 at full width in f32 (batch 8 at 224, weights
    from seed 0 with every BatchNorm moved off its init), one training
    forward and backward on the card (TF32 off) and on the CPU in this
@@ -188,15 +196,23 @@ JSON line; any failure raises and the exit code is non-zero:
    its own process (``python -m kubeflow_tpu_torch.controllers
    --controllers tpujob,study,workflow,cronworkflow,nodehealth``), the
    local pod runner. A TpuJob "lm-train" (1 worker, 1 GPU, maxRestarts 1) runs the
-   same LM through
-   the launcher and fit() in a worker process on the default dispatch,
-   SIGKILLs itself after step 6 once step 4 is committed, is restarted
-   by the operator and resumes from step 4 to 8: Succeeded, restarts 1,
-   step 5's loss bitwise equal across the incarnations, the worker's
-   flash launches (16 flash_fwd, flash_delta and flash_bwd_fused a
-   step); CR to Running, spawn to first step, kill to first resumed
-   step, step ms beside the train phase's, wall time, peak memory
-   (`job_phase`).
+   same LM through the launcher and fit() in a worker process on the
+   default dispatch for 6 steps, saving at the end (the kill, the
+   whole-gang restart and the resumed step are path L's): Succeeded,
+   restarts 0, the worker's flash launches (16
+   flash_fwd, flash_delta and flash_bwd_fused a step); CR to Running,
+   spawn to first step, step ms beside the train phase's, wall time,
+   peak memory (`job_phase`).
+26a. gang, main path 21: the same LM as a two-worker TpuJob "lm-gang"
+   (replicas 2, KFTPU_MESH dp = -1, bf16) on the same binary, one model
+   over the gang through fit(); rank 1 SIGKILLs itself after step 3,
+   once step 2's save is committed, rank 0's collective fails, the
+   operator restarts the gang whole and both ranks resume from rank 0's
+   step 2: Succeeded, restarts 1, step 3's loss bitwise across the
+   incarnations, the ranks' losses equal and within path A's limit of
+   its curve, every rank's flash launches; the backend, per-rank step ms,
+   ms in collectives, peak memory, the survivor's seconds from the
+   kill to its failure (`gang_job_phase`).
 27. rl_soak, main path 12: RL's study soak on the same plane
    (`rl_soak_phase`, bench.py's phase B at its configuration): a grid
    Study of 4 trial TpuJobs, 2 at a time, each a worker process with its
@@ -210,7 +226,7 @@ JSON line; any failure raises and the exit code is non-zero:
    (`pipeline_phase`): a CronWorkflow "lm-nightly" (``* * * * *``,
    Forbid), created suspended before path A, is unsuspended, fires its
    missed tick at once and is suspended again; its DAG trains the same
-   LM as a TpuJob slice step (4 steps, no SIGKILL: path A runs the kill
+   LM as a TpuJob slice step (4 steps, no SIGKILL: path L runs a kill
    and resume on the card, tests/test_torch_pipeline_e2e.py the DAG's),
    evaluates step 4 read-only in a pod (held-out loss against ln(vocab)
    + 1: promote), serves it from a pod over HTTP (REQUESTS, bitwise
@@ -281,7 +297,7 @@ JSON line; any failure raises and the exit code is non-zero:
    started and stopped and a Tensorboard on the trace directory's claim;
    the Profile deleted after step 3's ack: team-c drained in memory and
    on disk, the worker SIGTERMed to its exit, the card's memory back,
-   no pod back in 10 s; seconds for each.
+   no pod back in 5 s; seconds for each.
 32. platform, main path 18: the platform in a box (`platform_phase`):
    ``python -m kubeflow_tpu_torch.apps`` as its own process, driven only
    through the dashboard, kfam, the Jupyter app, the https facade and
@@ -402,7 +418,7 @@ LOSS_Z = 5.0
 # Each: a first step, held against "none"'s (loss and global gradient
 # norm), then `steps` timed steps.
 REMAT = dict(block=("none", "full", "mlp", "dots", "attn", "flash"),
-             step=("dots", "attn", "flash"), steps=2)
+             step=("dots", "attn", "flash"), steps=1)
 # moe: the same widths with 8 switch experts, JAX's defaults for the
 # capacity factor and the load-balancing loss, remat "flash", batch
 # 8 x 2048 (groups of 4096 tokens, capacity 640): `steps` guarded train
@@ -466,35 +482,35 @@ NODE_LOST = dict(model="resnet50", steps=8, save_every=4, lose_after=6, max_rest
 # one-instance clients over 64 distinct instances, each posting in a loop
 # through a warm-up, a measured window and a profiled window (seconds).
 RESNET_SERVE = dict(max_batch=64, timeout_ms=5.0, single=60, device_reps=30,
-                    host_reps=5, clients=64, distinct=64, warmup_s=1.0, window_s=4.0,
-                    profile_s=2.0)
+                    host_reps=5, clients=64, distinct=64, warmup_s=0.5, window_s=2.0,
+                    profile_s=1.0)
 # frontdoor: bench.py's multiplex phase (bench.py:1057-1240) on the card:
 # 7 ResNet-50s and the LM behind 2 replicas of at most 5 resident models
 # each, batching 64 / 5 ms as the binary; open-loop load at 150
 # requests/s (about half of what one batched ModelServerApp sustained
 # under 64 clients in resnet_serve), resnet-0..3 hot (weight 4), the
-# rest cold (1); a 2 s warm-up, an 8 s measured run, 3 s of it profiled;
+# rest cold (1); a 2 s warm-up, an 8 s measured run, 2 s of it profiled;
 # page cycles at 2 resident; memory held within 64 MiB.
 # Each load worker keeps up to 256 requests in flight (bench.py's 64 is
 # sized for tiny models): a cold request waits out a page-in of seconds,
 # and a worker out of slots fires late, which is a closed loop.
 FRONTDOOR = dict(resnets=7, hot=4, replicas=2, max_resident=5, max_batch=64,
                  timeout_ms=5.0, lm_max_batch=4, rate=150.0, warmup_s=2.0,
-                 window_s=8.0, workers=4, concurrency=256, profile_s=3.0,
+                 window_s=8.0, workers=4, concurrency=256, profile_s=2.0,
                  cycle_resident=2, memory_slack_mib=64)
 # controller: bench.py's serving data plane (bench.py:727-1050) through
 # the control plane at full width: a ServingDeployment on resnet_fit's
 # checkpoint directory, 2 replicas, batching 64 / 5 ms; 64 closed-loop
-# one-instance clients over 64 distinct instances (a 1 s warm-up, a 4 s
-# measured window, 3 s of it profiled); a roll under the same load that
+# one-instance clients over 64 distinct instances (a 0.5 s warm-up, a 2 s
+# measured window, all of it profiled); a roll under the same load that
 # must converge within 120 s; 10 reconciles after a third step; scale
 # 2 -> 3 -> 1; then 2 worker processes behind the facade, each serving
-# within 120 s, 16 closed-loop clients for 4 s with one worker SIGKILLed;
+# within 120 s, 16 closed-loop clients for 2 s with one worker SIGKILLed;
 # memory held within 64 MiB.
 CONTROLLER = dict(replicas=2, max_batch=64, timeout_ms=5.0, clients=64, distinct=64,
-                  warmup_s=1.0, window_s=4.0, profile_s=3.0, roll_timeout_s=120.0,
+                  warmup_s=0.5, window_s=2.0, profile_s=2.0, roll_timeout_s=120.0,
                   fault_reconciles=10, scale=(3, 1), workers=2, worker_start_s=120.0,
-                  process_clients=16, process_load_s=4.0, process_compare_s=4.0,
+                  process_clients=16, process_load_s=2.0, process_compare_s=2.0,
                   memory_slack_mib=64)
 # rl: bench.py --workload rl's phase A (bench.py:2137-2146, :2186-2190,
 # :244-249): an 8 -> 32 -> 4 policy, 8 envs x horizon 4, 48 learner steps
@@ -512,11 +528,9 @@ RL = dict(obs_dim=8, n_actions=4, n_envs=8, horizon=4, hidden=32, steps=48,
           last=20, margin=0.5, answer_tol=1e-6, grad_tol=1e-5,
           stall_timeout_s=120.0, memory_slack_mib=64)
 # The job plane (path A): TpuJob "lm-train" of one worker running TRAIN's
-# LM through fit() (fused backward), saving every 4 steps, SIGKILLed by
-# itself after step 6 once step 4 is committed, resumed by the
-# operator's gang restart, 8 steps in all. Waits in seconds.
-JOB = dict(steps=8, save_every=4, kill_at=6, max_restarts=1, timeout_s=600,
-           manager_ready_s=120)
+# LM through fit() (fused backward) for 6 steps, saving at the end (path
+# L's gang carries the kill and the resume). Waits in seconds.
+JOB = dict(steps=6, save_every=6, max_restarts=1, timeout_s=600, manager_ready_s=120)
 # Priority preemption under leader election (path C): lm-low (team-a,
 # priority 1, 8 steps; 10 until PR 22) runs until step 5 (6 until PR 22),
 # then lm-high (team-b, priority 10, 4 steps; 6 until PR 22) evicts it on
@@ -535,7 +549,7 @@ PREEMPT = dict(low_steps=8, high_steps=4, save_every=4, submit_at=5, lease_s=2.0
 RL_SOAK = dict(seed=7, trials=4, steps=18, publish_every=6, deadline_s=420)
 # The nightly pipeline (path D): a CronWorkflow ("* * * * *", Forbid)
 # whose Workflow trains TRAIN's LM as a TpuJob slice step for `steps`
-# with no kill (path A runs the kill and resume on the card, and
+# with no kill (path L runs a kill and resume on the card, and
 # tests/test_torch_pipeline_e2e.py the DAG's through a kill), evaluates
 # the newest step and serves it when its held-out loss is at most
 # ln(vocab) + 1 (uniform tokens: a trained loss stays near ln(vocab)). The
@@ -568,7 +582,7 @@ HA_JOB = dict(steps=6, kill_after=4, manager_lease_s=15.0,
 # nothing comes back. Waits in seconds; the memory slack in MiB.
 TENANT = dict(steps=8, save_every=8, drain_after=3, owner="c@example.com",
               hard={"nvidia.com/gpu": 1, "pods": 8, "persistentvolumeclaims": 2},
-              quiet_s=10.0, memory_slack_mib=64, ready_timeout_s=60, timeout_s=300,
+              quiet_s=5.0, memory_slack_mib=64, ready_timeout_s=60, timeout_s=300,
               drain_timeout_s=120, manager_ready_s=120)
 PLATFORM = dict(steps=4, user="p@example.com", namespace="team-p", job="lm-platform",
                 timeout_s=300)
@@ -583,6 +597,14 @@ CHAOS_JOB = dict(seed=0, faults_per_class=2, steps=4, timeout_s=300, manager_rea
 # is SIGKILLed in that hold; the phase must end within limit_s.
 DEPLOY = dict(apply_delay_s=1.5, ready_timeout_s=12.0, limit_s=15.0)
 # The compiled control-plane tier the build phase builds (`native/build.py`).
+# The gang phase: two ranks of one gang (gloo with CUDA tensors on one
+# card, NCCL with a card each): (a) one f32 step of the full-width LM at
+# each mesh, held to the one-process step (train_check's f32 limits);
+# (b) the LM as a two-worker TpuJob (dp = -1, bf16) through fit(), rank
+# 1 SIGKILLed after step kill_at once the save before it is committed,
+# the gang restarted whole.
+GANG = dict(ranks=2, meshes={"dp2": {"dp": 2}, "fsdp2": {"fsdp": 2}}, parity_timeout_s=300,
+            steps=4, save_every=2, kill_at=3, kill_rank=1, max_restarts=1, timeout_s=480)
 NATIVE_LIBRARIES = ("kftpu_core", "kftpu_sched")
 # The kernel CI DAG (path K): `sharded_unit_tests_workflow` over these
 # shards of the card's kernel tests, each shard's pytest without
@@ -1882,7 +1904,7 @@ def bf16_path_check(torch, build, batch) -> tuple[bool, dict]:
     return ok, row
 
 
-def train_check_phase(torch, seed: int = SEED, strict: bool = True):
+def train_check_phase(torch, seed: int = SEED, strict: bool = True, keep_f32: str | None = None):
     """The kernel path's loss and gradients against the same step with
     attention through the plain versions, on the same weights and batch.
 
@@ -1895,7 +1917,9 @@ def train_check_phase(torch, seed: int = SEED, strict: bool = True):
     against the plain-vs-dense pair. f32: the same weights in f32, kernel
     path vs plain path, |loss difference| <= 1e-4·|loss| and every
     gradient within relative norm 1e-4: the kernels' 5e-5 gate, carried
-    through 16 layers forward and back."""
+    through 16 layers forward and back. `keep_f32` names a file that
+    gets the f32 kernel path's loss and gradients (on the CPU): the
+    one-process step the gang phase holds its ranks to."""
     from kubeflow_tpu_torch.train import SyntheticTokens
 
     batch = next(iter(SyntheticTokens(TRAIN["batch"], TRAIN["seq"], LM["vocab_size"],
@@ -1909,6 +1933,9 @@ def train_check_phase(torch, seed: int = SEED, strict: bool = True):
     rows = [row]
     trainer = train_model(torch, torch.float32, seed)
     loss_k, _, g_k = run()
+    if keep_f32:
+        torch.save({"loss": loss_k.cpu(), "grads": {n: g.cpu() for n, g in g_k.items()}},
+                   keep_f32)
     with plain_kernels():
         loss_p, _, g_p = run()
     loss_err = abs(float(loss_k - loss_p))
@@ -2417,78 +2444,67 @@ def ring_inputs(torch, n: int):
 
 
 def ring_nccl_worker(out_dir: str) -> int:
-    """One rank of the NCCL ring (chip_smoke.py --ring-nccl-worker DIR,
-    with the TPUJOB_* env contract): its chunk of ring_inputs through
-    ring_flash_attention, forward and backward, saved for the parent."""
+    """One rank of the process ring (chip_smoke.py --ring-nccl-worker DIR,
+    with the TPUJOB_* env contract): this rank's chunk of ring_inputs
+    through ring_flash_attention on the gang's sp ring, forward and
+    backward, saved with what `initialize_from_env` decided (backend,
+    card) for the parent as DIR/ring<rank>.pt."""
     import torch
-    import torch.distributed as dist
 
     sys.path.insert(0, ROOT)
     from kubeflow_tpu_torch.ops.flash import ring_flash_attention
-    from kubeflow_tpu_torch.parallel import MeshSpec, build_mesh, initialize_from_env
+    from kubeflow_tpu_torch.parallel import MeshSpec, build_mesh, distributed, initialize_from_env
 
     pe = initialize_from_env()
     try:
         mesh = build_mesh(MeshSpec(sp=-1))
         n, r = pe.num_processes, pe.process_id
         c = HOP_SHAPE[1]
-        q, k, v, do = (x[:, r * c:(r + 1) * c].cuda() for x in ring_inputs(torch, n))
+        device = distributed.started()["device"]
+        q, k, v, do = (x[:, r * c:(r + 1) * c].to(device) for x in ring_inputs(torch, n))
         q, k, v = (x.requires_grad_() for x in (q, k, v))
         o = ring_flash_attention(q, k, v, mesh, causal=True)
         o.backward(do)
         torch.cuda.synchronize()
         torch.save({"o": o.detach().cpu(), "dq": q.grad.cpu(), "dk": k.grad.cpu(),
-                    "dv": v.grad.cpu()}, os.path.join(out_dir, f"rank{r}.pt"))
+                    "dv": v.grad.cpu(), "started": distributed.started()},
+                   os.path.join(out_dir, f"ring{r}.pt"))
     finally:
-        dist.destroy_process_group()
+        distributed.shutdown()
     return 0
 
 
 def ring_nccl_phase(torch) -> None:
-    """With two or more cards: min(4, count) processes on an NCCL sp
-    group (one card each) run ring flash attention at the hop shape's
+    """The sp ring over processes, started through the TPUJOB_* contract
+    (`testing/gang.run_gang`): with two or more cards, min(4, count)
+    processes, one card each, on NCCL; with one card, GANG["ranks"]
+    processes sharing it, on gloo (`parallel/distributed.choose_backend`:
+    the ranks outnumber the cards; the ring's send/receive goes through
+    host memory). They run ring flash attention at the hop shape's
     chunk, forward and backward, and each rank's output and gradients
     must match the in-process ring's on the same inputs, with the
     backward kernels' f32 tolerance. In f32, because the fused kernel's
     atomics add in an order that changes from run to run: in bf16 each
     hop's dq is rounded before the hops are summed, so that order can
     flip one bf16 ulp of a hop's dq, more than a relative bound on the
-    smaller total allows. On one card it prints that it did not run."""
-    import socket
+    smaller total allows. The backend is the one the workers report."""
     import tempfile
 
     from kubeflow_tpu_torch.ops.flash import ring_flash_attention
     from kubeflow_tpu_torch.parallel import MeshSpec, build_mesh
+    from kubeflow_tpu_torch.testing.gang import run_gang
 
     count = torch.cuda.device_count()
-    if count < 2:
-        emit({"phase": "ring_nccl", "run": False, "gpus": count})
-        return
-    n = min(4, count)
-    with socket.socket() as sock:
-        sock.bind(("localhost", 0))
-        port = sock.getsockname()[1]
+    n = min(4, count) if count > 1 else GANG["ranks"]
     with tempfile.TemporaryDirectory() as out_dir:
-        env = dict(os.environ, TPUJOB_COORDINATOR=f"localhost:{port}",
-                   TPUJOB_NUM_PROCESSES=str(n))
-        procs = [
-            subprocess.Popen([sys.executable, os.path.abspath(__file__),
-                              "--ring-nccl-worker", out_dir],
-                             env=dict(env, TPUJOB_PROCESS_ID=str(r)),
-                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            for r in range(n)
-        ]
         t0 = time.perf_counter()
-        try:
-            logs = [p.communicate(timeout=300)[0] for p in procs]
-        finally:
-            for p in procs:
-                p.kill()
-                p.wait()
+        runs = run_gang([sys.executable, os.path.abspath(__file__), "--ring-nccl-worker",
+                         out_dir], n, timeout=300)
         seconds = time.perf_counter() - t0
-        if any(p.returncode for p in procs):
-            raise AssertionError("ring_nccl workers failed:\n" + "\n".join(logs))
-        parts = [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=True)
+        if any(rc for rc, _ in runs):
+            raise AssertionError("ring_nccl workers failed:\n" +
+                                 "\n".join(text for _, text in runs))
+        parts = [torch.load(os.path.join(out_dir, f"ring{r}.pt"), weights_only=True)
                  for r in range(n)]
     q, k, v, do = (x.cuda() for x in ring_inputs(torch, n))
     q, k, v = (x.requires_grad_() for x in (q, k, v))
@@ -2502,9 +2518,150 @@ def ring_nccl_phase(torch) -> None:
         ok &= good
         rows[key] = {"max_abs_err": err, "tol_atol_rtol": [atol, rtol]}
     emit({"phase": "ring_nccl", "run": True, "gpus": count, "ranks": n,
+          "backend": parts[0]["started"]["backend"], "started": [p["started"] for p in parts],
           "shape_b_s_h_d": list(q.shape), "seconds": seconds, "rows": rows, "ok": ok})
     if not ok:
-        raise AssertionError(f"NCCL ring off the in-process ring: {rows}")
+        raise AssertionError(f"process ring off the in-process ring: {rows}")
+
+
+def gang_worker(out_dir: str) -> int:
+    """One rank of the gang phase's parity (chip_smoke.py --gang-worker
+    DIR, with the TPUJOB_* env contract): on each of GANG's meshes, the
+    full-width f32 LM from SEED, its rows of train_check's batch and one
+    gradient step of the Trainer on the process mesh (ZeRO-3 at fsdp);
+    the loss and the gradients, gathered whole, against train_check's
+    one-process step in DIR/reference.pt; the step's seconds, its
+    seconds in collectives, its peak memory and its flash launches; then
+    one whole adamw step: its seconds, its peak memory and the memory
+    the rank holds after it."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from kubeflow_tpu_torch.models import TransformerConfig, TransformerLM
+    from kubeflow_tpu_torch.ops import _kernels
+    from kubeflow_tpu_torch.parallel import MeshSpec, build_mesh, distributed, initialize_from_env
+    from kubeflow_tpu_torch.train import SyntheticTokens, TrainConfig, Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    pe = initialize_from_env()
+    device = torch.device(distributed.started()["device"])
+    ref = torch.load(os.path.join(out_dir, "reference.pt"), weights_only=True)
+    out = {"rank": pe.process_id, "started": distributed.started(), "meshes": {}}
+    for name, spec in GANG["meshes"].items():
+        mesh = build_mesh(MeshSpec(**spec))
+        trainer = Trainer(
+            TransformerLM(TransformerConfig(**LM, dtype=torch.float32, remat_policy="none"),
+                          device=device, seed=SEED, mesh=mesh),
+            TrainConfig(batch_size=TRAIN["batch"], learning_rate=TRAIN["lr"],
+                        total_steps=10_000, optimizer="adamw", label_smoothing=0.0,
+                        fsdp_params=True, train_metrics="loss"),
+            input_key="tokens", label_key="labels", device=device)
+        state = trainer.init_state()
+        batch = next(iter(SyntheticTokens(TRAIN["batch"], TRAIN["seq"], LM["vocab_size"],
+                                          seed=SEED, device=device, mesh=mesh)))
+        step = trainer.make_grad_step()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _kernels.launches.clear()
+        trainer.collective_seconds()
+        t0 = time.perf_counter()
+        metrics, grads = step(state, batch)
+        loss = float(metrics["loss"])
+        seconds = time.perf_counter() - t0
+        launches = dict(_kernels.launches)
+        collective_s = trainer.collective_seconds()
+        grad_peak = torch.cuda.max_memory_allocated()
+        grads = trainer.gather_params(grads)
+        errs = {n: rel(g, ref["grads"][n].to(device)) for n, g in grads.items()}
+        ref_loss = float(ref["loss"])
+        del grads
+        # A whole adamw step (ZeRO-3's saving is the state kept between
+        # steps: the shards and their moments, no whole parameter).
+        train_step = trainer.make_train_step()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        state, _ = train_step(state, batch)
+        torch.cuda.synchronize()
+        adamw_s = time.perf_counter() - t1
+        out["meshes"][name] = {
+            "rows": list(batch["tokens"].shape), "loss": loss, "loss_one_process": ref_loss,
+            "loss_err_rel": abs(loss - ref_loss) / abs(ref_loss),
+            "max_grad_rel_err": max(errs.values()), "worst_param": max(errs, key=errs.get),
+            "params": len(errs), "sharded": len(trainer.sharded),
+            "step_s": seconds, "collective_s": collective_s,
+            "peak_memory_gib": grad_peak / 2**30,
+            "launches": launches,
+            "adamw_step_s": adamw_s,
+            "adamw_step_peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "between_steps_gib": torch.cuda.memory_allocated() / 2**30,
+        }
+        # The step closures hold the trainer and its model: drop them too,
+        # or the next mesh's readings carry this one's parameters.
+        del trainer, state, batch, step, train_step
+        torch.cuda.empty_cache()
+    with open(os.path.join(out_dir, f"rank{pe.process_id}.json"), "w") as f:
+        json.dump(out, f)
+    distributed.shutdown()
+    return 0
+
+
+def gang_parity_phase(torch, card: str, reference: str) -> dict:
+    """The gang phase's parity (a): two ranks started through the
+    TPUJOB_* contract (`testing/gang.run_gang`) take one f32 step of the
+    full-width LM on their rows of train_check's batch at dp = 2 and at
+    fsdp = 2 (ZeRO-3: parameters sharded, gradients reduce-scattered),
+    from the same weights; on one card the ranks share it over gloo.
+    Each rank's global loss and its gradients, gathered whole, are held
+    to train_check's one-process f32 step on the whole batch with
+    train_check's f32 limits: |loss difference| <= 1e-4·|loss|, every
+    gradient within relative norm 1e-4; every rank launches the flash
+    forward, delta and fused backward kernels. Numbers per rank and
+    mesh: the step's s, its s in collectives, its peak memory, its
+    launches; an adamw step's s and peak memory and the memory held
+    between steps, which must be less at fsdp = 2 than at dp = 2.
+    Returns the phase's line."""
+    from kubeflow_tpu_torch.testing.gang import run_gang
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    out_dir = os.path.dirname(reference)
+    t0 = time.perf_counter()
+    runs = run_gang([sys.executable, os.path.abspath(__file__), "--gang-worker", out_dir],
+                    GANG["ranks"], timeout=GANG["parity_timeout_s"])
+    seconds = time.perf_counter() - t0
+    if any(rc for rc, _ in runs):
+        raise AssertionError("gang workers failed:\n" + "\n".join(text for _, text in runs))
+    ranks = []
+    for r in range(GANG["ranks"]):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    checks = {}
+    for name in GANG["meshes"]:
+        rows = [rk["meshes"][name] for rk in ranks]
+        checks[f"{name}_loss"] = all(m["loss_err_rel"] <= 1e-4 for m in rows)
+        checks[f"{name}_grads"] = all(m["max_grad_rel_err"] <= 1e-4 for m in rows)
+        checks[f"{name}_launches"] = all(
+            m["launches"].get(k, 0) == LM["n_layers"]
+            for m in rows for k in ("flash_fwd", "flash_delta", "flash_bwd_fused"))
+    checks["fsdp2_sharded"] = all(rk["meshes"]["fsdp2"]["sharded"] > 0 for rk in ranks)
+    checks["fsdp2_keeps_less_between_steps"] = all(
+        rk["meshes"]["fsdp2"]["between_steps_gib"] < rk["meshes"]["dp2"]["between_steps_gib"]
+        for rk in ranks)
+    line = {"phase": "gang_parity", "card": card, "backend": ranks[0]["started"]["backend"],
+            "started": [rk["started"] for rk in ranks], "model": {**LM, "dtype": "float32"},
+            "global_batch": [TRAIN["batch"], TRAIN["seq"]],
+            "ranks": [rk["meshes"] for rk in ranks],
+            "limits": {"loss_rel": 1e-4, "grad_rel": 1e-4}, "checks": checks,
+            "seconds": seconds}
+    emit(line)
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"gang parity checks failed: {failed}")
+    return line
 
 
 def loss_seeds(torch, n: int) -> None:
@@ -5063,25 +5220,22 @@ def job_phase(torch, card: str, plane, root: str, bare_step_ms: float,
     controller-manager binary gangs and the local pod runner execs:
     ``python -m kubeflow_tpu_torch.launcher --module
     kubeflow_tpu_torch.testing.workers.lm_job:main``, TRAIN's LM and
-    stream through fit() with an AnomalyGuard and a Checkpointer on the
-    default dispatch (flash_fwd, flash_delta, flash_bwd_fused), every
-    step's loss reported to the TpuJob's status.metrics. Incarnation 1
-    SIGKILLs itself after step JOB["kill_at"] once step 4 is committed;
-    the operator restarts the gang (status.restarts 1) and incarnation 2
-    resumes in fit() from step 4 to JOB["steps"] and reports its
-    observation. Gates: Succeeded, restarts 1, resumed_from 4, 4 steps
-    done; step 5's loss (a forward from the restored state on the
-    repositioned stream) bitwise equal across the incarnations; step 6's
-    bitwise, or else within `loss_limit` (LOSS_Z of train_check's bf16
-    standard error: the fused backward sums dq with atomics; the line
-    says which held); 16 launches a step of each of flash_fwd,
-    flash_delta and flash_bwd_fused in the worker. Numbers: CR to pod
-    Running, the runner's spawn to the worker's first step, kill to
-    first resumed step (s), the job's
-    step ms beside the train phase's bare step (`bare_step_ms`), the
-    job's wall time, the worker's peak memory and the card's
-    memory.used. Returns the worker's launch counts and its footprint on
-    the card (memory.used's peak over the reading before the spawn)."""
+    stream through fit() with an AnomalyGuard and a Checkpointer (a save
+    every JOB["save_every"]) on the default dispatch (flash_fwd,
+    flash_delta, flash_bwd_fused), every step's loss reported to the
+    TpuJob's status.metrics, for JOB["steps"] steps (path L's gang
+    carries the kill, the whole-gang restart and the bitwise resumed
+    step on the card). Gates: Succeeded, restarts 0, not
+    resumed, every step logged and in status.metrics once, 16 launches a
+    step of each of flash_fwd, flash_delta and flash_bwd_fused in the
+    worker. Numbers: CR to pod Running, the runner's spawn to the
+    worker's start line and first step (s), the job's step ms beside the
+    train phase's bare step (`bare_step_ms`), the job's wall time, the
+    worker's peak memory and the card's memory.used. Returns the
+    worker's launch counts, its footprint on the card (memory.used's
+    peak over the reading before the spawn) and path A's curve for the
+    later jobs (losses, `loss_limit`: LOSS_Z of train_check's bf16
+    standard error, step ms)."""
     from kubeflow_tpu_torch.api import make_tpujob
     from kubeflow_tpu_torch.controllers.tpujob import LABEL_INCARNATION, LABEL_JOB
 
@@ -5091,7 +5245,6 @@ def job_phase(torch, card: str, plane, root: str, bare_step_ms: float,
         "KFTPU_CKPT_DIR": os.path.join(root, "lm-ckpt"),
         "KFTPU_TOTAL_STEPS": str(JOB["steps"]),
         "KFTPU_SAVE_EVERY": str(JOB["save_every"]),
-        "KFTPU_KILL_AT_STEP": str(JOB["kill_at"]),
         "KFTPU_LM_SIZE": json.dumps({**LM, "batch": TRAIN["batch"], "seq": TRAIN["seq"],
                                      "dtype": "bfloat16", "lr": TRAIN["lr"]}),
     }
@@ -5121,37 +5274,20 @@ def job_phase(torch, card: str, plane, root: str, bare_step_ms: float,
     records = log_records(plane.pod_logs().get("lm-train-worker-0.log", ""))
     steps = {(r["incarnation"], r["step"]): r for r in records if r["event"] == "step"}
     starts = {r["incarnation"]: r for r in records if r["event"] == "start"}
-    kills = [r for r in records if r["event"] == "kill"]
-    first = {inc: min((r for (i, _), r in steps.items() if i == inc),
-                      key=lambda r: r["step"], default=None) for inc in (0, 1)}
-    resume_step = JOB["save_every"] + 1
-    loss = lambda inc, step: steps.get((inc, step), {}).get("loss")
-    step5_equal = loss(0, resume_step) is not None and loss(0, resume_step) == loss(1, resume_step)
-    later = {}
-    for step in range(resume_step + 1, JOB["kill_at"] + 1):
-        a, b = loss(0, step), loss(1, step)
-        diff = abs(a - b) if a is not None and b is not None else float("nan")
-        later[step] = {"killed_run": a, "resumed_run": b, "abs_diff": diff,
-                       "holds": "bitwise" if diff == 0.0 else
-                       "within the bf16 limit" if diff <= loss_limit else "no"}
+    first = min((r for (i, _), r in steps.items() if i == 0), key=lambda r: r["step"],
+                default=None)
+    loss = lambda step: steps.get((0, step), {}).get("loss")
     launches = {k[len("launches_"):]: int(v) for k, v in obs.items()
                 if k.startswith("launches_")}
     done = int(obs.get("steps_done", 0))
-    want_launches = {name: LM["n_layers"] * done
+    want_launches = {name: LM["n_layers"] * JOB["steps"]
                      for name in ("flash_fwd", "flash_delta", "flash_bwd_fused")}
     checks = {
         "succeeded": job.status.get("phase") == "Succeeded",
-        "restarts_1": job.status.get("restarts") == 1,
-        "resumed_from_4": obs.get("resumed_from") == float(JOB["save_every"]),
-        "steps_done": done == JOB["steps"] - JOB["save_every"],
-        "killed_once_after_commit": [(k["step"], k["committed"]) for k in kills]
-        == [(JOB["kill_at"], JOB["save_every"])],
-        "killed_run_curve": sorted(s for i, s in steps if i == 0)
-        == list(range(1, JOB["kill_at"] + 1)),
-        "resumed_run_curve": sorted(s for i, s in steps if i == 1)
-        == list(range(resume_step, JOB["steps"] + 1)),
-        "step5_loss_bitwise": step5_equal,
-        "later_losses": all(v["holds"] != "no" for v in later.values()),
+        "restarts_0": job.status.get("restarts", 0) == 0,
+        "not_resumed": obs.get("resumed_from") == 0.0,
+        "steps_done": done == JOB["steps"],
+        "curve": sorted(steps) == [(0, s) for s in range(1, JOB["steps"] + 1)],
         "worker_launches": launches == want_launches,
         "status_curve": [p["step"] for p in job.status.get("metrics", [])]
         == list(range(1, JOB["steps"] + 1)),
@@ -5161,28 +5297,21 @@ def job_phase(torch, card: str, plane, root: str, bare_step_ms: float,
         "kubeflow_tpu_torch.launcher --module kubeflow_tpu_torch.testing.workers.lm_job:main",
         "model": {**LM, "dtype": "bfloat16", "remat": "none"}, "batch": TRAIN["batch"],
         "seq": TRAIN["seq"], "steps": JOB["steps"], "save_every": JOB["save_every"],
-        "kill_at": JOB["kill_at"], "phase_final": job.status.get("phase"),
-        "restarts": job.status.get("restarts"), "observation": obs,
-        "manager_ready_s": plane.manager_ready_s,
+        "phase_final": job.status.get("phase"), "restarts": job.status.get("restarts"),
+        "observation": obs, "manager_ready_s": plane.manager_ready_s,
         "cr_to_running_s": running_at[0] - t_create if 0 in running_at else None,
-        "kill_to_pod_running_s": (running_at[1] - kills[0]["time"]
-                                  if kills and 1 in running_at else None),
         # From the runner's spawn (the pod's Running) to the worker's
         # start line (torch imported, the job read) and to its first step.
-        "spawn_to_worker_start_s": {inc: starts[inc]["time"] - running_at[inc]
-                                    for inc in (0, 1) if inc in starts and inc in running_at},
-        "spawn_to_first_step_s": {inc: first[inc]["time"] - running_at[inc]
-                                  for inc in (0, 1) if first.get(inc) and inc in running_at},
-        "kill_to_first_resumed_step_s": (first[1]["time"] - kills[0]["time"]
-                                         if kills and first.get(1) else None),
+        "spawn_to_worker_start_s": (starts[0]["time"] - running_at[0]
+                                    if 0 in starts and 0 in running_at else None),
+        "spawn_to_first_step_s": (first["time"] - running_at[0]
+                                  if first and 0 in running_at else None),
         "job_step_ms": obs.get("step_ms"), "train_phase_step_ms": bare_step_ms,
         "job_vs_bare_step": obs.get("step_ms", 0.0) / bare_step_ms,
         "job_wall_s": wall_s,
         "worker_peak_memory_gib": obs.get("peak_memory_gib"),
         "card_memory_used_mib": {"before_spawn": used_before, "max_during_job": used["max"]},
-        "losses": {f"{i}:{s}": r["loss"] for (i, s), r in sorted(steps.items())},
-        "step5": {"killed_run": loss(0, resume_step), "resumed_run": loss(1, resume_step)},
-        "later_steps": later, "later_limit": loss_limit,
+        "losses": {s: loss(s) for s in range(1, JOB["steps"] + 1)},
         "launches": launches, "want_launches": want_launches, "checks": checks,
         "seconds": time.perf_counter() - t_phase,
     }
@@ -5190,11 +5319,168 @@ def job_phase(torch, card: str, plane, root: str, bare_step_ms: float,
     failed = [name for name, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"job phase checks failed: {failed}")
-    # Path A's curve: the killed run's steps, then the resumed run's.
-    curve = {s: loss(0, s) for s in range(1, JOB["kill_at"] + 1)}
-    curve.update({s: loss(1, s) for s in range(JOB["kill_at"] + 1, JOB["steps"] + 1)})
-    path_a = {"losses": curve, "loss_limit": loss_limit, "step_ms": obs.get("step_ms")}
+    path_a = {"losses": {s: loss(s) for s in range(1, JOB["steps"] + 1)},
+              "loss_limit": loss_limit, "step_ms": obs.get("step_ms")}
     return launches, used["max"] - used_before, path_a
+
+
+def gang_job_phase(torch, card: str, plane, root: str, bare_step_ms: float,
+                   path_a: dict) -> dict:
+    """Path L, the gang phase's job (b): the full-width LM as a
+    two-worker TpuJob ("lm-gang": replicas 2, 1 GPU each, maxRestarts 1)
+    on path A's binary, each worker ``python -m
+    kubeflow_tpu_torch.launcher --module
+    kubeflow_tpu_torch.testing.workers.lm_job:main`` at ``KFTPU_MESH``
+    dp = -1 in bf16: one model over the gang, each rank on its 4 rows of
+    the 8 x 2048 batch, the gradients all-reduced, through fit() for
+    GANG["steps"] steps with a save every GANG["save_every"] (rank 0
+    writes). Rank 1 of the first incarnation SIGKILLs itself after step
+    GANG["kill_at"], once rank 0's save before it (step R) is
+    committed; rank 0's next collective fails, the operator restarts the
+    gang whole, both ranks resume from rank 0's step R. Gates:
+    Succeeded, restarts 1, rank 0's observation resumed_from R and
+    steps_done the rest; one kill by rank 1 after the commit; rank 0 of
+    the first incarnation failed on its own within the group timeout;
+    each rank's steps 1..kill_at, then R+1..steps; step R+1's loss (a
+    forward from the restored state on the repositioned stream) bitwise
+    equal across the incarnations; both ranks' losses equal at every
+    step, and each bitwise or within path A's limit of path A's loss at
+    that step; every rank of the last incarnation launching the
+    forward, delta and fused backward kernels 16 times a step; both
+    ranks on one backend. Numbers, per rank: the backend, step ms, ms in collectives a
+    step, peak memory, launches; the survivor's s from the kill to its
+    failure; CR to Running; kill to the first resumed step; beside the
+    train phase's one-process step (`bare_step_ms`). Returns the last
+    incarnation's launches summed over the ranks."""
+    from kubeflow_tpu_torch.api import make_tpujob
+    from kubeflow_tpu_torch.controllers.tpujob import LABEL_INCARNATION, LABEL_JOB
+
+    t_phase = time.perf_counter()
+    name = "lm-gang"
+    env = {
+        "KFTPU_CKPT_DIR": os.path.join(root, name),
+        "KFTPU_TOTAL_STEPS": str(GANG["steps"]),
+        "KFTPU_SAVE_EVERY": str(GANG["save_every"]),
+        "KFTPU_KILL_AT_STEP": str(GANG["kill_at"]),
+        "KFTPU_KILL_RANK": str(GANG["kill_rank"]),
+        "KFTPU_MESH": json.dumps({"dp": -1}),
+        "KFTPU_LM_SIZE": json.dumps({**LM, "batch": TRAIN["batch"], "seq": TRAIN["seq"],
+                                     "dtype": "bfloat16", "lr": TRAIN["lr"]}),
+    }
+    running_at = {}
+
+    def tick():
+        for pod in plane.api.list("Pod", "default", label_selector={LABEL_JOB: name}):
+            if pod.status.get("phase") == "Running":
+                running_at.setdefault(int(pod.metadata.labels[LABEL_INCARNATION]), time.time())
+
+    t_create = time.time()
+    plane.api.create(make_tpujob(
+        name, replicas=GANG["ranks"], tpu_chips_per_worker=1,
+        max_restarts=GANG["max_restarts"],
+        command=(sys.executable, "-m", "kubeflow_tpu_torch.launcher", "--module",
+                 "kubeflow_tpu_torch.testing.workers.lm_job:main"),
+        env=tuple(env.items())))
+    plane.run_until(
+        lambda: plane.api.get("TpuJob", name).status.get("phase") in ("Succeeded", "Failed"),
+        GANG["timeout_s"], f"TpuJob {name} to finish", tick=tick)
+    wall_s = time.time() - t_create
+    job = plane.api.get("TpuJob", name)
+    obs = job.status.get("observation") or {}
+    logs = plane.pod_logs()
+    records = {r: log_records(logs.get(f"{name}-worker-{r}.log", "")) for r in range(GANG["ranks"])}
+    steps = {(x["incarnation"], r, x["step"]): x for r, recs in records.items()
+             for x in recs if x["event"] == "step"}
+    starts = {(x["incarnation"], r): x for r, recs in records.items()
+              for x in recs if x["event"] == "start"}
+    kills = [(r, x) for r, recs in records.items() for x in recs if x["event"] == "kill"]
+    failed = {(x["incarnation"], r): x for r, recs in records.items()
+              for x in recs if x["event"] == "failed"}
+    done = {r: x for r, recs in records.items() for x in recs
+            if x["event"] == "done" and x["incarnation"] == 1}
+    k, last = GANG["kill_at"], GANG["steps"]
+    resume = k - k % GANG["save_every"]
+    loss = lambda inc, r, step: steps.get((inc, r, step), {}).get("loss")
+    inc_of = lambda step: 0 if step <= resume else 1
+    curve = {s: loss(inc_of(s), 0, s) for s in range(1, last + 1)}
+    vs_a = {}
+    for s, value in curve.items():
+        a = path_a["losses"].get(s)
+        diff = abs(value - a) if value is not None and a is not None else float("nan")
+        vs_a[s] = {"gang": value, "path_a": a, "abs_diff": diff,
+                   "holds": "bitwise" if diff == 0.0 else
+                   "within the bf16 limit" if diff <= path_a["loss_limit"] else "no"}
+    launches = {r: {key[len("launches_"):]: int(v) for key, v in
+                    (obs if r == 0 else done.get(r, {})).items() if key.startswith("launches_")}
+                for r in range(GANG["ranks"])}
+    want = {kernel: LM["n_layers"] * (last - resume)
+            for kernel in ("flash_fwd", "flash_delta", "flash_bwd_fused")}
+    backends = {x.get("gang", {}).get("backend") for x in starts.values()}
+    kill_time = kills[0][1]["time"] if kills else None
+    survivor = failed.get((0, 0))
+    per_rank = {}
+    for r in range(GANG["ranks"]):
+        mine = [x for (inc, rr, s), x in sorted(steps.items()) if rr == r]
+        # The first step of each incarnation carries its start-up.
+        timed = [x for x in mine if (x["incarnation"], x["step"]) not in ((0, 1), (1, resume + 1))]
+        per_rank[r] = {
+            "backend": starts.get((1, r), {}).get("gang", {}).get("backend"),
+            "device": starts.get((1, r), {}).get("device"),
+            "step_ms": statistics.median(x["step_ms"] for x in timed) if timed else None,
+            "collective_ms_per_step": (statistics.median(x["collective_ms"] for x in timed)
+                                       if timed else None),
+            "peak_memory_gib": obs.get("peak_memory_gib") if r == 0
+            else done.get(r, {}).get("peak_memory_gib"),
+            "launches": launches[r],
+        }
+    first_resumed = min((x["time"] for (inc, _, _), x in steps.items() if inc == 1),
+                        default=None)
+    checks = {
+        "succeeded": job.status.get("phase") == "Succeeded",
+        "restarts_1": job.status.get("restarts") == 1,
+        "resumed_from_save": obs.get("resumed_from") == float(resume),
+        "steps_done": int(obs.get("steps_done", 0)) == last - resume,
+        "killed_once_by_rank_1_after_commit": [(r, x["step"], x["committed"]) for r, x in kills]
+        == [(GANG["kill_rank"], k, resume)],
+        "survivor_failed_in_timeout": bool(
+            survivor and kill_time and survivor["time"] - kill_time < 60.0),
+        "curves": all(sorted(s for (inc, rr, s) in steps if inc == i and rr == r)
+                      == list(range(1, k + 1) if i == 0 else range(resume + 1, last + 1))
+                      for i in (0, 1) for r in range(GANG["ranks"])),
+        "resumed_step_loss_bitwise": all(
+            loss(0, r, resume + 1) is not None and loss(0, r, resume + 1) == loss(1, r, resume + 1)
+            for r in range(GANG["ranks"])),
+        "ranks_same_loss": all(loss(i, 0, s) == loss(i, r, s)
+                               for (i, _, s) in steps for r in range(GANG["ranks"])),
+        "losses_vs_path_a": all(v["holds"] != "no" for v in vs_a.values()),
+        "worker_launches": all(launches[r] == want for r in range(GANG["ranks"])),
+        "one_backend": len(backends) == 1 and None not in backends,
+    }
+    out = {
+        "phase": "gang", "card": card, "job": name, "replicas": GANG["ranks"],
+        "mesh": {"dp": GANG["ranks"]}, "model": {**LM, "dtype": "bfloat16", "remat": "none"},
+        "global_batch": [TRAIN["batch"], TRAIN["seq"]], "steps": last,
+        "save_every": GANG["save_every"], "kill_at": k, "kill_rank": GANG["kill_rank"],
+        "resumed_step": {"killed_run": loss(0, 0, resume + 1), "resumed_run": loss(1, 0, resume + 1)},
+        "backend": sorted(b for b in backends if b), "phase_final": job.status.get("phase"),
+        "restarts": job.status.get("restarts"), "observation": obs, "per_rank": per_rank,
+        "survivor_kill_to_failure_s": (survivor["time"] - kill_time
+                                       if survivor and kill_time else None),
+        "survivor_error": survivor.get("error") if survivor else None,
+        "cr_to_running_s": running_at[0] - t_create if 0 in running_at else None,
+        "kill_to_first_resumed_step_s": (first_resumed - kill_time
+                                         if first_resumed and kill_time else None),
+        "one_process_train_step_ms": bare_step_ms, "job_wall_s": wall_s,
+        "losses_vs_path_a": vs_a, "loss_limit": path_a["loss_limit"],
+        "want_launches_per_rank": want, "checks": checks,
+        "seconds": time.perf_counter() - t_phase,
+    }
+    emit(out)
+    failed_checks = [c for c, ok in checks.items() if not ok]
+    if failed_checks:
+        raise AssertionError(f"gang phase checks failed: {failed_checks}")
+    return {kernel: sum(launches[r].get(kernel, 0) for r in range(GANG["ranks"]))
+            for kernel in set().union(*launches.values())}
 
 
 def rl_soak_phase(torch, card: str, plane, root: str) -> None:
@@ -6094,7 +6380,7 @@ def ci_dag_phase(card: str, plane, root: str) -> dict:
 
 def job_plane_phases(torch, card: str, bare_step_ms: float, loss_se: float,
                      records_losses: list) -> dict:
-    """Paths A, B, D, E, K and C on one job plane (`testing/job_plane.JobPlane`):
+    """Paths A, L, B, D, E, K and C on one job plane (`testing/job_plane.JobPlane`):
     the apiserver facade over this process's store (with the TpuJob and
     ResourceQuota admission), the controller-manager binary as its own
     process (``--controllers tpujob,study,workflow,cronworkflow,nodehealth``)
@@ -6109,7 +6395,7 @@ def job_plane_phases(torch, card: str, bare_step_ms: float, loss_se: float,
     managers' output, the leadership timeline and the pod logs are
     printed. `bare_step_ms` is the train phase's step, `loss_se`
     train_check's bf16 standard error of the mean loss, `records_losses`
-    records_fit's straight run. Returns paths A's, D's, E's and C's
+    records_fit's straight run. Returns paths A's, L's, D's, E's and C's
     launch counts."""
     from kubeflow_tpu_torch.testing.job_plane import JobPlane
 
@@ -6127,6 +6413,7 @@ def job_plane_phases(torch, card: str, bare_step_ms: float, loss_se: float,
         cron = pipeline_cron(plane, root)
         launches, worker_mib, path_a = job_phase(torch, card, plane, root, bare_step_ms,
                                                  LOSS_Z * loss_se)
+        gang_launches = gang_job_phase(torch, card, plane, root, bare_step_ms, path_a)
         rl_soak_phase(torch, card, plane, root)
         pipeline_launches = pipeline_phase(torch, card, plane, root, cron)
         node_lost_launches = node_lost_phase(torch, card, plane, root, records_losses)
@@ -6144,8 +6431,8 @@ def job_plane_phases(torch, card: str, bare_step_ms: float, loss_se: float,
         if plane is not None:
             plane.close()
         shutil.rmtree(root, ignore_errors=True)
-    return {"job": launches, "pipeline": pipeline_launches, "node_lost": node_lost_launches,
-            "preempt": preempt_launches}, path_a
+    return {"job": launches, "gang": gang_launches, "pipeline": pipeline_launches,
+            "node_lost": node_lost_launches, "preempt": preempt_launches}, path_a
 
 
 def port_refuses(port: int) -> bool:
@@ -6178,7 +6465,7 @@ def ha_job_phase(torch, card: str, path_a: dict) -> dict:
     plane is down (the WAL diff), which also holds the final status;
     exactly one pod for the one replica; each step's loss against path
     A's (`path_a`: bitwise, or within its loss limit, the line says
-    which; steps past path A's 8 are not compared); 16 launches a step
+    which; steps past path A's 6 are not compared); 16 launches a step
     of flash_fwd, flash_delta and flash_bwd_fused in the worker; the
     killed facade exited by SIGKILL and its port refuses connections to
     the end; both facades' stores on the compiled WAL, and ``wal.log`` on a
@@ -7396,14 +7683,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_launches, train_step_ms = train_phase(torch, card)
     by_path = {"serve": result["launches"], **train_launches}
-    _, check_rows = train_check_phase(torch)
+    gang_dir = tempfile.mkdtemp(prefix="kftpu_gang_")
+    try:
+        _, check_rows = train_check_phase(torch, keep_f32=os.path.join(gang_dir, "reference.pt"))
+        gang_parity_phase(torch, card, os.path.join(gang_dir, "reference.pt"))
+        ring_nccl_phase(torch)
+    finally:
+        shutil.rmtree(gang_dir, ignore_errors=True)
     by_path["remat"] = remat_phase(torch, card, check_rows[0])
     by_path.update(moe_phases(torch, card))
     by_path["fit"] = fit_phase(torch, card)
     entries.update(rect_entries)
     by_path["ring_train"] = ring_train_phase(torch, card)
     ring_check_phase(torch)
-    ring_nccl_phase(torch)
     resnet_check_phase(torch, card)
     resnet_step_ms = resnet_train_phase(torch, card)
     resnet_root = tempfile.mkdtemp(prefix="kftpu_resnet_")
@@ -7455,6 +7747,8 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--ring-nccl-worker"]:
         sys.exit(ring_nccl_worker(sys.argv[2]))
+    if sys.argv[1:2] == ["--gang-worker"]:
+        sys.exit(gang_worker(sys.argv[2]))
     if sys.argv[1:2] == ["--serve-load-worker"]:
         sys.exit(serve_load_worker(*sys.argv[2:8]))
     sys.exit(main())

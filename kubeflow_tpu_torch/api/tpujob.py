@@ -12,8 +12,10 @@ consumes, and restarts the whole gang on any worker failure, bounded by
 `priority` orders gangs for preemption: a pending gang evicts gangs of
 strictly lower priority when that lets it place. `elasticMinReplicas`
 is parsed and validated as in JAX, but the port's operator does not
-resize a gang yet: `unported_fields` names it, and the port's admission
-and reconcile refuse such a spec (ROADMAP Queue 1 item 12).
+resize a gang yet: `unported_fields` names elastic resize, and the
+port's admission and reconcile refuse such a spec (ROADMAP Queue 1 item
+12). A rigid gang of several workers trains as one model
+(`train/trainer.py` on a process mesh).
 """
 
 from __future__ import annotations
@@ -88,8 +90,8 @@ class TpuJobSpec:
         if self.elastic_min_replicas > 0:
             out.append(
                 f"elasticMinReplicas {self.elastic_min_replicas}: elastic gang "
-                "resize is not ported to the PyTorch operator yet (it needs "
-                "Trainer.resize)"
+                "resize is not ported to the PyTorch operator yet; a rigid "
+                "gang (elasticMinReplicas 0) of any size trains"
             )
         return out
 

@@ -141,12 +141,13 @@ def main(argv: list[str] | None = None) -> int:
 
     if args.module:
         # KFTPU_DEVICE names the gang's device ("cpu" for gloo); unset,
-        # CUDA with NCCL.
+        # CUDA on the backend `choose_backend` picks for the layout.
         dist.initialize_from_env(device=os.environ.get("KFTPU_DEVICE") or None)
         mod_name, _, fn_name = args.module.partition(":")
         mod = importlib.import_module(mod_name)
         fn = getattr(mod, fn_name or "main")
         result = fn()
+        dist.shutdown()
         return int(result or 0)
 
     if not args.cmd:

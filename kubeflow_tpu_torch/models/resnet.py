@@ -24,6 +24,14 @@ Module names are flax's auto-names (``conv_stem``, ``BatchNorm_0``,
 not ``nn.BatchNorm2d``: the running statistics move by 0.1 of the batch's
 a step and take the *biased* batch variance, the statistics are float32,
 and there is no ``num_batches_tracked``.
+
+On a process mesh (``ResNet(..., mesh=)``), the batch-norm moments come
+from the global batch, as flax's `BatchNorm` gets them under one jit
+over a sharded batch: each rank's per-channel sum and sum of squares
+are summed over the batch group (a differentiable all-reduce), so the
+normalisation, its gradient and the running statistics are the same on
+every rank. Each parameter's logical axes are JAX's (`logical_axes`:
+a conv's output channels ``conv_out``, which fsdp splits).
 """
 
 from __future__ import annotations
@@ -36,6 +44,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from kubeflow_tpu_torch._device import resolve_device
+from kubeflow_tpu_torch.parallel import collectives
 
 BN_MOMENTUM = 0.9  # flax's: running = 0.9 * running + 0.1 * batch
 BN_EPS = 1e-5
@@ -69,11 +78,17 @@ class BatchNorm(nn.Module):
     The normalisation is PyTorch's ``native_batch_norm`` without running
     buffers, in float32 whatever the input dtype; the batch variance is
     read back from its saved inverse std. Eval mode normalises by the
-    running statistics. The output has the input's dtype."""
+    running statistics. The output has the input's dtype.
 
-    def __init__(self, features: int, *, zero_init: bool = False, device=None):
+    With a batch `axis` (a `collectives.GroupRing` over a process mesh's
+    batch group) the moments are the global batch's: flax's
+    E[x] and max(0, E[x^2] - E[x]^2) in float32, from sums all-reduced
+    over the ranks."""
+
+    def __init__(self, features: int, *, zero_init: bool = False, device=None,
+                 axis=None):
         super().__init__()
-        self.zero_init = zero_init
+        self.zero_init, self.axis = zero_init, axis
         self.weight = nn.Parameter(torch.empty(features, device=device))
         self.bias = nn.Parameter(torch.empty(features, device=device))
         self.register_buffer("running_mean", torch.zeros(features, device=device))
@@ -91,6 +106,8 @@ class BatchNorm(nn.Module):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
                                 self.bias, training=False, eps=BN_EPS)
+        if self.axis is not None:
+            return self._global_forward(x)
         y, mean, invstd = torch.native_batch_norm(
             x, self.weight, self.bias, None, None, True, 0.0, BN_EPS)
         with torch.no_grad():
@@ -100,6 +117,20 @@ class BatchNorm(nn.Module):
             self.running_mean.mul_(BN_MOMENTUM).add_(mean, alpha=1 - BN_MOMENTUM)
             self.running_var.mul_(BN_MOMENTUM).add_(var, alpha=1 - BN_MOMENTUM)
         return y
+
+    def _global_forward(self, x):
+        x32 = x.float()
+        count = x.numel() // x.shape[1] * self.axis.size
+        sums = torch.stack([x32.sum((0, 2, 3)), (x32 * x32).sum((0, 2, 3))])
+        sums = collectives.psum(sums[None], self.axis)[0] / count
+        mean, var = sums[0], (sums[1] - sums[0] * sums[0]).clamp(min=0.0)
+        shape = (1, -1, 1, 1)
+        scale = torch.rsqrt(var + BN_EPS) * self.weight
+        y = (x32 - mean.view(shape)) * scale.view(shape) + self.bias.view(shape)
+        with torch.no_grad():
+            self.running_mean.mul_(BN_MOMENTUM).add_(mean, alpha=1 - BN_MOMENTUM)
+            self.running_var.mul_(BN_MOMENTUM).add_(var, alpha=1 - BN_MOMENTUM)
+        return y.to(x.dtype)
 
 
 class Dense(nn.Module):
@@ -122,18 +153,19 @@ class BasicBlock(nn.Module):
     expansion = 1
 
     def __init__(self, in_features: int, features: int, strides: int = 1, *,
-                 dtype, device=None):
+                 dtype, device=None, axis=None):
         super().__init__()
         kw = dict(dtype=dtype, device=device)
+        bn = dict(device=device, axis=axis)
         self.Conv_0 = Conv(in_features, features, 3, strides, **kw)
-        self.BatchNorm_0 = BatchNorm(features, device=device)
+        self.BatchNorm_0 = BatchNorm(features, **bn)
         self.Conv_1 = Conv(features, features, 3, **kw)
         # Zero-init the last BN scale so that blocks start as identity.
-        self.BatchNorm_1 = BatchNorm(features, zero_init=True, device=device)
+        self.BatchNorm_1 = BatchNorm(features, zero_init=True, **bn)
         self.project = in_features != features or strides != 1
         if self.project:
             self.Conv_2 = Conv(in_features, features, 1, strides, **kw)
-            self.BatchNorm_2 = BatchNorm(features, device=device)
+            self.BatchNorm_2 = BatchNorm(features, **bn)
 
     def forward(self, x):
         y = F.relu(self.BatchNorm_0(self.Conv_0(x)))
@@ -148,20 +180,21 @@ class BottleneckBlock(nn.Module):
     expansion = 4
 
     def __init__(self, in_features: int, features: int, strides: int = 1, *,
-                 dtype, device=None):
+                 dtype, device=None, axis=None):
         super().__init__()
         kw = dict(dtype=dtype, device=device)
+        bn = dict(device=device, axis=axis)
         out = features * 4
         self.Conv_0 = Conv(in_features, features, 1, **kw)
-        self.BatchNorm_0 = BatchNorm(features, device=device)
+        self.BatchNorm_0 = BatchNorm(features, **bn)
         self.Conv_1 = Conv(features, features, 3, strides, **kw)
-        self.BatchNorm_1 = BatchNorm(features, device=device)
+        self.BatchNorm_1 = BatchNorm(features, **bn)
         self.Conv_2 = Conv(features, out, 1, **kw)
-        self.BatchNorm_2 = BatchNorm(out, zero_init=True, device=device)
+        self.BatchNorm_2 = BatchNorm(out, zero_init=True, **bn)
         self.project = in_features != out or strides != 1
         if self.project:
             self.Conv_3 = Conv(in_features, out, 1, strides, **kw)
-            self.BatchNorm_3 = BatchNorm(out, device=device)
+            self.BatchNorm_3 = BatchNorm(out, **bn)
 
     def forward(self, x):
         y = F.relu(self.BatchNorm_0(self.Conv_0(x)))
@@ -175,7 +208,8 @@ class ResNet(nn.Module):
     """forward(images [N, H, W, 3]) → float32 logits [N, num_classes].
     Weights are drawn from `seed` at construction (`reset_parameters`);
     load others (e.g. `convert.resnet_from_flax`) with
-    `load_state_dict`."""
+    `load_state_dict`. On a process `mesh` each rank passes its rows of
+    the global batch, and batch norm takes the global batch's moments."""
 
     def __init__(
         self,
@@ -189,13 +223,15 @@ class ResNet(nn.Module):
         *,
         device=None,
         seed: int | torch.Generator = 0,
+        mesh=None,
     ):
         super().__init__()
         device = resolve_device(device)
-        self.dtype, self.stem_pool = dtype, stem_pool
+        self.dtype, self.stem_pool, self.mesh = dtype, stem_pool, mesh
+        axis = mesh.axis("batch") if mesh is not None and mesh.multiprocess else None
         self.conv_stem = Conv(3, width, stem_kernel, 2 if stem_pool else 1,
                               dtype=dtype, device=device)
-        self.BatchNorm_0 = BatchNorm(width, device=device)
+        self.BatchNorm_0 = BatchNorm(width, device=device, axis=axis)
         features, index = width, 0
         blocks = []
         for stage, n_blocks in enumerate(stage_sizes):
@@ -204,7 +240,7 @@ class ResNet(nn.Module):
                 out = width * 2**stage
                 name = f"{block.__name__}_{index}"
                 self.add_module(name, block(features, out, strides, dtype=dtype,
-                                            device=device))
+                                            device=device, axis=axis))
                 blocks.append(name)
                 features, index = out * block.expansion, index + 1
         self.block_names = tuple(blocks)
@@ -241,6 +277,21 @@ class ResNet(nn.Module):
             elif isinstance(module, BatchNorm):
                 module.reset_parameters()
 
+    def logical_axes(self) -> dict[str, tuple]:
+        """Every parameter's logical axis names (JAX's: a conv kernel's
+        output and input channels, here OIHW; the Dense's, here (out,
+        in); the norms'), by parameter name."""
+        out = {}
+        for name, p in self.named_parameters():
+            module = self.get_submodule(name.rsplit(".", 1)[0]) if "." in name else self
+            if isinstance(module, Conv):
+                out[name] = ("conv_out", "conv_in", None, None)
+            elif isinstance(module, Dense):
+                out[name] = ("vocab", "embed") if p.dim() == 2 else ("vocab",)
+            else:
+                out[name] = ("norm",)
+        return out
+
     def forward(self, x):
         x = x.to(self.dtype).permute(0, 3, 1, 2)  # NHWC → NCHW, channels_last
         if x.device.type != "cuda":
@@ -259,19 +310,19 @@ class ResNet(nn.Module):
 
 
 def resnet50(num_classes: int = 1000, dtype=torch.bfloat16, *, device=None,
-             seed: int | torch.Generator = 0) -> ResNet:
+             seed: int | torch.Generator = 0, mesh=None) -> ResNet:
     return ResNet((3, 4, 6, 3), BottleneckBlock, num_classes=num_classes, dtype=dtype,
-                  device=device, seed=seed)
+                  device=device, seed=seed, mesh=mesh)
 
 
 def resnet18(num_classes: int = 1000, dtype=torch.bfloat16, *, device=None,
-             seed: int | torch.Generator = 0) -> ResNet:
+             seed: int | torch.Generator = 0, mesh=None) -> ResNet:
     return ResNet((2, 2, 2, 2), BasicBlock, num_classes=num_classes, dtype=dtype,
-                  device=device, seed=seed)
+                  device=device, seed=seed, mesh=mesh)
 
 
 def tiny_resnet(num_classes: int = 10, dtype=torch.float32, *, device=None,
-                seed: int | torch.Generator = 0) -> ResNet:
+                seed: int | torch.Generator = 0, mesh=None) -> ResNet:
     """CPU-test-sized variant: 8-wide, no stem pool, for 32x32 inputs."""
     return ResNet((1, 1), BasicBlock, num_classes=num_classes, width=8, dtype=dtype,
-                  stem_kernel=3, stem_pool=False, device=device, seed=seed)
+                  stem_kernel=3, stem_pool=False, device=device, seed=seed, mesh=mesh)

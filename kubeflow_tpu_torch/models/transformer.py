@@ -6,7 +6,10 @@ parallel, pipeline and expert-parallel paths. Given a mesh with an sp
 ring (`parallel/mesh.build_mesh`), attention runs around the ring
 (`ring_flash_attention`, or `ring_attention` for "dense"); every other
 layer works per token and is unchanged, and so are the parameters.
-Parameters keep the flax
+Each parameter's dimensions carry JAX's logical axis names
+(`TransformerLM.logical_axes`: ``_dense``'s and the embedding's), so a
+process mesh shards over fsdp the dimension JAX's `state_shardings`
+does. Parameters keep the flax
 layouts — ``wq|wk|wv`` (d_model, h, d), ``attn.wo`` (h, d, d_model),
 ``wi_gate|wi_up`` (d_model, d_ff), ``mlp.wo`` (d_ff, d_model),
 ``moe.router`` (d_model, E), ``moe.w_in`` (E, d_model, d_ff),
@@ -57,6 +60,36 @@ from kubeflow_tpu_torch.ops.flash import (
 
 
 _REMAT_POLICIES = ("none", "full", "mlp", "dots", "attn", "flash")
+
+# Each parameter's logical axis names, by its name's last part (JAX's
+# `_dense` names, kubeflow_tpu/models/transformer.py:332-363, the MoE's
+# :399-433, the embedding :557 and the norms' ("norm",)).
+LOGICAL_AXES = {
+    "attn.wq": ("embed", "heads", "kv"),
+    "attn.wk": ("embed", "heads", "kv"),
+    "attn.wv": ("embed", "heads", "kv"),
+    "attn.wo": ("heads", "kv", "embed"),
+    "mlp.wi_gate": ("embed", "mlp"),
+    "mlp.wi_up": ("embed", "mlp"),
+    "mlp.wo": ("mlp", "embed"),
+    "moe.router": ("embed", "expert"),
+    "moe.w_in": ("expert", "embed", "mlp"),
+    "moe.w_out": ("expert", "mlp", "embed"),
+    "scale": ("norm",),
+    "embedding": ("vocab", "embed"),
+}
+
+
+def logical_axes_of(names, table: dict) -> dict[str, tuple]:
+    """{parameter name: its logical axes}, each name matched by the
+    longest key of `table` it ends with."""
+    out = {}
+    for name in names:
+        keys = [k for k in table if name == k or name.endswith("." + k)]
+        if not keys:
+            raise KeyError(f"parameter {name!r} has no logical axes")
+        out[name] = table[max(keys, key=len)]
+    return out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -454,16 +487,17 @@ class TransformerLM(nn.Module):
     a `torch.distributed` ring each rank passes its own chunk of it (rank
     r: positions r·C .. r·C + C - 1) and gets that chunk's logits. A MoE
     model routes over all the batch's tokens, which no rank of a process
-    ring holds, so it takes no process ring."""
+    mesh holds, so it takes no process mesh."""
 
     def __init__(self, config: TransformerConfig, *, mesh=None, device=None,
                  seed: int = 0):
         super().__init__()
         if config.num_experts > 0 and mesh is not None and mesh.multiprocess:
             raise NotImplementedError(
-                "a switch-MoE model on a torch.distributed ring would route "
-                "each rank's chunk apart from the rest of the batch; MoE "
-                "across processes (ep, sp) is ROADMAP Queue 1 item 12"
+                "a switch-MoE model on a torch.distributed mesh would route "
+                "each rank's tokens apart from the rest of the batch; MoE "
+                "across processes (its router statistics over the global "
+                "batch, ep) is ROADMAP Queue 1 item 12"
             )
         device = resolve_device(device)
         self.config, self.mesh = config, mesh
@@ -479,6 +513,12 @@ class TransformerLM(nn.Module):
         """Whether the model has losses of its own for the objective
         (JAX's "losses" collection): the MoE's load balancing."""
         return self.config.num_experts > 0
+
+    def logical_axes(self) -> dict[str, tuple]:
+        """Every parameter's logical axis names, by parameter name: the
+        names JAX's model declares, which `parallel/sharding.placement`
+        maps through the rules."""
+        return logical_axes_of((n for n, _ in self.named_parameters()), LOGICAL_AXES)
 
     def reset_parameters(self, seed: int | torch.Generator) -> None:
         """Draw every weight anew from `seed` (an int or a generator), as

@@ -1,6 +1,6 @@
-"""Parallelism: the dp × sp mesh, the sp ring's collectives, and the
-process bootstrap. Tensor, FSDP, pipeline and expert parallelism are
-not ported yet (ROADMAP Queue 1 item 12)."""
+"""Parallelism: the dp × fsdp × sp mesh, the collectives over its axes,
+the sharding rules, and the process bootstrap. Tensor, pipeline and
+expert parallelism are not ported yet (ROADMAP Queue 1 item 12)."""
 
 import importlib
 
@@ -11,7 +11,8 @@ _EXPORTS = {
     "GroupRing": "collectives", "LocalRing": "collectives",
     "ProcessEnv": "distributed", "initialize_from_env": "distributed",
     "AXES": "mesh", "BATCH_AXES": "mesh", "Mesh": "mesh", "MeshSpec": "mesh",
-    "build_mesh": "mesh",
+    "build_mesh": "mesh", "build_hybrid_mesh": "mesh", "local_mesh_spec": "mesh",
+    "mesh_spec_of": "mesh", "resize_spec": "mesh",
 }
 
 
@@ -29,6 +30,10 @@ __all__ = [
     "Mesh",
     "MeshSpec",
     "ProcessEnv",
+    "build_hybrid_mesh",
     "build_mesh",
     "initialize_from_env",
+    "local_mesh_spec",
+    "mesh_spec_of",
+    "resize_spec",
 ]

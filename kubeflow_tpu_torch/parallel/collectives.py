@@ -1,16 +1,19 @@
-"""Collectives over the sequence-parallel (sp) ring.
+"""Collectives over a mesh axis: the sp ring, dp, fsdp and the batch axes.
 
-Counterpart of the ring part of `kubeflow_tpu/parallel/collectives.py`
-(`axis_size`, `axis_index`, `ppermute_ring`, `psum`). There a collective
-names a mesh axis inside `shard_map`, and every device runs the body on
-its own shard. Here the axis is a ring object, of one of two kinds:
+Counterpart of `kubeflow_tpu/parallel/collectives.py` (`axis_size`,
+`axis_index`, `ppermute_ring`, `psum`, `pmean`, `all_gather`,
+`reduce_scatter`, `all_to_all`). There a
+collective names a mesh axis inside `shard_map`, and every device runs
+the body on its own shard. Here the axis is an object, of one of two
+kinds (`parallel/mesh.Mesh.axis` gives either):
 
-- `LocalRing(n)`: all n positions of the ring in this process, on one
+- `LocalRing(n)`: all n positions of the axis in this process, on one
   device — the counterpart of XLA's virtual host devices, on which the
   JAX package's own ring tests run. A tensor carries a leading dimension
   of the n positions, and a rotation is a roll along it.
 - `GroupRing(group)`: one position per process of a `torch.distributed`
-  group (gloo on the CPU, NCCL on GPUs). The leading dimension has size
+  group (gloo on the CPU, NCCL on GPUs, or gloo with CUDA tensors,
+  `parallel/distributed.choose_backend`). The leading dimension has size
   1, and a rotation is one send/receive pair, posted together with
   `batch_isend_irecv` so that NCCL sees both sides.
 
@@ -19,10 +22,23 @@ positions, with their ids in `ring.ranks`: `ops/attention.ring_attention`
 and `ops/flash.ring_flash_attention` run the same body on both kinds. No
 thread per position and no barrier inside autograd is involved, so the
 backward of a ring cannot deadlock on the autograd engine's device
-threads. `ppermute_ring` and `psum` are differentiable.
+threads. Every collective is differentiable, its backward the transpose
+JAX's gives it: psum ↔ psum, pmean ↔ pmean, all_gather ↔ reduce_scatter,
+all_to_all ↔ all_to_all with the split and concat axes swapped. The
+axes of `all_gather`, `reduce_scatter` and `all_to_all` count in one
+position's tensor (after the leading dimension), as JAX's count in one
+device's shard.
 
-Not ported yet (ROADMAP Queue 1 item 12): `pmean`, `all_gather`,
-`reduce_scatter`, `all_to_all` and the other helpers of the JAX module.
+The `group_*` functions are the same collectives on plain tensors over
+a process group, without autograd: the trainer reduces gradients and
+gathers parameters with them. On a gloo group with CUDA tensors (two
+ranks sharing a card), gloo's all_reduce, broadcast,
+all_gather_into_tensor, reduce_scatter_tensor and all_to_all_single
+take the tensors as they are (measured on an H100 host, torch 2.11);
+its send/recv hands the device pointer to the socket and the process
+aborts in writev, so there the ring's rotation copies its tensor to
+host memory, rotates it, and copies the result back. That is the
+rotation's body on that layout, not a handler of a failure.
 """
 
 from __future__ import annotations
@@ -61,7 +77,7 @@ class GroupRing:
     (`group`, or the default group)."""
 
     def __init__(self, group=None):
-        self.group = group
+        self.group = group if group is not None else dist.group.WORLD
         self.size = dist.get_world_size(group)
         self.ranks = (dist.get_rank(group),)
 
@@ -75,6 +91,9 @@ class GroupRing:
     def _rotate(self, x, shift: int):
         if self.size == 1:
             return x
+        if x.is_cuda and dist.get_backend(self.group) == "gloo":
+            # gloo's send/recv takes host tensors only (module docstring).
+            return self._rotate(x.to("cpu"), shift).to(x.device)
         x = x.contiguous()
         out = torch.empty_like(x)
         ops = [
@@ -146,3 +165,140 @@ def psum(x, ring):
     if isinstance(ring, GroupRing):
         return _GroupSum.apply(x, ring)
     return ring._sum(x)
+
+
+# -- tensor collectives over a process group (no autograd) -------------------
+
+
+def group_all_reduce(x, group, op: str = "sum"):
+    """x summed (``op="sum"``), or its max or min, over the group's ranks,
+    in a new tensor."""
+    out = x.contiguous().clone()
+    if dist.get_world_size(group) > 1:
+        dist.all_reduce(out, op=getattr(dist.ReduceOp, op.upper()), group=group)
+    return out
+
+
+def group_all_gather(x, group, dim: int = 0):
+    """The ranks' x concatenated along `dim`, in rank order (tiled)."""
+    n = dist.get_world_size(group)
+    if n == 1:
+        return x
+    moved = x.movedim(dim, 0).contiguous()
+    out = moved.new_empty((n * moved.shape[0], *moved.shape[1:]))
+    dist.all_gather_into_tensor(out, moved, group=group)
+    return out.movedim(0, dim).contiguous()
+
+
+def group_reduce_scatter(x, group, dim: int = 0):
+    """x summed over the group's ranks, then this rank's 1/n slice along
+    `dim`."""
+    n = dist.get_world_size(group)
+    if n == 1:
+        return x
+    if x.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split over {n} ranks")
+    moved = x.movedim(dim, 0).contiguous()
+    out = moved.new_empty((moved.shape[0] // n, *moved.shape[1:]))
+    dist.reduce_scatter_tensor(out, moved, group=group)
+    return out.movedim(0, dim).contiguous()
+
+
+def group_all_to_all(x, group, split_axis: int, concat_axis: int):
+    """x cut into n pieces along `split_axis`, piece j sent to rank j; the
+    pieces received concatenated along `concat_axis` in rank order."""
+    n = dist.get_world_size(group)
+    if n == 1:
+        return x
+    if x.shape[split_axis] % n:
+        raise ValueError(
+            f"dim {split_axis} of {tuple(x.shape)} does not split over {n} ranks")
+    pieces = torch.stack(x.chunk(n, dim=split_axis)).contiguous()
+    out = torch.empty_like(pieces)
+    dist.all_to_all_single(out, pieces, group=group)
+    return torch.cat(out.unbind(0), dim=concat_axis)
+
+
+class _GroupAllGather(torch.autograd.Function):
+    """all_gather; its transpose is reduce_scatter on the same axis."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return group_all_gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return group_reduce_scatter(grad, ctx.group, ctx.dim), None, None
+
+
+class _GroupReduceScatter(torch.autograd.Function):
+    """reduce_scatter; its transpose is all_gather on the same axis."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return group_reduce_scatter(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return group_all_gather(grad, ctx.group, ctx.dim), None, None
+
+
+class _GroupAllToAll(torch.autograd.Function):
+    """all_to_all; its transpose is all_to_all with the axes swapped."""
+
+    @staticmethod
+    def forward(ctx, x, group, split_axis, concat_axis):
+        ctx.group, ctx.axes = group, (split_axis, concat_axis)
+        return group_all_to_all(x, group, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        split_axis, concat_axis = ctx.axes
+        return group_all_to_all(grad, ctx.group, concat_axis, split_axis), None, None, None
+
+
+# -- collectives over an axis object (autograd) ------------------------------
+
+
+def pmean(x, ring):
+    """x [R, ...] averaged over all positions of the axis."""
+    return psum(x, ring) / ring.size
+
+
+def all_gather(x, ring, *, tiled: bool = True, gather_axis: int = 0):
+    """Every position's x [R, ...] gathered on every position: with
+    ``tiled``, concatenated along `gather_axis` (of one position's
+    tensor), else stacked on a new axis there."""
+    if not tiled:
+        return all_gather(x.unsqueeze(gather_axis + 1), ring, gather_axis=gather_axis)
+    if isinstance(ring, GroupRing):
+        return _GroupAllGather.apply(x[0], ring.group, gather_axis).unsqueeze(0)
+    whole = torch.cat(x.unbind(0), dim=gather_axis)
+    return whole.unsqueeze(0).expand(ring.size, *whole.shape)
+
+
+def reduce_scatter(x, ring, *, scatter_axis: int = 0):
+    """x [R, ...] summed over the axis, each position keeping its 1/n
+    slice of `scatter_axis` (of one position's tensor)."""
+    if isinstance(ring, GroupRing):
+        return _GroupReduceScatter.apply(x[0], ring.group, scatter_axis).unsqueeze(0)
+    total = x.sum(0)
+    if total.shape[scatter_axis] % ring.size:
+        raise ValueError(
+            f"dim {scatter_axis} of {tuple(total.shape)} does not split over "
+            f"{ring.size} positions")
+    return torch.stack(total.chunk(ring.size, dim=scatter_axis))
+
+
+def all_to_all(x, ring, *, split_axis: int, concat_axis: int):
+    """The EP/MoE dispatch primitive: position i's x [R, ...] cut into n
+    pieces along `split_axis`, piece j sent to position j, which
+    concatenates what it receives along `concat_axis` in position order."""
+    if isinstance(ring, GroupRing):
+        return _GroupAllToAll.apply(x[0], ring.group, split_axis, concat_axis).unsqueeze(0)
+    n = ring.size
+    pieces = [xi.chunk(n, dim=split_axis) for xi in x.unbind(0)]
+    return torch.stack([torch.cat([pieces[j][i] for j in range(n)], dim=concat_axis)
+                        for i in range(n)])

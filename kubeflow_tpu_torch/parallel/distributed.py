@@ -11,15 +11,38 @@ gang:
     TPUJOB_SLICE_ID       which slice this process belongs to; default 0
 
 Where the JAX package calls `jax.distributed.initialize`, this one calls
-`torch.distributed.init_process_group` on ``tcp://<coordinator>``:
-NCCL when the process runs on CUDA (one GPU per process), gloo on the
-CPU. The slice fields are parsed and validated as in JAX; libtpu's
+`torch.distributed.init_process_group` on ``tcp://<coordinator>``, with
+a backend decided from the layout before the call (`choose_backend`):
+
+- on the CPU, gloo;
+- on CUDA, NCCL when every local rank has a card of its own;
+- on CUDA, gloo when the gang's local ranks outnumber the visible cards
+  (two workers of a gang on a one-card host). Each rank still computes on
+  the card; the collectives go through host memory.
+
+The rule is decided up front, never by catching an NCCL failure: a
+collective that cannot run raises. The local ranks are the whole gang
+when the coordinator is a loopback address (every worker on this host,
+as the local pod runner places them), else one (a pod per host). Rank r
+computes on card ``(r % local ranks) % visible cards``.
+
+Every process group gets an explicit timeout (``KFTPU_GROUP_TIMEOUT_S``,
+60 s by default, against gloo's 30 minutes), so that a dead peer fails
+the survivors' next collective quickly and the operator's whole-gang
+restart does not wait on a hung rank. A gang also gets a gloo group over
+all its ranks on the host (`control_group`): the training loop agrees
+on host flags (a preemption, a save) through it without touching the
+card.
+
+The slice fields are parsed and validated as in JAX; libtpu's
 MEGASCALE_* variables have no counterpart here and are not exported.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import datetime
+import ipaddress
 import logging
 import os
 from typing import Mapping
@@ -32,6 +55,12 @@ ENV_NUM_PROCESSES = "TPUJOB_NUM_PROCESSES"
 ENV_PROCESS_ID = "TPUJOB_PROCESS_ID"
 ENV_NUM_SLICES = "TPUJOB_NUM_SLICES"
 ENV_SLICE_ID = "TPUJOB_SLICE_ID"
+ENV_GROUP_TIMEOUT = "KFTPU_GROUP_TIMEOUT_S"
+GROUP_TIMEOUT_S = 60.0
+
+# What `initialize_from_env` decided: the backend, the card, the layout
+# and the host-side control group.
+_STARTED: dict = {}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,6 +124,56 @@ class ProcessEnv:
         return out
 
 
+def group_timeout(env: Mapping[str, str] | None = None) -> datetime.timedelta:
+    """The timeout every process group of a gang gets: KFTPU_GROUP_TIMEOUT_S
+    seconds (60 by default)."""
+    env = os.environ if env is None else env
+    return datetime.timedelta(seconds=float(env.get(ENV_GROUP_TIMEOUT, GROUP_TIMEOUT_S)))
+
+
+def _is_loopback(host: str) -> bool:
+    """Whether `host` names this host's loopback: "localhost" or a
+    loopback address. A host name is never resolved here."""
+    if host == "localhost":
+        return True
+    try:
+        return ipaddress.ip_address(host.strip("[]")).is_loopback
+    except ValueError:
+        return False
+
+
+def local_ranks(pe: ProcessEnv) -> int:
+    """How many ranks of the gang run on this host: the whole gang when
+    the coordinator is "localhost" or a loopback address, else one."""
+    host = (pe.coordinator or "localhost").rsplit(":", 1)[0]
+    return pe.num_processes if _is_loopback(host) else 1
+
+
+def choose_backend(device_type: str, local: int, cards: int) -> str:
+    """The backend rule: gloo on the CPU; on CUDA, NCCL when every one of
+    the `local` ranks on this host has a card of its own among `cards`,
+    and gloo (CUDA tensors, collectives through host memory) when they
+    outnumber the cards."""
+    if device_type != "cuda":
+        return "gloo"
+    if cards < 1:
+        raise RuntimeError("a CUDA gang member sees no card")
+    return "nccl" if local <= cards else "gloo"
+
+
+def started() -> dict:
+    """What `initialize_from_env` decided for this process: ``backend``,
+    ``device`` (the card, or cpu), ``local_ranks``, ``cards`` and
+    ``timeout_s``; empty for a gang of one."""
+    return dict((k, v) for k, v in _STARTED.items() if k != "control")
+
+
+def control_group():
+    """A gloo group over every rank of the gang, for host tensors (the
+    default group itself when that is gloo); None in a gang of one."""
+    return _STARTED.get("control")
+
+
 def initialize_from_env(
     env: Mapping[str, str] | None = None, *, device=None
 ) -> ProcessEnv:
@@ -102,10 +181,12 @@ def initialize_from_env(
 
     Single-process gangs (the default) skip initialization entirely, so
     this is safe to call unconditionally at start-up. A gang of more
-    processes joins one process group at ``tcp://<coordinator>``:
-    on CUDA (the default device, `_device.resolve_device`) with NCCL,
-    each process on GPU ``process_id % device_count``; with
-    ``device="cpu"`` with gloo."""
+    processes joins one process group at ``tcp://<coordinator>`` with the
+    group timeout, on the backend `choose_backend` picks for the device
+    (CUDA by default, `_device.resolve_device`; ``device="cpu"`` for
+    gloo on the CPU), and makes its control group. `started()` reports
+    the choice, which is also logged."""
+    env = os.environ if env is None else env
     pe = ProcessEnv.from_env(env)
     if pe.num_processes > 1:
         # Imported here: the operator builds ProcessEnv in control-plane
@@ -116,17 +197,38 @@ def initialize_from_env(
         from kubeflow_tpu_torch._device import resolve_device
 
         device = resolve_device(device)
-        backend = "gloo"
+        local = local_ranks(pe)
+        cards = torch.cuda.device_count() if device.type == "cuda" else 0
+        backend = choose_backend(device.type, local, cards)
         if device.type == "cuda":
-            backend = "nccl"
-            torch.cuda.set_device(pe.process_id % torch.cuda.device_count())
-        log.info(
-            "torch.distributed.init_process_group backend=%s coordinator=%s "
-            "rank=%d/%d slice=%d/%d", backend, pe.coordinator, pe.process_id,
-            pe.num_processes, pe.slice_id, pe.num_slices,
+            device = torch.device("cuda", (pe.process_id % local) % cards)
+            torch.cuda.set_device(device)
+        timeout = group_timeout(env)
+        log.warning(
+            "torch.distributed.init_process_group backend=%s device=%s "
+            "local_ranks=%d cards=%d timeout=%.0fs coordinator=%s rank=%d/%d "
+            "slice=%d/%d", backend, device, local, cards, timeout.total_seconds(),
+            pe.coordinator, pe.process_id, pe.num_processes, pe.slice_id, pe.num_slices,
         )
         dist.init_process_group(
             backend, init_method=f"tcp://{pe.coordinator}",
-            world_size=pe.num_processes, rank=pe.process_id,
+            world_size=pe.num_processes, rank=pe.process_id, timeout=timeout,
+        )
+        _STARTED.clear()
+        _STARTED.update(
+            backend=backend, device=str(device), local_ranks=local, cards=cards,
+            timeout_s=timeout.total_seconds(),
+            control=(dist.group.WORLD if backend == "gloo"
+                     else dist.new_group(backend="gloo", timeout=timeout)),
         )
     return pe
+
+
+def shutdown() -> None:
+    """Leave the gang's process group, if this process joined one."""
+    if _STARTED:
+        import torch.distributed as dist
+
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        _STARTED.clear()

@@ -35,6 +35,12 @@ gets SIGTERM and is untracked at once: its exit never becomes a pod
 phase, since the pod is gone. The runner keeps each such process until
 it has exited and records, in `evictions`, when the SIGTERM went out
 and when the exit was seen (by `step`), with its exit code.
+
+A pod that asks for ``nvidia.com/gpu`` starts only once every process of
+a deleted pod that asked for one has exited, as a kubelet hands a device
+to a new container only after the old one released it: a preemptor
+placed on a victim's card waits for the victim's save and exit instead
+of sharing the card with it (the JAX runner starts it at once).
 """
 
 from __future__ import annotations
@@ -46,10 +52,16 @@ import subprocess
 import threading
 import time
 
-from kubeflow_tpu_torch.api.objects import Resource
+from kubeflow_tpu_torch.api.objects import Resource, container_limits_total
 from kubeflow_tpu_torch.testing.fake_apiserver import FakeApiServer, NotFound
 
 log = logging.getLogger(__name__)
+
+GPU_RESOURCE = "nvidia.com/gpu"
+
+
+def _asks_gpus(pod: Resource) -> bool:
+    return container_limits_total(pod, GPU_RESOURCE) > 0
 
 
 def _free_port() -> int:
@@ -88,6 +100,10 @@ class LocalPodRunner:
         # SIGTERM and exit times: (ns, name, uid) -> {"sigterm": t,
         # "exit": t | None, "returncode": rc | None}.
         self._terminating: dict[tuple[str, str, str], subprocess.Popen] = {}
+        # The terminating processes whose pods asked for GPUs, and the
+        # uids of the started pods that asked for them.
+        self._releasing: set[tuple[str, str, str]] = set()
+        self._gpu_uids: set[str] = set()
         self.evictions: dict[tuple[str, str, str], dict] = {}
         api.watch(self._on_pod, "Pod")
 
@@ -100,9 +116,12 @@ class LocalPodRunner:
                 proc = self._procs.pop(slot)
                 del self._uids[slot]
                 if proc.poll() is not None:
+                    self._gpu_uids.discard(pod.metadata.uid)
                     return
                 key = (pod.metadata.namespace, pod.metadata.name, pod.metadata.uid)
                 self._terminating[key] = proc
+                if _asks_gpus(pod):
+                    self._releasing.add(key)
                 self.evictions[key] = {"sigterm": time.time(), "exit": None,
                                        "returncode": None}
             proc.terminate()
@@ -135,8 +154,19 @@ class LocalPodRunner:
             for key, proc in list(self._terminating.items()):
                 if proc.poll() is not None:
                     del self._terminating[key]
+                    self._releasing.discard(key)
+                    self._gpu_uids.discard(key[2])
                     self.evictions[key].update(exit=time.time(), returncode=proc.returncode)
-        for pod in self.api.list("Pod"):
+        pods = self.api.list("Pod")
+        live = {pod.metadata.uid for pod in pods}
+        with self._lock:
+            # A GPU holder is releasing from its pod's deletion on, also
+            # before the DELETED event reached `_on_pod`.
+            releasing = bool(self._releasing) or any(
+                uid in self._gpu_uids and uid not in live
+                and self._procs[slot].poll() is None
+                for slot, uid in self._uids.items())
+        for pod in pods:
             key = (pod.metadata.namespace, pod.metadata.name)
             phase = pod.status.get("phase")
             with self._lock:
@@ -146,6 +176,8 @@ class LocalPodRunner:
                     # event untracks it.
                     continue
             if proc is None and phase is None:
+                if releasing and _asks_gpus(pod):
+                    continue  # a deleted pod's process still holds the card
                 self._start(pod, key)
             elif proc is not None and phase is None and proc.poll() is None:
                 # Started, but the Running write failed (a faulty link to
@@ -161,7 +193,7 @@ class LocalPodRunner:
                 )
                 with self._lock:
                     self._procs.pop(key, None)
-                    self._uids.pop(key, None)
+                    self._gpu_uids.discard(self._uids.pop(key, None))
 
     def _start(self, pod: Resource, key: tuple[str, str]) -> None:
         c = pod.spec["containers"][0]
@@ -202,6 +234,8 @@ class LocalPodRunner:
         with self._lock:
             self._procs[key] = proc
             self._uids[key] = pod.metadata.uid
+            if _asks_gpus(pod):
+                self._gpu_uids.add(pod.metadata.uid)
         self._mark_running(pod)
 
     def _log_path(self, pod: Resource) -> str | None:
@@ -251,7 +285,7 @@ class LocalPodRunner:
         controller). Returns whether a live process was killed."""
         with self._lock:
             proc = self._procs.pop((namespace, name), None)
-            self._uids.pop((namespace, name), None)
+            self._gpu_uids.discard(self._uids.pop((namespace, name), None))
         if proc is None or proc.poll() is not None:
             return False
         proc.kill()
@@ -268,6 +302,8 @@ class LocalPodRunner:
             self._procs.clear()
             self._uids.clear()
             self._terminating.clear()
+            self._releasing.clear()
+            self._gpu_uids.clear()
         for p in procs:
             if p.poll() is None:
                 p.terminate()

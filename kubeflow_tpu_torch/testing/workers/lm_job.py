@@ -25,10 +25,16 @@ Env (besides the operator's TPUJOB_*):
   standby takes over) is retried every 0.2 s for up to
   ``API_OUTAGE_S``; each acked step report prints an ``acked`` line.
 - ``KFTPU_CKPT_DIR``, ``KFTPU_TOTAL_STEPS`` (8), ``KFTPU_SAVE_EVERY`` (4),
-  ``KFTPU_KILL_AT_STEP`` (0 = never): the first incarnation (the job's
-  ``status.restarts`` is 0) SIGKILLs itself after that step, once the
-  newest save at or below it is committed on disk, so the operator's
-  whole-gang restart resumes it from there.
+  ``KFTPU_KILL_AT_STEP`` (0 = never), ``KFTPU_KILL_RANK`` (0): that rank
+  of the first incarnation (the job's ``status.restarts`` is 0)
+  SIGKILLs itself after that step, once the newest save at or below it
+  is committed on disk, so the operator's whole-gang restart resumes it
+  from there.
+- ``KFTPU_MESH``: a JSON `MeshSpec` for a gang of several workers
+  (``replicas`` > 1), ``{"dp": -1}`` by default, as JAX's
+  ``tests/e2e/train_worker.py``; ``{"fsdp": -1}`` shards the parameters
+  and the adamw state over the gang (ZeRO-3). The batch is the global
+  batch: each rank trains on its rows of it.
 - ``KFTPU_STEP_SLEEP_S`` (0): seconds slept after each step's report, to
   pace a run that a test preempts mid-run whatever the host's load.
 - ``KFTPU_LM_SIZE``: JSON overrides of the model's widths, ``batch``,
@@ -47,8 +53,21 @@ Env (besides the operator's TPUJOB_*):
   them moved when a resumed step differs. Off by default: at full width
   a state digest copies 3 GB to the host.
 
+A gang of several workers trains one model: the launcher joined the
+process group (`parallel/distributed.initialize_from_env`, whose
+backend the ``start`` line names), the LM and its stream sit on the
+`MeshSpec`'s process mesh, and `fit()` reduces the gradients across the
+ranks. Rank 0 writes the checkpoints (every other rank opens the
+directory ``read_only`` and restores its piece of the step rank 0
+took), reports the metrics and the observation; every rank prints its
+own lines and, on CUDA, fails unless it launched the flash kernels. A
+rank whose `fit()` raises (a peer died: its collectives fail within
+the group timeout) prints a ``failed`` line and exits non-zero, so the
+operator restarts the gang whole.
+
 Every step prints one JSON line (``{"event": "step", ...}``, with the
-incarnation, the process id, the loss and the wall-clock time), as do
+incarnation, the rank, the process id, the loss, the step's seconds in
+collectives and the wall-clock time), as do
 the start (once torch is imported and the job read, with
 ``torch.get_num_threads()``) and the kill, so the pod log holds each
 incarnation's curve. A preemption spends no restart,
@@ -190,6 +209,21 @@ def log_digests(ckpt, incarnation: int) -> None:
     ckpt.save, ckpt.restore_latest = logged_save, logged_restore
 
 
+def wait_committed(directory: str, step: int, timeout: float = 120.0) -> None:
+    """Block until rank 0's save of `step` is committed and verified in
+    `directory` (a rank that does not write waits for the writer)."""
+    from pathlib import Path
+
+    from kubeflow_tpu_torch.train.checkpoint import MANIFEST_NAME, holds_step
+
+    deadline = time.monotonic() + timeout
+    while not ((Path(directory) / str(step) / MANIFEST_NAME).exists()
+               and holds_step(directory, step)):
+        if time.monotonic() > deadline:
+            raise RuntimeError(f"step {step}'s save was not committed in {timeout} s")
+        time.sleep(0.1)
+
+
 def main() -> int:
     import torch
 
@@ -197,6 +231,8 @@ def main() -> int:
     from kubeflow_tpu_torch.launcher import report_metrics, report_observation
     from kubeflow_tpu_torch.models import TransformerConfig, TransformerLM
     from kubeflow_tpu_torch.ops import _kernels
+    from kubeflow_tpu_torch.parallel import MeshSpec, ProcessEnv, build_mesh
+    from kubeflow_tpu_torch.parallel import distributed
     from kubeflow_tpu_torch.testing.apiserver_http import HttpApiClient, endpoints_from_env
     from kubeflow_tpu_torch.testing.fake_apiserver import NotFound
     from kubeflow_tpu_torch.train import (
@@ -211,6 +247,7 @@ def main() -> int:
     total = int(os.environ.get("KFTPU_TOTAL_STEPS", "8"))
     save_every = int(os.environ.get("KFTPU_SAVE_EVERY", "4"))
     kill_at = int(os.environ.get("KFTPU_KILL_AT_STEP", "0"))
+    kill_rank = int(os.environ.get("KFTPU_KILL_RANK", "0"))
     step_sleep = float(os.environ.get("KFTPU_STEP_SLEEP_S", "0"))
     size = {**FULL_WIDTH, **json.loads(os.environ.get("KFTPU_LM_SIZE", "{}"))}
     digests = os.environ.get("KFTPU_DIGESTS", "0") == "1"
@@ -218,22 +255,35 @@ def main() -> int:
     profiler = (Profiler(trace_dir, ProfileSchedule(start_step=1, num_steps=2))
                 if trace_dir else None)
     seen: dict = {}  # the trace line printed; the step that found the job gone
-    say("start", incarnation=incarnation, time=time.time(), device=str(device),
-        num_threads=torch.get_num_threads())
+    pe = ProcessEnv.from_env()
+    rank, mesh = pe.process_id, None
+    if pe.num_processes > 1:
+        mesh = build_mesh(MeshSpec(**json.loads(os.environ.get("KFTPU_MESH") or '{"dp": -1}')))
+        if device.type == "cuda":  # the card initialize_from_env set
+            device = torch.device("cuda", torch.cuda.current_device())
+    say("start", incarnation=incarnation, rank=rank, time=time.time(), device=str(device),
+        num_threads=torch.get_num_threads(), gang=distributed.started(),
+        mesh={a: n for a, n in mesh.shape.items() if n > 1} if mesh else None)
 
     widths = {k: size[k] for k in ("vocab_size", "d_model", "n_layers", "n_heads",
                                    "head_dim", "d_ff")}
     cfg = TransformerConfig(**widths, dtype=getattr(torch, size["dtype"]),
                             remat_policy="none")
     trainer = Trainer(
-        TransformerLM(cfg, device=device, seed=0),
+        TransformerLM(cfg, device=device, seed=0, mesh=mesh),
         TrainConfig(batch_size=size["batch"], learning_rate=size["lr"], total_steps=10_000,
                     optimizer="adamw", adam_mu_dtype="bfloat16", label_smoothing=0.0,
-                    fsdp_params=False, train_metrics="loss"),
+                    fsdp_params=bool(mesh and mesh.shape["fsdp"] > 1),
+                    train_metrics="loss"),
         input_key="tokens", label_key="labels", device=device, guard=AnomalyGuard())
     data = SyntheticTokens(size["batch"], size["seq"], size["vocab_size"], seed=0,
-                           vary_per_step=True, device=device)
-    ckpt = Checkpointer(os.environ["KFTPU_CKPT_DIR"], save_interval_steps=save_every)
+                           vary_per_step=True, device=device, mesh=mesh)
+    ckpt_dir = os.environ["KFTPU_CKPT_DIR"]
+    if trainer.is_writer:
+        ckpt = Checkpointer(ckpt_dir, save_interval_steps=save_every)
+    else:
+        os.makedirs(ckpt_dir, exist_ok=True)
+        ckpt = Checkpointer(ckpt_dir, save_interval_steps=save_every, read_only=True)
     if digests:
         data = DigestedStream(data)
         log_digests(ckpt, incarnation)
@@ -242,9 +292,19 @@ def main() -> int:
         torch.cuda.reset_peak_memory_stats()
 
     def on_metrics(step: int, rec: dict) -> None:
-        say("step", incarnation=incarnation, step=step, loss=rec["loss"],
-            step_ms=size["batch"] / rec["examples_per_sec"] * 1e3, time=time.time(),
+        say("step", incarnation=incarnation, rank=rank, step=step, loss=rec["loss"],
+            step_ms=size["batch"] / rec["examples_per_sec"] * 1e3,
+            collective_ms=trainer.collective_seconds() * 1e3, time=time.time(),
             **({"batch": data.last} if digests else {}))
+        if incarnation == 0 and step == kill_at and rank == kill_rank and rank != 0:
+            # Not the writer: wait for rank 0's save to be on disk.
+            committed = step - step % save_every
+            wait_committed(ckpt_dir, committed)
+            say("kill", incarnation=incarnation, rank=rank, step=step, committed=committed,
+                time=time.time())
+            os.kill(os.getpid(), signal.SIGKILL)
+        if not trainer.is_writer:
+            return
         if profiler is not None and profiler.trace_written and "trace" not in seen:
             seen["trace"] = step
             say("trace", step=step, written=True, dir=trace_dir,
@@ -262,7 +322,7 @@ def main() -> int:
             failovers=api.failovers)
         if step_sleep:
             time.sleep(step_sleep)
-        if incarnation == 0 and step == kill_at:
+        if incarnation == 0 and step == kill_at and rank == kill_rank:
             # A kill while the newest save is still being written would
             # leave it partial and the resume would start from scratch.
             ckpt.wait()
@@ -277,6 +337,11 @@ def main() -> int:
         result = fit(trainer, data, total, rng=0, checkpointer=ckpt, log_every=1,
                      on_metrics=on_metrics, profiler=profiler)
         fit_returned = time.time()
+    except Exception as err:
+        # A gang's survivor of a dead peer ends here: its collective failed.
+        say("failed", incarnation=incarnation, rank=rank, time=time.time(),
+            error=f"{type(err).__name__}: {err}"[:500])
+        raise
     finally:
         ckpt.close()
     launches = dict(_kernels.launches)
@@ -284,6 +349,13 @@ def main() -> int:
         missing = [k for k in STEP_KERNELS if not launches.get(k)]
         if missing:
             raise RuntimeError(f"the train steps launched none of {missing}")
+    peak = torch.cuda.max_memory_allocated() / 2**30 if device.type == "cuda" else 0.0
+    if not trainer.is_writer:
+        say("done", incarnation=incarnation, rank=rank, time=time.time(),
+            steps_done=result.steps_done, peak_memory_gib=peak,
+            **{f"launches_{k}": v for k, v in sorted(launches.items())})
+        api.close()
+        return 0
     if isinstance(result, Preempted):
         say("preempted", incarnation=incarnation, step=int(result.state.step),
             steps_done=result.steps_done, signum=result.signum, fit_returned=fit_returned,
@@ -297,12 +369,11 @@ def main() -> int:
         "resumed_from": float(result.resumed_from or 0),
         "steps_done": float(result.steps_done),
         "step_ms": statistics.median(step_ms) if step_ms else float("nan"),
-        "peak_memory_gib": (torch.cuda.max_memory_allocated() / 2**30
-                            if device.type == "cuda" else 0.0),
+        "peak_memory_gib": peak,
         **{f"launches_{k}": float(v) for k, v in sorted(launches.items())},
     }
     until_acked(lambda: report_observation(api, name, ns, observation))
-    say("done", incarnation=incarnation, time=time.time(), failovers=api.failovers,
+    say("done", incarnation=incarnation, rank=rank, time=time.time(), failovers=api.failovers,
         handshakes=api.handshakes, **observation)
     api.close()
     return 0

@@ -26,7 +26,12 @@ contract holds as written:
   trainer's).
 - **Single writer.** One process owns a directory's mutations; every
   other reader opens it ``read_only`` (saves refused, invalid steps
-  skipped without renaming, the directory never created).
+  skipped without renaming, the directory never created). A gang on a
+  process mesh has one writer too, rank 0 (`train/loop.fit`): it writes
+  the global state (`Trainer.gather_state`) in this same format, so a
+  gang's checkpoint is a one-process checkpoint, and every rank restores
+  its own piece of each tensor (the template's `TensorSpec.placement`),
+  which makes restores dp- and fsdp-polymorphic.
 
 Out of scope: reading the orbax checkpoints that the JAX package writes.
 """
@@ -174,7 +179,9 @@ def holds_step(directory: str | Path, step: int) -> bool:
 
 def _conform(tree: Any, template: Any, where: str = "state") -> Any:
     """`tree` (as loaded, on the CPU) checked against `template`'s layout,
-    shapes and dtypes, each tensor put on its spec's device."""
+    shapes and dtypes, each tensor's piece this rank holds (its spec's
+    placement, the whole tensor where it has none) put on its spec's
+    device."""
     if isinstance(template, dict):
         if not isinstance(tree, dict) or set(tree) != set(template):
             have = sorted(tree) if isinstance(tree, dict) else type(tree).__name__
@@ -196,6 +203,9 @@ def _conform(tree: Any, template: Any, where: str = "state") -> Any:
             f"checkpoint {where} is {have}, the template "
             f"{tuple(template.shape)} {template.dtype}"
         )
+    placement = getattr(template, "placement", None)
+    if placement is not None and placement.dim is not None:
+        return placement.take(tree).contiguous().to(template.device)
     return tree.to(template.device)
 
 

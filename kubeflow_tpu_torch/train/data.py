@@ -10,8 +10,15 @@ seeded from (seed, salt, position), so a position always yields the
 same batch; the numbers differ from JAX's threefry draws. Tokens and
 labels are int64, PyTorch's index type (JAX's are int32).
 
-Not ported yet: ``rebind(mesh)`` (the multi-device layer, ROADMAP
-Queue 1 item 12).
+On a process mesh (``mesh=``) the batch size is the global batch's, and
+each rank gets exactly its rows of the one-process global batch, bit for
+bit (and of tokens its sp chunk of the sequence): every rank draws the
+global batch from the same generator and keeps its part
+(`parallel/sharding.local_batch`), as JAX's streams make the global
+batch already sharded.
+
+Not ported yet: ``rebind(mesh)``, the elastic resize of a live stream
+(ROADMAP Queue 1 item 12).
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ import numpy as np
 import torch
 
 from kubeflow_tpu_torch._device import resolve_device
+from kubeflow_tpu_torch.parallel.sharding import local_batch
 
 
 class _SyntheticStream:
@@ -29,8 +37,13 @@ class _SyntheticStream:
     Subclasses call `_init_stream` with `make(generator)`, which draws
     one batch."""
 
-    def _init_stream(self, make, seed: int, vary_per_step: bool) -> None:
+    def _init_stream(self, make, seed: int, vary_per_step: bool, mesh=None,
+                     seq_keys: tuple = ()) -> None:
         self.vary_per_step = vary_per_step
+        self.mesh = mesh
+        if mesh is not None and mesh.multiprocess:
+            whole = make
+            make = lambda gen: local_batch(mesh, whole(gen), seq_keys=seq_keys)
         self._make, self._seed = make, seed
         self._position = 0
         self._salt = 0
@@ -72,7 +85,8 @@ class SyntheticImages(_SyntheticStream):
     """Synthetic image batches: NHWC images from a standard normal in
     `dtype`, and int64 labels in [0, num_classes), on `device`. The
     default yields one batch forever (device-throughput benchmarking);
-    ``vary_per_step=True`` draws each batch from its position."""
+    ``vary_per_step=True`` draws each batch from its position. On a
+    process `mesh`, each rank's rows of the global batch."""
 
     def __init__(
         self,
@@ -84,6 +98,7 @@ class SyntheticImages(_SyntheticStream):
         vary_per_step: bool = False,
         *,
         device=None,
+        mesh=None,
     ):
         if batch_size <= 0:
             raise ValueError(f"batch_size must be positive, got {batch_size}")
@@ -99,12 +114,13 @@ class SyntheticImages(_SyntheticStream):
                                    device=self.device)
             return {"image": images, "label": labels}
 
-        self._init_stream(make, seed, vary_per_step)
+        self._init_stream(make, seed, vary_per_step, mesh)
 
 
 class SyntheticTokens(_SyntheticStream):
     """Synthetic LM batches: random token ids [B, S] and their
-    next-token labels, both int64 on `device`."""
+    next-token labels, both int64 on `device`. On a process `mesh`, each
+    rank's rows of the global batch and its sp chunk of the sequence."""
 
     def __init__(
         self,
@@ -115,6 +131,7 @@ class SyntheticTokens(_SyntheticStream):
         vary_per_step: bool = False,
         *,
         device=None,
+        mesh=None,
     ):
         if batch_size <= 0:
             raise ValueError(f"batch_size must be positive, got {batch_size}")
@@ -128,4 +145,4 @@ class SyntheticTokens(_SyntheticStream):
             )
             return {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
 
-        self._init_stream(make, seed, vary_per_step)
+        self._init_stream(make, seed, vary_per_step, mesh, ("tokens", "labels"))

@@ -17,6 +17,12 @@ Counterpart of `kubeflow_tpu/train/guard.py` with the same rules:
 
 The guard state is a dict of 0-d device tensors that rides inside
 `TrainState`, so it is checkpointed and restored with the parameters.
+
+On a process mesh the verdict is identical on every rank: the trainer
+hands `apply` the global loss, the global gradient norm and the
+finiteness of the update over the whole gang, each reduced across the
+gang's processes before `torch.where` selects (`train/trainer.py`), and
+every rank then advances the same guard state.
 """
 
 from __future__ import annotations

@@ -19,8 +19,25 @@ semantics:
   `Preempted` result. The handlers are installed only on the main thread
   and restored on exit.
 
+On a process mesh (a trainer whose mesh spans a gang) every rank runs
+`fit` together:
+
+- Rank 0 is the one writer: every rank restores the newest valid step
+  at once (rank 0 quarantines what fails, the others only skip it, as
+  `read_only` checkpointers do), and rank 0's step is the gang's; a
+  rank that found another restores its piece of rank 0's. At a save every rank gathers the global state
+  (`Trainer.gather_state`) and rank 0 writes it.
+- At every step boundary the ranks agree, over the gang's host-side
+  control group (`parallel/distributed.control_group`), on whether any
+  of them was signalled and whether rank 0 saves, so a SIGTERM on any
+  rank stops every rank at the same boundary after one save.
+- Every rank gets its own `on_metrics` calls and history (the loss is
+  the global one); reporting for the job is rank 0's.
+- A rank that dies fails its peers' next collective within the group
+  timeout, and the operator restarts the gang whole.
+
 Not ported yet: elastic resize (``elastic=``, `ElasticResize`), which
-reshapes a multi-device mesh at a step boundary; it raises
+reshapes a live gang's mesh at a step boundary; it raises
 `NotImplementedError` (ROADMAP Queue 1 item 12).
 """
 
@@ -37,6 +54,7 @@ from typing import Any, Callable, Iterable
 
 import torch
 
+from kubeflow_tpu_torch.parallel import distributed
 from kubeflow_tpu_torch.train.checkpoint import Checkpointer
 from kubeflow_tpu_torch.train.profiling import Profiler
 from kubeflow_tpu_torch.train.trainer import Trainer, TrainState
@@ -121,6 +139,37 @@ def _load_data_state(data: Any, state: dict | None) -> None:
         ld(state)
 
 
+def _agree(values: list[int]) -> list[int]:
+    """Each value's maximum over the gang, through its control group."""
+    import torch.distributed as dist
+
+    flags = torch.tensor(values, dtype=torch.int64)
+    dist.all_reduce(flags, op=dist.ReduceOp.MAX,
+                    group=distributed.control_group() or dist.group.WORLD)
+    return flags.tolist()
+
+
+def _restore(trainer: Trainer, checkpointer: Checkpointer):
+    """The newest valid checkpoint, conformed to this rank's template. On
+    a process mesh every rank restores at once and rank 0's step is the
+    gang's: a rank that found another (it read a step rank 0 was
+    quarantining meanwhile) restores its piece of rank 0's."""
+    template = trainer.abstract_state()
+    restored = checkpointer.restore_latest(template)
+    if getattr(trainer, "gang", None) is None:
+        return restored
+    found = restored.step if restored is not None else -1
+    step = _agree([found if trainer.is_writer else -1])[0]
+    if found != step:
+        restored = (checkpointer.restore_latest(template, prefer_step=step)
+                    if step >= 0 else None)
+        if (restored.step if restored is not None else -1) != step:
+            raise RuntimeError(
+                f"rank 0 restored step {step}; this rank found "
+                f"{restored.step if restored is not None else None}")
+    return restored
+
+
 def fit(
     trainer: Trainer,
     data: Iterable[dict],
@@ -145,18 +194,22 @@ def fit(
 
     `handle_signals=False` leaves SIGTERM/SIGINT to the caller.
     `max_rollbacks` bounds divergence rollbacks before `TrainingDiverged`.
+    On a process mesh every rank calls `fit` with its own checkpointer on
+    the one directory (rank 0's writes; see the module docstring).
     """
     if elastic is not None:
         raise NotImplementedError(
-            "elastic resize reshapes a multi-device mesh, which is not "
+            "elastic resize reshapes a live gang's mesh, which is not "
             "ported yet (ROADMAP Queue 1 item 12)"
         )
     guard = trainer.guard
+    gang = getattr(trainer, "gang", None) is not None
+    writer = getattr(trainer, "is_writer", True)
 
     resumed_from = None
     state = None
     if checkpointer is not None:
-        restored = checkpointer.restore_latest(trainer.abstract_state())
+        restored = _restore(trainer, checkpointer)
         if restored is not None:
             state = trainer.load_state_dict(restored.state)
             resumed_from = int(restored.step)
@@ -216,8 +269,7 @@ def fit(
         data so that the retried trajectory differs."""
         nonlocal it
         restored = (
-            checkpointer.restore_latest(trainer.abstract_state())
-            if checkpointer is not None else None
+            _restore(trainer, checkpointer) if checkpointer is not None else None
         )
         if restored is None:
             raise TrainingDiverged(
@@ -247,7 +299,8 @@ def fit(
         perturb(salt)
         # Durable now: a crash before the next save resumes onto the new
         # salt, not the one that diverged.
-        checkpointer.update_data_state(int(restored.step), _data_state(data))
+        if writer:
+            checkpointer.update_data_state(int(restored.step), _data_state(data))
         it = iter(data)
         log.warning(
             "anomaly guard: sustained divergence at step %d; rolled back "
@@ -276,9 +329,16 @@ def fit(
             examples += trainer.config.batch_size
             is_last = step == total_steps
             preempted = preempt["signum"] is not None
-            want_save = checkpointer is not None and (
+            want_save = checkpointer is not None and writer and (
                 checkpointer.should_save(step) or is_last
             )
+            if gang:
+                # Any rank's signal stops them all here; rank 0's save is
+                # every rank's gather.
+                signum, want_save = _agree([preempt["signum"] or 0, int(want_save)])
+                preempted, want_save = signum > 0, bool(want_save)
+                if preempted and preempt["signum"] is None:
+                    preempt["signum"] = signum
             # A preempted boundary always logs.
             want_log = step % log_every == 0 or is_last or preempted
 
@@ -295,12 +355,16 @@ def fit(
                     state, step = rollback(step)
                     continue
 
+            def save(force: bool) -> None:
+                tree = trainer.gather_state(state) if gang else state
+                if writer:
+                    checkpointer.save(step, tree, force=force, data_state=_data_state(data))
+
             saved = False
             if want_save:
                 if guard is None:
                     check_finite(metrics, step)
-                checkpointer.save(step, state, force=is_last or preempted,
-                                  data_state=_data_state(data))
+                save(is_last or preempted)
                 saved = True
             if want_log:
                 if guard is None:
@@ -331,8 +395,7 @@ def fit(
                 t_last, examples = now, 0
             if preempted:
                 if checkpointer is not None and not saved:
-                    checkpointer.save(step, state, force=True,
-                                      data_state=_data_state(data))
+                    save(True)
                 log.warning(
                     "preemption signal %s honored at step %d: %s, exiting cleanly",
                     preempt["signum"], step,

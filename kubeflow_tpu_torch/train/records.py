@@ -21,9 +21,15 @@ refilled only after the event of its previous copy has completed. The
 thread reads up to two batches ahead, so the resumable position is the
 number of batches *yielded*, never the loader's count.
 
-Not ported yet: a dataset sharded over a multi-device mesh, and
-``rebind(mesh)`` (ROADMAP Queue 1 item 12). Like JAX's, the dataset
-has no ``perturb``: a guarded run's divergence rollback refuses it.
+On a process mesh, ``device_iter(device, mesh=)`` gives each rank its
+rows of every global batch (`parallel/sharding.batch_sharding`): a
+dataset opened for one process (no ``process_env``) is read whole by
+every rank, which keeps its rows, so the position, and the batch a step
+gets, are those of one process; a dataset opened with the gang's
+``process_env`` already reads each process's own records. ``rebind(mesh)``, the
+elastic resize of a live stream, is not ported yet (ROADMAP Queue 1
+item 12). Like JAX's, the dataset has no ``perturb``: a guarded run's
+divergence rollback refuses it.
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ import torch
 from kubeflow_tpu_torch._device import resolve_device
 from kubeflow_tpu_torch.native.dataloader import RecordLoader, RecordWriter
 from kubeflow_tpu_torch.parallel.distributed import ProcessEnv
+from kubeflow_tpu_torch.parallel.sharding import local_batch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -192,12 +199,13 @@ class RecordDataset:
         for raw, n in self._loader:
             yield self.spec.decode_batch(raw[:n])
 
-    def device_iter(self, device=None) -> "DeviceIter":
+    def device_iter(self, device=None, mesh=None) -> "DeviceIter":
         """Batches as tensors on `device` (CUDA unless the caller names
-        another device; without a GPU and without a device it raises).
-        The returned iterator forwards the resumable-data protocol, so it
-        can be handed straight to `fit(..., checkpointer=...)`."""
-        return DeviceIter(self, device)
+        another device; without a GPU and without a device it raises); on
+        a process `mesh`, this rank's rows of each. The returned iterator
+        forwards the resumable-data protocol, so it can be handed straight
+        to `fit(..., checkpointer=...)`."""
+        return DeviceIter(self, device, mesh)
 
 
 class _PinnedReader:
@@ -285,8 +293,10 @@ class DeviceIter:
     the CUDA reader thread's read-ahead never moves: a checkpoint at
     step k holds k."""
 
-    def __init__(self, dataset: RecordDataset, device=None):
+    def __init__(self, dataset: RecordDataset, device=None, mesh=None):
         self._dataset = dataset
+        whole = dataset.local_batch_size == dataset.global_batch_size
+        self.mesh = mesh if mesh is not None and mesh.multiprocess and whole else None
         self.device = resolve_device(device)
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
@@ -307,9 +317,12 @@ class DeviceIter:
 
     def rebind(self, mesh) -> "DeviceIter":
         raise NotImplementedError(
-            "rebind(mesh) places batches on a multi-device mesh, which is not "
-            "ported yet (ROADMAP Queue 1 item 12)"
+            "rebind(mesh) moves a live stream onto a resized mesh (elastic "
+            "resize), which is not ported yet (ROADMAP Queue 1 item 12)"
         )
+
+    def _mine(self, batch: dict) -> dict:
+        return batch if self.mesh is None else local_batch(self.mesh, batch)
 
     def _stop_reader(self) -> None:
         if self._reader is not None:
@@ -338,7 +351,7 @@ class DeviceIter:
             batch = spec.decode_tensor(torch.from_numpy(raw[:n]))
             batch = {k: v.to(self.device) for k, v in batch.items()}
             self._position += 1
-            yield batch
+            yield self._mine(batch)
 
     def _cuda_pass(self, reader: _PinnedReader, spec: RecordSpec) -> Iterator[dict]:
         try:
@@ -352,6 +365,6 @@ class DeviceIter:
                 raw.record_stream(stream)
                 batch = spec.decode_tensor(raw)
                 self._position += 1
-                yield batch
+                yield self._mine(batch)
         finally:
             reader.close()

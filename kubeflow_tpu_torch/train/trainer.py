@@ -1,6 +1,6 @@
-"""The single-device train step.
+"""The train step, on one device or on a gang of processes.
 
-Counterpart of `kubeflow_tpu/train/trainer.py` on one device: the same
+Counterpart of `kubeflow_tpu/train/trainer.py`: the same
 `TrainConfig` and its checks, the optax optimizers written out in plain
 PyTorch with optax's exact update rules (adamw keeps its first moment in
 bf16 the way `optax.scale_by_adam(mu_dtype=bf16)` does, which stock
@@ -19,29 +19,59 @@ A model on an in-process sp ring (`parallel/mesh.build_mesh` in one
 process) trains here unchanged: its ring positions share one set of
 parameters, so their gradients sum by themselves.
 
+On a process mesh (the model's ``mesh``, from `parallel/mesh.build_mesh`
+under `torch.distributed`) the gang computes what JAX's
+one global program computes on the whole batch. Each rank's batch is
+its rows of the global batch (its sp chunk of the sequence), and the
+accumulation microbatches are split from those rows. Each rank's loss is
+normalized over the global batch and tokens (divided by the world size),
+so its gradients summed over the world are the global gradient: the mean
+over dp × fsdp of the batch shards' gradients, each summed over sp. The
+reported loss and accuracy are the global means. With ``fsdp_params``
+and fsdp > 1 the step is ZeRO-3: every parameter whose logical axes
+(the model's ``logical_axes()``, through `parallel/sharding.
+default_rules`) put a dimension on fsdp is kept by each rank as its
+shard (``TrainState.shards``), as are its optimizer moments (the bf16
+first moment too). Between steps the model holds no storage for those
+parameters: a step all-gathers the shards into whole parameters for
+the forward and backward, frees them once the gradients are out, then
+reduce-scatters the gradients over fsdp (and sums them over dp × sp),
+and the optimizer steps on the shards. The eval step gathers and frees
+the same way. Collectives are bucketed: one flat all-reduce of the
+replicated gradients, one reduce-scatter and one all-gather of the
+sharded ones.
+`collective_seconds()` reports the time they took. `state_shardings`
+gives each tensor's `parallel/sharding.Placement`, `abstract_state` its
+global shape with it (each rank's shape is ``local_shape``);
+`gather_state` makes the global state a checkpoint holds, and
+`load_state_dict` takes a global or a rank's state.
+
 With an anomaly ``guard`` (`train/guard.py`) every step is screened on
 the device: the parameters, optimizer state and batch statistics are
 copied before the forward, the update is computed, and the applied or
 the kept values are selected with `torch.where` on the guard's verdict
 (the loss, the gradient norm, and the finiteness of the updated
-parameters and statistics), still without a host sync. The step count
-advances on a skip. `TrainState.state_dict`, `Trainer.abstract_state` and
+parameters and statistics), still without a host sync. On a process
+mesh the loss is already global, the gradient norm and the finiteness
+are reduced over the gang before `torch.where`, so every rank reaches
+the same verdict. The step count advances on a skip.
+`TrainState.state_dict`, `Trainer.abstract_state` and
 `Trainer.load_state_dict` are what the checkpointer saves and restores.
 
 With ``loss_in_model`` the model owns the objective: it is called as
 ``model(inputs, labels=labels)`` and returns the scalar loss (the RL
 learner's `rl.policy.PolicyWithLoss`); accuracy is not reported.
 
-Not ported yet: a model on a multi-process mesh, which needs a gradient
-all-reduce over dp and sp, the shardings and `resize`/`reshard_state`
-(ROADMAP Queue 1 item 12); it raises `NotImplementedError` where it
-would be asked for.
+Not ported yet: `resize`/`reshard_state`, the elastic resize of a live
+gang (ROADMAP Queue 1 item 12).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
+import time
 from typing import Callable, NamedTuple
 
 import torch
@@ -50,13 +80,16 @@ from torch.utils.checkpoint import checkpoint
 
 from kubeflow_tpu_torch._device import resolve_device
 from kubeflow_tpu_torch.models.transformer import checkpoint_policy
+from kubeflow_tpu_torch.parallel import collectives, sharding
+from kubeflow_tpu_torch.parallel.sharding import REPLICATED, Placement
 
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """The JAX config's fields, defaults and checks
-    (kubeflow_tpu/train/trainer.py:74-172). ``fsdp_params`` is accepted
-    and has nothing to shard on one device."""
+    (kubeflow_tpu/train/trainer.py:74-172). ``fsdp_params`` shards the
+    parameters and the optimizer state over fsdp on a process mesh
+    (ZeRO-3); one process has nothing to shard."""
 
     batch_size: int = 256
     learning_rate: float = 0.4
@@ -325,13 +358,19 @@ def _remat_forward(model: nn.Module):
 
 
 class TensorSpec(NamedTuple):
-    """A tensor's shape, dtype and device, without storage: the leaves of
-    `Trainer.abstract_state()` (JAX's `ShapeDtypeStruct` with a
-    sharding)."""
+    """A tensor's global shape, dtype, device and placement on a process
+    mesh, without storage: the leaves of `Trainer.abstract_state()`
+    (JAX's `ShapeDtypeStruct` with a sharding). ``local_shape`` is the
+    shape a rank holds; a checkpoint restore keeps that piece."""
 
     shape: tuple
     dtype: torch.dtype
     device: torch.device
+    placement: Placement = REPLICATED
+
+    @property
+    def local_shape(self) -> tuple:
+        return self.placement.local_shape(self.shape)
 
 
 @dataclasses.dataclass
@@ -346,17 +385,21 @@ class TrainState:
     step: torch.Tensor
     model: nn.Module
     opt_state: dict
+    # ZeRO-3 on a process mesh: each parameter as this rank keeps it (its
+    # fsdp shard, or the model's parameter where it is replicated).
+    shards: dict | None = None
     guard: dict | None = None
 
     def state_dict(self) -> dict:
         """Every tensor of the state, by name, as a tree of dicts: the
-        step, the parameters (detached, not copies), the batch statistics
-        (only for a model with buffers: an LM's state has no such key),
-        the optimizer's state and the guard's. `Trainer.load_state_dict`
-        takes it back."""
+        step, the parameters (detached, not copies; a ZeRO-3 rank's
+        shards), the batch statistics (only for a model with buffers: an
+        LM's state has no such key), the optimizer's state and the
+        guard's. `Trainer.load_state_dict` takes it back."""
+        params = self.shards if self.shards is not None else dict(self.model.named_parameters())
         tree = {
             "step": self.step,
-            "params": {n: p.detach() for n, p in self.model.named_parameters()},
+            "params": {n: p.detach() for n, p in params.items()},
             "opt_state": self.opt_state,
             "guard": self.guard,
         }
@@ -366,8 +409,31 @@ class TrainState:
         return tree
 
 
+def _flat_shards(tensors, placements):
+    """The sharded tensors laid out for one reduce-scatter: [n, total],
+    row i holding every tensor's piece i (its `placement.dim` moved to
+    the front, flattened), tensors side by side."""
+    n = placements[0].count
+    return torch.cat([t.movedim(pl.dim, 0).reshape(n, -1)
+                      for t, pl in zip(tensors, placements)], dim=1)
+
+
+def _unflat_pieces(flat, shapes, placements):
+    """The inverse for one rank's row: [total] → each tensor's piece in
+    its local shape."""
+    out, at = [], 0
+    for shape, pl in zip(shapes, placements):
+        local = pl.local_shape(shape)
+        moved = (local[pl.dim], *local[:pl.dim], *local[pl.dim + 1:])
+        numel = math.prod(moved)
+        out.append(flat[at:at + numel].view(moved).movedim(0, pl.dim))
+        at += numel
+    return out
+
+
 class Trainer:
-    """Binds (model, config) on one device into init/train/eval steps."""
+    """Binds (model, config) on one device, or on a process mesh, into
+    init/train/eval steps."""
 
     def __init__(
         self,
@@ -384,13 +450,6 @@ class Trainer:
                 f"guard must be an AnomalyGuard (train/guard.py), got "
                 f"{type(guard).__name__}"
             )
-        mesh = getattr(model, "mesh", None)
-        if mesh is not None and mesh.multiprocess:
-            raise NotImplementedError(
-                "training on a multi-process mesh needs a gradient "
-                "all-reduce over dp and sp, which is not ported yet (ROADMAP "
-                "Queue 1 item 12); an in-process sp ring trains as is"
-            )
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.config = config
@@ -403,12 +462,179 @@ class Trainer:
         # The guarded step's copies of the kept state (made at its first
         # call, reused by every later one).
         self._kept = None
+        self.mesh = getattr(model, "mesh", None)
+        self.rules = sharding.default_rules(fsdp_params=config.fsdp_params)
+        # The process mesh, or None in one process.
+        self.gang = self.mesh if self.mesh is not None and self.mesh.multiprocess else None
+        self._timing: list = []
+        self._timed_s = 0.0
+        # Each parameter's global shape (a ZeRO-3 rank's model frees the
+        # sharded ones between steps).
+        self.shapes = {n: tuple(p.shape) for n, p in model.named_parameters()}
+        self.placements = dict.fromkeys(self.shapes, REPLICATED)
+        self.sharded: list[str] = []
+        if self.gang is None:
+            return
+        shards = sharding.batch_shard_count(self.gang)
+        if config.batch_size % shards or (config.batch_size // shards) % config.accum_steps:
+            raise ValueError(
+                f"global batch {config.batch_size} must split into {shards} batch "
+                f"shards of {config.accum_steps} accumulation microbatches each")
+        axes = getattr(model, "logical_axes", None)
+        if callable(axes):
+            for name, p in model.named_parameters():
+                self.placements[name] = sharding.placement(
+                    self.gang, axes()[name], self.rules, p.shape, name)
+        self.sharded = [n for n, pl in self.placements.items() if pl.dim is not None]
+        self.world = self.gang.group("world")
+        self.world_size = torch.distributed.get_world_size(self.world)
+
+    @property
+    def is_writer(self) -> bool:
+        """Whether this process writes the gang's checkpoints and reports
+        for it: rank 0 of a process mesh, or the one process."""
+        return self.gang is None or self.gang.rank == 0
+
+    # -- collectives ----------------------------------------------------------
+
+    @contextlib.contextmanager
+    def _collective(self):
+        """Time a collective region: CUDA events on the card (read at
+        `collective_seconds`), the host clock on the CPU."""
+        if self.device.type == "cuda":
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            yield
+            end.record()
+            self._timing.append((start, end))
+            if len(self._timing) > 64:
+                # Fold the finished ones, so an unread count stays small.
+                done = [pair for pair in self._timing if pair[1].query()]
+                self._timed_s += sum(a.elapsed_time(b) for a, b in done) / 1e3
+                self._timing = [pair for pair in self._timing if pair not in done]
+        else:
+            t0 = time.perf_counter()
+            yield
+            self._timed_s += time.perf_counter() - t0
+
+    def collective_seconds(self) -> float:
+        """Seconds spent in the gang's collectives since the last call
+        (device time between events on CUDA: reading it waits for them)."""
+        total = self._timed_s + sum(a.elapsed_time(b) for a, b in self._timing) / 1e3
+        self._timing, self._timed_s = [], 0.0
+        return total
+
+    def _reduce_grads(self, grads: dict) -> dict:
+        """Each rank's gradients (of its loss over the world size) summed
+        over the gang: one flat all-reduce of the replicated ones over the
+        world; the sharded ones reduce-scattered over fsdp into this
+        rank's shards, then summed over dp × sp."""
+        gang = self.gang
+        with self._collective():
+            full = [n for n in grads if n not in self.sharded]
+            if full:
+                flat = collectives.group_all_reduce(
+                    torch.cat([grads[n].reshape(-1) for n in full]), self.world)
+                for n, g in zip(full, flat.split([grads[n].numel() for n in full])):
+                    grads[n] = g.view(grads[n].shape)
+            if self.sharded:
+                pls = [self.placements[n] for n in self.sharded]
+                flat = _flat_shards([grads[n] for n in self.sharded], pls)
+                mine = collectives.group_reduce_scatter(flat.reshape(-1), gang.group("fsdp"))
+                mine = collectives.group_all_reduce(mine, gang.group("replica"))
+                shapes = [grads[n].shape for n in self.sharded]
+                for n, g in zip(self.sharded, _unflat_pieces(mine, shapes, pls)):
+                    grads[n] = g
+        return grads
+
+    @torch.no_grad()
+    def _gather_into_model(self, shards: dict) -> None:
+        """The sharded parameters all-gathered over fsdp into whole
+        parameters of the model (allocated here; `_release_model` frees
+        them)."""
+        params = dict(self.model.named_parameters())
+        pls = [self.placements[n] for n in self.sharded]
+        with self._collective():
+            flat = torch.cat([shards[n].movedim(pl.dim, 0).reshape(-1)
+                              for n, pl in zip(self.sharded, pls)])
+            whole = collectives.group_all_gather(flat, self.gang.group("fsdp"))
+            del flat
+            whole = whole.view(pls[0].count, -1)
+            at = 0
+            for n, pl in zip(self.sharded, pls):
+                shape = self.shapes[n]
+                moved = (shape[pl.dim], *shape[:pl.dim], *shape[pl.dim + 1:])
+                numel = math.prod(moved) // pl.count
+                piece = whole[:, at:at + numel].reshape(moved)
+                params[n].data = params[n].new_empty(shape)
+                params[n].data.copy_(piece.movedim(0, pl.dim))
+                at += numel
+
+    @torch.no_grad()
+    def _release_model(self) -> None:
+        """Free the model's whole sharded parameters: between steps a
+        ZeRO-3 rank holds only its shards of them."""
+        params = dict(self.model.named_parameters())
+        for n in self.sharded:
+            params[n].data = params[n].new_empty(0)
+
+    def _whole(self, name: str, t):
+        """`t`, a ZeRO-3 rank's piece of parameter `name` (or of one of its
+        moments), all-gathered over fsdp; a replicated one as it is."""
+        if name not in self.sharded:
+            return t
+        return collectives.group_all_gather(t, self.gang.group("fsdp"),
+                                            self.placements[name].dim)
+
+    def gather_params(self, tree: dict) -> dict:
+        """{name: tensor} with each ZeRO-3 shard all-gathered over fsdp
+        into the whole tensor (a collective: every rank calls it)."""
+        return {n: self._whole(n, t) for n, t in tree.items()}
+
+    def _map_placed(self, fn, tree, param_fn):
+        """`fn(leaf)` over a state tree, `param_fn(name, leaf)` over every
+        dict keyed by the parameter names (the parameters, adamw's mu
+        and nu, sgd's trace)."""
+        if isinstance(tree, dict):
+            if tree and set(tree) == set(self.placements):
+                return {n: param_fn(n, t) for n, t in tree.items()}
+            return {k: self._map_placed(fn, v, param_fn) for k, v in tree.items()}
+        return None if tree is None else fn(tree)
+
+    def gather_state(self, state: TrainState) -> dict:
+        """The global `state_dict()` of the gang: a ZeRO-3 rank's shards of
+        the parameters and their optimizer moments all-gathered (a
+        collective: every rank calls it). What one process would hold;
+        a checkpoint holds this."""
+        tree = state.state_dict()
+        if not self._zero3():
+            return tree
+        return self._map_placed(lambda t: t, tree, self._whole)
+
+    # -- state ------------------------------------------------------------------
+
+    def _zero3(self) -> bool:
+        return self.gang is not None and bool(self.sharded)
+
+    def _shards_of(self) -> dict | None:
+        """This rank's shards, cut from the model's (whole) parameters,
+        which are then freed; the replicated parameters are the model's
+        own."""
+        if not self._zero3():
+            return None
+        shards = {n: (self.placements[n].take(p.detach()).clone(
+                      memory_format=torch.contiguous_format) if n in self.sharded else p)
+                  for n, p in self.model.named_parameters()}
+        self._release_model()
+        return shards
 
     def init_state(self, rng: int | torch.Generator | None = None) -> TrainState:
         """Step 0: fresh optimizer and guard state. With `rng` (a seed or
         an explicit `torch.Generator`, never the global RNG) the model's
         parameters are drawn anew from it first (the model's
-        ``reset_parameters``); without, they stay as they are."""
+        ``reset_parameters``); without, they stay as they are. On a
+        process mesh every rank draws the same parameters, and a ZeRO-3
+        rank keeps its shards of them (its model then holds none whole)."""
         if rng is not None:
             reset = getattr(self.model, "reset_parameters", None)
             if not callable(reset):
@@ -417,19 +643,20 @@ class Trainer:
                     "call init_state() to keep its parameters"
                 )
             reset(rng)
-        params = dict(self.model.named_parameters())
+        shards = self._shards_of()
+        params = shards if shards is not None else dict(self.model.named_parameters())
         return TrainState(
             step=torch.zeros((), dtype=torch.int32, device=self.device),
             model=self.model,
             opt_state=self.tx.init(params),
             guard=self.guard.init_state(self.device) if self.guard else None,
+            shards=shards,
         )
 
-    def abstract_state(self) -> dict:
-        """The layout of `TrainState.state_dict()` with a `TensorSpec` for
-        every tensor (on the trainer's device): the template a checkpoint
-        is restored against. Allocates nothing."""
-        meta = {n: torch.empty_like(p, device="meta")
+    def _meta_state(self) -> dict:
+        """`TrainState.state_dict()`'s layout with global shapes, on the
+        meta device (the batch statistics as the model holds them)."""
+        meta = {n: torch.empty(self.shapes[n], dtype=p.dtype, device="meta")
                 for n, p in self.model.named_parameters()}
         tree = {
             "step": torch.empty((), dtype=torch.int32, device="meta"),
@@ -440,39 +667,84 @@ class Trainer:
         stats = batch_stats(self.model)
         if stats:
             tree["batch_stats"] = stats
-        return map_tensors(
-            lambda t: TensorSpec(tuple(t.shape), t.dtype, self.device), tree)
+        return tree
+
+    def state_shardings(self) -> dict:
+        """The layout of `TrainState.state_dict()` with each tensor's
+        `Placement` on the mesh: the parameters' and their optimizer
+        moments' fsdp split, everything else replicated (JAX's
+        `state_shardings`, from the logical axes through the rules)."""
+        return self._map_placed(lambda t: REPLICATED, self._meta_state(),
+                                lambda n, t: self.placements[n])
+
+    def abstract_state(self) -> dict:
+        """The layout of `TrainState.state_dict()` with a `TensorSpec` for
+        every tensor (on the trainer's device): the global shape, the
+        dtype and the placement, whose ``local_shape`` is what this rank
+        holds. The template a checkpoint is restored against (a restore
+        keeps each rank's piece). Allocates nothing."""
+        spec = lambda t, pl=REPLICATED: TensorSpec(tuple(t.shape), t.dtype, self.device, pl)
+        return self._map_placed(spec, self._meta_state(),
+                                lambda n, t: spec(t, self.placements[n]))
 
     @torch.no_grad()
     def load_state_dict(self, state: dict) -> TrainState:
-        """A `TrainState` from `TrainState.state_dict()`'s layout: the
-        parameters and batch statistics are copied into the trainer's
-        model in place, every other tensor is put on the trainer's
-        device."""
-        for key, into in (("params", dict(self.model.named_parameters())),
-                          ("batch_stats", batch_stats(self.model))):
+        """A `TrainState` from `TrainState.state_dict()`'s layout, global
+        or this rank's: the parameters and batch statistics are copied
+        into the trainer's model in place, every other tensor is put on
+        the trainer's device. A ZeRO-3 rank keeps its shards of whole
+        tensors, and its model none of them whole."""
+        params = dict(self.model.named_parameters())
+
+        def local(n, t):
+            pl = self.placements[n]
+            if pl.dim is not None and tuple(t.shape) == self.shapes[n]:
+                return pl.take(t)
+            return t
+
+        if self._zero3():
+            state = {**state, "params": {n: local(n, t) for n, t in state.get("params", {}).items()},
+                     "opt_state": self._map_placed(lambda t: t, state["opt_state"], local)}
+        for key, into in (("params", params), ("batch_stats", batch_stats(self.model))):
             have = state.get(key, {})
             if set(have) != set(into):
                 raise KeyError(
                     f"state's {key} {sorted(set(have) ^ set(into))} do not "
                     "match the model's"
                 )
+            if key == "params" and self._zero3():
+                continue
             for name, t in into.items():
                 t.copy_(have[name])
         to = lambda t: t.to(self.device)
+        shards = None
+        if self._zero3():
+            shards = {n: (have.to(self.device).clone(memory_format=torch.contiguous_format)
+                           if n in self.sharded
+                          else params[n].copy_(have))
+                      for n, have in state["params"].items()}
+            self._release_model()
         return TrainState(
             step=to(state["step"]),
             model=self.model,
             opt_state=map_tensors(to, state["opt_state"]),
             guard=map_tensors(to, state.get("guard")) if self.guard else None,
+            shards=shards,
         )
 
-    def make_train_step(self):
-        """step(state, batch) → (state, metrics): the loss (and accuracy
-        with ``train_metrics="full"``) of the batch, its gradient, one
-        optimizer update. With ``accum_steps`` > 1 the batch is split into
-        that many microbatches, run and differentiated one after another,
-        and the loss is the mean of their means, as in JAX. With
+    # -- the step ---------------------------------------------------------------
+
+    def make_grad_step(self):
+        """grad(state, batch) → (metrics, grads): the loss (and accuracy
+        with ``train_metrics="full"``) of the batch and its gradient,
+        without an update: on a process mesh the global loss and the
+        gradient reduced over the gang (a ZeRO-3 rank's shards of it;
+        `gather_params` makes them whole; the whole parameters live only
+        from the forward to the end of the backward). `make_train_step`
+        steps on it.
+        With ``accum_steps`` > 1 the batch is split into that many
+        microbatches, run and differentiated one after another, and the
+        loss is the mean of their means, as in JAX. With
         ``loss_in_model`` the model's output is the loss. A model's own
         losses (``sows_losses``: a MoE LM's load balancing) are added to
         each (micro)batch's loss, as JAX's trainer adds its "losses"
@@ -480,7 +752,11 @@ class Trainer:
         cfg = self.config
         has_acc = cfg.train_metrics == "full"
         input_key, label_key = self.input_key, self.label_key
-        guard = self.guard
+        gang = self.gang
+        # Each rank's loss over the world size: its gradients summed over
+        # the gang are the global gradient.
+        scale = cfg.accum_steps * (self.world_size if gang is not None else 1)
+        zero3 = self._zero3()
 
         def forward_loss(model, mb):
             inputs = mb[input_key]
@@ -512,13 +788,10 @@ class Trainer:
                 loss = loss + aux
             return loss, acc
 
-        def train_step(state: TrainState, batch):
+        def grad_step(state: TrainState, batch):
             model = state.model
             model.train()
             params = dict(model.named_parameters())
-            stats = list(batch_stats(model).values())
-            if guard is not None:
-                keep(params, stats, state.opt_state)
             for p in params.values():
                 p.grad = None
             accum = cfg.accum_steps
@@ -530,10 +803,12 @@ class Trainer:
                 )
             size = lead // accum
             loss_sum = acc_sum = None
+            if zero3:
+                self._gather_into_model(state.shards)
             for i in range(accum):
                 mb = {key: x[i * size:(i + 1) * size] for key, x in batch.items()}
                 loss, acc = forward_loss(model, mb)
-                (loss / accum).backward()
+                (loss / scale).backward()
                 loss = loss.detach()
                 loss_sum = loss if loss_sum is None else loss_sum + loss
                 if has_acc:
@@ -544,16 +819,49 @@ class Trainer:
             }
             for p in params.values():
                 p.grad = None
+            if zero3:
+                self._release_model()
             metrics = {"loss": loss_sum / accum}
             if has_acc:
                 metrics["accuracy"] = acc_sum / accum
+            if gang is not None:
+                grads = self._reduce_grads(grads)
+                metrics = self._global_means(metrics)
+            return metrics, grads
+
+        return grad_step
+
+    def _global_means(self, metrics: dict) -> dict:
+        """Each rank's means over its rows and tokens made the global
+        batch's (equal shares: the mean of the ranks' means)."""
+        keys = list(metrics)
+        with self._collective():
+            total = collectives.group_all_reduce(
+                torch.stack([metrics[k].float() for k in keys]), self.world)
+        return dict(zip(keys, (total / self.world_size).unbind(0)))
+
+    def make_train_step(self):
+        """step(state, batch) → (state, metrics): `make_grad_step`'s loss,
+        accuracy and gradient, then one optimizer update (on a ZeRO-3
+        rank's shards)."""
+        guard = self.guard
+        grad_step = self.make_grad_step()
+        zero3 = self._zero3()
+
+        def train_step(state: TrainState, batch):
+            model = state.model
+            master = state.shards if zero3 else dict(model.named_parameters())
+            stats = list(batch_stats(model).values())
+            if guard is not None:
+                keep(master, stats, state.opt_state)
+            metrics, grads = grad_step(state, batch)
             if guard is None:
-                opt_state = self.tx.step(params, grads, state.opt_state)
+                opt_state = self.tx.step(master, grads, state.opt_state)
                 return TrainState(step=state.step + 1, model=model,
-                                  opt_state=opt_state), metrics
-            gstate, opt_state = guarded_update(params, stats, grads, state, metrics)
-            return TrainState(step=state.step + 1, model=model,
-                              opt_state=opt_state, guard=gstate), metrics
+                                  opt_state=opt_state, shards=state.shards), metrics
+            gstate, opt_state = guarded_update(master, stats, grads, state, metrics)
+            return TrainState(step=state.step + 1, model=model, opt_state=opt_state,
+                              guard=gstate, shards=state.shards), metrics
 
         @torch.no_grad()
         def keep(params, stats, opt_state):
@@ -571,14 +879,18 @@ class Trainer:
         def guarded_update(params, stats, grads, state, metrics):
             """The update, then the guard's verdict on the loss, the
             gradient norm and the finiteness of the updated parameters
-            and statistics, then the applied or the kept parameters,
-            statistics and optimizer state, selected on the device in
-            place."""
-            grad_norm = global_norm(grads.values())
+            and statistics (over the gang, on a process mesh), then the
+            applied or the kept parameters, statistics and optimizer
+            state, selected on the device in place."""
+            grad_norm = self._grad_norm(grads)
             live = [*params.values(), *stats]
             kept_state, kept_opt = self._kept
             opt_state = self.tx.step(params, grads, state.opt_state)
             update_finite = torch.stack([torch.isfinite(t).all() for t in live]).all()
+            if self.gang is not None:
+                with self._collective():
+                    update_finite = collectives.group_all_reduce(
+                        update_finite.float(), self.world, op="min") > 0
             gstate, ok = guard.apply(state.guard, metrics["loss"], grad_norm,
                                      update_finite=update_finite)
             for t, kept in zip(live, kept_state):
@@ -590,23 +902,45 @@ class Trainer:
 
         return train_step
 
+    def _grad_norm(self, grads: dict) -> torch.Tensor:
+        """`global_norm` of the global gradient: a ZeRO-3 rank's shards'
+        squares summed over fsdp, beside the replicated ones, which every
+        rank holds whole."""
+        if not self._zero3():
+            return global_norm(grads.values())
+        squares = lambda names: (torch.stack(torch._foreach_norm(
+            [grads[n].float() for n in names])).square().sum()
+            if names else torch.zeros((), device=self.device))
+        sharded = squares(self.sharded)
+        with self._collective():
+            sharded = collectives.group_all_reduce(sharded, self.gang.group("fsdp"))
+        return torch.sqrt(sharded + squares([n for n in grads if n not in self.sharded]))
+
     def make_eval_step(self):
         """eval(state, batch) → {"loss", "accuracy"}: unsmoothed cross
         entropy and argmax accuracy of the model in eval mode, no
         gradients. With ``loss_in_model``, {"loss"}: the model's own
-        objective in eval mode."""
+        objective in eval mode. On a process mesh, the global batch's (a
+        ZeRO-3 rank gathers the whole parameters for it and frees them)."""
         input_key, label_key = self.input_key, self.label_key
         loss_in_model = self.config.loss_in_model
+        zero3 = self._zero3()
 
         @torch.no_grad()
         def eval_step(state: TrainState, batch):
             state.model.eval()
+            if zero3:
+                self._gather_into_model(state.shards)
             if loss_in_model:
-                return {"loss": state.model(batch[input_key], labels=batch[label_key])}
-            logits = state.model(batch[input_key])
-            return {
-                "loss": softmax_cross_entropy(logits, batch[label_key]),
-                "accuracy": (logits.argmax(-1) == batch[label_key]).float().mean(),
-            }
+                metrics = {"loss": state.model(batch[input_key], labels=batch[label_key])}
+            else:
+                logits = state.model(batch[input_key])
+                metrics = {
+                    "loss": softmax_cross_entropy(logits, batch[label_key]),
+                    "accuracy": (logits.argmax(-1) == batch[label_key]).float().mean(),
+                }
+            if zero3:
+                self._release_model()
+            return self._global_means(metrics) if self.gang is not None else metrics
 
         return eval_step

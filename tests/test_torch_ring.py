@@ -228,7 +228,9 @@ def test_build_mesh_in_one_process_and_its_refusals():
     assert mesh.ring().ranks == (0, 1, 2, 3) and mesh.ring().sequence_offset(64) == 0
     assert tmesh.build_mesh(tmesh.MeshSpec(sp=-1), n_devices=4).shape["sp"] == 4
     assert tmesh.build_mesh().shape["dp"] == 1
-    for axis in ("pp", "fsdp", "ep", "tp"):
+    # fsdp, like dp, only sets the batch shards in one process.
+    assert tmesh.build_mesh(tmesh.MeshSpec(fsdp=2, sp=2)).shape["fsdp"] == 2
+    for axis in ("pp", "ep", "tp"):
         with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
             tmesh.build_mesh(tmesh.MeshSpec(**{axis: 2}))
 
@@ -391,11 +393,9 @@ try:
     result["logits"] = logits.detach()
     for n, p in model.named_parameters():
         result[f"grad.{n}"] = p.grad
-    try:
-        Trainer(model, TrainConfig(), device="cpu")
-        result["trainer_refused"] = torch.tensor(0)
-    except NotImplementedError:
-        result["trainer_refused"] = torch.tensor(1)
+    # A Trainer takes the process mesh (it reduces over the gang).
+    trainer = Trainer(model, TrainConfig(batch_size=2), device="cpu")
+    result["trainer_gang"] = torch.tensor(int(trainer.gang is mesh))
     torch.save(result, out)
 finally:
     dist.destroy_process_group()
@@ -413,8 +413,9 @@ def test_gloo_ring_equals_in_process_ring(tmp_path):
     contract (`initialize_from_env`), each holding its chunk: ring flash
     and the dense ring (output and q/k/v gradients) and the LM (logits of
     each chunk at its global positions, and parameter gradients summed
-    over the ranks) equal the in-process ring's on the same inputs. The
-    workers get 60 s, so a hang fails this test instead of the suite."""
+    over the ranks) equal the in-process ring's on the same inputs, and a
+    Trainer takes the process mesh as its gang. The workers get 60 s, so
+    a hang fails this test instead of the suite."""
     n, b, s, h, d = 2, 2, 32, 2, 64
     rng = np.random.default_rng(21)
     arrays = {c: rng.standard_normal((b, s, h, d)).astype(np.float32) for c in "qkvw"}
@@ -461,7 +462,7 @@ def test_gloo_ring_equals_in_process_ring(tmp_path):
     for name, p in model.named_parameters():
         summed = sum(part[f"grad.{name}"] for part in parts)
         torch.testing.assert_close(summed, p.grad, atol=1e-5, rtol=1e-5, msg=name)
-    assert all(int(part["trainer_refused"]) == 1 for part in parts)
+    assert all(int(part["trainer_gang"]) == 1 for part in parts)
 
 
 def test_port_parallel_modules_load_no_jax():
